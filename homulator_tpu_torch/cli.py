@@ -1,0 +1,137 @@
+"""CLI: `python -m homulator_tpu_torch run <cfg> <op> <maxLevel> <level>
+<alpha> [cluster] [--verify] [--device cuda|cpu]`.
+
+The reference's positional contract, as in `homulator_tpu/cli.py`, for the
+ops this port has so far (hmult, hsquare). The others, and a [cluster]
+positional above 1, exit with status 2 and name the ROADMAP item that
+ports them. `--verify` decrypts every slot and prints the JAX CLI's
+`# verify max-abs-err = ...` line; an error above 1e-2 exits with 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+PORTED = ("hmult", "hsquare")
+NOT_PORTED = {  # op -> ROADMAP item that ports it
+    "hrotate": "A7 (hrotate slice)",
+    "hadd": "A8 (elementwise ops)",
+    "hsub": "A8 (elementwise ops)",
+    "padd": "A8 (elementwise ops)",
+    "pmult": "A8 (elementwise ops)",
+}
+
+
+def run_op(args) -> int:
+    from homulator_tpu.config import RunConfig
+    from homulator_tpu.params import get_params
+    from homulator_tpu.stats import Statistic, op_modmul_count
+
+    if args.op not in PORTED:
+        item = NOT_PORTED.get(args.op)
+        print(f"op {args.op!r} is not ported to homulator_tpu_torch yet"
+              + (f": ROADMAP {item}" if item else
+                 f" (ported ops: {', '.join(PORTED)})"), file=sys.stderr)
+        return 2
+    if args.cluster is not None and args.cluster > 1:
+        print(f"cluster={args.cluster}: multi-device dispatch is not ported "
+              "to homulator_tpu_torch yet: ROADMAP A12", file=sys.stderr)
+        return 2
+    import torch
+
+    from . import kernels
+    from .api import CkksEngine
+
+    rc = RunConfig.from_cli(args.cfg, args.op, args.max_level, args.level,
+                            args.alpha, args.cluster)
+    cuda = torch.device(args.device).type == "cuda"
+    name = torch.cuda.get_device_name(0) if torch.cuda.is_available() else ""
+    print(f"# device={args.device} {name}".rstrip())
+    print(f"# N={rc.n} op={rc.op} maxLevel={rc.max_level} level={rc.level} "
+          f"alpha={rc.alpha}")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    stats = Statistic()
+    params = get_params(rc.n, rc.max_level, rc.alpha, rc.scale_bits)
+    with stats.timer("setup/engine"):
+        eng = CkksEngine(params, seed=args.seed, device=args.device)
+    with stats.timer("setup/keygen"):
+        eng.keygen()
+    rng = np.random.default_rng(args.seed)
+    slots = rc.n // 2
+    v1 = rng.normal(size=slots)
+    v2 = rng.normal(size=slots)
+    scale = float(1 << rc.scale_bits)
+    with stats.timer("setup/encrypt"):
+        ct1 = eng.encrypt_complex(v1, rc.level, scale)
+        ct2 = eng.encrypt_complex(v2, rc.level, scale)
+
+    def op_once():
+        if rc.op == "hmult":
+            return eng.hmult(ct1, ct2)
+        return eng.hsquare(ct1)
+
+    with stats.timer("first_run"):  # includes the kernel build on a GPU
+        out = op_once()
+        sync()
+    kernels.reset_launch_counts()
+    for _ in range(args.iters):
+        t0 = time.perf_counter()
+        out = op_once()
+        sync()
+        stats.record_time(f"op/{rc.op}", time.perf_counter() - t0)
+    for k, v in kernels.LAUNCHES.items():
+        stats.set(f"launches/{k}", v)
+    stats.set("modmul_count", op_modmul_count(
+        rc.op, rc.n, rc.level, rc.alpha, params.beta(rc.level)))
+    stats.set("limbs", rc.level)
+
+    if args.verify:
+        with stats.timer("verify/decrypt"):
+            got = eng.decrypt_complex(out)
+        expected = v1 * v2 if rc.op == "hmult" else v1 * v1
+        err = float(np.max(np.abs(got - expected)))
+        print(f"# verify max-abs-err = {err:.3e}")
+        if err > 1e-2:
+            print("VERIFY FAILED", file=sys.stderr)
+            return 1
+
+    if args.iters:
+        lat_ms = 1e3 * min(stats.timings[f"op/{rc.op}"])
+        print(f"FHE-Op {rc.op} latency: {lat_ms:.3f} ms "
+              f"({1e3 / lat_ms:.1f} ops/s) on {args.device}")
+    stats.show()
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="homulator_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    runp = sub.add_parser("run", help="run one FHE operation (reference "
+                                      "CLI contract)")
+    runp.add_argument("cfg")
+    runp.add_argument("op")
+    runp.add_argument("max_level", type=int)
+    runp.add_argument("level", type=int)
+    runp.add_argument("alpha", type=int)
+    runp.add_argument("cluster", type=int, nargs="?", default=None,
+                      help="device count (only 1 is ported)")
+    runp.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                      help="cuda: the CUDA kernels; cpu: their plain "
+                           "PyTorch versions")
+    runp.add_argument("--iters", type=int, default=5)
+    runp.add_argument("--seed", type=int, default=0)
+    runp.add_argument("--verify", action="store_true")
+    args = ap.parse_args(argv)
+    return run_op(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,377 @@
+"""Device context: residue tables on one torch device + ciphertext containers.
+
+The counterpart of `homulator_tpu/context.py`, rebuilt from the same host
+precompute (`homulator_tpu.params`) without JAX. Layouts match the JAX
+package at every public boundary, so arrays compare with `np.array_equal`:
+
+  * a ciphertext is `[2, level, n2, n1]` eval-domain tiles;
+  * coeff-domain tiles are `[M, n1, n2]` (the 4-step NTT's natural layouts);
+  * the key-switch key is `[dnum, 2, K, n2, n1]`, specials first, in
+    Montgomery form (radix 2^32);
+  * extended-basis rows are ordered specials first.
+
+Residues are stored as `torch.int32`: every prime is below 2^30
+(`numtheory.PRIME_CAP`), so the bit pattern equals the JAX package's
+`uint32` and the CUDA kernels read it as `uint32_t*`. Shoup quotients
+floor(w * 2^32 / q) use the full 32 bits and are stored the same way (as
+their uint32 bit pattern); only the kernels read them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from homulator_tpu.params import CkksParams
+
+EVAL = "eval"
+
+
+def _i32(a: np.ndarray) -> torch.Tensor:
+    """Host uint32-range array -> int32 CPU tensor with the same bits."""
+    u = np.ascontiguousarray(np.asarray(a, dtype=np.uint64).astype(np.uint32))
+    return torch.from_numpy(u.view(np.int32))
+
+
+def _shoup(w: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """floor(w * 2^32 / q) for w < q < 2^30 (q broadcast against w)."""
+    return (np.asarray(w, dtype=np.uint64) << np.uint64(32)) // np.asarray(
+        q, dtype=np.uint64)
+
+
+def _flat_stages(stages, n: int) -> np.ndarray:
+    """[K, n] flat twiddle table: stage s, block b lives at column 2^s + b
+    (the bit-reversed psi table of params._build_sub_tables; column 0 is
+    unused)."""
+    out = np.zeros((stages[0].shape[0], n), dtype=np.uint64)
+    for s, arr in enumerate(stages):
+        out[:, (1 << s): (1 << (s + 1))] = arr
+    return out
+
+
+@dataclasses.dataclass
+class Ciphertext:
+    """data: int32[2, level, n2, n1] eval-domain tiles (standard-domain
+    residues, as uint32 bits)."""
+
+    data: torch.Tensor
+    level: int
+    scale: float
+    domain: str = EVAL
+
+    def __post_init__(self):
+        if self.data.ndim != 4 or self.data.shape[0] != 2:
+            raise ValueError(f"ciphertext data shape {tuple(self.data.shape)}")
+        if self.data.shape[1] != self.level:
+            raise ValueError(
+                f"data has {self.data.shape[1]} limbs, level is {self.level}")
+
+
+@dataclasses.dataclass
+class Plaintext:
+    """data: int32[level, n2, n1] eval-domain tiles (see Ciphertext)."""
+
+    data: torch.Tensor
+    level: int
+    scale: float
+    domain: str = EVAL
+
+
+@dataclasses.dataclass
+class NttBasis:
+    """Tables of the 4-step NTT for one ordered prime basis (M rows).
+
+    tw1/tw2 (and the inverse itw1/itw2): int32[M, n] flat stage twiddles,
+    stage s block b at column 2^s + b; mid/mid_inv: int32[M, n1, n2] mid
+    twiddles (mid_inv carries 1/N). Each has a `*_sh` Shoup quotient
+    table for the CUDA kernels."""
+
+    q: torch.Tensor
+    tw1: torch.Tensor
+    tw1_sh: torch.Tensor
+    mid: torch.Tensor
+    mid_sh: torch.Tensor
+    tw2: torch.Tensor
+    tw2_sh: torch.Tensor
+    itw1: torch.Tensor
+    itw1_sh: torch.Tensor
+    mid_inv: torch.Tensor
+    mid_inv_sh: torch.Tensor
+    itw2: torch.Tensor
+    itw2_sh: torch.Tensor
+    n1: int
+    n2: int
+
+
+@dataclasses.dataclass
+class ModUpDigitTables:
+    """One ModUp digit at a fixed level.
+
+    step1/step1_sh: [nd] [(Q_d/q_i)^{-1}]_{q_i} for the digit's primes
+    in_q. mat/mat_sh: [m_other, nd+1] [Q_d/q_i]_{p_j} for every ext row j
+    outside the digit, plus the centering column [-Q_d]_{p_j}
+    (params.ks.modup_step2). other_nt: NTT basis of those rows (ext
+    order). lo/hi: the digit's span of main rows."""
+
+    step1: torch.Tensor
+    step1_sh: torch.Tensor
+    in_q: torch.Tensor
+    mat: torch.Tensor
+    mat_sh: torch.Tensor
+    other_nt: NttBasis
+    lo: int
+    hi: int
+
+
+@dataclasses.dataclass
+class TailTables:
+    """Fused ModDown + relinearisation add + rescale (one division by
+    P * q_last), as in homulator_tpu/context.py TailTables.
+
+    mat/mat_sh: [level-1, alpha+3] conversion matrix: [P/p_j]_{q_i}, the
+    centering column [-P]_{q_i} (read by the explicit v_b row), [P]_{q_i}
+    (the w row) and [-P*q_last]_{q_i} (the w centering indicator row).
+    in_q/one/one_sh: [alpha+3] input primes with placeholders and the
+    identity step-1 pair. p_modq: [level] [P]_{q_i}; pq_inv: [level-1]
+    [(P*q_last)^{-1}]_{q_i}; md2_last: [alpha+1] [P/p_j]_{q_last} plus
+    its centering entry. last_nt: basis of the dropped limb; out_nt: main
+    basis at level-1."""
+
+    mat: torch.Tensor
+    mat_sh: torch.Tensor
+    in_q: torch.Tensor
+    one: torch.Tensor
+    one_sh: torch.Tensor
+    p_modq: torch.Tensor
+    p_modq_sh: torch.Tensor
+    pq_inv: torch.Tensor
+    pq_inv_sh: torch.Tensor
+    md2_last: torch.Tensor
+    md2_last_sh: torch.Tensor
+    last_nt: NttBasis
+    out_nt: NttBasis
+
+
+@dataclasses.dataclass
+class KeySwitchLevelTables:
+    """Key-switch tables of one level on the accelerated route.
+
+    ext_q/ext_qinv: [alpha+level] ext basis (specials first) primes and
+    -q^{-1} mod 2^32 for the Montgomery key product. md_s1: [alpha]
+    [(P/p_j)^{-1}]_{p_j}; pinv: [level] [P^{-1}]_{q_i}."""
+
+    digits: Tuple[ModUpDigitTables, ...]
+    main_nt: NttBasis
+    special_nt: NttBasis
+    ext_q: torch.Tensor
+    ext_qinv: torch.Tensor
+    md_s1: torch.Tensor
+    md_s1_sh: torch.Tensor
+    pinv: torch.Tensor
+    pinv_sh: torch.Tensor
+    tail: TailTables
+    level: int
+
+
+class DeviceContext:
+    """All device tables for one CkksParams on one torch device.
+
+    device: "cuda" (the kernels' device; raises when torch has no CUDA
+    device) or "cpu" (every kernel wrapper then runs its plain PyTorch
+    version)."""
+
+    def __init__(self, params: CkksParams, device="cuda"):
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "DeviceContext(device='cuda'): torch.cuda.is_available() is "
+                "False")
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {dev}")
+        self.params = params
+        self.device = dev
+        t = params.ntt
+        self._tw1 = _flat_stages(t.sub1.stage_tw, t.n1)
+        self._tw2 = _flat_stages(t.sub2.stage_tw, t.n2)
+        self._itw1 = _flat_stages(t.sub1.inv_stage_tw, t.n1)
+        self._itw2 = _flat_stages(t.sub2.inv_stage_tw, t.n2)
+        self._nt_cache: Dict[Tuple[int, ...], NttBasis] = {}
+        self._ks_cache: Dict[int, KeySwitchLevelTables] = {}
+
+    # ---- basis row helpers (same orders as the JAX DeviceContext) --------
+    def main_rows(self, level: int) -> Tuple[int, ...]:
+        return tuple(range(level))
+
+    def special_rows(self) -> Tuple[int, ...]:
+        p = self.params
+        return tuple(range(p.max_level, p.num_primes))
+
+    def ext_rows(self, level: int) -> Tuple[int, ...]:
+        """Specials first: the per-level key rows are then the contiguous
+        prefix [0, alpha+level) of the specials-first key layout."""
+        return self.special_rows() + self.main_rows(level)
+
+    def tensor(self, a: np.ndarray) -> torch.Tensor:
+        """Host uint32-range array -> int32 tensor on this device."""
+        return _i32(a).to(self.device)
+
+    def _pair(self, w: np.ndarray, q: np.ndarray):
+        """(w, floor(w * 2^32 / q)) as device tensors."""
+        return self.tensor(w), self.tensor(_shoup(w, q))
+
+    # ---- tables ----------------------------------------------------------
+    def ntt_basis(self, rows: Tuple[int, ...]) -> NttBasis:
+        rows = tuple(rows)
+        if rows in self._nt_cache:
+            return self._nt_cache[rows]
+        p = self.params
+        r = np.array(rows, dtype=np.int64)
+        q = p.q_arr[r]
+        q2, q3 = q[:, None], q[:, None, None]
+        tw1, tw1_sh = self._pair(self._tw1[r], q2)
+        tw2, tw2_sh = self._pair(self._tw2[r], q2)
+        itw1, itw1_sh = self._pair(self._itw1[r], q2)
+        itw2, itw2_sh = self._pair(self._itw2[r], q2)
+        mid, mid_sh = self._pair(p.ntt.tw_mid[r], q3)
+        mid_inv, mid_inv_sh = self._pair(p.ntt.tw_mid_inv[r], q3)
+        nb = NttBasis(
+            q=self.tensor(q),
+            tw1=tw1, tw1_sh=tw1_sh, mid=mid, mid_sh=mid_sh,
+            tw2=tw2, tw2_sh=tw2_sh,
+            itw1=itw1, itw1_sh=itw1_sh, mid_inv=mid_inv,
+            mid_inv_sh=mid_inv_sh, itw2=itw2, itw2_sh=itw2_sh,
+            n1=p.ntt.n1, n2=p.ntt.n2,
+        )
+        self._nt_cache[rows] = nb
+        return nb
+
+    def keyswitch_tables(self, level: int) -> KeySwitchLevelTables:
+        """Tables of the accelerated hmult route at `level` (>= 2: the
+        fused tail drops one limb)."""
+        if level in self._ks_cache:
+            return self._ks_cache[level]
+        p = self.params
+        if not 2 <= level <= p.max_level:
+            raise ValueError(f"level {level} outside [2, {p.max_level}]")
+        qn = p.q_arr
+        ext = self.ext_rows(level)
+        digits = []
+        for d in range(p.beta(level)):
+            lo, hi = p.digit_range(level, d)
+            step1, step1_sh = self._pair(p.ks.modup_step1[(level, d)],
+                                         qn[lo:hi])
+            other = np.array([j for j in ext if not lo <= j < hi])
+            mat_pl = p.ks.modup_step2[(level, d)][other]  # [m_other, nd+1]
+            mat, mat_sh = self._pair(mat_pl, qn[other][:, None])
+            digits.append(ModUpDigitTables(
+                step1=step1, step1_sh=step1_sh, in_q=self.tensor(qn[lo:hi]),
+                mat=mat, mat_sh=mat_sh,
+                other_nt=self.ntt_basis(tuple(other.tolist())),
+                lo=lo, hi=hi,
+            ))
+        sp_q = qn[p.max_level:]
+        md_s1, md_s1_sh = self._pair(p.ks.moddown_step1, sp_q)
+        pinv, pinv_sh = self._pair(p.ks.pinv_modq[:level], qn[:level])
+        ext_idx = np.array(ext)
+        kt = KeySwitchLevelTables(
+            digits=tuple(digits),
+            main_nt=self.ntt_basis(self.main_rows(level)),
+            special_nt=self.ntt_basis(self.special_rows()),
+            ext_q=self.tensor(qn[ext_idx]),
+            ext_qinv=self.tensor(p.qinv_neg[ext_idx]),
+            md_s1=md_s1, md_s1_sh=md_s1_sh, pinv=pinv, pinv_sh=pinv_sh,
+            tail=self._tail_tables(level), level=level,
+        )
+        self._ks_cache[level] = kt
+        return kt
+
+    def _tail_tables(self, level: int) -> TailTables:
+        """homulator_tpu/context.py:546-592 in numpy: the [lm1, alpha+3]
+        tail matrix, its input-prime placeholders and the Shoup pairs."""
+        p = self.params
+        qn = p.q_arr
+        lm1 = level - 1
+        q_last = int(qn[lm1])
+        P = p.p_prod
+        sp_q = qn[p.max_level:]
+        md2 = p.ks.moddown_step2[:level]  # [level, alpha+1]
+        p_modq = np.array([P % int(q) for q in qn[:level]], dtype=np.uint64)
+        pq_inv = np.array(
+            [pow((P * q_last) % int(q), -1, int(q)) for q in qn[:lm1]],
+            dtype=np.uint64)
+        negpq = np.array(
+            [(int(q) - (P * q_last) % int(q)) % int(q) for q in qn[:lm1]],
+            dtype=np.uint64)
+        tail_mat = np.concatenate(
+            [md2[:lm1], p_modq[:lm1, None], negpq[:, None]], axis=1)
+        # input "primes" of the identity step 1: specials, a placeholder
+        # for the v_b count row (any prime > v), q_last for the w row and
+        # a placeholder for the {0, 1} indicator row.
+        in_q = np.concatenate(
+            [sp_q, sp_q[:1], np.array([q_last, q_last], dtype=np.uint64)])
+        mat, mat_sh = self._pair(tail_mat, qn[:lm1, None])
+        one, one_sh = self._pair(np.ones(len(in_q), dtype=np.uint64), in_q)
+        pm, pm_sh = self._pair(p_modq, qn[:level])
+        pqi, pqi_sh = self._pair(pq_inv, qn[:lm1])
+        m2l, m2l_sh = self._pair(md2[lm1], np.full(md2.shape[1], q_last,
+                                                   dtype=np.uint64))
+        return TailTables(
+            mat=mat, mat_sh=mat_sh, in_q=self.tensor(in_q),
+            one=one, one_sh=one_sh, p_modq=pm, p_modq_sh=pm_sh,
+            pq_inv=pqi, pq_inv_sh=pqi_sh, md2_last=m2l, md2_last_sh=m2l_sh,
+            last_nt=self.ntt_basis((lm1,)),
+            out_nt=self.ntt_basis(self.main_rows(lm1)),
+        )
+
+    # ---- host <-> device -------------------------------------------------
+    def _eval_tiles(self, flat: np.ndarray) -> np.ndarray:
+        """Host flat eval order [..., N] -> eval tiles [..., n2, n1]."""
+        t = self.params.ntt
+        return flat.reshape(flat.shape[:-1] + (t.n2, t.n1))
+
+    def upload_ct(self, data_u64: np.ndarray, level: int,
+                  scale: float) -> Ciphertext:
+        return Ciphertext(self.tensor(self._eval_tiles(data_u64)), level,
+                          scale, EVAL)
+
+    def upload_kskey_mont(self, digits: List[np.ndarray]) -> torch.Tensor:
+        """Stack key digits ([2, K, N] each) as ONE Montgomery-form array
+        [dnum, 2, K, n2, n1] with the specials-first row layout."""
+        p = self.params
+        L = p.max_level
+        stacked = np.stack(digits).astype(np.uint64)
+        stacked = np.concatenate([stacked[:, :, L:], stacked[:, :, :L]],
+                                 axis=2)
+        qn = np.concatenate([p.q_arr[L:], p.q_arr[:L]])[None, None, :, None]
+        mont = (stacked << np.uint64(32)) % qn.astype(np.uint64)
+        return self.tensor(self._eval_tiles(mont))
+
+    def download(self, x: torch.Tensor) -> np.ndarray:
+        """Tiles [..., R, C] -> host flat [..., N] uint64."""
+        h = x.detach().cpu().numpy().view(np.uint32).astype(np.uint64)
+        return h.reshape(h.shape[:-2] + (h.shape[-2] * h.shape[-1],))
+
+
+def from_jax_state(arrays: Mapping[str, np.ndarray],
+                   dc: DeviceContext) -> Dict[str, torch.Tensor]:
+    """The JAX package's device arrays, given as numpy, as this package's
+    tensors on dc.device. Each value is a uint32 array whose trailing axes
+    are eval tiles [n2, n1]: e.g. `np.asarray(eng.relin_key)`
+    ([dnum, 2, K, n2, n1], Montgomery form) or `np.asarray(ct.data)`
+    ([2, level, n2, n1]). The layouts are the same, so only the dtype's
+    name changes (uint32 -> int32 with the same bits)."""
+    t = dc.params.ntt
+    out = {}
+    for name, a in arrays.items():
+        a = np.asarray(a)
+        if a.dtype != np.uint32:
+            raise TypeError(f"{name}: expected uint32, got {a.dtype}")
+        if a.shape[-2:] != (t.n2, t.n1):
+            raise ValueError(
+                f"{name}: trailing axes {a.shape[-2:]} are not eval tiles "
+                f"({t.n2}, {t.n1})")
+        out[name] = torch.from_numpy(a.view(np.int32).copy()).to(dc.device)
+    return out

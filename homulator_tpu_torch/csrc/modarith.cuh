@@ -1,0 +1,40 @@
+// Modular arithmetic on uint32 residues for the kernels of this directory.
+//
+// Every prime q is below 2^30 (homulator_tpu/numtheory.py PRIME_CAP), so
+// sums of two residues and the Shoup remainder (< 2q) never leave uint32.
+// Hopper multiplies 32x32 -> 64 natively: __umulhi gives the exact high
+// word, so the TPU's 16-bit partial products and approximate high word
+// (homulator_tpu/ops/modmath.py:36-58, 136-157) have no counterpart here.
+#pragma once
+
+#include <cstdint>
+
+namespace hk {
+
+__device__ __forceinline__ uint32_t mod_add(uint32_t a, uint32_t b,
+                                            uint32_t q) {
+  const uint32_t s = a + b;
+  return s >= q ? s - q : s;
+}
+
+__device__ __forceinline__ uint32_t mod_sub(uint32_t a, uint32_t b,
+                                            uint32_t q) {
+  return a >= b ? a - b : a + q - b;
+}
+
+// a * w - floor(a * w_sh / 2^32) * q for w_sh = floor(w * 2^32 / q), w < q:
+// lies in [0, 2q) for any uint32 a.
+__device__ __forceinline__ uint32_t shoup_mul_lazy(uint32_t a, uint32_t w,
+                                                   uint32_t w_sh,
+                                                   uint32_t q) {
+  return a * w - __umulhi(a, w_sh) * q;
+}
+
+// a * w mod q in [0, q).
+__device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w,
+                                              uint32_t w_sh, uint32_t q) {
+  const uint32_t r = shoup_mul_lazy(a, w, w_sh, q);
+  return r >= q ? r - q : r;
+}
+
+}  // namespace hk

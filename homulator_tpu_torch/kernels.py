@@ -1,0 +1,146 @@
+"""Build and load the CUDA kernels of `csrc/`, and count their launches.
+
+The sources have a plain C interface: they are compiled by `nvcc` into one
+shared library under `build/kernels/` at the root of the checkout (at first
+use, once per source content) and loaded with `ctypes`. Every pointer and
+the CUDA stream cross as `c_void_p`; every C entry returns
+`cudaGetLastError()` after its launches, and `check` raises on non-zero.
+
+Nothing here runs at import: the CPU tests import every module of the
+package on machines without `nvcc` or a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Optional
+
+import torch
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Launch counts per kernel wrapper: each wrapper adds one where it launches
+# its kernel, and nowhere else.
+LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "bconv": 0}
+
+_LIB: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # x, scratch, out, q, 6 tables, rows, M, n1, n2, stream
+    "hk_ntt_fwd": [_P] * 10 + [_I] * 4 + [_P],
+    "hk_ntt_inv": [_P] * 10 + [_I] * 4 + [_P],
+    # x, out, s, s_sh, in_q, mat, mat_sh, out_q, nd, center, m_out, ncoef,
+    # stream
+    "hk_bconv": [_P] * 8 + [_I] * 3 + [ctypes.c_longlong, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin)")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def library_path() -> str:
+    """Path of the library for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libhomulator_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> float:
+    """Compile csrc/*.cu unless the library for these sources exists.
+    Returns the seconds spent compiling (0.0 when it was already built).
+    nvcc's output, with ptxas's register and shared-memory report, goes to
+    the `.log` beside the library."""
+    out = library_path()
+    if os.path.exists(out):
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    with open(out[:-3] + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return seconds
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use in this process."""
+    global _LIB
+    if _LIB is None:
+        build()
+        lib = ctypes.CDLL(library_path())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.hk_error_string.argtypes = [ctypes.c_int]
+        lib.hk_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = load().hk_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda_int32(name: str, t: torch.Tensor, device: torch.device,
+                       shape=None) -> None:
+    """Raise unless t is a contiguous int32 tensor on `device` (and of
+    `shape` when given): what every kernel takes."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.int32")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")

@@ -1,0 +1,142 @@
+"""Hybrid key switching with the fused ModDown + rescale tail: the
+accelerated single-device route of `homulator_tpu/ops/keyswitch.py`.
+
+  modup_convs_coeff   iNTT of the main limbs, then per digit a centered
+                      base conversion to the rows outside the digit
+  modup_conv_all      ... and the NTT of each digit's converted rows
+  inner_product_pieces  digit inner product against the Montgomery key
+  moddown_rescale2    ModDown, relinearisation add and rescale of both key
+                      components as one division by P * q_last
+
+Each function computes what its JAX namesake computes, on the same tables,
+so every array is the same canonical residue. The JAX package's jnp route
+(`keyswitch()`, `rescale_poly`) is bit-identical to this one; here the
+plain PyTorch versions of the kernels play its role. Elementwise steps are
+PyTorch ops on int64 carriers (ops/modmath.py); NTTs and base conversions
+go through the kernel wrappers (ops/ntt.py, ops/bconv_fused.py).
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from ..context import KeySwitchLevelTables
+from .bconv_fused import bconv_fused
+from .modmath import (
+    lazy_sum_reduce, lazy_tree_sum, modadd, modsub, mont_mul, shoup_mul,
+)
+from .ntt import intt, intt_rep, ntt, ntt_rep
+
+
+def _col(v: torch.Tensor) -> torch.Tensor:
+    """[K] constants as int64 [K, 1, 1] against [K, R, C] tiles."""
+    return v.long().view(-1, 1, 1)
+
+
+def _col2(v: torch.Tensor) -> torch.Tensor:
+    """[K] constants as int64 [1, K, 1, 1] against [2, K, R, C] tiles (the
+    two key components stacked)."""
+    return v.long().view(1, -1, 1, 1)
+
+
+def modup_convs_coeff(d_eval: torch.Tensor,
+                      kt: KeySwitchLevelTables) -> List[torch.Tensor]:
+    """Per digit, the converted OTHER rows (ext order minus the digit's own
+    rows), coeff domain [m_other, n1, n2] int32."""
+    c_coeff = intt(d_eval, kt.main_nt)
+    return [
+        bconv_fused(c_coeff[dt.lo:dt.hi], dt.step1, dt.step1_sh, dt.in_q,
+                    dt.mat, dt.mat_sh, dt.other_nt.q, center=True)
+        for dt in kt.digits
+    ]
+
+
+def modup_conv_all(d_eval: torch.Tensor,
+                   kt: KeySwitchLevelTables) -> List[torch.Tensor]:
+    """modup_convs_coeff, NTT'd: per digit [m_other, n2, n1] eval int32.
+    A digit's own rows are d_eval itself (the conversion reproduces them
+    exactly), so they skip the conversion and the NTT."""
+    convs = modup_convs_coeff(d_eval, kt)
+    return [ntt(c, dt.other_nt) for c, dt in zip(convs, kt.digits)]
+
+
+def inner_product_pieces(
+    convs, d_eval: torch.Tensor, key: torch.Tensor, kt: KeySwitchLevelTables,
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Digit inner product: for key component k, acc_k = sum_d ext_d *
+    key[d, k] over the ext basis (specials first), where ext_d is digit d
+    lifted to the ext basis (converted rows + own rows of d_eval). Returns
+    per k the pair (acc_sp [alpha, n2, n1], acc_main [level, n2, n1]),
+    int64 in [0, q)."""
+    alpha = kt.special_nt.q.shape[0]
+    k_ext = alpha + kt.level
+    q, qinv = _col(kt.ext_q), _col(kt.ext_qinv)
+    exts = []
+    for conv, dt in zip(convs, kt.digits):
+        cut = alpha + dt.lo  # converted rows before the digit's own rows
+        exts.append(torch.cat([conv[:cut], d_eval[dt.lo:dt.hi], conv[cut:]]))
+    out = []
+    for k in (0, 1):
+        acc = lazy_sum_reduce(
+            [mont_mul(e, key[d, k, :k_ext], q, qinv)
+             for d, e in enumerate(exts)], q)
+        out.append((acc[:alpha], acc[alpha:]))
+    return out
+
+
+def moddown_rescale2(acc0, acc1, d0, d1,
+                     kt: KeySwitchLevelTables) -> torch.Tensor:
+    """Both key components' ModDown + relinearisation add + rescale, i.e.
+    (acc_k + P * d_k) / (P * q_last) with centered remainders, in one
+    batched pass (rep=2 NTTs share the basis tables). Returns int32
+    [2, level-1, n2, n1]."""
+    tt = kt.tail
+    level = kt.level
+    lm1 = level - 1
+    alpha = kt.special_nt.q.shape[0]
+    sp_q = _col2(kt.special_nt.q)
+    b = intt_rep(torch.cat([acc0[0], acc1[0]]).to(torch.int32),
+                 kt.special_nt, 2)  # [2a, n1, n2], component-major
+    b = b.view((2, alpha) + tuple(b.shape[1:]))
+    bhat = shoup_mul(b, _col2(kt.md_s1), _col2(kt.md_s1_sh), sp_q)
+    # centered conversion: explicit count row v_b, read by the [-P] column
+    v_b = (bhat >= (sp_q >> 1) + 1).sum(dim=1, keepdim=True)
+    bhat_ext = torch.cat([bhat, v_b], dim=1)  # [2, alpha+1, n1, n2]
+    q_last = kt.main_nt.q[lm1].long()
+    # conv row of q_last (coeff domain): sum_j bhat_ext_j * [P/p_j]_{q_last}
+    terms = shoup_mul(bhat_ext, _col2(tt.md2_last), _col2(tt.md2_last_sh),
+                      q_last)
+    conv_last = lazy_tree_sum(terms.transpose(0, 1), q_last)  # [2, n1, n2]
+    acc_main = torch.stack([acc0[1], acc1[1]])  # [2, level, n2, n1]
+    dd = torch.stack([d0, d1])
+    # w = Z mod q_last, Z = floor(acc / P) + d, in the coeff domain
+    zl_eval = modadd(
+        acc_main[:, lm1],
+        shoup_mul(dd[:, lm1], tt.p_modq[lm1].long(), tt.p_modq_sh[lm1],
+                  q_last),
+        q_last)
+    zl_coeff = intt_rep(zl_eval.to(torch.int32), tt.last_nt, 2)
+    w = shoup_mul(modsub(zl_coeff, conv_last, q_last), kt.pinv[lm1].long(),
+                  kt.pinv_sh[lm1], q_last)
+    # w centering indicator, read by the [-P*q_last] column
+    ind_w = (w >= (q_last >> 1) + 1).long()
+    convs = [
+        bconv_fused(
+            torch.cat([bhat_ext[k], w[k][None], ind_w[k][None]])
+            .to(torch.int32),
+            tt.one, tt.one_sh, tt.in_q, tt.mat, tt.mat_sh, tt.out_nt.q)
+        for k in (0, 1)
+    ]
+    e = ntt_rep(torch.cat(convs), tt.out_nt, 2)
+    e = e.view((2, lm1) + tuple(e.shape[1:]))
+    oq = _col2(tt.out_nt.q)
+    z = modadd(
+        acc_main[:, :lm1],
+        shoup_mul(dd[:, :lm1], _col2(tt.p_modq[:lm1]),
+                  _col2(tt.p_modq_sh[:lm1]), oq),
+        oq)
+    out = shoup_mul(modsub(z, e, oq), _col2(tt.pq_inv), _col2(tt.pq_inv_sh),
+                    oq)
+    return out.to(torch.int32)
