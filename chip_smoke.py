@@ -4,27 +4,53 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (Hopper, sm_90a), `nvcc` and this checkout; imports no
-JAX. Every phase raises on failure and the script then exits non-zero:
+JAX and nothing of the JAX package `homulator_tpu`. Every phase raises on
+failure and the script then exits non-zero:
 
   1. the card's name and power limit (nvidia-smi);
-  2. the kernel build (nvcc) and its time;
+  2. the kernel build (nvcc, one process per source) and its time;
   3. each CUDA kernel against its plain PyTorch version on the card, at the
-     shapes hmult(45,35,15) gives it (and the NTT at M = 35, 50, 15 with
-     rep = 2), bit for bit, with the device time of each (CUDA graph
-     replay between CUDA events, so host overhead is excluded);
-  4. an independent oracle: the exact numpy engine's hmult
-     (`RefCkks.hmult`) equals the port's hmult and hsquare on the card, bit
-     for bit, at N = 2^13 (n1 = 64 != n2 = 128), maxLevel 8, level 8,
-     alpha 3 (a partial digit);
-  5. parameter set B, hmult(45,35,15) (N = 2^16, 45 main + 15 special
-     primes) through `CkksEngine(device="cuda")`: equal to the plain path
-     (the same engine on the CPU) bit for bit, every kernel launched, all
-     32768 slots decrypted within 1e-2 of v1*v2 (and of v1*v1 for
-     hsquare); hmult and hsquare latency (CUDA events around eager calls,
-     median of 20 runs after warm-up) and their device time (graph replay);
-  6. one JSON line of per-kernel results (each kernel's times at one shape
-     that hmult(45,35,15) launches, named in `shape`; `max_abs_err` over
-     every shape checked), then the device line last.
+     shapes parameter set B gives it, bit for bit (tolerance 0), with the
+     device time of each (CUDA graph replay between CUDA events, so host
+     overhead is excluded) and its bound (below): the NTTs (B1, B2) at the
+     bases hmult and hrotate use, the base conversion (B3) at every ModUp
+     digit and the tail, and the fused HPIP kernel (B4) at level 35 (K =
+     50, digits (0,15) (15,30) (30,35)) and level 20 (two digits, the last
+     partial);
+  4. an independent oracle at N = 2^13 (n1 = 64 != n2 = 128), maxLevel 8,
+     level 8, alpha 3 (a partial digit): the exact numpy engine
+     (`RefCkks`) equals the port's hmult, hsquare, hrotate (steps 1 and
+     -1) and the fused-route hmult on the card bit for bit, and conjugate
+     equals the same engine on the CPU bit for bit;
+  5. parameter set B (N = 2^16, 45 main + 15 special primes) through
+     `CkksEngine(device="cuda")`, level 35. The main path: hmult and
+     hrotate(step 1) on the piecewise key-switch route, then both with
+     `api.USE_FUSED_HPIP` on; the launch counters are set to 0 just before
+     each of these four runs and read just after it, each run must launch
+     every kernel of its route (and the piecewise route must not launch
+     B4), and the fused results must equal the piecewise ones bit for
+     bit. Then: hmult and hrotate equal the plain path (the same engine on
+     the CPU) bit for bit; all 32768 slots decrypt within 1e-2 of v1*v2
+     (hmult), v1*v1 (hsquare) and np.roll(v1, -1) (hrotate);
+     hrotate_hoisted(ct, [1, 2]) equals two single hrotates; the host
+     seconds of each key;
+  6. latency (CUDA events around eager calls, median of 20 after 3 warm-up
+     runs) and device time (graph replay) of hmult and hsquare, of hrotate
+     on both key-switch routes and of hmult on the fused route;
+  7. one JSON line of per-kernel results (each kernel's times and bound at
+     one shape the main path launches, named in `shape`; `max_abs_err`
+     over every shape checked; `launches` summed over the four main-path
+     runs, per run in `launches_by_run`), then the device line last.
+
+Bound of a kernel call: the larger of the bytes it must move (each input
+read once, each output written once) over 3.35 TB/s and its int32
+operations over 16.75 T/s. The int32 rate is the float32 peak of 67
+TFLOP/s (128 lanes an SM, an FMA counted as two operations) over four: an
+H100 SM has 64 int32 lanes. Operations are counted from the shapes with a
+fixed cost per primitive (`OPS`): a Shoup product 6 (three multiplies, a
+subtract, a conditional subtract), a modular add or subtract 3, a
+butterfly 12, a lazy Shoup product-accumulate 6, a Montgomery
+product-accumulate 9, a final reduction 6.
 """
 
 import json
@@ -37,8 +63,25 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SET_B = dict(n=1 << 16, max_level=45, alpha=15)
 LEVEL_B = 35
+HPIP_LEVELS = (35, 20)
 SCALE = float(1 << 29)
 GATE = 1e-2
+MEM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+OPS = dict(shoup=6, modadd=3, butterfly=12, lazy_mac=6, mont_mac=9,
+           reduce=6)
+REPLACES = {  # kernel -> (source in this repo, TPU kernel it replaces)
+    "ntt_fwd": ("homulator_tpu_torch/csrc/ntt.cu",
+                "homulator_tpu/ops/ntt_pallas.py:244"),
+    "ntt_inv": ("homulator_tpu_torch/csrc/ntt.cu",
+                "homulator_tpu/ops/ntt_pallas.py:677"),
+    "bconv": ("homulator_tpu_torch/csrc/bconv.cu",
+              "homulator_tpu/ops/bconv_fused.py:131"),
+    "hpip": ("homulator_tpu_torch/csrc/hpip.cu",
+             "homulator_tpu/ops/hpip_pallas.py:117"),
+}
+KERNELS = tuple(REPLACES)
+PIECES_KERNELS = ("ntt_fwd", "ntt_inv", "bconv")
 
 
 def latency_ms(torch, fn, iters=20, warmup=3):
@@ -85,6 +128,55 @@ def device_ms(torch, fn, calls=10, replays=20):
     return statistics.median(times)
 
 
+def bound(nbytes, ops):
+    """(bound_ms, bound_by) of a call moving nbytes and doing ops."""
+    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return 1e3 * max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
+
+
+def ntt_ops(rows, n):
+    """One forward or inverse NTT of `rows` limbs of n coefficients:
+    n/2 * log2(n) butterflies and n mid-twiddle products each."""
+    return rows * (n // 2 * (n.bit_length() - 1) * OPS["butterfly"]
+                   + n * OPS["shoup"])
+
+
+def ntt_bound(nb, rep):
+    """B1/B2 on rep stacked copies of basis nb: x and out, the mid table
+    and its Shoup table, the stage tables and q."""
+    M, n1, n2 = nb.q.shape[0], nb.n1, nb.n2
+    n = n1 * n2
+    nbytes = 4 * (2 * rep * M * n + 2 * M * n + 2 * M * (n1 + n2) + M)
+    return bound(nbytes, ntt_ops(rep * M, n))
+
+
+def bconv_bound(nd, m_out, center, n):
+    """B3: nd limbs in, m_out out, the step-1 and matrix Shoup pairs."""
+    ndt = nd + int(center)
+    nbytes = 4 * (nd * n + m_out * n + 3 * nd + 2 * m_out * ndt + m_out)
+    ops = n * (nd * OPS["shoup"] + int(center) * 2 * nd
+               + m_out * (ndt * OPS["lazy_mac"] + OPS["reduce"]))
+    return bound(nbytes, ops)
+
+
+def hpip_bound(kt):
+    """B4 at kt's level: the converted rows, the own rows, the key rows
+    read (beta x 2 x K), the ext basis's mid and stage tables, the output;
+    the converted rows' NTTs, the Montgomery products and the final
+    reductions."""
+    nt = kt.ext_nt
+    n1, n2 = nt.n1, nt.n2
+    n = n1 * n2
+    K = nt.q.shape[0]
+    beta = len(kt.digits)
+    conv_rows = sum(K - (dt.hi - dt.lo) for dt in kt.digits)
+    nbytes = 4 * (conv_rows * n + kt.level * n + beta * 2 * K * n
+                  + 2 * K * n + 2 * K * (n1 + n2) + 2 * K + 2 * K * n)
+    ops = (ntt_ops(conv_rows, n) + beta * 2 * K * n * OPS["mont_mac"]
+           + 2 * K * n * OPS["modadd"])
+    return bound(nbytes, ops)
+
+
 def random_residues(np, torch, rng, q, shape):
     """int32 tensor on the GPU: uniform residues, row i mod q[i]."""
     q = np.asarray(q, dtype=np.int64)
@@ -93,18 +185,35 @@ def random_residues(np, torch, rng, q, shape):
     return torch.from_numpy(x.astype(np.int32)).cuda()
 
 
-def check_kernels(np, torch, dc, kt, rng, results):
+def compare(torch, name, label, kernel, plain, bnd, results):
+    """Run kernel() and plain() on the card, require equal bits, time
+    both, and record (label, err, ms, plain_ms, bound_ms, bound_by)."""
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError(f"{name} {label}: differs by {err}")
+    ms = device_ms(torch, kernel)
+    plain_ms = device_ms(torch, plain)
+    print(f"# {name} {label}: bit-exact (tolerance 0), kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    results[name].append((label, err, ms, plain_ms) + bnd)
+
+
+def check_kernels(np, torch, dc, rng, results):
     """Phase 3: every kernel vs its plain version at the set-B shapes."""
     from homulator_tpu_torch.ops import ntt_kernels
     from homulator_tpu_torch.ops.bconv_fused import bconv_fused, bconv_plain
+    from homulator_tpu_torch.ops.hpip import hpip_kernel, hpip_plain
     from homulator_tpu_torch.ops.ntt import intt_plain, ntt_plain
 
+    kt = dc.keyswitch_tables(LEVEL_B)
     n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
-    ext_nt = dc.ntt_basis(dc.ext_rows(LEVEL_B))
     d0, d2 = kt.digits[0], kt.digits[2]
     ntt_cases = {  # label -> (basis, rep)
         "main M=35 rep=2": (kt.main_nt, 2),
-        "ext M=50 rep=2": (ext_nt, 2),
+        "ext M=50 rep=2": (kt.ext_nt, 2),
         "special M=15 rep=2": (kt.special_nt, 2),
     }
     fwd_cases = dict(ntt_cases, **{
@@ -123,17 +232,9 @@ def check_kernels(np, torch, dc, kt, rng, results):
         for label, (nb, rep) in cases.items():
             q = np.tile(nb.q.cpu().numpy(), rep)
             x = random_residues(np, torch, rng, q, (len(q),) + shape)
-            got = kernel(x, nb, rep)
-            want = plain(x, nb, rep)
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
-            if err:
-                raise AssertionError(f"{name} {label}: differs by {err}")
-            ms = device_ms(torch, lambda: kernel(x, nb, rep))
-            plain_ms = device_ms(torch, lambda: plain(x, nb, rep))
-            print(f"# {name} {label}: bit-exact (tolerance 0), kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms")
-            results[name].append((label, err, ms, plain_ms))
+            compare(torch, name, label,
+                    lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
+                    ntt_bound(nb, rep), results)
 
     cases = {}
     for d, dt in enumerate(kt.digits):
@@ -144,23 +245,98 @@ def check_kernels(np, torch, dc, kt, rng, results):
     cases[f"tail {tt.in_q.shape[0]}->{tt.mat.shape[0]}"] = (
         tt.in_q, (tt.one, tt.one_sh, tt.in_q, tt.mat, tt.mat_sh,
                   tt.out_nt.q), False)
+    cases[f"moddown {kt.md_s1.shape[0]}+1->{kt.md_mat.shape[0]}"] = (
+        kt.special_nt.q, (kt.md_s1, kt.md_s1_sh, kt.special_nt.q, kt.md_mat,
+                          kt.md_mat_sh, kt.main_nt.q), True)
     for label, (in_q, tabs, center) in cases.items():
         x = random_residues(np, torch, rng, in_q.cpu().numpy(),
                             (in_q.shape[0], n1, n2))
         s, s_sh, iq, mat, mat_sh, out_q = tabs
-        got = bconv_fused(x, s, s_sh, iq, mat, mat_sh, out_q, center=center)
-        want = bconv_plain(x, s, iq, mat, out_q, center)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if err:
-            raise AssertionError(f"bconv {label}: differs by {err}")
-        ms = device_ms(torch, lambda: bconv_fused(
-            x, s, s_sh, iq, mat, mat_sh, out_q, center=center))
-        plain_ms = device_ms(
-            torch, lambda: bconv_plain(x, s, iq, mat, out_q, center))
-        print(f"# bconv {label}: bit-exact (tolerance 0), kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
-        results["bconv"].append((label, err, ms, plain_ms))
+        compare(torch, "bconv", label,
+                lambda: bconv_fused(x, s, s_sh, iq, mat, mat_sh, out_q,
+                                    center=center),
+                lambda: bconv_plain(x, s, iq, mat, out_q, center),
+                bconv_bound(x.shape[0], out_q.shape[0], center, n1 * n2),
+                results)
+
+    # B4: random pieces, own rows and a random Montgomery-form key
+    # [dnum, 2, K_full, n2, n1] over the specials-first primes.
+    p = dc.params
+    key_q = np.concatenate([p.q_arr[p.max_level:], p.q_arr[:p.max_level]])
+    key = random_residues(
+        np, torch, rng, np.tile(key_q, 2 * p.dnum),
+        (2 * p.dnum * p.num_primes, n2, n1)).view(
+            p.dnum, 2, p.num_primes, n2, n1)
+    for level in HPIP_LEVELS:
+        kl = dc.keyswitch_tables(level)
+        convs = [random_residues(np, torch, rng, dt.other_nt.q.cpu().numpy(),
+                                 (dt.other_nt.q.shape[0], n1, n2))
+                 for dt in kl.digits]
+        d_eval = random_residues(np, torch, rng, kl.main_nt.q.cpu().numpy(),
+                                 (level, n2, n1))
+        spans = " ".join(f"({dt.lo},{dt.hi})" for dt in kl.digits)
+        label = f"level {level} K={kl.ext_nt.q.shape[0]} digits {spans}"
+        compare(torch, "hpip", label,
+                lambda: hpip_kernel(convs, d_eval, key, kl),
+                lambda: hpip_plain(convs, d_eval, key, kl),
+                hpip_bound(kl), results)
+
+
+def check_oracle(np, torch, CkksEngine, get_params, api):
+    """Phase 4: the port on the card vs RefCkks at N = 2^13, L8, a3."""
+    from homulator_tpu_torch.context import Ciphertext
+
+    pm = get_params(n=1 << 13, max_level=8, alpha=3)
+    em = CkksEngine(pm, seed=3, device="cuda")
+    em.keygen()
+    rng = np.random.default_rng(4)
+    half = pm.n // 2
+    a = em.encrypt_complex(rng.normal(size=half), 8, SCALE)
+    b = em.encrypt_complex(rng.normal(size=half), 8, SCALE)
+    ref = em.ref.hmult(em.to_ref(a), em.to_ref(b))
+    if not np.array_equal(ref.data, em.dc.download(em.hmult(a, b).data)):
+        raise AssertionError("hmult(8,8,3) at N=2^13 != RefCkks.hmult")
+    ref_sq = em.ref.hmult(em.to_ref(a), em.to_ref(a))
+    if not np.array_equal(ref_sq.data, em.dc.download(em.hsquare(a).data)):
+        raise AssertionError("hsquare(8,8,3) at N=2^13 != RefCkks.hmult(a, a)")
+    for step in (1, -1):
+        got = em.dc.download(em.hrotate(a, step).data)
+        if not np.array_equal(em.ref.hrotate(em.to_ref(a), step).data, got):
+            raise AssertionError(f"hrotate({step}) at N=2^13 != RefCkks.hrotate")
+    api.USE_FUSED_HPIP = True
+    try:
+        fused = em.dc.download(em.hmult(a, b).data)
+    finally:
+        api.USE_FUSED_HPIP = False
+    if not np.array_equal(ref.data, fused):
+        raise AssertionError("fused-route hmult at N=2^13 != RefCkks.hmult")
+    conj = em.conjugate(a)
+    cpu = CkksEngine(pm, seed=3, device="cpu")
+    cpu.ref = em.ref
+    cpu._conj_keys = {g: k.cpu() for g, k in em._conj_keys.items()}
+    cpu.relin_key = em.relin_key.cpu()
+    conj_cpu = cpu.conjugate(Ciphertext(a.data.cpu(), a.level, a.scale))
+    if not torch.equal(conj.data.cpu(), conj_cpu.data):
+        raise AssertionError("conjugate at N=2^13: GPU != CPU plain path")
+    print("# oracle N=2^13 L8 l8 a3: hmult, hsquare, hrotate(1), hrotate(-1) "
+          "and fused-route hmult == RefCkks; conjugate == CPU plain path; "
+          "bit-exact")
+
+
+def drive(torch, kernels, name, fn, expect):
+    """One main-path run: launch counts set to 0 just before, read just
+    after; every kernel in `expect` must have launched, and no other."""
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    print(f"# {name} kernel launches: {counts}")
+    missing = [k for k in expect if counts[k] == 0]
+    extra = [k for k, v in counts.items() if v and k not in expect]
+    if missing or extra:
+        raise AssertionError(f"{name}: kernels not launched {missing}, "
+                             f"launched off their route {extra}")
+    return out, counts
 
 
 def main() -> int:
@@ -173,7 +349,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from homulator_tpu_torch import kernels
+    from homulator_tpu_torch import api, kernels
     from homulator_tpu_torch.api import CkksEngine, get_params
     from homulator_tpu_torch.context import Ciphertext
 
@@ -202,99 +378,129 @@ def main() -> int:
     params = get_params(**SET_B)
     print(f"# set B params: {time.perf_counter() - t0:.1f} s")
     eng = CkksEngine(params, seed=1, device="cuda")
-    kt = eng.dc.keyswitch_tables(LEVEL_B)
-    results = {"ntt_fwd": [], "ntt_inv": [], "bconv": []}
-    check_kernels(np, torch, eng.dc, kt, np.random.default_rng(2), results)
+    results = {k: [] for k in KERNELS}
+    t0 = time.perf_counter()
+    check_kernels(np, torch, eng.dc, np.random.default_rng(2), results)
+    print(f"# kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # 4. independent oracle at a mid size with a partial digit
-    pm = get_params(n=1 << 13, max_level=8, alpha=3)
-    em = CkksEngine(pm, seed=3, device="cuda")
-    em.keygen()
-    rng = np.random.default_rng(4)
-    half = pm.n // 2
-    a = em.encrypt_complex(rng.normal(size=half), 8, SCALE)
-    b = em.encrypt_complex(rng.normal(size=half), 8, SCALE)
-    ref = em.ref.hmult(em.to_ref(a), em.to_ref(b))
-    if not np.array_equal(ref.data, em.dc.download(em.hmult(a, b).data)):
-        raise AssertionError("hmult(8,8,3) at N=2^13 != RefCkks.hmult")
-    ref = em.ref.hmult(em.to_ref(a), em.to_ref(a))
-    if not np.array_equal(ref.data, em.dc.download(em.hsquare(a).data)):
-        raise AssertionError("hsquare(8,8,3) at N=2^13 != RefCkks.hmult(a, a)")
-    print("# oracle N=2^13 L8 l8 a3: hmult and hsquare == RefCkks, bit-exact")
+    check_oracle(np, torch, CkksEngine, get_params, api)
 
     # 5. set B through the engine
-    t0 = time.perf_counter()
-    eng.keygen()
+    for what, fn in (("relin key", eng.keygen),
+                     ("rotation key step 1", lambda: eng.gen_rotation_key(1)),
+                     ("rotation key step 2", lambda: eng.gen_rotation_key(2))):
+        t0 = time.perf_counter()
+        fn()
+        print(f"# set B {what} (host numpy): {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(7)
     slots = params.n // 2
     v1, v2 = rng.normal(size=slots), rng.normal(size=slots)
+    t0 = time.perf_counter()
     ct1 = eng.encrypt_complex(v1, LEVEL_B, SCALE)
     ct2 = eng.encrypt_complex(v2, LEVEL_B, SCALE)
-    print(f"# set B keygen + encrypt (host numpy): "
-          f"{time.perf_counter() - t0:.1f} s")
-    kernels.reset_launch_counts()
-    out = eng.hmult(ct1, ct2)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    print(f"# hmult(45,35,15) kernel launches: {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by hmult: {missing}")
+    print(f"# set B encrypt (host numpy): {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    out, launches["hmult"] = drive(torch, kernels, "hmult(45,35,15)",
+                                   lambda: eng.hmult(ct1, ct2), PIECES_KERNELS)
+    rot, launches["hrotate"] = drive(torch, kernels, "hrotate(45,35,15)",
+                                     lambda: eng.hrotate(ct1, 1),
+                                     PIECES_KERNELS)
+    api.USE_FUSED_HPIP = True
+    try:
+        out_f, launches["hmult fused"] = drive(
+            torch, kernels, "hmult(45,35,15) fused", lambda: eng.hmult(ct1, ct2),
+            KERNELS)
+        rot_f, launches["hrotate fused"] = drive(
+            torch, kernels, "hrotate(45,35,15) fused",
+            lambda: eng.hrotate(ct1, 1), KERNELS)
+    finally:
+        api.USE_FUSED_HPIP = False
+    if not (torch.equal(out.data, out_f.data)
+            and torch.equal(rot.data, rot_f.data)):
+        raise AssertionError("fused HPIP route != piecewise route")
+    print("# fused HPIP route == piecewise route (hmult, hrotate), bit-exact")
+
     cpu = CkksEngine(params, seed=1, device="cpu")  # the plain path
     cpu.relin_key = eng.relin_key.cpu()
+    cpu.rot_keys = {1: eng.rot_keys[1].cpu()}
+    cts_cpu = [Ciphertext(c.data.cpu(), c.level, c.scale) for c in (ct1, ct2)]
     t0 = time.perf_counter()
-    out_cpu = cpu.hmult(
-        *(Ciphertext(c.data.cpu(), c.level, c.scale) for c in (ct1, ct2)))
-    print(f"# plain path (CPU) hmult: {time.perf_counter() - t0:.1f} s")
+    out_cpu = cpu.hmult(*cts_cpu)
+    rot_cpu = cpu.hrotate(cts_cpu[0], 1)
+    print(f"# plain path (CPU) hmult + hrotate: {time.perf_counter() - t0:.1f} s")
     if not torch.equal(out.data.cpu(), out_cpu.data):
         raise AssertionError("hmult(45,35,15): GPU != CPU plain path")
+    if not torch.equal(rot.data.cpu(), rot_cpu.data):
+        raise AssertionError("hrotate(45,35,15): GPU != CPU plain path")
     err_mult = float(np.max(np.abs(eng.decrypt_complex(out) - v1 * v2)))
     sq = eng.hsquare(ct1)
     err_sq = float(np.max(np.abs(eng.decrypt_complex(sq) - v1 * v1)))
+    err_rot = float(np.max(np.abs(eng.decrypt_complex(rot)
+                                  - np.roll(v1, -1))))
     print(f"# verify max-abs-err = {err_mult:.3e} (hmult), {err_sq:.3e} "
-          f"(hsquare), all {slots} slots")
-    if not (err_mult < GATE and err_sq < GATE):
+          f"(hsquare), {err_rot:.3e} (hrotate), all {slots} slots")
+    if not (err_mult < GATE and err_sq < GATE and err_rot < GATE):
         raise AssertionError(f"decrypt gate {GATE} failed")
-    torch.cuda.reset_peak_memory_stats()
-    hmult_ms = latency_ms(torch, lambda: eng.hmult(ct1, ct2))
-    hsquare_ms = latency_ms(torch, lambda: eng.hsquare(ct1))
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    print(f"# hmult(45,35,15) {hmult_ms:.3f} ms, hsquare {hsquare_ms:.3f} ms "
-          f"(eager calls: CUDA events, median of 20 after 3 warm-up runs; "
-          f"peak memory {peak:.0f} MiB)")
-    hmult_dev = device_ms(torch, lambda: eng.hmult(ct1, ct2), calls=2)
-    hsquare_dev = device_ms(torch, lambda: eng.hsquare(ct1), calls=2)
-    print(f"# device time without host overhead (CUDA graph replay): hmult "
-          f"{hmult_dev:.3f} ms, hsquare {hsquare_dev:.3f} ms")
+    hoisted = eng.hrotate_hoisted(ct1, [1, 2])
+    if not (torch.equal(hoisted[0].data, rot.data) and torch.equal(
+            hoisted[1].data, eng.hrotate(ct1, 2).data)):
+        raise AssertionError("hrotate_hoisted(ct, [1, 2]) != two hrotates")
+    print("# hrotate_hoisted(ct, [1, 2]) == hrotate(ct, 1), hrotate(ct, 2), "
+          "bit-exact")
 
-    # 6. results
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
-    replaces = {
-        "ntt_fwd": ("homulator_tpu_torch/csrc/ntt.cu",
-                    "homulator_tpu/ops/ntt_pallas.py:244"),
-        "ntt_inv": ("homulator_tpu_torch/csrc/ntt.cu",
-                    "homulator_tpu/ops/ntt_pallas.py:677"),
-        "bconv": ("homulator_tpu_torch/csrc/bconv.cu",
-                  "homulator_tpu/ops/bconv_fused.py:131"),
+    # 6. timings
+    torch.cuda.reset_peak_memory_stats()
+    timed = {  # label -> (fn, fused route?)
+        "hmult": (lambda: eng.hmult(ct1, ct2), False),
+        "hsquare": (lambda: eng.hsquare(ct1), False),
+        "hrotate": (lambda: eng.hrotate(ct1, 1), False),
+        "hmult fused": (lambda: eng.hmult(ct1, ct2), True),
+        "hrotate fused": (lambda: eng.hrotate(ct1, 1), True),
     }
-    # headline shape of each kernel: one that hmult(45,35,15) launches
+    timings = {}
+    for label, (fn, fused) in timed.items():
+        api.USE_FUSED_HPIP = fused
+        try:
+            timings[label] = (latency_ms(torch, fn),
+                              device_ms(torch, fn, calls=2))
+        finally:
+            api.USE_FUSED_HPIP = False
+        print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager, "
+              f"{timings[label][1]:.3f} ms device time")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"# (eager: CUDA events, median of 20 after 3 warm-up runs; device "
+          f"time: CUDA graph replay; peak memory {peak:.0f} MiB)")
+
+    # 7. results
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "homulator_tpu"))
+    if bad:
+        raise AssertionError(f"the port imported {bad}")
+    # headline shape of each kernel: one that the main path launches
     headline = {"ntt_fwd": "tail out M=34 rep=2", "ntt_inv": "main M=35 rep=1",
-                "bconv": next(r[0] for r in results["bconv"])}
+                "bconv": results["bconv"][0][0],
+                "hpip": results["hpip"][0][0]}
     rows = []
-    for name, res in results.items():
-        ms, plain_ms = next(r[2:] for r in res if r[0] == headline[name])
+    for name in KERNELS:
+        res = results[name]
+        ms, plain_ms, bound_ms, bound_by = next(
+            r[2:] for r in res if r[0] == headline[name])
         rows.append({
-            "name": name, "route": "cuda", "source": replaces[name][0],
-            "replaces": replaces[name][1], "shape": headline[name],
-            "launches": launches[name],
+            "name": name, "route": "cuda", "source": REPLACES[name][0],
+            "replaces": REPLACES[name][1], "shape": headline[name],
+            "launches": sum(c[name] for c in launches.values()),
+            "launches_by_run": {run: c[name] for run, c in launches.items()},
             "max_abs_err": max(r[1] for r in res), "ms": ms,
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
         })
-    print(json.dumps({"kernels": rows, "hmult_ms": hmult_ms,
-                      "hsquare_ms": hsquare_ms, "hmult_device_ms": hmult_dev,
-                      "hsquare_device_ms": hsquare_dev,
-                      "verify_max_err": err_mult}))
+    print(json.dumps({
+        "kernels": rows,
+        "eager_ms": {k: v[0] for k, v in timings.items()},
+        "device_ms": {k: v[1] for k, v in timings.items()},
+        "verify_max_err": {"hmult": err_mult, "hsquare": err_sq,
+                           "hrotate": err_rot}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,35 +1,49 @@
-"""Public operation API of the port: `CkksEngine` with hmult and hsquare.
+"""Public operation API of the port: `CkksEngine` with hmult, hsquare,
+hrotate, conjugate and hrotate_hoisted.
 
-The counterpart of `homulator_tpu/api.py:113-128, 153-167, 263-405`. Key
+The counterpart of `homulator_tpu/api.py:37-42, 71-234, 263-477`. Key
 generation, encoding, encryption and decryption run on the host through
-the exact reference engine (`homulator_tpu.refimpl.RefCkks`, pure numpy);
-keys and ciphertexts are uploaded in the JAX package's layouts, and the
-homomorphic operations run on the engine's torch device. PyTorch runs
-eagerly, so the op graphs are plain functions (no jit).
+the exact reference engine (the port's copy of `refimpl.RefCkks`, pure
+numpy); keys and ciphertexts are uploaded in the JAX package's layouts,
+and the homomorphic operations run on the engine's torch device. PyTorch
+runs eagerly, so the op graphs are plain functions (no jit).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .context import EVAL, Ciphertext, DeviceContext, KeySwitchLevelTables
+from .ops.automorph import automorph_eval
+from .ops.keyswitch import (
+    hpip_acc, inner_product_pieces, keyswitch_fused, keyswitch_pieces,
+    moddown_pair2, moddown_rescale2, modup_conv_all, modup_convs_coeff,
+)
+from .ops.modmath import modadd, mulmod
 # get_params is re-exported: callers of the port take their parameter sets
 # from the port's own API.
-from homulator_tpu.params import CkksParams, get_params  # noqa: F401
-from homulator_tpu.refimpl import RefCiphertext, RefCkks
-from homulator_tpu.stats import Statistic, op_modmul_count
+from .params import CkksParams, get_params  # noqa: F401
+from .refimpl import RefCiphertext, RefCkks
+from .stats import Statistic, op_modmul_count
 
-from .context import EVAL, Ciphertext, DeviceContext, KeySwitchLevelTables
-from .ops.keyswitch import inner_product_pieces, moddown_rescale2, modup_conv_all
-from .ops.modmath import modadd, mulmod
+# Route key switches through the fused ModUp-NTT + inner-product kernel
+# (B4, ops/hpip.py) instead of the piecewise path. Off by default, as in
+# the JAX package; both routes give the same bits.
+USE_FUSED_HPIP = False
 
 
 def _keyswitch_rescale_tail(d0, d1, d2, key, kt: KeySwitchLevelTables):
     """KeySwitch(d2) -> relinearisation add -> rescale of both components
-    (the `kt.tail` branch of api._keyswitch_rescale_tail)."""
+    (the single-device branches of api._keyswitch_rescale_tail)."""
     d2 = d2.to(torch.int32)
+    if USE_FUSED_HPIP:
+        alpha = kt.special_nt.q.shape[0]
+        acc = hpip_acc(modup_convs_coeff(d2, kt), d2, key, kt)
+        return moddown_rescale2((acc[0, :alpha], acc[0, alpha:]),
+                                (acc[1, :alpha], acc[1, alpha:]), d0, d1, kt)
     convs = modup_conv_all(d2, kt)
     acc0, acc1 = inner_product_pieces(convs, d2, key, kt)
     return moddown_rescale2(acc0, acc1, d0, d1, kt)
@@ -57,6 +71,38 @@ def hsquare_graph(a: torch.Tensor, key: torch.Tensor,
     return _keyswitch_rescale_tail(d0, d1, d2, key, kt)
 
 
+def hrotate_graph(a: torch.Tensor, perm: torch.Tensor, key: torch.Tensor,
+                  kt: KeySwitchLevelTables) -> torch.Tensor:
+    """AUTO(c0), AUTO(c1) -> KeySwitch(sigma(c1)) -> add. a: int32
+    [2, level, n2, n1]; returns the same shape."""
+    q = kt.main_nt.q.long().view(-1, 1, 1)
+    r0 = automorph_eval(a[0], perm)
+    r1 = automorph_eval(a[1], perm)
+    ks = keyswitch_fused if USE_FUSED_HPIP else keyswitch_pieces
+    e = ks(r1, key, kt)
+    return torch.stack([modadd(r0, e[0], q).to(torch.int32), e[1]])
+
+
+def hrotate_hoisted_graph(a: torch.Tensor, perms: Sequence[torch.Tensor],
+                          keys: Sequence[torch.Tensor],
+                          kt: KeySwitchLevelTables) -> torch.Tensor:
+    """Several rotations of one ciphertext sharing one ModUp (Halevi-Shoup
+    hoisting): the automorphism commutes with the digit decomposition, so
+    it is applied to each converted piece. Always the piecewise route, as
+    in the JAX package. Returns int32 [len(perms), 2, level, n2, n1]."""
+    q = kt.main_nt.q.long().view(-1, 1, 1)
+    convs = modup_conv_all(a[1], kt)
+    outs = []
+    for perm, key in zip(perms, keys):
+        rot_convs = [automorph_eval(c, perm) for c in convs]
+        r1 = automorph_eval(a[1], perm)
+        acc0, acc1 = inner_product_pieces(rot_convs, r1, key, kt)
+        e = moddown_pair2(acc0, acc1, kt)
+        r0 = automorph_eval(a[0], perm)
+        outs.append(torch.stack([modadd(r0, e[0], q).to(torch.int32), e[1]]))
+    return torch.stack(outs)
+
+
 class CkksEngine:
     """One CKKS context on one torch device ("cuda" or "cpu").
 
@@ -67,11 +113,10 @@ class CkksEngine:
     def __init__(self, params: CkksParams, seed: int = 0, device="cuda"):
         self.params = params
         self.dc = DeviceContext(params, device)
-        # use_native=False: the native host library is an optional
-        # accelerator of RefCkks with bit-identical results; the pure numpy
-        # path needs no binary built for this machine.
-        self.ref = RefCkks(params, seed, use_native=False)
+        self.ref = RefCkks(params, seed)
         self.relin_key: Optional[torch.Tensor] = None
+        self.rot_keys: Dict[int, torch.Tensor] = {}
+        self._conj_keys: Dict[int, torch.Tensor] = {}
         # the reference's Statistic counters (same keys as the JAX engine)
         self.stats = Statistic()
 
@@ -88,6 +133,10 @@ class CkksEngine:
     def keygen(self) -> None:
         self.ref.keygen()
         self.relin_key = self.dc.upload_kskey_mont(self.ref.relin_key.digits)
+
+    def gen_rotation_key(self, step: int) -> None:
+        key = self.ref.gen_rotation_key(step)
+        self.rot_keys[step] = self.dc.upload_kskey_mont(key.digits)
 
     # ---- io --------------------------------------------------------------
     def encrypt_ints(self, coeffs: np.ndarray, level: int,
@@ -113,13 +162,14 @@ class CkksEngine:
         return self.ref.decrypt_to_bigint(self.to_ref(ct), count=count)
 
     # ---- ops -------------------------------------------------------------
-    def _check_ks_operand(self, a: Ciphertext) -> None:
+    def _check_ks_operand(self, a: Ciphertext, min_level: int = 2) -> None:
         if self.relin_key is None:
             raise RuntimeError("call keygen() first")
-        if a.level < 2 or a.domain != EVAL:
+        if a.level < min_level or a.domain != EVAL:
             raise ValueError(
                 f"operand at level {a.level} ({a.domain}): need an eval-domain "
-                "ciphertext at level >= 2 (rescale drops one limb)")
+                f"ciphertext at level >= {min_level}"
+                + (" (rescale drops one limb)" if min_level > 1 else ""))
 
     def hmult(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         self._check_ks_operand(a)
@@ -139,3 +189,42 @@ class CkksEngine:
         out = hsquare_graph(a.data, self.relin_key,
                             self.dc.keyswitch_tables(l))
         return Ciphertext(out, l - 1, a.scale * a.scale / self.params.qs[l - 1])
+
+    def hrotate(self, a: Ciphertext, step: int) -> Ciphertext:
+        """Rotate the slots left by `step` (the rotation key is made on
+        first use)."""
+        self._check_ks_operand(a, 1)
+        if step not in self.rot_keys:
+            self.gen_rotation_key(step)
+        self._count("hrotate", a.level)
+        perm = self.dc.automorph_perm(self.params.galois_elt(step))
+        out = hrotate_graph(a.data, perm, self.rot_keys[step],
+                            self.dc.keyswitch_tables(a.level))
+        return Ciphertext(out, a.level, a.scale)
+
+    def conjugate(self, a: Ciphertext) -> Ciphertext:
+        """Complex conjugation of all slots (Galois element 2N-1)."""
+        self._check_ks_operand(a, 1)
+        g = self.params.galois_conj
+        if g not in self._conj_keys:
+            key = self.ref._gen_galois_key(g)
+            self._conj_keys[g] = self.dc.upload_kskey_mont(key.digits)
+        out = hrotate_graph(a.data, self.dc.automorph_perm(g),
+                            self._conj_keys[g],
+                            self.dc.keyswitch_tables(a.level))
+        return Ciphertext(out, a.level, a.scale)
+
+    def hrotate_hoisted(self, a: Ciphertext,
+                        steps: Sequence[int]) -> List[Ciphertext]:
+        """Rotate one ciphertext by several steps, sharing one ModUp;
+        equal to one hrotate per step."""
+        self._check_ks_operand(a, 1)
+        for step in steps:
+            if step not in self.rot_keys:
+                self.gen_rotation_key(step)
+        perms = [self.dc.automorph_perm(self.params.galois_elt(s))
+                 for s in steps]
+        outs = hrotate_hoisted_graph(a.data, perms,
+                                     [self.rot_keys[s] for s in steps],
+                                     self.dc.keyswitch_tables(a.level))
+        return [Ciphertext(o, a.level, a.scale) for o in outs]

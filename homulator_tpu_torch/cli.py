@@ -1,11 +1,14 @@
 """CLI: `python -m homulator_tpu_torch run <cfg> <op> <maxLevel> <level>
-<alpha> [cluster] [--verify] [--device cuda|cpu]`.
+<alpha> [cluster] [--verify] [--device cuda|cpu] [--fused-hpip]`.
 
 The reference's positional contract, as in `homulator_tpu/cli.py`, for the
-ops this port has so far (hmult, hsquare). The others, and a [cluster]
-positional above 1, exit with status 2 and name the ROADMAP item that
-ports them. `--verify` decrypts every slot and prints the JAX CLI's
-`# verify max-abs-err = ...` line; an error above 1e-2 exits with 1.
+ops this port has so far (hmult, hsquare, hrotate by one step). The
+others, and a [cluster] positional above 1, exit with status 2 and name
+the ROADMAP item that ports them. `--verify` decrypts every slot and
+prints the JAX CLI's `# verify max-abs-err = ...` line; an error above
+1e-2 exits with 1. `--fused-hpip` (or the cfg key `fused_hpip = 1`) routes
+key switches through the fused HPIP kernel (api.USE_FUSED_HPIP) for the
+run and restores the flag afterwards.
 """
 
 from __future__ import annotations
@@ -16,9 +19,8 @@ import time
 
 import numpy as np
 
-PORTED = ("hmult", "hsquare")
+PORTED = ("hmult", "hsquare", "hrotate")
 NOT_PORTED = {  # op -> ROADMAP item that ports it
-    "hrotate": "A7 (hrotate slice)",
     "hadd": "A8 (elementwise ops)",
     "hsub": "A8 (elementwise ops)",
     "padd": "A8 (elementwise ops)",
@@ -27,9 +29,9 @@ NOT_PORTED = {  # op -> ROADMAP item that ports it
 
 
 def run_op(args) -> int:
-    from homulator_tpu.config import RunConfig
-    from homulator_tpu.params import get_params
-    from homulator_tpu.stats import Statistic, op_modmul_count
+    from .config import RunConfig
+    from .params import get_params
+    from .stats import Statistic, op_modmul_count
 
     if args.op not in PORTED:
         item = NOT_PORTED.get(args.op)
@@ -43,6 +45,7 @@ def run_op(args) -> int:
         return 2
     import torch
 
+    from . import api as api_mod
     from . import kernels
     from .api import CkksEngine
 
@@ -54,6 +57,10 @@ def run_op(args) -> int:
     print(f"# N={rc.n} op={rc.op} maxLevel={rc.max_level} level={rc.level} "
           f"alpha={rc.alpha}")
 
+    if args.fused_hpip or (rc.raw or {}).get("fused_hpip", 0):
+        api_mod.USE_FUSED_HPIP = True  # main() restores the previous value
+        print("# keyswitch=fused-hpip (ops/hpip.py, csrc/hpip.cu)")
+
     def sync():
         if cuda:
             torch.cuda.synchronize()
@@ -64,6 +71,8 @@ def run_op(args) -> int:
         eng = CkksEngine(params, seed=args.seed, device=args.device)
     with stats.timer("setup/keygen"):
         eng.keygen()
+        if rc.op == "hrotate":
+            eng.gen_rotation_key(1)
     rng = np.random.default_rng(args.seed)
     slots = rc.n // 2
     v1 = rng.normal(size=slots)
@@ -76,6 +85,8 @@ def run_op(args) -> int:
     def op_once():
         if rc.op == "hmult":
             return eng.hmult(ct1, ct2)
+        if rc.op == "hrotate":
+            return eng.hrotate(ct1, 1)
         return eng.hsquare(ct1)
 
     with stats.timer("first_run"):  # includes the kernel build on a GPU
@@ -96,7 +107,8 @@ def run_op(args) -> int:
     if args.verify:
         with stats.timer("verify/decrypt"):
             got = eng.decrypt_complex(out)
-        expected = v1 * v2 if rc.op == "hmult" else v1 * v1
+        expected = {"hmult": v1 * v2, "hsquare": v1 * v1,
+                    "hrotate": np.roll(v1, -1)}[rc.op]
         err = float(np.max(np.abs(got - expected)))
         print(f"# verify max-abs-err = {err:.3e}")
         if err > 1e-2:
@@ -129,8 +141,17 @@ def main(argv=None) -> int:
     runp.add_argument("--iters", type=int, default=5)
     runp.add_argument("--seed", type=int, default=0)
     runp.add_argument("--verify", action="store_true")
+    runp.add_argument("--fused-hpip", action="store_true",
+                      help="route key switches through the fused HPIP "
+                           "kernel B4 (also cfg key fused_hpip = 1)")
     args = ap.parse_args(argv)
-    return run_op(args)
+    from . import api as api_mod
+
+    prev_fused = api_mod.USE_FUSED_HPIP
+    try:
+        return run_op(args)
+    finally:
+        api_mod.USE_FUSED_HPIP = prev_fused
 
 
 if __name__ == "__main__":

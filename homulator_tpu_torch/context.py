@@ -1,7 +1,7 @@
 """Device context: residue tables on one torch device + ciphertext containers.
 
 The counterpart of `homulator_tpu/context.py`, rebuilt from the same host
-precompute (`homulator_tpu.params`) without JAX. Layouts match the JAX
+precompute (the port's copy of `params`) without JAX. Layouts match the JAX
 package at every public boundary, so arrays compare with `np.array_equal`:
 
   * a ciphertext is `[2, level, n2, n1]` eval-domain tiles;
@@ -25,7 +25,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from homulator_tpu.params import CkksParams
+from .params import CkksParams
 
 EVAL = "eval"
 
@@ -159,20 +159,27 @@ class TailTables:
 class KeySwitchLevelTables:
     """Key-switch tables of one level on the accelerated route.
 
-    ext_q/ext_qinv: [alpha+level] ext basis (specials first) primes and
-    -q^{-1} mod 2^32 for the Montgomery key product. md_s1: [alpha]
-    [(P/p_j)^{-1}]_{p_j}; pinv: [level] [P^{-1}]_{q_i}."""
+    ext_nt: NTT basis of the ext rows (specials first, alpha+level rows):
+    its primes serve the Montgomery key product and its forward tables
+    the fused HPIP kernel's NTTs. ext_qinv: [alpha+level] -q^{-1} mod
+    2^32. md_s1: [alpha] [(P/p_j)^{-1}]_{p_j}; md_mat/md_mat_sh:
+    [level, alpha+1] ModDown conversion [P/p_j]_{q_i} plus the centering
+    column [-P]_{q_i} (params.ks.moddown_step2); pinv: [level]
+    [P^{-1}]_{q_i}. tail: the fused ModDown + rescale tables (None at
+    level 1, where there is no limb to drop)."""
 
     digits: Tuple[ModUpDigitTables, ...]
     main_nt: NttBasis
     special_nt: NttBasis
-    ext_q: torch.Tensor
+    ext_nt: NttBasis
     ext_qinv: torch.Tensor
     md_s1: torch.Tensor
     md_s1_sh: torch.Tensor
+    md_mat: torch.Tensor
+    md_mat_sh: torch.Tensor
     pinv: torch.Tensor
     pinv_sh: torch.Tensor
-    tail: TailTables
+    tail: Optional[TailTables]
     level: int
 
 
@@ -200,6 +207,7 @@ class DeviceContext:
         self._itw2 = _flat_stages(t.sub2.inv_stage_tw, t.n2)
         self._nt_cache: Dict[Tuple[int, ...], NttBasis] = {}
         self._ks_cache: Dict[int, KeySwitchLevelTables] = {}
+        self._perm_cache: Dict[int, torch.Tensor] = {}
 
     # ---- basis row helpers (same orders as the JAX DeviceContext) --------
     def main_rows(self, level: int) -> Tuple[int, ...]:
@@ -249,13 +257,13 @@ class DeviceContext:
         return nb
 
     def keyswitch_tables(self, level: int) -> KeySwitchLevelTables:
-        """Tables of the accelerated hmult route at `level` (>= 2: the
-        fused tail drops one limb)."""
+        """Tables of the accelerated key-switch route at `level` (the
+        fused ModDown + rescale tail needs level >= 2)."""
         if level in self._ks_cache:
             return self._ks_cache[level]
         p = self.params
-        if not 2 <= level <= p.max_level:
-            raise ValueError(f"level {level} outside [2, {p.max_level}]")
+        if not 1 <= level <= p.max_level:
+            raise ValueError(f"level {level} outside [1, {p.max_level}]")
         qn = p.q_arr
         ext = self.ext_rows(level)
         digits = []
@@ -274,16 +282,19 @@ class DeviceContext:
             ))
         sp_q = qn[p.max_level:]
         md_s1, md_s1_sh = self._pair(p.ks.moddown_step1, sp_q)
+        md_mat, md_mat_sh = self._pair(p.ks.moddown_step2[:level],
+                                       qn[:level, None])
         pinv, pinv_sh = self._pair(p.ks.pinv_modq[:level], qn[:level])
-        ext_idx = np.array(ext)
         kt = KeySwitchLevelTables(
             digits=tuple(digits),
             main_nt=self.ntt_basis(self.main_rows(level)),
             special_nt=self.ntt_basis(self.special_rows()),
-            ext_q=self.tensor(qn[ext_idx]),
-            ext_qinv=self.tensor(p.qinv_neg[ext_idx]),
-            md_s1=md_s1, md_s1_sh=md_s1_sh, pinv=pinv, pinv_sh=pinv_sh,
-            tail=self._tail_tables(level), level=level,
+            ext_nt=self.ntt_basis(ext),
+            ext_qinv=self.tensor(p.qinv_neg[np.array(ext)]),
+            md_s1=md_s1, md_s1_sh=md_s1_sh, md_mat=md_mat,
+            md_mat_sh=md_mat_sh, pinv=pinv, pinv_sh=pinv_sh,
+            tail=self._tail_tables(level) if level >= 2 else None,
+            level=level,
         )
         self._ks_cache[level] = kt
         return kt
@@ -325,6 +336,14 @@ class DeviceContext:
             last_nt=self.ntt_basis((lm1,)),
             out_nt=self.ntt_basis(self.main_rows(lm1)),
         )
+
+    def automorph_perm(self, g: int) -> torch.Tensor:
+        """int64 [N] gather indices of sigma_g over the flat eval order
+        (params.automorph_eval_perm), on this device."""
+        if g not in self._perm_cache:
+            perm = self.params.automorph_eval_perm(g).astype(np.int64)
+            self._perm_cache[g] = torch.from_numpy(perm).to(self.device)
+        return self._perm_cache[g]
 
     # ---- host <-> device -------------------------------------------------
     def _eval_tiles(self, flat: np.ndarray) -> np.ndarray:

@@ -37,4 +37,19 @@ __device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w,
   return r >= q ? r - q : r;
 }
 
+// a - m if a >= m, else a.
+__device__ __forceinline__ uint32_t csub(uint32_t a, uint32_t m) {
+  return a >= m ? a - m : a;
+}
+
+// Montgomery product a * b * 2^-32 mod q, in [0, 2q) for a, b < q
+// (qinv_neg = -q^{-1} mod 2^32): (a*b + m*q) / 2^32 < q^2 / 2^32 + q.
+__device__ __forceinline__ uint32_t mont_mul_lazy(uint32_t a, uint32_t b,
+                                                  uint32_t q,
+                                                  uint32_t qinv_neg) {
+  const uint64_t t = (uint64_t)a * b;
+  const uint32_t m = (uint32_t)t * qinv_neg;
+  return (uint32_t)((t + (uint64_t)m * q) >> 32);
+}
+
 }  // namespace hk

@@ -39,101 +39,20 @@
 
 #include <cstdint>
 
-#include "modarith.cuh"
+#include "ntt_tile.cuh"
 
 namespace {
 
-using hk::mod_add;
-using hk::mod_sub;
-using hk::shoup_mul;
-
-constexpr int kThreads = 256;
-constexpr int kLogTileCols = 5;  // TC = 32 columns: 128-byte row segments
-
-// CT (DIT) butterflies along the rows of an [n, tc] tile in shared memory
-// (row stride ld). Thread t takes column t % tc of butterfly t / tc, so a
-// warp touches 32 consecutive words of a row.
-__device__ void ct_rows(uint32_t* s, int logn, int logtc, int ld,
-                        const uint32_t* __restrict__ tw,
-                        const uint32_t* __restrict__ tw_sh, uint32_t q) {
-  const int work = 1 << (logn - 1 + logtc);
-  for (int st = 0; st < logn; ++st) {
-    const int logh = logn - 1 - st;
-    for (int t = threadIdx.x; t < work; t += blockDim.x) {
-      const int col = t & ((1 << logtc) - 1);
-      const int j = t >> logtc;
-      const int b = j >> logh;
-      const int r0 = (b << (logh + 1)) + (j & ((1 << logh) - 1));
-      const int r1 = r0 + (1 << logh);
-      const int k = (1 << st) + b;
-      const uint32_t u = s[r0 * ld + col];
-      const uint32_t v = shoup_mul(s[r1 * ld + col], tw[k], tw_sh[k], q);
-      s[r0 * ld + col] = mod_add(u, v, q);
-      s[r1 * ld + col] = mod_sub(u, v, q);
-    }
-    __syncthreads();
-  }
-}
-
-// GS butterflies (inverse, no 1/n factor), stages in reverse order.
-__device__ void gs_rows(uint32_t* s, int logn, int logtc, int ld,
-                        const uint32_t* __restrict__ tw,
-                        const uint32_t* __restrict__ tw_sh, uint32_t q) {
-  const int work = 1 << (logn - 1 + logtc);
-  for (int st = logn - 1; st >= 0; --st) {
-    const int logh = logn - 1 - st;
-    for (int t = threadIdx.x; t < work; t += blockDim.x) {
-      const int col = t & ((1 << logtc) - 1);
-      const int j = t >> logtc;
-      const int b = j >> logh;
-      const int r0 = (b << (logh + 1)) + (j & ((1 << logh) - 1));
-      const int r1 = r0 + (1 << logh);
-      const int k = (1 << st) + b;
-      const uint32_t u = s[r0 * ld + col];
-      const uint32_t v = s[r1 * ld + col];
-      s[r0 * ld + col] = mod_add(u, v, q);
-      s[r1 * ld + col] = shoup_mul(mod_sub(u, v, q), tw[k], tw_sh[k], q);
-    }
-    __syncthreads();
-  }
-}
-
-// Load the [n, tc] tile at column c0 of a row-major [n, stride] limb,
-// optionally times a per-element Shoup table of the same layout.
-__device__ void load_tile(uint32_t* s, const uint32_t* __restrict__ src,
-                          int logn, int logtc, int ld, int stride, int c0,
-                          const uint32_t* __restrict__ w,
-                          const uint32_t* __restrict__ w_sh, uint32_t q) {
-  for (int t = threadIdx.x; t < (1 << (logn + logtc)); t += blockDim.x) {
-    const int r = t >> logtc;
-    const int c = t & ((1 << logtc) - 1);
-    const size_t g = (size_t)r * stride + c0 + c;
-    s[r * ld + c] = w ? shoup_mul(src[g], w[g], w_sh[g], q) : src[g];
-  }
-  __syncthreads();
-}
-
-// Store the tile back at column c0 of a row-major [n, stride] limb.
-__device__ void store_tile(const uint32_t* s, uint32_t* __restrict__ dst,
-                           int logn, int logtc, int ld, int stride, int c0) {
-  for (int t = threadIdx.x; t < (1 << (logn + logtc)); t += blockDim.x) {
-    const int r = t >> logtc;
-    const int c = t & ((1 << logtc) - 1);
-    dst[(size_t)r * stride + c0 + c] = s[r * ld + c];
-  }
-}
-
-// Store the tile transposed: tile row r, column c goes to dst[c0 + c][r] of
-// a row-major [*, n] limb. Consecutive threads take consecutive r (odd
-// shared-memory stride ld: no bank conflicts; coalesced global writes).
-__device__ void store_tile_t(const uint32_t* s, uint32_t* __restrict__ dst,
-                             int logn, int logtc, int ld, int c0) {
-  for (int t = threadIdx.x; t < (1 << (logn + logtc)); t += blockDim.x) {
-    const int r = t & ((1 << logn) - 1);
-    const int c = t >> logn;
-    dst[(size_t)(c0 + c) * (1 << logn) + r] = s[r * ld + c];
-  }
-}
+using hk::ct_rows;
+using hk::gs_rows;
+using hk::ilog2;
+using hk::kLogTileCols;
+using hk::kThreads;
+using hk::load_tile;
+using hk::min_int;
+using hk::store_tile;
+using hk::store_tile_t;
+using hk::tile_smem;
 
 // Forward phase A: x[limb] is [n1, n2]; tile [n1, TC] at column c0 of n2.
 __global__ void __launch_bounds__(kThreads)
@@ -144,25 +63,12 @@ ntt_fwd_a(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
           const uint32_t* __restrict__ mid_sh, int M, int log1, int log2,
           int logtc) {
   extern __shared__ uint32_t s[];
-  const int ld = (1 << logtc) + 1;
-  const int limb = blockIdx.x, m = limb % M, c0 = blockIdx.y << logtc;
+  const int limb = blockIdx.x, m = limb % M;
   const size_t N = (size_t)1 << (log1 + log2);
-  const uint32_t qq = q[m];
-  load_tile(s, x + limb * N, log1, logtc, ld, 1 << log2, c0, nullptr,
-            nullptr, qq);
-  ct_rows(s, log1, logtc, ld, tw1 + ((size_t)m << log1),
-          tw1_sh + ((size_t)m << log1), qq);
-  // times tw_mid in the load layout (coalesced table reads)
-  const uint32_t* ml = mid + m * N;
-  const uint32_t* msl = mid_sh + m * N;
-  for (int t = threadIdx.x; t < (1 << (log1 + logtc)); t += blockDim.x) {
-    const int r = t >> logtc;
-    const int c = t & ((1 << logtc) - 1);
-    const size_t g = ((size_t)r << log2) + c0 + c;
-    s[r * ld + c] = shoup_mul(s[r * ld + c], ml[g], msl[g], qq);
-  }
-  __syncthreads();
-  store_tile_t(s, y + limb * N, log1, logtc, ld, c0);
+  hk::fwd_a_tile(s, x + limb * N, y + limb * N, q[m],
+                 tw1 + ((size_t)m << log1), tw1_sh + ((size_t)m << log1),
+                 mid + m * N, mid_sh + m * N, log1, log2, logtc,
+                 blockIdx.y << logtc);
 }
 
 // Forward phase B: y[limb] is [n2, n1]; tile [n2, TC] at column c0 of n1.
@@ -220,25 +126,6 @@ ntt_inv_b(const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
   gs_rows(s, log1, logtc, ld, itw1 + ((size_t)m << log1),
           itw1_sh + ((size_t)m << log1), qq);
   store_tile(s, out + limb * N, log1, logtc, ld, 1 << log2, c0);
-}
-
-int ilog2(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return (1 << l) == n ? l : -1;
-}
-
-int min_int(int a, int b) { return a < b ? a : b; }
-
-// Dynamic shared memory of an [1 << logn, TC] tile, raising the kernel's
-// limit above the 48 KB default when needed.
-template <typename K>
-cudaError_t tile_smem(K kernel, int logn, int logtc, size_t* bytes) {
-  *bytes = ((size_t)1 << logn) * ((1 << logtc) + 1) * sizeof(uint32_t);
-  if (*bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*bytes);
 }
 
 bool bad_shape(int rows, int M, int log1, int log2) {

@@ -1,0 +1,155 @@
+// Column-tile NTT building blocks shared by the NTT kernels (ntt.cu: B1,
+// B2) and the fused HPIP kernel (hpip.cu: B4).
+//
+// A block owns an [n, TC] column tile of one limb in shared memory (row
+// stride ld = TC + 1: no bank conflicts in the transposed write) and runs
+// every butterfly stage of one axis on it. Stage twiddles are flat [n]
+// rows: stage s, block b at column 2^s + b. Values stay fully reduced in
+// [0, q) after every butterfly.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "modarith.cuh"
+
+namespace hk {
+
+constexpr int kThreads = 256;
+constexpr int kLogTileCols = 5;  // TC = 32 columns: 128-byte row segments
+
+// CT (DIT) butterflies along the rows of an [n, tc] tile in shared memory
+// (row stride ld). Thread t takes column t % tc of butterfly t / tc, so a
+// warp touches 32 consecutive words of a row.
+__device__ inline void ct_rows(uint32_t* s, int logn, int logtc, int ld,
+                               const uint32_t* __restrict__ tw,
+                               const uint32_t* __restrict__ tw_sh,
+                               uint32_t q) {
+  const int work = 1 << (logn - 1 + logtc);
+  for (int st = 0; st < logn; ++st) {
+    const int logh = logn - 1 - st;
+    for (int t = threadIdx.x; t < work; t += blockDim.x) {
+      const int col = t & ((1 << logtc) - 1);
+      const int j = t >> logtc;
+      const int b = j >> logh;
+      const int r0 = (b << (logh + 1)) + (j & ((1 << logh) - 1));
+      const int r1 = r0 + (1 << logh);
+      const int k = (1 << st) + b;
+      const uint32_t u = s[r0 * ld + col];
+      const uint32_t v = shoup_mul(s[r1 * ld + col], tw[k], tw_sh[k], q);
+      s[r0 * ld + col] = mod_add(u, v, q);
+      s[r1 * ld + col] = mod_sub(u, v, q);
+    }
+    __syncthreads();
+  }
+}
+
+// GS butterflies (inverse, no 1/n factor), stages in reverse order.
+__device__ inline void gs_rows(uint32_t* s, int logn, int logtc, int ld,
+                               const uint32_t* __restrict__ tw,
+                               const uint32_t* __restrict__ tw_sh,
+                               uint32_t q) {
+  const int work = 1 << (logn - 1 + logtc);
+  for (int st = logn - 1; st >= 0; --st) {
+    const int logh = logn - 1 - st;
+    for (int t = threadIdx.x; t < work; t += blockDim.x) {
+      const int col = t & ((1 << logtc) - 1);
+      const int j = t >> logtc;
+      const int b = j >> logh;
+      const int r0 = (b << (logh + 1)) + (j & ((1 << logh) - 1));
+      const int r1 = r0 + (1 << logh);
+      const int k = (1 << st) + b;
+      const uint32_t u = s[r0 * ld + col];
+      const uint32_t v = s[r1 * ld + col];
+      s[r0 * ld + col] = mod_add(u, v, q);
+      s[r1 * ld + col] = shoup_mul(mod_sub(u, v, q), tw[k], tw_sh[k], q);
+    }
+    __syncthreads();
+  }
+}
+
+// Load the [n, tc] tile at column c0 of a row-major [n, stride] limb,
+// optionally times a per-element Shoup table of the same layout.
+__device__ inline void load_tile(uint32_t* s, const uint32_t* __restrict__ src,
+                                 int logn, int logtc, int ld, int stride,
+                                 int c0, const uint32_t* __restrict__ w,
+                                 const uint32_t* __restrict__ w_sh,
+                                 uint32_t q) {
+  for (int t = threadIdx.x; t < (1 << (logn + logtc)); t += blockDim.x) {
+    const int r = t >> logtc;
+    const int c = t & ((1 << logtc) - 1);
+    const size_t g = (size_t)r * stride + c0 + c;
+    s[r * ld + c] = w ? shoup_mul(src[g], w[g], w_sh[g], q) : src[g];
+  }
+  __syncthreads();
+}
+
+// Store the tile back at column c0 of a row-major [n, stride] limb.
+__device__ inline void store_tile(const uint32_t* s, uint32_t* __restrict__ dst,
+                                  int logn, int logtc, int ld, int stride,
+                                  int c0) {
+  for (int t = threadIdx.x; t < (1 << (logn + logtc)); t += blockDim.x) {
+    const int r = t >> logtc;
+    const int c = t & ((1 << logtc) - 1);
+    dst[(size_t)r * stride + c0 + c] = s[r * ld + c];
+  }
+}
+
+// Store the tile transposed: tile row r, column c goes to dst[c0 + c][r] of
+// a row-major [*, n] limb. Consecutive threads take consecutive r (odd
+// shared-memory stride ld: no bank conflicts; coalesced global writes).
+__device__ inline void store_tile_t(const uint32_t* s,
+                                    uint32_t* __restrict__ dst, int logn,
+                                    int logtc, int ld, int c0) {
+  for (int t = threadIdx.x; t < (1 << (logn + logtc)); t += blockDim.x) {
+    const int r = t & ((1 << logn) - 1);
+    const int c = t >> logn;
+    dst[(size_t)(c0 + c) * (1 << logn) + r] = s[r * ld + c];
+  }
+}
+
+// Forward phase A on one limb: the [n1, TC] tile at column c0 of x [n1, n2]
+// (coeff), CT stages along n1 with this limb's tw1 row, times its tw_mid
+// [n1, n2] (in the load layout: coalesced table reads), written transposed
+// into y [n2, n1].
+__device__ inline void fwd_a_tile(uint32_t* s, const uint32_t* __restrict__ x,
+                                  uint32_t* __restrict__ y, uint32_t q,
+                                  const uint32_t* __restrict__ tw1,
+                                  const uint32_t* __restrict__ tw1_sh,
+                                  const uint32_t* __restrict__ mid,
+                                  const uint32_t* __restrict__ mid_sh,
+                                  int log1, int log2, int logtc, int c0) {
+  const int ld = (1 << logtc) + 1;
+  load_tile(s, x, log1, logtc, ld, 1 << log2, c0, nullptr, nullptr, q);
+  ct_rows(s, log1, logtc, ld, tw1, tw1_sh, q);
+  for (int t = threadIdx.x; t < (1 << (log1 + logtc)); t += blockDim.x) {
+    const int r = t >> logtc;
+    const int c = t & ((1 << logtc) - 1);
+    const size_t g = ((size_t)r << log2) + c0 + c;
+    s[r * ld + c] = shoup_mul(s[r * ld + c], mid[g], mid_sh[g], q);
+  }
+  __syncthreads();
+  store_tile_t(s, y, log1, logtc, ld, c0);
+}
+
+inline int ilog2(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return (1 << l) == n ? l : -1;
+}
+
+inline int min_int(int a, int b) { return a < b ? a : b; }
+
+// Dynamic shared memory of an [1 << logn, TC] tile, raising the kernel's
+// limit above the 48 KB default when needed.
+template <typename K>
+cudaError_t tile_smem(K kernel, int logn, int logtc, size_t* bytes) {
+  *bytes = ((size_t)1 << logn) * ((1 << logtc) + 1) * sizeof(uint32_t);
+  if (*bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*bytes);
+}
+
+}  // namespace hk

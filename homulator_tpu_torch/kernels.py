@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of `csrc/`, and count their launches.
 
-The sources have a plain C interface: they are compiled by `nvcc` into one
+The sources have a plain C interface: each `.cu` is compiled by its own
+`nvcc` process (all started together) and the objects are linked into one
 shared library under `build/kernels/` at the root of the checkout (at first
-use, once per source content) and loaded with `ctypes`. Every pointer and
+use, once per source content), loaded with `ctypes`. Every pointer and
 the CUDA stream cross as `c_void_p`; every C entry returns
 `cudaGetLastError()` after its launches, and `check` raises on non-zero.
 
@@ -28,11 +29,11 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Launch counts per kernel wrapper: each wrapper adds one where it launches
 # its kernel, and nowhere else.
-LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "bconv": 0}
+LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "bconv": 0, "hpip": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -45,6 +46,9 @@ _SIGNATURES = {
     # x, out, s, s_sh, in_q, mat, mat_sh, out_q, nd, center, m_out, ncoef,
     # stream
     "hk_bconv": [_P] * 8 + [_I] * 3 + [ctypes.c_longlong, _P],
+    # convs, conv_rows, spans (host arrays), d_eval, key, scratch, out, q,
+    # qinv, 6 tables, beta, alpha, level, k_full, n1, n2, stream
+    "hk_hpip": [_P] * 15 + [_I] * 6 + [_P],
 }
 
 
@@ -77,27 +81,45 @@ def library_path() -> str:
 
 
 def build() -> float:
-    """Compile csrc/*.cu unless the library for these sources exists.
-    Returns the seconds spent compiling (0.0 when it was already built).
-    nvcc's output, with ptxas's register and shared-memory report, goes to
-    the `.log` beside the library."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc per source, all at once, then one link. Returns the seconds spent
+    (0.0 when it was already built). nvcc's output, with ptxas's register
+    and shared-memory report, goes to the `.log` beside the library."""
     out = library_path()
     if os.path.exists(out):
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs = [s for s in _sources() if s.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    with open(out[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    try:
+        objs = [os.path.join(tmpdir, os.path.basename(s)[:-3] + ".o")
+                for s in srcs]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [os.path.basename(s) for s, p in zip(srcs, procs)
+                  if p.returncode != 0]
+        lib = os.path.join(tmpdir, "lib.so")
+        if not failed:
+            link = subprocess.run(
+                [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-shared", "-o", lib, *objs],
+                capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append("link")
+        seconds = time.perf_counter() - t0
+        with open(out[:-3] + ".log", "w") as f:
+            f.write("".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                               + "".join(logs))
+        os.replace(lib, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return seconds
 
 

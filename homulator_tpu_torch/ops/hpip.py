@@ -1,0 +1,104 @@
+"""Fused ModUp NTT + key inner product (the HPIP unit): plain PyTorch
+version and the wrapper of kernel B4.
+
+The counterpart of `homulator_tpu/ops/hpip_pallas.py::hpip_fused`, reached
+through `keyswitch.hpip_acc`, which sends a CPU tensor to hpip_plain and a
+CUDA tensor to hpip_kernel. For ext row r (specials first, K = alpha +
+level rows) and key component k:
+
+  acc[k, r] = sum_d term_d[r] * key[d, k, r]      (Montgomery-form key)
+  term_d[r] = NTT(conv_d[row r])   r outside digit d's own rows
+            = d_eval[r - alpha]    r one of them
+
+conv_d holds digit d's converted rows in the COEFF domain (ext order minus
+its own rows: conv-local row r for r < alpha+lo, r - nd for r >= alpha+hi).
+The result is the inner product of the unfused route
+(`inner_product_pieces(modup_conv_all(...))`) without the eval-domain
+lifted digits ever being stored. csrc/hpip.cu has the design note.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+from ..context import KeySwitchLevelTables
+from .modmath import mont_mul
+from .ntt import ntt_plain
+
+_MAX_BETA = 16  # csrc/hpip.cu kMaxBeta
+_MAX_TILE = 256 * 32  # phase-B tile [n2, min(32, n1)]: 32 words per thread
+_FWD_TABLES = ("tw1", "tw1_sh", "mid", "mid_sh", "tw2", "tw2_sh")
+
+
+def hpip_plain(convs, d_eval: torch.Tensor, key: torch.Tensor,
+               kt: KeySwitchLevelTables) -> torch.Tensor:
+    """Plain version of kernel B4: each digit's converted rows through
+    ntt_plain, its own rows from d_eval, Montgomery products against the
+    key, and the sum over digits. Returns int32 [2, K, n2, n1] in [0, q)."""
+    alpha = kt.special_nt.q.shape[0]
+    K = alpha + kt.level
+    q = kt.ext_nt.q.long().view(1, -1, 1, 1)
+    qinv = kt.ext_qinv.long().view(1, -1, 1, 1)
+    acc = 0
+    for d, (conv, dt) in enumerate(zip(convs, kt.digits)):
+        t = ntt_plain(conv, dt.other_nt)
+        cut = alpha + dt.lo  # converted rows before the digit's own rows
+        term = torch.cat([t[:cut], d_eval[dt.lo:dt.hi], t[cut:]])
+        acc = acc + mont_mul(term[None], key[d, :, :K], q, qinv)
+    return (acc % q).to(torch.int32)
+
+
+def hpip_kernel(convs, d_eval: torch.Tensor, key: torch.Tensor,
+                kt: KeySwitchLevelTables) -> torch.Tensor:
+    """Kernel B4 on the GPU (two launches through a phase-A scratch);
+    counts one launch. Same arguments and result as hpip_plain."""
+    dev = d_eval.device
+    if not d_eval.is_cuda:
+        raise ValueError(f"hpip: CUDA kernel called on {dev}")
+    nt = kt.ext_nt
+    n1, n2 = nt.n1, nt.n2
+    alpha = kt.special_nt.q.shape[0]
+    level = kt.level
+    K = alpha + level
+    beta = len(kt.digits)
+    if len(convs) != beta or beta > _MAX_BETA:
+        raise ValueError(f"hpip: {len(convs)} conversion pieces for {beta} "
+                         f"digits (at most {_MAX_BETA})")
+    if n2 * min(32, n1) > _MAX_TILE:
+        raise ValueError(f"hpip: n2={n2} above the phase-B tile")
+    kernels.require_cuda_int32("d_eval", d_eval, dev, (level, n2, n1))
+    if (key.ndim != 5 or key.shape[0] < beta or key.shape[1] != 2
+            or key.shape[2] < K or tuple(key.shape[3:]) != (n2, n1)):
+        raise ValueError(f"hpip: key {tuple(key.shape)} is not "
+                         f"[>={beta}, 2, >={K}, {n2}, {n1}]")
+    kernels.require_cuda_int32("key", key, dev)
+    rows = []
+    for d, (c, dt) in enumerate(zip(convs, kt.digits)):
+        rows.append(K - (dt.hi - dt.lo))
+        kernels.require_cuda_int32(f"convs[{d}]", c, dev, (rows[-1], n1, n2))
+    kernels.require_cuda_int32("q", nt.q, dev, (K,))
+    kernels.require_cuda_int32("qinv", kt.ext_qinv, dev, (K,))
+    for k in _FWD_TABLES:
+        kernels.require_cuda_int32(k, getattr(nt, k), dev)
+    lib = kernels.load()
+    conv_ptrs = (ctypes.c_void_p * beta)(*(kernels.ptr(c) for c in convs))
+    conv_rows = (ctypes.c_int * beta)(*rows)
+    spans = (ctypes.c_int * (2 * beta))(
+        *(v for dt in kt.digits for v in (dt.lo, dt.hi)))
+    scratch = torch.empty((sum(rows), n2, n1), dtype=torch.int32, device=dev)
+    out = torch.empty((2, K, n2, n1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.hk_hpip(
+            ctypes.addressof(conv_ptrs), ctypes.addressof(conv_rows),
+            ctypes.addressof(spans), kernels.ptr(d_eval), kernels.ptr(key),
+            kernels.ptr(scratch), kernels.ptr(out), kernels.ptr(nt.q),
+            kernels.ptr(kt.ext_qinv),
+            *(kernels.ptr(getattr(nt, k)) for k in _FWD_TABLES),
+            beta, alpha, level, key.shape[2], n1, n2, kernels.stream(d_eval))
+    kernels.check(rc, "hpip")
+    kernels.LAUNCHES["hpip"] += 1
+    return out
+

@@ -5,6 +5,11 @@ accelerated single-device route of `homulator_tpu/ops/keyswitch.py`.
                       base conversion to the rows outside the digit
   modup_conv_all      ... and the NTT of each digit's converted rows
   inner_product_pieces  digit inner product against the Montgomery key
+  hpip_acc            modup_conv_all's NTTs and the inner product fused in
+                      one kernel (B4, ops/hpip.py) on the coeff pieces
+  moddown_pair(2)     ModDown (divide by P) of one / both key components
+  keyswitch_pieces    ModUp -> inner product -> ModDown (hrotate's switch)
+  keyswitch_fused     the same through hpip_acc
   moddown_rescale2    ModDown, relinearisation add and rescale of both key
                       components as one division by P * q_last
 
@@ -13,7 +18,8 @@ so every array is the same canonical residue. The JAX package's jnp route
 (`keyswitch()`, `rescale_poly`) is bit-identical to this one; here the
 plain PyTorch versions of the kernels play its role. Elementwise steps are
 PyTorch ops on int64 carriers (ops/modmath.py); NTTs and base conversions
-go through the kernel wrappers (ops/ntt.py, ops/bconv_fused.py).
+go through the kernel wrappers (ops/ntt.py, ops/bconv_fused.py,
+ops/hpip.py).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from ..context import KeySwitchLevelTables
 from .bconv_fused import bconv_fused
+from .hpip import hpip_kernel, hpip_plain
 from .modmath import (
     lazy_sum_reduce, lazy_tree_sum, modadd, modsub, mont_mul, shoup_mul,
 )
@@ -72,7 +79,7 @@ def inner_product_pieces(
     int64 in [0, q)."""
     alpha = kt.special_nt.q.shape[0]
     k_ext = alpha + kt.level
-    q, qinv = _col(kt.ext_q), _col(kt.ext_qinv)
+    q, qinv = _col(kt.ext_nt.q), _col(kt.ext_qinv)
     exts = []
     for conv, dt in zip(convs, kt.digits):
         cut = alpha + dt.lo  # converted rows before the digit's own rows
@@ -84,6 +91,76 @@ def inner_product_pieces(
              for d, e in enumerate(exts)], q)
         out.append((acc[:alpha], acc[alpha:]))
     return out
+
+
+def hpip_acc(convs, d_eval: torch.Tensor, key: torch.Tensor,
+             kt: KeySwitchLevelTables) -> torch.Tensor:
+    """Fused ModUp NTT + key inner product (kernel B4): convs are the
+    COEFF-domain pieces of modup_convs_coeff. Returns int32
+    [2, alpha+level, n2, n1] in [0, q): both accumulators over the ext
+    basis, specials first. Equal to inner_product_pieces(modup_conv_all).
+    A CPU tensor runs hpip_plain; a CUDA tensor launches kernel B4
+    (csrc/hpip.cu)."""
+    if d_eval.device.type == "cpu":
+        return hpip_plain(convs, d_eval, key, kt)
+    return hpip_kernel(convs, d_eval, key, kt)
+
+
+def _moddown(accs, kt: KeySwitchLevelTables) -> torch.Tensor:
+    """ModDown of rep = len(accs) accumulator pairs in one batched pass
+    (rep-stacked NTTs share the basis tables): (acc_main -
+    conv_P(acc_sp)) * P^{-1} over the main basis, with the centered
+    conversion. Returns int32 [rep, level, n2, n1]."""
+    rep = len(accs)
+    alpha = kt.special_nt.q.shape[0]
+    b = intt_rep(torch.cat([a[0] for a in accs]).to(torch.int32),
+                 kt.special_nt, rep)  # [rep*alpha, n1, n2]
+    convs = [
+        bconv_fused(b[k * alpha:(k + 1) * alpha], kt.md_s1, kt.md_s1_sh,
+                    kt.special_nt.q, kt.md_mat, kt.md_mat_sh, kt.main_nt.q,
+                    center=True)
+        for k in range(rep)
+    ]
+    ce = ntt_rep(torch.cat(convs), kt.main_nt, rep)
+    ce = ce.view((rep, kt.level) + tuple(ce.shape[1:]))
+    mq = _col2(kt.main_nt.q)
+    diff = modsub(torch.stack([a[1] for a in accs]), ce, mq)
+    return shoup_mul(diff, _col2(kt.pinv), _col2(kt.pinv_sh),
+                     mq).to(torch.int32)
+
+
+def moddown_pair(acc, kt: KeySwitchLevelTables) -> torch.Tensor:
+    """ModDown of one accumulator pair (acc_sp [alpha, n2, n1], acc_main
+    [level, n2, n1]) without concatenating them. Returns int32
+    [level, n2, n1]."""
+    return _moddown([acc], kt)[0]
+
+
+def moddown_pair2(acc0, acc1, kt: KeySwitchLevelTables) -> torch.Tensor:
+    """Both key components' ModDown in one batched pass. Bit-identical to
+    (moddown_pair(acc0), moddown_pair(acc1)); returns int32
+    [2, level, n2, n1]."""
+    return _moddown([acc0, acc1], kt)
+
+
+def keyswitch_pieces(d_eval: torch.Tensor, key: torch.Tensor,
+                     kt: KeySwitchLevelTables) -> torch.Tensor:
+    """Key switch without rescale: piecewise ModUp, inner product, both
+    ModDowns batched. Returns int32 [2, level, n2, n1] (e0, e1)."""
+    convs = modup_conv_all(d_eval, kt)
+    acc0, acc1 = inner_product_pieces(convs, d_eval, key, kt)
+    return moddown_pair2(acc0, acc1, kt)
+
+
+def keyswitch_fused(d_eval: torch.Tensor, key: torch.Tensor,
+                    kt: KeySwitchLevelTables) -> torch.Tensor:
+    """keyswitch_pieces through the fused HPIP kernel. The JAX function
+    ends in two moddown_pair calls; this one ends in one moddown_pair2,
+    which is bit-identical. Returns int32 [2, level, n2, n1]."""
+    acc = hpip_acc(modup_convs_coeff(d_eval, kt), d_eval, key, kt)
+    alpha = kt.special_nt.q.shape[0]
+    return moddown_pair2((acc[0, :alpha], acc[0, alpha:]),
+                         (acc[1, :alpha], acc[1, alpha:]), kt)
 
 
 def moddown_rescale2(acc0, acc1, d0, d1,

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Where the device time of one hmult goes in the PyTorch + CUDA port.
+"""Where the device time of one hmult (or hrotate) goes in the PyTorch +
+CUDA port.
 
-    python3 scripts/profile_hmult_torch.py [--trace chiprun_out/hmult_trace.json]
+    python3 scripts/profile_hmult_torch.py [--op hmult|hrotate] [--fused-hpip]
+        [--trace hmult_trace.json]
 
-Runs hmult(45,35,15) of parameter set B (N = 2^16) eagerly on one CUDA GPU,
-CALLS times after 3 warm-up calls, under torch.profiler and groups the CUDA
-kernels it launched by name: the port's three kernels (B1 ntt_fwd, B2 ntt_inv, B3 bconv), torch's
-copies and concatenations, its reductions, and its other elementwise
+Runs the op at (45,35,15) of parameter set B (N = 2^16) eagerly on one
+CUDA GPU, CALLS times after 3 warm-up calls, under torch.profiler and
+groups the CUDA kernels it launched by name: the port's four kernels (B1
+ntt_fwd, B2 ntt_inv, B3 bconv, B4 hpip), torch's copies and
+concatenations and gathers, its reductions, and its other elementwise
 kernels (the int64 arithmetic of homulator_tpu_torch/ops/modmath.py).
-Prints each group's device time and launches per hmult, after the card's
-name and power limit. Imports no JAX.
+`--fused-hpip` runs the key switch on the fused HPIP route. Prints each
+group's device time and launches per op, after the card's name and power
+limit. Imports no JAX and nothing of the JAX package.
 """
 
 import argparse
@@ -26,7 +30,9 @@ GROUPS = (  # (group, substrings of the kernel name); the first match wins
     ("B1 ntt_fwd", ("ntt_fwd",)),
     ("B2 ntt_inv", ("ntt_inv",)),
     ("B3 bconv", ("bconv",)),
-    ("torch copies and concatenations", ("copy", "Cat", "Memcpy")),
+    ("B4 hpip", ("hpip",)),
+    ("torch copies, concatenations and gathers",
+     ("copy", "Cat", "Memcpy", "index", "gather")),
     ("torch reductions", ("reduce",)),
     ("torch elementwise", ("elementwise", "Memset")),
 )
@@ -41,6 +47,9 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--op", choices=["hmult", "hrotate"], default="hmult")
+    ap.add_argument("--fused-hpip", action="store_true",
+                    help="key switch through the fused HPIP kernel B4")
     ap.add_argument("--trace", help="write a Chrome trace to this path")
     args = ap.parse_args()
 
@@ -51,7 +60,7 @@ def main() -> int:
         print("profile_hmult_torch: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from homulator_tpu_torch import kernels
+    from homulator_tpu_torch import api, kernels
     from homulator_tpu_torch.api import CkksEngine, get_params
 
     smi = subprocess.run(
@@ -63,13 +72,21 @@ def main() -> int:
     params = get_params(n=1 << 16, max_level=45, alpha=15)
     eng = CkksEngine(params, seed=1, device="cuda")
     eng.keygen()
+    if args.op == "hrotate":
+        eng.gen_rotation_key(1)
+    api.USE_FUSED_HPIP = args.fused_hpip
     rng = np.random.default_rng(7)
     slots = params.n // 2
     scale = float(1 << 29)
     ct1 = eng.encrypt_complex(rng.normal(size=slots), LEVEL, scale)
     ct2 = eng.encrypt_complex(rng.normal(size=slots), LEVEL, scale)
+
+    def op():
+        return (eng.hmult(ct1, ct2) if args.op == "hmult"
+                else eng.hrotate(ct1, 1))
+
     for _ in range(3):
-        eng.hmult(ct1, ct2)
+        op()
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()
@@ -77,7 +94,7 @@ def main() -> int:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(CALLS):
-            eng.hmult(ct1, ct2)
+            op()
         torch.cuda.synchronize()
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
@@ -93,17 +110,21 @@ def main() -> int:
     total = sum(us.values())
     if total == 0:
         raise RuntimeError("the profiler recorded no device kernels")
-    print(f"# hmult(45,{LEVEL},15): device kernel time "
-          f"{total / CALLS / 1e3:.3f} ms per hmult over {CALLS} eager calls "
-          f"(torch.profiler); wrapper launches {dict(kernels.LAUNCHES)}")
-    print("| Share of device kernel time | ms / hmult | launches / hmult "
-          "| Group |")
+    route = "fused HPIP" if args.fused_hpip else "piecewise"
+    print(f"# {args.op}(45,{LEVEL},15), {route} key switch: device kernel "
+          f"time {total / CALLS / 1e3:.3f} ms per {args.op} over {CALLS} "
+          f"eager calls (torch.profiler); wrapper launches "
+          f"{dict(kernels.LAUNCHES)}")
+    print(f"| Share of device kernel time | ms / {args.op} | launches / "
+          f"{args.op} | Group |")
     print("|---|---|---|---|")
     for g in sorted(us, key=us.get, reverse=True):
         print(f"| {100 * us[g] / total:.1f}% | {us[g] / CALLS / 1e3:.3f} "
               f"| {count[g] / CALLS:g} | {g} |")
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "homulator_tpu"))
+    if bad:
+        raise AssertionError(f"imported {bad}")
     return 0
 
 

@@ -4,12 +4,12 @@ versions). Every run goes through `--verify` (full-slot decrypt check)."""
 
 import pytest
 
-from homulator_tpu_torch import cli
+from homulator_tpu_torch import api, cli
 
 CFG = "configs/tiny.cfg"
 
 
-@pytest.mark.parametrize("op", ["hmult", "hsquare"])
+@pytest.mark.parametrize("op", ["hmult", "hsquare", "hrotate"])
 def test_cli_verify(op, capsys):
     rc = cli.main(["run", CFG, op, "8", "4", "4", "--verify", "--iters", "1",
                    "--device", "cpu"])
@@ -19,8 +19,34 @@ def test_cli_verify(op, capsys):
     assert f"FHE-Op {op} latency" in outp
 
 
+@pytest.mark.parametrize("op", ["hmult", "hrotate"])
+def test_cli_fused_hpip_routing(op, capsys):
+    """`--fused-hpip` reaches the fused HPIP route (api.USE_FUSED_HPIP)
+    and still decrypt-verifies; the flag is restored after the run."""
+    assert api.USE_FUSED_HPIP is False
+    rc = cli.main(["run", CFG, op, "8", "4", "4", "--verify", "--iters", "1",
+                   "--device", "cpu", "--fused-hpip"])
+    outp = capsys.readouterr().out
+    assert rc == 0, outp
+    assert "keyswitch=fused-hpip" in outp
+    assert "verify max-abs-err" in outp
+    assert api.USE_FUSED_HPIP is False
+
+
+def test_cli_fused_hpip_cfg_key(tmp_path, capsys):
+    """The cfg key `fused_hpip = 1` selects the same route."""
+    cfg = tmp_path / "fused.cfg"
+    cfg.write_text(open(CFG).read() + "\nfused_hpip = 1\n")
+    rc = cli.main(["run", str(cfg), "hrotate", "8", "4", "4", "--verify",
+                   "--iters", "1", "--device", "cpu"])
+    outp = capsys.readouterr().out
+    assert rc == 0, outp
+    assert "keyswitch=fused-hpip" in outp
+    assert api.USE_FUSED_HPIP is False
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["hrotate", "8", "4", "4"], "A7"),
+    (["padd", "8", "4", "4"], "A8"),
     (["hadd", "8", "4", "4"], "A8"),
     (["hmult", "8", "4", "4", "2"], "A12"),
 ])

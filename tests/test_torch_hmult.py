@@ -119,21 +119,32 @@ def test_cuda_device_is_explicit(small_params):
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter imports every module of the port and runs a tiny
-    hmult without loading jax."""
+    """A fresh interpreter imports every module of the port and
+    chip_smoke, takes get_params from the port, runs a tiny hmult, hrotate
+    and fused-route hmult, and has loaded neither jax nor any module of
+    the JAX package homulator_tpu."""
     code = (
-        "import sys\n"
+        "import pkgutil, sys\n"
         "import numpy as np\n"
-        "import homulator_tpu_torch.cli, homulator_tpu_torch.kernels\n"
-        "from homulator_tpu.params import get_params\n"
-        "from homulator_tpu_torch.api import CkksEngine\n"
+        "import homulator_tpu_torch, homulator_tpu_torch.ops, chip_smoke\n"
+        "for pkg in (homulator_tpu_torch, homulator_tpu_torch.ops):\n"
+        "    for m in pkgutil.iter_modules(pkg.__path__):\n"
+        "        if m.name != '__main__':  # __main__ runs the CLI\n"
+        "            __import__(pkg.__name__ + '.' + m.name)\n"
+        "from homulator_tpu_torch import api\n"
+        "from homulator_tpu_torch.api import CkksEngine, get_params\n"
         "e = CkksEngine(get_params(n=64, max_level=3, alpha=2), seed=1,"
         " device='cpu')\n"
         "e.keygen()\n"
         "a = e.encrypt_complex(np.ones(32), 3, 2.0**29)\n"
         "assert e.hmult(a, a).level == 2\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
-        " if m.startswith('jax'))\n"
+        "assert e.hrotate(a, 1).level == 3\n"
+        "api.USE_FUSED_HPIP = True\n"
+        "assert e.hmult(a, a).level == 2\n"
+        "bad = sorted(m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'homulator_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert 'homulator_tpu_torch.ops.hpip' in sys.modules\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
