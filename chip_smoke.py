@@ -16,7 +16,11 @@ failure and the script then exits non-zero:
      bases hmult and hrotate use, the base conversion (B3) at every ModUp
      digit and the tail, and the fused HPIP kernel (B4) at level 35 (K =
      50, digits (0,15) (15,30) (30,35)) and level 20 (two digits, the last
-     partial);
+     partial); the phase kernels of the coefficient-sharded NTT (B6-B9) on
+     rank 1's column slices at 4 shards (c = 64: the main rows M = 35, the
+     partial digit's other rows M = 45, the specials M = 15 twice, and the
+     tail's shapes) and at 2, 8 and 32 shards (c = 128, 32 and 8; M = 35),
+     and B3 once on a 4-shard slice;
   4. an independent oracle at N = 2^13 (n1 = 64 != n2 = 128), maxLevel 8,
      level 8, alpha 3 (a partial digit): the exact numpy engine
      (`RefCkks`) equals the port's hmult, hsquare, hrotate (steps 1 and
@@ -33,13 +37,24 @@ failure and the script then exits non-zero:
      the CPU) bit for bit; all 32768 slots decrypt within 1e-2 of v1*v2
      (hmult), v1*v1 (hsquare) and np.roll(v1, -1) (hrotate);
      hrotate_hoisted(ct, [1, 2]) equals two single hrotates; the host
-     seconds of each key;
+     seconds of each key. Then the coefficient-sharded dispatch
+     (`parallel.sharded.make_shardmap_hmult` / `make_shardmap_hrotate`,
+     step 1) on `ThreadMesh(4, "cuda")`: 4 shards run as 4 threads on this
+     one card, each launching its own kernels on its [.., 256, 64] column
+     slices, every collective a copy on the card. Launch counts are set to
+     0 just before each of the two runs and read just after: B6-B9 and B3
+     must launch, B1, B2 and B4 must not. The gathered results equal the
+     single-device piecewise ones bit for bit, the bytes each shard
+     received equal `ici_bytes_per_op(..., packed=False)`, and the hmult
+     result decrypts within 1e-2 in all 32768 slots;
   6. latency (CUDA events around eager calls, median of 20 after 3 warm-up
      runs) and device time (graph replay) of hmult and hsquare, of hrotate
-     on both key-switch routes and of hmult on the fused route;
+     on both key-switch routes and of hmult on the fused route; the eager
+     latency of the two sharded ops (4 shards on one card: not a multi-card
+     latency; no graph capture across the shard threads);
   7. one JSON line of per-kernel results (each kernel's times and bound at
      one shape the main path launches, named in `shape`; `max_abs_err`
-     over every shape checked; `launches` summed over the four main-path
+     over every shape checked; `launches` summed over the six main-path
      runs, per run in `launches_by_run`), then the device line last.
 
 Bound of a kernel call: the larger of the bytes it must move (each input
@@ -79,9 +94,21 @@ REPLACES = {  # kernel -> (source in this repo, TPU kernel it replaces)
               "homulator_tpu/ops/bconv_fused.py:131"),
     "hpip": ("homulator_tpu_torch/csrc/hpip.cu",
              "homulator_tpu/ops/hpip_pallas.py:117"),
+    "ntt_phase1": ("homulator_tpu_torch/csrc/ntt.cu",
+                   "homulator_tpu/ops/ntt_pallas.py:329"),
+    "ntt_phase2": ("homulator_tpu_torch/csrc/ntt.cu",
+                   "homulator_tpu/ops/ntt_pallas.py:351"),
+    "intt_phase2": ("homulator_tpu_torch/csrc/ntt.cu",
+                    "homulator_tpu/ops/ntt_pallas.py:371"),
+    "intt_phase1": ("homulator_tpu_torch/csrc/ntt.cu",
+                    "homulator_tpu/ops/ntt_pallas.py:390"),
 }
 KERNELS = tuple(REPLACES)
 PIECES_KERNELS = ("ntt_fwd", "ntt_inv", "bconv")
+FUSED_KERNELS = PIECES_KERNELS + ("hpip",)
+PHASE_KERNELS = ("ntt_phase1", "ntt_phase2", "intt_phase2", "intt_phase1")
+COEFF_KERNELS = PHASE_KERNELS + ("bconv",)
+NS = 4  # coefficient shards of the sharded main path
 
 
 def latency_ms(torch, fn, iters=20, warmup=3):
@@ -148,6 +175,19 @@ def ntt_bound(nb, rep):
     n = n1 * n2
     nbytes = 4 * (2 * rep * M * n + 2 * M * n + 2 * M * (n1 + n2) + M)
     return bound(nbytes, ntt_ops(rep * M, n))
+
+
+def phase_bound(nb, rep, n, c, mid):
+    """B6-B9 on rep stacked copies of basis nb over [n, c] column slices:
+    x and out, the [M, n, c] mid slice and its Shoup table (B6, B9), the
+    flat stage tables and q; n/2 * log2(n) butterflies on each of c
+    columns, and n*c mid products (B6, B9)."""
+    M = nb.q.shape[0]
+    nbytes = 4 * (2 * rep * M * n * c + int(mid) * 2 * M * n * c
+                  + 2 * M * n + M)
+    ops = rep * M * (n // 2 * (n.bit_length() - 1) * c * OPS["butterfly"]
+                     + int(mid) * n * c * OPS["shoup"])
+    return bound(nbytes, ops)
 
 
 def bconv_bound(nd, m_out, center, n):
@@ -282,6 +322,60 @@ def check_kernels(np, torch, dc, rng, results):
                 hpip_bound(kl), results)
 
 
+def check_phase_kernels(np, torch, dc, rng, results):
+    """Phase 3, sharded: B6-B9 vs their plain versions on rank 1's column
+    slices at set B's 4-shard shapes (and one 2-shard shape), and B3 on a
+    4-shard slice."""
+    from homulator_tpu_torch.ops import ntt as ntt_mod
+    from homulator_tpu_torch.ops import ntt_kernels
+    from homulator_tpu_torch.ops.bconv_fused import bconv_fused, bconv_plain
+
+    n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
+    k4 = dc.keyswitch_tables(LEVEL_B, shard=(1, NS))
+
+    def main_nt(ns):
+        return dc.keyswitch_tables(LEVEL_B, shard=(1, ns)).main_nt
+
+    common = {  # label -> (basis, rep, shards)
+        "ns=4 c=64 main M=35 rep=1": (k4.main_nt, 1, NS),
+        "ns=4 c=64 digit2 other M=45 rep=1": (k4.digits[2].other_nt, 1, NS),
+        "ns=4 c=64 special M=15 rep=2": (k4.special_nt, 2, NS),
+        "ns=2 c=128 main M=35 rep=1": (main_nt(2), 1, 2),
+        # narrower than one 32-column tile: TC = c, row stride c + 1
+        "ns=8 c=32 main M=35 rep=1": (main_nt(8), 1, 8),
+        "ns=32 c=8 main M=35 rep=1": (main_nt(32), 1, 32),
+    }
+    fwd = dict(common, **{
+        "ns=4 c=64 tail out M=34 rep=2": (k4.tail.out_nt, 2, NS)})
+    inv = dict(common, **{
+        "ns=4 c=64 tail last M=1 rep=2": (k4.tail.last_nt, 2, NS)})
+    # (kernel, rows n of its input, columns before sharding, mid table?)
+    for name, n, cols, mid, cases in (("ntt_phase1", n1, n2, True, fwd),
+                                      ("ntt_phase2", n2, n1, False, fwd),
+                                      ("intt_phase2", n2, n1, False, inv),
+                                      ("intt_phase1", n1, n2, True, inv)):
+        kernel = getattr(ntt_kernels, name)
+        plain = getattr(ntt_mod, name + "_plain")
+        for label, (nb, rep, ns) in cases.items():
+            c = cols // ns
+            q = np.tile(nb.q.cpu().numpy(), rep)
+            x = random_residues(np, torch, rng, q, (len(q), n, c))
+            compare(torch, name, label,
+                    lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
+                    phase_bound(nb, rep, n, c, mid), results)
+    dt = k4.digits[0]
+    nd = dt.hi - dt.lo
+    x = random_residues(np, torch, rng, dt.in_q.cpu().numpy(),
+                        (nd, n1, n2 // NS))
+    compare(torch, "bconv",
+            f"ns=4 c=64 modup digit0 {nd}+1->{dt.mat.shape[0]}",
+            lambda: bconv_fused(x, dt.step1, dt.step1_sh, dt.in_q, dt.mat,
+                                dt.mat_sh, dt.other_nt.q, center=True),
+            lambda: bconv_plain(x, dt.step1, dt.in_q, dt.mat, dt.other_nt.q,
+                                True),
+            bconv_bound(nd, dt.mat.shape[0], True, n1 * n2 // NS), results)
+
+
 def check_oracle(np, torch, CkksEngine, get_params, api):
     """Phase 4: the port on the card vs RefCkks at N = 2^13, L8, a3."""
     from homulator_tpu_torch.context import Ciphertext
@@ -352,6 +446,11 @@ def main() -> int:
     from homulator_tpu_torch import api, kernels
     from homulator_tpu_torch.api import CkksEngine, get_params
     from homulator_tpu_torch.context import Ciphertext
+    from homulator_tpu_torch.parallel.comm import ThreadMesh
+    from homulator_tpu_torch.parallel.sharded import (
+        gather_cols, ici_bytes_per_op, make_shardmap_hmult,
+        make_shardmap_hrotate, shard_cols,
+    )
 
     # 1. the card
     smi = subprocess.run(
@@ -381,6 +480,7 @@ def main() -> int:
     results = {k: [] for k in KERNELS}
     t0 = time.perf_counter()
     check_kernels(np, torch, eng.dc, np.random.default_rng(2), results)
+    check_phase_kernels(np, torch, eng.dc, np.random.default_rng(3), results)
     print(f"# kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # 4. independent oracle at a mid size with a partial digit
@@ -410,10 +510,10 @@ def main() -> int:
     try:
         out_f, launches["hmult fused"] = drive(
             torch, kernels, "hmult(45,35,15) fused", lambda: eng.hmult(ct1, ct2),
-            KERNELS)
+            FUSED_KERNELS)
         rot_f, launches["hrotate fused"] = drive(
             torch, kernels, "hrotate(45,35,15) fused",
-            lambda: eng.hrotate(ct1, 1), KERNELS)
+            lambda: eng.hrotate(ct1, 1), FUSED_KERNELS)
     finally:
         api.USE_FUSED_HPIP = False
     if not (torch.equal(out.data, out_f.data)
@@ -449,6 +549,44 @@ def main() -> int:
     print("# hrotate_hoisted(ct, [1, 2]) == hrotate(ct, 1), hrotate(ct, 2), "
           "bit-exact")
 
+    # 5, sharded: the coefficient dispatch on 4 shards of this one card
+    mesh = ThreadMesh(NS, "cuda")
+    sh_mult = make_shardmap_hmult(eng.dc, LEVEL_B, mesh)
+    sh_rot = make_shardmap_hrotate(eng.dc, LEVEL_B, mesh)
+    route = eng.dc.automorph_shard_route(params.galois_elt(1), NS)
+    a_s, b_s = shard_cols(ct1.data, NS), shard_cols(ct2.data, NS)
+    key_s = shard_cols(eng.relin_key, NS)
+    rkey_s = shard_cols(eng.rot_keys[1], NS)
+    sharded = {  # label -> (fn, single-device result, ici_bytes_per_op)
+        "hmult coeff x4": (lambda: sh_mult(a_s, b_s, key_s), out.data,
+                           ici_bytes_per_op(params, LEVEL_B, NS, "hmult",
+                                            packed=False)),
+        "hrotate coeff x4": (lambda: sh_rot(a_s, route, rkey_s), rot.data,
+                             ici_bytes_per_op(params, LEVEL_B, NS, "hrotate",
+                                              route_identity=route[2],
+                                              packed=False)),
+    }
+    for label, (fn, want, ici) in sharded.items():
+        mesh.reset_counts()
+        got, launches[label] = drive(torch, kernels, f"{label} (45,35,15)",
+                                     fn, COEFF_KERNELS)
+        if not torch.equal(gather_cols(got), want):
+            raise AssertionError(f"{label}: != single-device result")
+        if mesh.recv_bytes != [ici] * NS:
+            raise AssertionError(f"{label}: shards received "
+                                 f"{mesh.recv_bytes} bytes, "
+                                 f"ici_bytes_per_op = {ici}")
+        print(f"# {label}: == single-device piecewise result, bit-exact; "
+              f"{ici} bytes received by each shard == ici_bytes_per_op")
+    coeff_out = Ciphertext(gather_cols(sh_mult(a_s, b_s, key_s)), LEVEL_B - 1,
+                           out.scale)
+    err_coeff = float(np.max(np.abs(eng.decrypt_complex(coeff_out)
+                                    - v1 * v2)))
+    print(f"# verify max-abs-err = {err_coeff:.3e} (hmult, 4 coefficient "
+          f"shards), all {slots} slots")
+    if not err_coeff < GATE:
+        raise AssertionError(f"sharded hmult decrypt gate {GATE} failed")
+
     # 6. timings
     torch.cuda.reset_peak_memory_stats()
     timed = {  # label -> (fn, fused route?)
@@ -468,6 +606,10 @@ def main() -> int:
             api.USE_FUSED_HPIP = False
         print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager, "
               f"{timings[label][1]:.3f} ms device time")
+    for label, (fn, _, _) in sharded.items():
+        timings[label] = (latency_ms(torch, fn), None)
+        print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager "
+              "(4 shards on one card, not a multi-card latency)")
     peak = torch.cuda.max_memory_allocated() / 2**20
     print(f"# (eager: CUDA events, median of 20 after 3 warm-up runs; device "
           f"time: CUDA graph replay; peak memory {peak:.0f} MiB)")
@@ -481,6 +623,7 @@ def main() -> int:
     headline = {"ntt_fwd": "tail out M=34 rep=2", "ntt_inv": "main M=35 rep=1",
                 "bconv": results["bconv"][0][0],
                 "hpip": results["hpip"][0][0]}
+    headline.update({k: "ns=4 c=64 main M=35 rep=1" for k in PHASE_KERNELS})
     rows = []
     for name in KERNELS:
         res = results[name]
@@ -498,9 +641,10 @@ def main() -> int:
     print(json.dumps({
         "kernels": rows,
         "eager_ms": {k: v[0] for k, v in timings.items()},
-        "device_ms": {k: v[1] for k, v in timings.items()},
+        "device_ms": {k: v[1] for k, v in timings.items()
+                      if v[1] is not None},
         "verify_max_err": {"hmult": err_mult, "hsquare": err_sq,
-                           "hrotate": err_rot}}))
+                           "hrotate": err_rot, "hmult coeff x4": err_coeff}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -31,15 +31,23 @@ from .stats import Statistic, op_modmul_count
 
 # Route key switches through the fused ModUp-NTT + inner-product kernel
 # (B4, ops/hpip.py) instead of the piecewise path. Off by default, as in
-# the JAX package; both routes give the same bits.
+# the JAX package; both routes give the same bits. A coefficient-sharded
+# key switch (kt.main_nt.shard set) always takes the piecewise route, as
+# in the JAX package: B4 runs whole-limb NTTs.
 USE_FUSED_HPIP = False
 
 
+def _fused(kt: KeySwitchLevelTables) -> bool:
+    return USE_FUSED_HPIP and kt.main_nt.shard is None
+
+
 def _keyswitch_rescale_tail(d0, d1, d2, key, kt: KeySwitchLevelTables):
-    """KeySwitch(d2) -> relinearisation add -> rescale of both components
-    (the single-device branches of api._keyswitch_rescale_tail)."""
+    """KeySwitch(d2) -> relinearisation add -> rescale of both components.
+    The JAX package ends its sharded branch in one moddown_rescale per
+    component (api.py:98-103); the batched moddown_rescale2 gives the same
+    bits and moves the same rows through each exchange."""
     d2 = d2.to(torch.int32)
-    if USE_FUSED_HPIP:
+    if _fused(kt):
         alpha = kt.special_nt.q.shape[0]
         acc = hpip_acc(modup_convs_coeff(d2, kt), d2, key, kt)
         return moddown_rescale2((acc[0, :alpha], acc[0, alpha:]),
@@ -71,16 +79,24 @@ def hsquare_graph(a: torch.Tensor, key: torch.Tensor,
     return _keyswitch_rescale_tail(d0, d1, d2, key, kt)
 
 
+def hrotate_tail(r0: torch.Tensor, r1: torch.Tensor, key: torch.Tensor,
+                 kt: KeySwitchLevelTables) -> torch.Tensor:
+    """hrotate after the automorphism: KeySwitch(r1) -> add r0. The JAX
+    package switches each component's ModDown on its own when sharded
+    (keyswitch.py:193-197); keyswitch_pieces keeps them batched, with the
+    same bits."""
+    q = kt.main_nt.q.long().view(-1, 1, 1)
+    ks = keyswitch_fused if _fused(kt) else keyswitch_pieces
+    e = ks(r1, key, kt)
+    return torch.stack([modadd(r0, e[0], q).to(torch.int32), e[1]])
+
+
 def hrotate_graph(a: torch.Tensor, perm: torch.Tensor, key: torch.Tensor,
                   kt: KeySwitchLevelTables) -> torch.Tensor:
     """AUTO(c0), AUTO(c1) -> KeySwitch(sigma(c1)) -> add. a: int32
     [2, level, n2, n1]; returns the same shape."""
-    q = kt.main_nt.q.long().view(-1, 1, 1)
-    r0 = automorph_eval(a[0], perm)
-    r1 = automorph_eval(a[1], perm)
-    ks = keyswitch_fused if USE_FUSED_HPIP else keyswitch_pieces
-    e = ks(r1, key, kt)
-    return torch.stack([modadd(r0, e[0], q).to(torch.int32), e[1]])
+    return hrotate_tail(automorph_eval(a[0], perm),
+                        automorph_eval(a[1], perm), key, kt)
 
 
 def hrotate_hoisted_graph(a: torch.Tensor, perms: Sequence[torch.Tensor],

@@ -1,14 +1,23 @@
 """CLI: `python -m homulator_tpu_torch run <cfg> <op> <maxLevel> <level>
-<alpha> [cluster] [--verify] [--device cuda|cpu] [--fused-hpip]`.
+<alpha> [cluster] [--verify] [--device cuda|cpu] [--fused-hpip]
+[--dispatch auto|limb|coeff|hybrid|gspmd]`.
 
 The reference's positional contract, as in `homulator_tpu/cli.py`, for the
 ops this port has so far (hmult, hsquare, hrotate by one step). The
-others, and a [cluster] positional above 1, exit with status 2 and name
-the ROADMAP item that ports them. `--verify` decrypts every slot and
-prints the JAX CLI's `# verify max-abs-err = ...` line; an error above
-1e-2 exits with 1. `--fused-hpip` (or the cfg key `fused_hpip = 1`) routes
-key switches through the fused HPIP kernel (api.USE_FUSED_HPIP) for the
-run and restores the flag afterwards.
+others exit with status 2 and name the ROADMAP item that ports them.
+`--verify` decrypts every slot and prints the JAX CLI's `# verify
+max-abs-err = ...` line; an error above 1e-2 exits with 1. `--fused-hpip`
+(or the cfg key `fused_hpip = 1`) routes key switches through the fused
+HPIP kernel (api.USE_FUSED_HPIP) for the run and restores the flag
+afterwards.
+
+A [cluster] positional above 1 selects a multi-device dispatch, as in the
+JAX CLI. `--dispatch coeff` runs hmult or hrotate coefficient-sharded
+(parallel/sharded.py) on a ThreadMesh of [cluster] shards on the chosen
+device, where `coeff_shard_ok` allows it; with `--verify` it also checks
+the result against the single-device op bit for bit. The other dispatches
+(auto, the default, and limb, hybrid, gspmd) exit with status 2 and name
+ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -39,15 +48,27 @@ def run_op(args) -> int:
               + (f": ROADMAP {item}" if item else
                  f" (ported ops: {', '.join(PORTED)})"), file=sys.stderr)
         return 2
-    if args.cluster is not None and args.cluster > 1:
-        print(f"cluster={args.cluster}: multi-device dispatch is not ported "
-              "to homulator_tpu_torch yet: ROADMAP A12", file=sys.stderr)
+    ns = args.cluster if args.cluster is not None else 1
+    if ns <= 1 and args.dispatch in ("limb", "coeff", "hybrid"):
+        print(f"--dispatch {args.dispatch} needs the [cluster] positional "
+              "> 1", file=sys.stderr)
+        return 2
+    if ns > 1 and args.dispatch != "coeff":
+        print(f"cluster={ns} --dispatch {args.dispatch}: only the "
+              "coefficient dispatch (--dispatch coeff) is ported to "
+              "homulator_tpu_torch yet; the others: ROADMAP A12",
+              file=sys.stderr)
+        return 2
+    if ns > 1 and args.op not in ("hmult", "hrotate"):
+        print(f"--dispatch coeff runs hmult and hrotate, not {args.op!r}",
+              file=sys.stderr)
         return 2
     import torch
 
     from . import api as api_mod
     from . import kernels
     from .api import CkksEngine
+    from .parallel.mesh import coeff_shard_ok
 
     rc = RunConfig.from_cli(args.cfg, args.op, args.max_level, args.level,
                             args.alpha, args.cluster)
@@ -67,6 +88,11 @@ def run_op(args) -> int:
 
     stats = Statistic()
     params = get_params(rc.n, rc.max_level, rc.alpha, rc.scale_bits)
+    if ns > 1 and not coeff_shard_ok(params.ntt.n1, params.ntt.n2, ns):
+        print(f"--dispatch coeff needs n1, n2 % {ns} == 0 and per-shard "
+              f"tiles >= 8 (n1={params.ntt.n1}, n2={params.ntt.n2})",
+              file=sys.stderr)
+        return 2
     with stats.timer("setup/engine"):
         eng = CkksEngine(params, seed=args.seed, device=args.device)
     with stats.timer("setup/keygen"):
@@ -89,10 +115,18 @@ def run_op(args) -> int:
             return eng.hrotate(ct1, 1)
         return eng.hsquare(ct1)
 
+    single = op_once
+    if ns > 1:
+        op_once, mesh, ici = _coeff_op(eng, rc, ns, ct1, ct2)
+        print(f"# dispatch=coeff mesh=ThreadMesh({ns} shards on one "
+              f"{args.device} device) ici_bytes_per_shard={ici}")
+
     with stats.timer("first_run"):  # includes the kernel build on a GPU
         out = op_once()
         sync()
     kernels.reset_launch_counts()
+    if ns > 1:
+        mesh.reset_counts()
     for _ in range(args.iters):
         t0 = time.perf_counter()
         out = op_once()
@@ -100,11 +134,25 @@ def run_op(args) -> int:
         stats.record_time(f"op/{rc.op}", time.perf_counter() - t0)
     for k, v in kernels.LAUNCHES.items():
         stats.set(f"launches/{k}", v)
+    if ns > 1:
+        # bytes each shard received per run: ici_bytes_per_op's count
+        got = mesh.recv_bytes
+        stats.set("exchange_bytes_per_shard", ici)
+        if got != [ici * args.iters] * ns:
+            print(f"shards received {got} bytes in {args.iters} runs, "
+                  f"ici_bytes_per_op gives {ici} a run", file=sys.stderr)
+            return 1
     stats.set("modmul_count", op_modmul_count(
         rc.op, rc.n, rc.level, rc.alpha, params.beta(rc.level)))
     stats.set("limbs", rc.level)
 
     if args.verify:
+        if ns > 1:
+            same = torch.equal(out.data, single().data)
+            print(f"# coeff dispatch == single-device {rc.op}: "
+                  + ("bit-exact" if same else "DIFFERS"))
+            if not same:
+                return 1
         with stats.timer("verify/decrypt"):
             got = eng.decrypt_complex(out)
         expected = {"hmult": v1 * v2, "hsquare": v1 * v1,
@@ -123,6 +171,41 @@ def run_op(args) -> int:
     return 0
 
 
+def _coeff_op(eng, rc, ns, ct1, ct2):
+    """(op_once, mesh, ici): the op of rc coefficient-sharded over a
+    ThreadMesh of ns shards on the engine's device, its operands and key
+    sharded once here; op_once gathers the result into a Ciphertext."""
+    from .context import Ciphertext
+    from .parallel.comm import ThreadMesh
+    from .parallel.sharded import (
+        gather_cols, ici_bytes_per_op, make_shardmap_hmult,
+        make_shardmap_hrotate, shard_cols,
+    )
+
+    params = eng.params
+    mesh = ThreadMesh(ns, eng.dc.device)
+    a = shard_cols(ct1.data, ns)
+    if rc.op == "hmult":
+        f = make_shardmap_hmult(eng.dc, rc.level, mesh, packed=False)
+        b, key = shard_cols(ct2.data, ns), shard_cols(eng.relin_key, ns)
+        ici = ici_bytes_per_op(params, rc.level, ns, "hmult", packed=False)
+
+        def op_once():
+            return Ciphertext(gather_cols(f(a, b, key)), rc.level - 1,
+                              ct1.scale * ct2.scale / params.qs[rc.level - 1])
+    else:
+        f = make_shardmap_hrotate(eng.dc, rc.level, mesh, packed=False)
+        route = eng.dc.automorph_shard_route(params.galois_elt(1), ns)
+        key = shard_cols(eng.rot_keys[1], ns)
+        ici = ici_bytes_per_op(params, rc.level, ns, "hrotate",
+                               route_identity=route[2], packed=False)
+
+        def op_once():
+            return Ciphertext(gather_cols(f(a, route, key)), rc.level,
+                              ct1.scale)
+    return op_once, mesh, ici
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="homulator_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -134,7 +217,7 @@ def main(argv=None) -> int:
     runp.add_argument("level", type=int)
     runp.add_argument("alpha", type=int)
     runp.add_argument("cluster", type=int, nargs="?", default=None,
-                      help="device count (only 1 is ported)")
+                      help="shard count; above 1 with --dispatch coeff")
     runp.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                       help="cuda: the CUDA kernels; cpu: their plain "
                            "PyTorch versions")
@@ -144,6 +227,10 @@ def main(argv=None) -> int:
     runp.add_argument("--fused-hpip", action="store_true",
                       help="route key switches through the fused HPIP "
                            "kernel B4 (also cfg key fused_hpip = 1)")
+    runp.add_argument("--dispatch", default="auto",
+                      choices=["auto", "limb", "coeff", "hybrid", "gspmd"],
+                      help="multi-device dispatch for [cluster] > 1; only "
+                           "coeff is ported (ROADMAP A12)")
     args = ap.parse_args(argv)
     from . import api as api_mod
 

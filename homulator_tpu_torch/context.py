@@ -87,7 +87,13 @@ class NttBasis:
     tw1/tw2 (and the inverse itw1/itw2): int32[M, n] flat stage twiddles,
     stage s block b at column 2^s + b; mid/mid_inv: int32[M, n1, n2] mid
     twiddles (mid_inv carries 1/N). Each has a `*_sh` Shoup quotient
-    table for the CUDA kernels."""
+    table for the CUDA kernels. rows: the basis's prime indices.
+
+    shard: (rank, ns) on a coefficient-sharded basis (the JAX NttBasis's
+    shard_axis): mid, mid_inv and their Shoup tables are then this rank's
+    contiguous column slice [M, n1, n2/ns], every other table is the
+    whole basis's, and ntt/intt run as the phase-split transform around an
+    all_to_all (ops/ntt.py)."""
 
     q: torch.Tensor
     tw1: torch.Tensor
@@ -104,6 +110,8 @@ class NttBasis:
     itw2_sh: torch.Tensor
     n1: int
     n2: int
+    rows: Tuple[int, ...] = ()
+    shard: Optional[Tuple[int, int]] = None
 
 
 @dataclasses.dataclass
@@ -205,9 +213,10 @@ class DeviceContext:
         self._tw2 = _flat_stages(t.sub2.stage_tw, t.n2)
         self._itw1 = _flat_stages(t.sub1.inv_stage_tw, t.n1)
         self._itw2 = _flat_stages(t.sub2.inv_stage_tw, t.n2)
-        self._nt_cache: Dict[Tuple[int, ...], NttBasis] = {}
-        self._ks_cache: Dict[int, KeySwitchLevelTables] = {}
+        self._nt_cache: Dict[tuple, NttBasis] = {}
+        self._ks_cache: Dict[tuple, KeySwitchLevelTables] = {}
         self._perm_cache: Dict[int, torch.Tensor] = {}
+        self._route_cache: Dict[Tuple[int, int], tuple] = {}
 
     # ---- basis row helpers (same orders as the JAX DeviceContext) --------
     def main_rows(self, level: int) -> Tuple[int, ...]:
@@ -231,10 +240,18 @@ class DeviceContext:
         return self.tensor(w), self.tensor(_shoup(w, q))
 
     # ---- tables ----------------------------------------------------------
-    def ntt_basis(self, rows: Tuple[int, ...]) -> NttBasis:
+    def ntt_basis(self, rows: Tuple[int, ...],
+                  shard: Optional[Tuple[int, int]] = None) -> NttBasis:
+        """The basis of `rows`; with shard = (rank, ns), its coefficient-
+        sharded form for that rank (see NttBasis)."""
         rows = tuple(rows)
-        if rows in self._nt_cache:
-            return self._nt_cache[rows]
+        key = (rows, shard)
+        if key in self._nt_cache:
+            return self._nt_cache[key]
+        if shard is not None:
+            nb = self._shard_basis(self.ntt_basis(rows), shard)
+            self._nt_cache[key] = nb
+            return nb
         p = self.params
         r = np.array(rows, dtype=np.int64)
         q = p.q_arr[r]
@@ -251,16 +268,53 @@ class DeviceContext:
             tw2=tw2, tw2_sh=tw2_sh,
             itw1=itw1, itw1_sh=itw1_sh, mid_inv=mid_inv,
             mid_inv_sh=mid_inv_sh, itw2=itw2, itw2_sh=itw2_sh,
-            n1=p.ntt.n1, n2=p.ntt.n2,
+            n1=p.ntt.n1, n2=p.ntt.n2, rows=rows,
         )
-        self._nt_cache[rows] = nb
+        self._nt_cache[key] = nb
         return nb
 
-    def keyswitch_tables(self, level: int) -> KeySwitchLevelTables:
+    def _shard_basis(self, nb: NttBasis, shard: Tuple[int, int]) -> NttBasis:
+        """nb with the mid tables cut to rank's columns [r*c, (r+1)*c) of
+        n2, c = n2/ns (the P(None, None, axis) specs of
+        homulator_tpu/parallel/sharded.py:62-87)."""
+        rank, ns = shard
+        t = self.params.ntt
+        if not (0 <= rank < ns and t.n1 % ns == 0 and t.n2 % ns == 0):
+            raise ValueError(f"shard {shard}: need 0 <= rank < ns and ns | "
+                             f"n1={t.n1}, n2={t.n2}")
+        c = t.n2 // ns
+        cols = slice(rank * c, (rank + 1) * c)
+        return dataclasses.replace(
+            nb, shard=(rank, ns),
+            **{k: getattr(nb, k)[:, :, cols].contiguous()
+               for k in ("mid", "mid_sh", "mid_inv", "mid_inv_sh")})
+
+    def keyswitch_tables(self, level: int,
+                         shard: Optional[Tuple[int, int]] = None
+                         ) -> KeySwitchLevelTables:
         """Tables of the accelerated key-switch route at `level` (the
-        fused ModDown + rescale tail needs level >= 2)."""
-        if level in self._ks_cache:
-            return self._ks_cache[level]
+        fused ModDown + rescale tail needs level >= 2). With shard =
+        (rank, ns): the same tables with every NTT basis in its sharded
+        form for that rank; all other tables are the unsharded ones."""
+        key = (level, shard)
+        if key in self._ks_cache:
+            return self._ks_cache[key]
+        if shard is not None:
+            kt = self.keyswitch_tables(level)
+
+            def cut(nb: NttBasis) -> NttBasis:
+                return self.ntt_basis(nb.rows, shard)
+
+            tail = kt.tail and dataclasses.replace(
+                kt.tail, last_nt=cut(kt.tail.last_nt),
+                out_nt=cut(kt.tail.out_nt))
+            kt = dataclasses.replace(
+                kt, digits=tuple(dataclasses.replace(dt, other_nt=cut(
+                    dt.other_nt)) for dt in kt.digits),
+                main_nt=cut(kt.main_nt), special_nt=cut(kt.special_nt),
+                ext_nt=cut(kt.ext_nt), tail=tail)
+            self._ks_cache[key] = kt
+            return kt
         p = self.params
         if not 1 <= level <= p.max_level:
             raise ValueError(f"level {level} outside [1, {p.max_level}]")
@@ -296,7 +350,7 @@ class DeviceContext:
             tail=self._tail_tables(level) if level >= 2 else None,
             level=level,
         )
-        self._ks_cache[level] = kt
+        self._ks_cache[key] = kt
         return kt
 
     def _tail_tables(self, level: int) -> TailTables:
@@ -344,6 +398,32 @@ class DeviceContext:
             perm = self.params.automorph_eval_perm(g).astype(np.int64)
             self._perm_cache[g] = torch.from_numpy(perm).to(self.device)
         return self._perm_cache[g]
+
+    def automorph_shard_route(self, g: int, ns: int):
+        """(local_src, pairs, is_identity): sigma_g on an ns-way column-
+        sharded eval tile as one whole-shard ppermute and a local gather
+        (ops/automorph.build_shard_route), as the JAX
+        DeviceContext.automorph_shard_route gives it. local_src: int64
+        [ns, n2*(n1/ns)] gather tables on this device (row r is rank r's);
+        pairs: the ppermute pairs (src, dst), () when the block map is the
+        identity. Where the column map is not block-aligned, the gather
+        route instead: (automorph_perm(g), None, False)."""
+        key = (g, ns)
+        if key not in self._route_cache:
+            from .ops.automorph import BlockAlignmentError, build_shard_route
+
+            t = self.params.ntt
+            try:
+                src_dev, local_src, ident = build_shard_route(
+                    self.params.automorph_eval_perm(g), t.n2, t.n1, ns)
+                pairs = () if ident else tuple(
+                    (int(src_dev[i]), i) for i in range(ns))
+                route = (torch.from_numpy(local_src.astype(np.int64))
+                         .to(self.device), pairs, ident)
+            except BlockAlignmentError:
+                route = (self.automorph_perm(g), None, False)
+            self._route_cache[key] = route
+        return self._route_cache[key]
 
     # ---- host <-> device -------------------------------------------------
     def _eval_tiles(self, flat: np.ndarray) -> np.ndarray:

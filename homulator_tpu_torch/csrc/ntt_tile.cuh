@@ -1,8 +1,9 @@
 // Column-tile NTT building blocks shared by the NTT kernels (ntt.cu: B1,
-// B2) and the fused HPIP kernel (hpip.cu: B4).
+// B2 and the phase kernels B6-B9) and the fused HPIP kernel (hpip.cu: B4).
 //
 // A block owns an [n, TC] column tile of one limb in shared memory (row
-// stride ld = TC + 1: no bank conflicts in the transposed write) and runs
+// stride ld = TC + 1: no bank conflicts in the transposed write; TC =
+// min(32, row pitch), so a narrow shard slice keeps one tile) and runs
 // every butterfly stage of one axis on it. Stage twiddles are flat [n]
 // rows: stage s, block b at column 2^s + b. Values stay fully reduced in
 // [0, q) after every butterfly.
@@ -109,28 +110,44 @@ __device__ inline void store_tile_t(const uint32_t* s,
   }
 }
 
-// Forward phase A on one limb: the [n1, TC] tile at column c0 of x [n1, n2]
-// (coeff), CT stages along n1 with this limb's tw1 row, times its tw_mid
-// [n1, n2] (in the load layout: coalesced table reads), written transposed
-// into y [n2, n1].
+// Multiply the tile by a per-element Shoup table laid out like its source
+// (row-major [n, stride], tile at column c0): coalesced table reads.
+__device__ inline void mul_tile(uint32_t* s, const uint32_t* __restrict__ w,
+                                const uint32_t* __restrict__ w_sh, int logn,
+                                int logtc, int ld, int stride, int c0,
+                                uint32_t q) {
+  for (int t = threadIdx.x; t < (1 << (logn + logtc)); t += blockDim.x) {
+    const int r = t >> logtc;
+    const int c = t & ((1 << logtc) - 1);
+    const size_t g = (size_t)r * stride + c0 + c;
+    s[r * ld + c] = shoup_mul(s[r * ld + c], w[g], w_sh[g], q);
+  }
+  __syncthreads();
+}
+
+// Forward stage 1 on one limb: the [n1, TC] tile at column c0 of x
+// [n1, 2^logc] (coeff rows of pitch c: n2 for a whole limb, the column
+// slice width on a coefficient shard), CT stages along n1 with this limb's
+// tw1 row, times its mid table (same layout as x). kTranspose (B1's phase
+// A, B4's phase A): written transposed into y [c, n1]. Otherwise (B6): y
+// has x's layout, since on a shard the exchange does the transpose.
+template <bool kTranspose = true>
 __device__ inline void fwd_a_tile(uint32_t* s, const uint32_t* __restrict__ x,
                                   uint32_t* __restrict__ y, uint32_t q,
                                   const uint32_t* __restrict__ tw1,
                                   const uint32_t* __restrict__ tw1_sh,
                                   const uint32_t* __restrict__ mid,
                                   const uint32_t* __restrict__ mid_sh,
-                                  int log1, int log2, int logtc, int c0) {
+                                  int log1, int logc, int logtc, int c0) {
   const int ld = (1 << logtc) + 1;
-  load_tile(s, x, log1, logtc, ld, 1 << log2, c0, nullptr, nullptr, q);
+  load_tile(s, x, log1, logtc, ld, 1 << logc, c0, nullptr, nullptr, q);
   ct_rows(s, log1, logtc, ld, tw1, tw1_sh, q);
-  for (int t = threadIdx.x; t < (1 << (log1 + logtc)); t += blockDim.x) {
-    const int r = t >> logtc;
-    const int c = t & ((1 << logtc) - 1);
-    const size_t g = ((size_t)r << log2) + c0 + c;
-    s[r * ld + c] = shoup_mul(s[r * ld + c], mid[g], mid_sh[g], q);
+  mul_tile(s, mid, mid_sh, log1, logtc, ld, 1 << logc, c0, q);
+  if constexpr (kTranspose) {
+    store_tile_t(s, y, log1, logtc, ld, c0);
+  } else {
+    store_tile(s, y, log1, logtc, ld, 1 << logc, c0);
   }
-  __syncthreads();
-  store_tile_t(s, y, log1, logtc, ld, c0);
 }
 
 inline int ilog2(int n) {

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Optional
 
@@ -31,11 +32,15 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Launch counts per kernel wrapper: each wrapper adds one where it launches
-# its kernel, and nowhere else.
-LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "bconv": 0, "hpip": 0}
+# Launch counts per kernel wrapper: each wrapper adds one (`count`) where it
+# launches its kernel, and nowhere else. The shard threads of a ThreadMesh
+# launch concurrently, so updates and the first load hold a lock.
+LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "bconv": 0, "hpip": 0,
+            "ntt_phase1": 0, "ntt_phase2": 0, "intt_phase2": 0,
+            "intt_phase1": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
+_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +48,12 @@ _SIGNATURES = {
     # x, scratch, out, q, 6 tables, rows, M, n1, n2, stream
     "hk_ntt_fwd": [_P] * 10 + [_I] * 4 + [_P],
     "hk_ntt_inv": [_P] * 10 + [_I] * 4 + [_P],
+    # x, out, q, 4 tables (B6: tw1, tw1_sh, mid, mid_sh; B9: mid_inv,
+    # mid_inv_sh, itw1, itw1_sh) or 2 (B7, B8), rows, M, n, c, stream
+    "hk_ntt_phase1": [_P] * 7 + [_I] * 4 + [_P],
+    "hk_ntt_phase2": [_P] * 5 + [_I] * 4 + [_P],
+    "hk_intt_phase2": [_P] * 5 + [_I] * 4 + [_P],
+    "hk_intt_phase1": [_P] * 7 + [_I] * 4 + [_P],
     # x, out, s, s_sh, in_q, mat, mat_sh, out_q, nd, center, m_out, ncoef,
     # stream
     "hk_bconv": [_P] * 8 + [_I] * 3 + [ctypes.c_longlong, _P],
@@ -53,8 +64,15 @@ _SIGNATURES = {
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count(name: str) -> None:
+    """One launch of kernel `name` (called by its wrapper only)."""
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -126,7 +144,9 @@ def build() -> float:
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use in this process."""
     global _LIB
-    if _LIB is None:
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
         build()
         lib = ctypes.CDLL(library_path())
         for name, argtypes in _SIGNATURES.items():
@@ -136,7 +156,7 @@ def load() -> ctypes.CDLL:
         lib.hk_error_string.argtypes = [ctypes.c_int]
         lib.hk_error_string.restype = ctypes.c_char_p
         _LIB = lib
-    return _LIB
+        return _LIB
 
 
 def check(rc: int, what: str) -> None:

@@ -75,5 +75,5 @@ def bconv_fused(x, s, s_sh, in_q, mat, mat_sh, out_q, *,
             kernels.ptr(mat_sh), kernels.ptr(out_q), nd, int(center), m_out,
             R * C, kernels.stream(x))
     kernels.check(rc, "bconv")
-    kernels.LAUNCHES["bconv"] += 1
+    kernels.count("bconv")
     return out

@@ -99,6 +99,6 @@ def hpip_kernel(convs, d_eval: torch.Tensor, key: torch.Tensor,
             *(kernels.ptr(getattr(nt, k)) for k in _FWD_TABLES),
             beta, alpha, level, key.shape[2], n1, n2, kernels.stream(d_eval))
     kernels.check(rc, "hpip")
-    kernels.LAUNCHES["hpip"] += 1
+    kernels.count("hpip")
     return out
 

@@ -1,11 +1,14 @@
-"""Wrappers of the CUDA NTT kernels B1 (forward) and B2 (inverse).
+"""Wrappers of the CUDA NTT kernels: B1 (forward) and B2 (inverse), and the
+phase kernels B6-B9 of the coefficient-sharded transform.
 
-They replace `homulator_tpu/ops/ntt_pallas.py::ntt_pallas` and
-`::intt_pallas` (csrc/ntt.cu has the design note). Each transform is two
-launches on PyTorch's current stream, through a scratch array the wrapper
-allocates; the wrapper counts one launch of its kernel per transform. The
-plain versions are `ntt_plain` / `intt_plain` in ops/ntt.py: callers
-dispatch CPU tensors there, never here.
+B1 and B2 replace `homulator_tpu/ops/ntt_pallas.py::ntt_pallas` and
+`::intt_pallas`; each transform is two launches on PyTorch's current
+stream, through a scratch array the wrapper allocates, and the wrapper
+counts one launch of its kernel per transform. B6-B9 replace
+`::ntt_phase1_pallas`, `::ntt_phase2_pallas`, `::intt_phase2_pallas` and
+`::intt_phase1_pallas`: one launch each on [rep*M, n, c] column slices
+(csrc/ntt.cu has the design note). The plain versions are in ops/ntt.py:
+callers dispatch CPU tensors there, never here.
 """
 
 from __future__ import annotations
@@ -46,8 +49,72 @@ def _launch(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
             *(kernels.ptr(getattr(nb, k)) for k in tables),
             rep * M, M, n1, n2, kernels.stream(x))
     kernels.check(rc, name)
-    kernels.LAUNCHES[name] += 1
+    kernels.count(name)
     return out
+
+
+def _launch_phase(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
+                  tables, n: int, sliced=()) -> torch.Tensor:
+    """One phase kernel on x [rep*M, n, c] (c a power of two up to n)
+    -> a new [rep*M, n, c]. The tables named in `sliced` are per-element
+    [M, n, c] (the shard's mid slice that B6 and B9 read); the others are
+    flat stage tables [M, n]."""
+    if not x.is_cuda:
+        raise ValueError(f"{name}: CUDA kernel called on {x.device}")
+    M = nb.q.shape[0]
+    if rep < 1 or x.ndim != 3 or x.shape[0] != rep * M or x.shape[1] != n:
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not "
+                         f"[{rep}*{M}, {n}, c]")
+    c = x.shape[2]
+    if n > _MAX_N or c < 1 or c > n or c & (c - 1):
+        raise ValueError(f"{name}: n={n}, c={c}: need a power-of-two c <= "
+                         f"n <= {_MAX_N}")
+    kernels.require_cuda_int32("x", x, x.device)
+    kernels.require_cuda_int32("q", nb.q, x.device, (M,))
+    for k in tables:
+        kernels.require_cuda_int32(
+            k, getattr(nb, k), x.device,
+            (M, n, c) if k in sliced else (M, n))
+    lib = kernels.load()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, "hk_" + name)(
+            kernels.ptr(x), kernels.ptr(out), kernels.ptr(nb.q),
+            *(kernels.ptr(getattr(nb, k)) for k in tables),
+            rep * M, M, n, c, kernels.stream(x))
+    kernels.check(rc, name)
+    kernels.count(name)
+    return out
+
+
+def ntt_phase1(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
+    """Kernel B6: int32 [rep*M, n1, c] coeff columns on the GPU -> stage-1
+    CT butterflies times nb.mid ([M, n1, c], this shard's slice): [rep*M,
+    n1, c] in [0, q), not transposed (the exchange transposes)."""
+    return _launch_phase("ntt_phase1", x, nb, rep,
+                         ("tw1", "tw1_sh", "mid", "mid_sh"), nb.n1,
+                         ("mid", "mid_sh"))
+
+
+def ntt_phase2(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
+    """Kernel B7: int32 [rep*M, n2, c] -> stage-2 CT butterflies, eval
+    columns in [0, q)."""
+    return _launch_phase("ntt_phase2", x, nb, rep, ("tw2", "tw2_sh"), nb.n2)
+
+
+def intt_phase2(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
+    """Kernel B8: int32 [rep*M, n2, c] eval columns -> inverse stage-2 GS
+    butterflies, in [0, q)."""
+    return _launch_phase("intt_phase2", x, nb, rep, ("itw2", "itw2_sh"),
+                         nb.n2)
+
+
+def intt_phase1(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
+    """Kernel B9: int32 [rep*M, n1, c] -> times nb.mid_inv ([M, n1, c]),
+    then inverse stage-1 GS butterflies: coeff columns in [0, q)."""
+    return _launch_phase("intt_phase1", x, nb, rep,
+                         ("mid_inv", "mid_inv_sh", "itw1", "itw1_sh"), nb.n1,
+                         ("mid_inv", "mid_inv_sh"))
 
 
 def ntt_fwd(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:

@@ -1,0 +1,195 @@
+#!/usr/bin/env python3
+"""Latency and device time of the coefficient-sharded hmult and hrotate of
+the PyTorch + CUDA port, by shard count, on one CUDA GPU.
+
+    python3 scripts/profile_coeff_torch.py [--shards 1 2 4] [--no-baton]
+
+Runs `parallel.sharded.make_shardmap_hmult` and `make_shardmap_hrotate`
+(step 1) at (45,35,15) of parameter set B (N = 2^16) on a `ThreadMesh` of
+each shard count on this one card, and the single-device ops beside them.
+The single-device hmult also runs in a new thread per call, as a
+ThreadMesh starts its shard threads. For each: the eager latency (CUDA
+events around a synchronised call, median of 20 after 3 warm-up calls;
+for the sharded ops this is ns shard threads on one card, not a
+multi-card latency), the device kernel time per op from torch.profiler
+over 5 calls grouped by kernel (the phase kernels B6-B9, B1/B2, B3, torch
+copies and concatenations, torch elementwise), the card's idle share of
+the eager call, 1 - device time / latency, the host time (the call's
+wall time until it returns, without a synchronise; median of 20) and the
+CUDA runtime calls per op that wait for the device or copy through the
+host (synchronise, memcpy; from the profiler's runtime events). `--no-baton` runs the
+shards without ThreadMesh's baton lock, so their threads contend for the
+interpreter lock at every torch call. Prints the card's name and power
+limit first. Imports no JAX and nothing of the JAX package.
+"""
+
+import argparse
+import os
+import subprocess
+import sys
+import threading
+from collections import defaultdict
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LEVEL = 35
+CALLS = 5
+
+GROUPS = (  # (group, substrings of the kernel name); the first match wins
+    ("B6 ntt_phase1", ("ntt_fwd_a<false>",)),
+    ("B8 intt_phase2", ("ntt_inv_a<false>",)),
+    ("B1 ntt_fwd (phase A)", ("ntt_fwd_a<true>",)),
+    ("B2 ntt_inv (phase A)", ("ntt_inv_a<true>",)),
+    ("B7 ntt_phase2 / B1 phase B", ("ntt_fwd_b",)),
+    ("B9 intt_phase1 / B2 phase B", ("ntt_inv_b",)),
+    ("B3 bconv", ("bconv",)),
+    ("B4 hpip", ("hpip",)),
+    ("torch copies, concatenations and gathers",
+     ("copy", "Cat", "Memcpy", "index", "gather")),
+    ("torch reductions", ("reduce",)),
+    ("torch elementwise", ("elementwise", "Memset")),
+)
+
+
+def group_of(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+SYNCS = ("Synchronize", "Memcpy", "EventQuery")  # runtime calls that wait
+
+
+def host_ms(torch, fn, iters=20):
+    """Median host time of fn until it returns, the device idle at the
+    start of each call (time.perf_counter, no synchronise inside)."""
+    import statistics
+    import time
+
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def device_ms(torch, fn):
+    """(device kernel ms per call, {group: ms per call}, {waiting runtime
+    call: count per call}) of fn over CALLS eager calls under
+    torch.profiler (CUPTI sees every thread's kernels and runtime
+    calls)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(CALLS):
+            fn()
+        torch.cuda.synchronize()
+    us = defaultdict(float)
+    waits = defaultdict(int)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us[group_of(e.name)] += e.time_range.elapsed_us()
+        elif e.name.startswith("cuda") and any(k in e.name for k in SYNCS):
+            waits[e.name] += 1
+    total = sum(us.values())
+    if total == 0:
+        raise RuntimeError("the profiler recorded no device kernels")
+    return (total / CALLS / 1e3, {g: v / CALLS / 1e3 for g, v in us.items()},
+            {k: v / CALLS for k, v in waits.items()})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--shards", type=int, nargs="+", default=[1, 2, 4])
+    ap.add_argument("--no-baton", action="store_true",
+                    help="shard threads without ThreadMesh's baton lock")
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_coeff_torch: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from chip_smoke import latency_ms
+    from homulator_tpu_torch.api import CkksEngine, get_params
+    from homulator_tpu_torch.parallel.comm import ThreadMesh
+    from homulator_tpu_torch.parallel.sharded import (
+        make_shardmap_hmult, make_shardmap_hrotate, shard_cols,
+    )
+
+    class NoBatonMesh(ThreadMesh):
+        def _take_baton(self, comm):
+            pass
+
+        def _give_baton(self, comm):
+            pass
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+
+    params = get_params(n=1 << 16, max_level=45, alpha=15)
+    eng = CkksEngine(params, seed=1, device="cuda")
+    eng.keygen()
+    eng.gen_rotation_key(1)
+    rng = np.random.default_rng(7)
+    slots = params.n // 2
+    scale = float(1 << 29)
+    ct1 = eng.encrypt_complex(rng.normal(size=slots), LEVEL, scale)
+    ct2 = eng.encrypt_complex(rng.normal(size=slots), LEVEL, scale)
+
+    def in_new_thread():
+        t = threading.Thread(target=lambda: eng.hmult(ct1, ct2))
+        t.start()
+        t.join()
+
+    runs = {"single-device hmult": lambda: eng.hmult(ct1, ct2),
+            "single-device hmult, new thread per call": in_new_thread,
+            "single-device hrotate": lambda: eng.hrotate(ct1, 1)}
+    mesh_cls = NoBatonMesh if args.no_baton else ThreadMesh
+    for ns in args.shards:
+        mesh = mesh_cls(ns, "cuda")
+        a, b = shard_cols(ct1.data, ns), shard_cols(ct2.data, ns)
+        key, rkey = (shard_cols(k, ns) for k in (eng.relin_key,
+                                                 eng.rot_keys[1]))
+        route = eng.dc.automorph_shard_route(params.galois_elt(1), ns)
+        fh = make_shardmap_hmult(eng.dc, LEVEL, mesh)
+        fr = make_shardmap_hrotate(eng.dc, LEVEL, mesh)
+        runs[f"hmult {ns} shards"] = (
+            lambda fh=fh, a=a, b=b, key=key: fh(a, b, key))
+        runs[f"hrotate {ns} shards"] = (
+            lambda fr=fr, a=a, route=route, rkey=rkey: fr(a, route, rkey))
+
+    baton = "without the baton" if args.no_baton else "with the baton"
+    print(f"# (45,{LEVEL},15) on one card, shard threads {baton}; eager: "
+          "median of 20 after 3 warm-ups; device: torch.profiler over "
+          f"{CALLS} calls")
+    print("| Op | eager ms | device ms | idle share | host ms | "
+          "waiting runtime calls / op | device ms by group |")
+    print("|---|---|---|---|---|---|---|")
+    for label, fn in runs.items():
+        lat = latency_ms(torch, fn)
+        host = host_ms(torch, fn)
+        dev, groups, waits = device_ms(torch, fn)
+        top = ", ".join(f"{g} {v:.3f}" for g, v in
+                        sorted(groups.items(), key=lambda kv: -kv[1]))
+        wait = ", ".join(f"{k} {v:g}" for k, v in sorted(waits.items()))
+        print(f"| {label} | {lat:.3f} | {dev:.3f} | "
+              f"{max(0.0, 1 - dev / lat):.2f} | {host:.3f} | {wait or 0} "
+              f"| {top} |")
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "homulator_tpu"))
+    if bad:
+        raise AssertionError(f"imported {bad}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

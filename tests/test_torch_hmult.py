@@ -119,15 +119,18 @@ def test_cuda_device_is_explicit(small_params):
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter imports every module of the port and
-    chip_smoke, takes get_params from the port, runs a tiny hmult, hrotate
-    and fused-route hmult, and has loaded neither jax nor any module of
-    the JAX package homulator_tpu."""
+    """A fresh interpreter imports every module of the port (its ops and
+    parallel packages included) and chip_smoke, takes get_params from the
+    port, runs a tiny hmult, hrotate, fused-route hmult and 2-shard
+    coefficient-sharded hmult, and has loaded neither jax nor any module
+    of the JAX package homulator_tpu."""
     code = (
         "import pkgutil, sys\n"
         "import numpy as np\n"
         "import homulator_tpu_torch, homulator_tpu_torch.ops, chip_smoke\n"
-        "for pkg in (homulator_tpu_torch, homulator_tpu_torch.ops):\n"
+        "import homulator_tpu_torch.parallel\n"
+        "for pkg in (homulator_tpu_torch, homulator_tpu_torch.ops,\n"
+        "            homulator_tpu_torch.parallel):\n"
         "    for m in pkgutil.iter_modules(pkg.__path__):\n"
         "        if m.name != '__main__':  # __main__ runs the CLI\n"
         "            __import__(pkg.__name__ + '.' + m.name)\n"
@@ -141,6 +144,12 @@ def test_port_imports_no_jax():
         "assert e.hrotate(a, 1).level == 3\n"
         "api.USE_FUSED_HPIP = True\n"
         "assert e.hmult(a, a).level == 2\n"
+        "from homulator_tpu_torch.parallel import comm, sharded\n"
+        "f = sharded.make_shardmap_hmult(e.dc, 3, comm.ThreadMesh(2, 'cpu'))\n"
+        "s = sharded.shard_cols\n"
+        "out = sharded.gather_cols(f(s(a.data, 2), s(a.data, 2),"
+        " s(e.relin_key, 2)))\n"
+        "assert (out == e.hmult(a, a).data).all()\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'homulator_tpu'))\n"
         "assert not bad, bad\n"
