@@ -19,8 +19,13 @@ failure and the script then exits non-zero:
      partial); the phase kernels of the coefficient-sharded NTT (B6-B9) on
      rank 1's column slices at 4 shards (c = 64: the main rows M = 35, the
      partial digit's other rows M = 45, the specials M = 15 twice, and the
-     tail's shapes) and at 2, 8 and 32 shards (c = 128, 32 and 8; M = 35),
-     and B3 once on a 4-shard slice;
+     tail's shapes) and at 2, 8, 16 and 32 shards (c = 128, 32, 16 and 8;
+     M = 35: the per-limb kernels beside the packed ones at equal widths),
+     and B3 once on a 4-shard slice; their lane-packed forms (B10-B13) on
+     the last rank's [G, n, 128] lane groups at 8, 16 and 32 shards (c =
+     32, 16, 8; k = 4, 8, 16; the main rows M = 35), and at 8 shards also
+     the specials (M = 15) and the tail's last limb (M = 1) at rep = 2,
+     each copy's rows padded to a multiple of k;
   4. an independent oracle at N = 2^13 (n1 = 64 != n2 = 128), maxLevel 8,
      level 8, alpha 3 (a partial digit): the exact numpy engine
      (`RefCkks`) equals the port's hmult, hsquare, hrotate (steps 1 and
@@ -39,23 +44,31 @@ failure and the script then exits non-zero:
      hrotate_hoisted(ct, [1, 2]) equals two single hrotates; the host
      seconds of each key. Then the coefficient-sharded dispatch
      (`parallel.sharded.make_shardmap_hmult` / `make_shardmap_hrotate`,
-     step 1) on `ThreadMesh(4, "cuda")`: 4 shards run as 4 threads on this
-     one card, each launching its own kernels on its [.., 256, 64] column
-     slices, every collective a copy on the card. Launch counts are set to
-     0 just before each of the two runs and read just after: B6-B9 and B3
-     must launch, B1, B2 and B4 must not. The gathered results equal the
-     single-device piecewise ones bit for bit, the bytes each shard
-     received equal `ici_bytes_per_op(..., packed=False)`, and the hmult
-     result decrypts within 1e-2 in all 32768 slots;
+     step 1, at their default routing, as the JAX package's): on
+     `ThreadMesh(4, "cuda")` (4 shards run as 4 threads on this one card,
+     each launching its own kernels on its [.., 256, 64] column slices,
+     every collective a copy on the card) it takes the per-limb phase
+     kernels, so B6-B9 and B3 must launch and B1, B2, B4, B10-B13 must
+     not; on `ThreadMesh(8, "cuda")`, and once each on 16 and 32 shards,
+     it takes the lane-packed ones, so B10-B13 and B3 must launch and B1,
+     B2, B4, B6-B9 must not. Launch counts are set to 0 just before each
+     run and read just after. The gathered results equal the single-device
+     piecewise ones bit for bit, the bytes each shard received equal
+     `ici_bytes_per_op` (at 8, 16 and 32 shards the JAX figures, padded
+     rows included: 7,684,096 / 9,748,480, 4,546,560 / 5,447,680 and
+     2,793,472 / 3,112,960), and the 4- and 8-shard hmult results decrypt
+     within 1e-2 in all 32768 slots. Last, the batch axis: a batch of two
+     hmults on a 2 x 4 mesh (`ThreadMesh(4, "cuda", data=2)`,
+     `data_axis="data"`) equals the two single-device hmults bit for bit;
   6. latency (CUDA events around eager calls, median of 20 after 3 warm-up
      runs) and device time (graph replay) of hmult and hsquare, of hrotate
      on both key-switch routes and of hmult on the fused route; the eager
-     latency of the two sharded ops (4 shards on one card: not a multi-card
-     latency; no graph capture across the shard threads);
+     latency of the sharded ops on 4 and 8 shards (all on one card: not a
+     multi-card latency; no graph capture across the shard threads);
   7. one JSON line of per-kernel results (each kernel's times and bound at
      one shape the main path launches, named in `shape`; `max_abs_err`
-     over every shape checked; `launches` summed over the six main-path
-     runs, per run in `launches_by_run`), then the device line last.
+     over every shape checked; `launches` summed over the main-path runs,
+     per run in `launches_by_run`), then the device line last.
 
 Bound of a kernel call: the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its int32
@@ -102,13 +115,28 @@ REPLACES = {  # kernel -> (source in this repo, TPU kernel it replaces)
                     "homulator_tpu/ops/ntt_pallas.py:371"),
     "intt_phase1": ("homulator_tpu_torch/csrc/ntt.cu",
                     "homulator_tpu/ops/ntt_pallas.py:390"),
+    "ntt_phase1_packed": ("homulator_tpu_torch/csrc/ntt.cu",
+                          "homulator_tpu/ops/ntt_pallas.py:562"),
+    "ntt_phase2_packed": ("homulator_tpu_torch/csrc/ntt.cu",
+                          "homulator_tpu/ops/ntt_pallas.py:576"),
+    "intt_phase2_packed": ("homulator_tpu_torch/csrc/ntt.cu",
+                           "homulator_tpu/ops/ntt_pallas.py:587"),
+    "intt_phase1_packed": ("homulator_tpu_torch/csrc/ntt.cu",
+                           "homulator_tpu/ops/ntt_pallas.py:597"),
 }
 KERNELS = tuple(REPLACES)
 PIECES_KERNELS = ("ntt_fwd", "ntt_inv", "bconv")
 FUSED_KERNELS = PIECES_KERNELS + ("hpip",)
 PHASE_KERNELS = ("ntt_phase1", "ntt_phase2", "intt_phase2", "intt_phase1")
+PACKED_KERNELS = tuple(k + "_packed" for k in PHASE_KERNELS)
 COEFF_KERNELS = PHASE_KERNELS + ("bconv",)
-NS = 4  # coefficient shards of the sharded main path
+COEFF_PACKED_KERNELS = PACKED_KERNELS + ("bconv",)
+NS = 4  # coefficient shards of the per-limb sharded main path
+NS_PACKED = (8, 16, 32)  # shard counts that take the lane-packed kernels
+# bytes a shard receives at set B, level 35, on the default (packed) route:
+# ns -> (hmult, hrotate(1)), the JAX package's ici_bytes_per_op
+PACKED_BYTES = {8: (7684096, 9748480), 16: (4546560, 5447680),
+                32: (2793472, 3112960)}
 
 
 def latency_ms(torch, fn, iters=20, warmup=3):
@@ -177,16 +205,17 @@ def ntt_bound(nb, rep):
     return bound(nbytes, ntt_ops(rep * M, n))
 
 
-def phase_bound(nb, rep, n, c, mid):
-    """B6-B9 on rep stacked copies of basis nb over [n, c] column slices:
-    x and out, the [M, n, c] mid slice and its Shoup table (B6, B9), the
-    flat stage tables and q; n/2 * log2(n) butterflies on each of c
-    columns, and n*c mid products (B6, B9)."""
+def phase_bound(nb, rows, n, c, mid):
+    """B6-B13 on `rows` limb slices [n, c] over basis nb (rep*M, or rep*G*k
+    with the padding rows of the lane-packed kernels): x and out, the
+    [M, n, c] mid slice and its Shoup table (B6, B9, B10, B13), the flat
+    stage tables and q; n/2 * log2(n) butterflies on each of c columns, and
+    n*c mid products (B6, B9, B10, B13), a row."""
     M = nb.q.shape[0]
-    nbytes = 4 * (2 * rep * M * n * c + int(mid) * 2 * M * n * c
+    nbytes = 4 * (2 * rows * n * c + int(mid) * 2 * M * n * c
                   + 2 * M * n + M)
-    ops = rep * M * (n // 2 * (n.bit_length() - 1) * c * OPS["butterfly"]
-                     + int(mid) * n * c * OPS["shoup"])
+    ops = rows * (n // 2 * (n.bit_length() - 1) * c * OPS["butterfly"]
+                  + int(mid) * n * c * OPS["shoup"])
     return bound(nbytes, ops)
 
 
@@ -343,6 +372,7 @@ def check_phase_kernels(np, torch, dc, rng, results):
         "ns=2 c=128 main M=35 rep=1": (main_nt(2), 1, 2),
         # narrower than one 32-column tile: TC = c, row stride c + 1
         "ns=8 c=32 main M=35 rep=1": (main_nt(8), 1, 8),
+        "ns=16 c=16 main M=35 rep=1": (main_nt(16), 1, 16),
         "ns=32 c=8 main M=35 rep=1": (main_nt(32), 1, 32),
     }
     fwd = dict(common, **{
@@ -362,7 +392,7 @@ def check_phase_kernels(np, torch, dc, rng, results):
             x = random_residues(np, torch, rng, q, (len(q), n, c))
             compare(torch, name, label,
                     lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
-                    phase_bound(nb, rep, n, c, mid), results)
+                    phase_bound(nb, rep * nb.q.shape[0], n, c, mid), results)
     dt = k4.digits[0]
     nd = dt.hi - dt.lo
     x = random_residues(np, torch, rng, dt.in_q.cpu().numpy(),
@@ -374,6 +404,43 @@ def check_phase_kernels(np, torch, dc, rng, results):
             lambda: bconv_plain(x, dt.step1, dt.in_q, dt.mat, dt.other_nt.q,
                                 True),
             bconv_bound(nd, dt.mat.shape[0], True, n1 * n2 // NS), results)
+
+
+def check_packed_kernels(np, torch, dc, rng, results):
+    """Phase 3, lane-packed: B10-B13 vs their plain versions on the last
+    rank's lane groups at 8, 16 and 32 shards (M = 35), and at 8 shards
+    the specials and the tail's last limb at rep = 2 (padded rows)."""
+    from homulator_tpu_torch.ops import ntt as ntt_mod
+    from homulator_tpu_torch.ops import ntt_kernels
+
+    n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
+    cases = {}  # label -> (basis, rep)
+    for ns in NS_PACKED:
+        kt = dc.keyswitch_tables(LEVEL_B, shard=(ns - 1, ns), packed=True)
+        k = kt.main_nt.pack
+        cases[f"ns={ns} c={n2 // ns} k={k} main M=35 rep=1"] = (kt.main_nt,
+                                                                1)
+        if ns == NS_PACKED[0]:
+            cases[f"ns={ns} c={n2 // ns} k={k} special M=15 rep=2"] = (
+                kt.special_nt, 2)
+            cases[f"ns={ns} c={n2 // ns} k={k} tail last M=1 rep=2"] = (
+                kt.tail.last_nt, 2)
+    for name, n, mid in (("ntt_phase1_packed", n1, True),
+                         ("ntt_phase2_packed", n2, False),
+                         ("intt_phase2_packed", n2, False),
+                         ("intt_phase1_packed", n1, True)):
+        kernel = getattr(ntt_kernels, name)
+        plain = getattr(ntt_mod, name + "_plain")
+        for label, (nb, rep) in cases.items():
+            M, k, ns = nb.q.shape[0], nb.pack, nb.shard[1]
+            c = n // ns
+            q = np.tile(nb.q.cpu().numpy(), rep)
+            x = ntt_mod._pack_pad(random_residues(np, torch, rng, q,
+                                                  (len(q), n, c)), k, rep)
+            rows = x.shape[0] * k
+            compare(torch, name, label,
+                    lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
+                    phase_bound(nb, rows, n, c, mid), results)
 
 
 def check_oracle(np, torch, CkksEngine, get_params, api):
@@ -434,6 +501,7 @@ def drive(torch, kernels, name, fn, expect):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -448,8 +516,8 @@ def main() -> int:
     from homulator_tpu_torch.context import Ciphertext
     from homulator_tpu_torch.parallel.comm import ThreadMesh
     from homulator_tpu_torch.parallel.sharded import (
-        gather_cols, ici_bytes_per_op, make_shardmap_hmult,
-        make_shardmap_hrotate, shard_cols,
+        gather_batch, gather_cols, ici_bytes_per_op, make_shardmap_hmult,
+        make_shardmap_hrotate, shard_batch, shard_cols,
     )
 
     # 1. the card
@@ -481,6 +549,7 @@ def main() -> int:
     t0 = time.perf_counter()
     check_kernels(np, torch, eng.dc, np.random.default_rng(2), results)
     check_phase_kernels(np, torch, eng.dc, np.random.default_rng(3), results)
+    check_packed_kernels(np, torch, eng.dc, np.random.default_rng(5), results)
     print(f"# kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # 4. independent oracle at a mid size with a partial digit
@@ -549,43 +618,66 @@ def main() -> int:
     print("# hrotate_hoisted(ct, [1, 2]) == hrotate(ct, 1), hrotate(ct, 2), "
           "bit-exact")
 
-    # 5, sharded: the coefficient dispatch on 4 shards of this one card
-    mesh = ThreadMesh(NS, "cuda")
-    sh_mult = make_shardmap_hmult(eng.dc, LEVEL_B, mesh)
-    sh_rot = make_shardmap_hrotate(eng.dc, LEVEL_B, mesh)
-    route = eng.dc.automorph_shard_route(params.galois_elt(1), NS)
-    a_s, b_s = shard_cols(ct1.data, NS), shard_cols(ct2.data, NS)
-    key_s = shard_cols(eng.relin_key, NS)
-    rkey_s = shard_cols(eng.rot_keys[1], NS)
-    sharded = {  # label -> (fn, single-device result, ici_bytes_per_op)
-        "hmult coeff x4": (lambda: sh_mult(a_s, b_s, key_s), out.data,
-                           ici_bytes_per_op(params, LEVEL_B, NS, "hmult",
-                                            packed=False)),
-        "hrotate coeff x4": (lambda: sh_rot(a_s, route, rkey_s), rot.data,
-                             ici_bytes_per_op(params, LEVEL_B, NS, "hrotate",
-                                              route_identity=route[2],
-                                              packed=False)),
-    }
-    for label, (fn, want, ici) in sharded.items():
+    # 5, sharded: the coefficient dispatch on 4, 8, 16 and 32 shards of
+    # this one card, at the JAX package's default routing
+    rkey = eng.rot_keys[1]
+    sharded = {}  # label -> (fn, single-device result, bytes, kernels)
+    for ns in (NS,) + NS_PACKED:
+        mesh = ThreadMesh(ns, "cuda")
+        sh_mult = make_shardmap_hmult(eng.dc, LEVEL_B, mesh)
+        sh_rot = make_shardmap_hrotate(eng.dc, LEVEL_B, mesh)
+        route = eng.dc.automorph_shard_route(params.galois_elt(1), ns)
+        a_s, b_s = shard_cols(ct1.data, ns), shard_cols(ct2.data, ns)
+        key_s, rkey_s = shard_cols(eng.relin_key, ns), shard_cols(rkey, ns)
+        ici = (ici_bytes_per_op(params, LEVEL_B, ns, "hmult"),
+               ici_bytes_per_op(params, LEVEL_B, ns, "hrotate",
+                                route_identity=route[2]))
+        if ns in PACKED_BYTES and ici != PACKED_BYTES[ns]:
+            raise AssertionError(f"ici_bytes_per_op at {ns} shards gives "
+                                 f"{ici}, the JAX package {PACKED_BYTES[ns]}")
+        expect = COEFF_PACKED_KERNELS if ns in NS_PACKED else COEFF_KERNELS
+        sharded[f"hmult coeff x{ns}"] = (
+            mesh, lambda f=sh_mult, a=a_s, b=b_s, k=key_s: f(a, b, k),
+            out.data, ici[0], expect)
+        sharded[f"hrotate coeff x{ns}"] = (
+            mesh, lambda f=sh_rot, a=a_s, r=route, k=rkey_s: f(a, r, k),
+            rot.data, ici[1], expect)
+    errs = {}
+    for label, (mesh, fn, want, ici, expect) in sharded.items():
         mesh.reset_counts()
         got, launches[label] = drive(torch, kernels, f"{label} (45,35,15)",
-                                     fn, COEFF_KERNELS)
-        if not torch.equal(gather_cols(got), want):
+                                     fn, expect)
+        got = gather_cols(got)
+        if not torch.equal(got, want):
             raise AssertionError(f"{label}: != single-device result")
-        if mesh.recv_bytes != [ici] * NS:
+        if mesh.recv_bytes != [ici] * mesh.size:
             raise AssertionError(f"{label}: shards received "
                                  f"{mesh.recv_bytes} bytes, "
                                  f"ici_bytes_per_op = {ici}")
         print(f"# {label}: == single-device piecewise result, bit-exact; "
               f"{ici} bytes received by each shard == ici_bytes_per_op")
-    coeff_out = Ciphertext(gather_cols(sh_mult(a_s, b_s, key_s)), LEVEL_B - 1,
-                           out.scale)
-    err_coeff = float(np.max(np.abs(eng.decrypt_complex(coeff_out)
-                                    - v1 * v2)))
-    print(f"# verify max-abs-err = {err_coeff:.3e} (hmult, 4 coefficient "
-          f"shards), all {slots} slots")
-    if not err_coeff < GATE:
-        raise AssertionError(f"sharded hmult decrypt gate {GATE} failed")
+        if label in ("hmult coeff x4", "hmult coeff x8"):
+            errs[label] = float(np.max(np.abs(eng.decrypt_complex(Ciphertext(
+                got, LEVEL_B - 1, out.scale)) - v1 * v2)))
+            print(f"# verify max-abs-err = {errs[label]:.3e} ({label}), all "
+                  f"{slots} slots")
+            if not errs[label] < GATE:
+                raise AssertionError(f"{label} decrypt gate {GATE} failed")
+    # the batch axis: [ct1, ct2] x [ct2, ct1] on 2 data rows x 4 shards
+    dmesh = ThreadMesh(NS, "cuda", data=2)
+    batched = make_shardmap_hmult(eng.dc, LEVEL_B, dmesh, data_axis="data")
+    ab = torch.stack([ct1.data, ct2.data])
+    bb = torch.stack([ct2.data, ct1.data])
+    got, launches["hmult coeff 2x4 data"] = drive(
+        torch, kernels, "hmult coeff 2x4 data (45,35,15)",
+        lambda: batched(shard_batch(ab, 2, NS), shard_batch(bb, 2, NS),
+                        shard_cols(eng.relin_key, NS)), COEFF_KERNELS)
+    want = torch.stack([out.data, eng.hmult(ct2, ct1).data])
+    if not torch.equal(gather_batch(got, 2), want):
+        raise AssertionError("hmult on a 2 x 4 data x coeff mesh != the "
+                             "single-device hmults")
+    print("# hmult coeff 2x4 data: batch of 2 == single-device hmults, "
+          "bit-exact")
 
     # 6. timings
     torch.cuda.reset_peak_memory_stats()
@@ -606,15 +698,18 @@ def main() -> int:
             api.USE_FUSED_HPIP = False
         print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager, "
               f"{timings[label][1]:.3f} ms device time")
-    for label, (fn, _, _) in sharded.items():
-        timings[label] = (latency_ms(torch, fn), None)
+    for label in ("hmult coeff x4", "hrotate coeff x4", "hmult coeff x8",
+                  "hrotate coeff x8"):
+        timings[label] = (latency_ms(torch, sharded[label][1]), None)
         print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager "
-              "(4 shards on one card, not a multi-card latency)")
+              "(all shards on one card, not a multi-card latency)")
     peak = torch.cuda.max_memory_allocated() / 2**20
     print(f"# (eager: CUDA events, median of 20 after 3 warm-up runs; device "
           f"time: CUDA graph replay; peak memory {peak:.0f} MiB)")
 
     # 7. results
+    print(f"# chip_smoke total: {time.perf_counter() - t_start:.1f} s "
+          "(kernel build included)")
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "homulator_tpu"))
     if bad:
@@ -624,6 +719,8 @@ def main() -> int:
                 "bconv": results["bconv"][0][0],
                 "hpip": results["hpip"][0][0]}
     headline.update({k: "ns=4 c=64 main M=35 rep=1" for k in PHASE_KERNELS})
+    headline.update({k: "ns=8 c=32 k=4 main M=35 rep=1"
+                     for k in PACKED_KERNELS})
     rows = []
     for name in KERNELS:
         res = results[name]
@@ -643,8 +740,8 @@ def main() -> int:
         "eager_ms": {k: v[0] for k, v in timings.items()},
         "device_ms": {k: v[1] for k, v in timings.items()
                       if v[1] is not None},
-        "verify_max_err": {"hmult": err_mult, "hsquare": err_sq,
-                           "hrotate": err_rot, "hmult coeff x4": err_coeff}}))
+        "verify_max_err": dict({"hmult": err_mult, "hsquare": err_sq,
+                                "hrotate": err_rot}, **errs)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

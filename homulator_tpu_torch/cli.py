@@ -14,10 +14,13 @@ afterwards.
 A [cluster] positional above 1 selects a multi-device dispatch, as in the
 JAX CLI. `--dispatch coeff` runs hmult or hrotate coefficient-sharded
 (parallel/sharded.py) on a ThreadMesh of [cluster] shards on the chosen
-device, where `coeff_shard_ok` allows it; with `--verify` it also checks
-the result against the single-device op bit for bit. The other dispatches
-(auto, the default, and limb, hybrid, gspmd) exit with status 2 and name
-ROADMAP A12.
+device, where `coeff_shard_ok` allows it, routed as the JAX CLI routes it
+(`make_shardmap_*`'s default: the lane-packed phase kernels where
+`pack_k_for` > 0, e.g. 8 to 32 shards at N = 2^16); it checks the bytes
+each shard received against `ici_bytes_per_op` of that routing, and with
+`--verify` the result against the single-device op bit for bit. The other
+dispatches (auto, the default, and limb, hybrid, gspmd) exit with status
+2 and name ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ def run_op(args) -> int:
     from . import api as api_mod
     from . import kernels
     from .api import CkksEngine
-    from .parallel.mesh import coeff_shard_ok
+    from .parallel.mesh import coeff_shard_ok, pack_k_for
 
     rc = RunConfig.from_cli(args.cfg, args.op, args.max_level, args.level,
                             args.alpha, args.cluster)
@@ -118,8 +121,11 @@ def run_op(args) -> int:
     single = op_once
     if ns > 1:
         op_once, mesh, ici = _coeff_op(eng, rc, ns, ct1, ct2)
+        k = pack_k_for(params.ntt.n1, params.ntt.n2, ns)
         print(f"# dispatch=coeff mesh=ThreadMesh({ns} shards on one "
-              f"{args.device} device) ici_bytes_per_shard={ici}")
+              f"{args.device} device) ici_bytes_per_shard={ici} "
+              + (f"ntt=lane-packed k={k} (B10-B13)" if k
+                 else "ntt=per-limb (B6-B9)"))
 
     with stats.timer("first_run"):  # includes the kernel build on a GPU
         out = op_once()
@@ -186,19 +192,19 @@ def _coeff_op(eng, rc, ns, ct1, ct2):
     mesh = ThreadMesh(ns, eng.dc.device)
     a = shard_cols(ct1.data, ns)
     if rc.op == "hmult":
-        f = make_shardmap_hmult(eng.dc, rc.level, mesh, packed=False)
+        f = make_shardmap_hmult(eng.dc, rc.level, mesh)
         b, key = shard_cols(ct2.data, ns), shard_cols(eng.relin_key, ns)
-        ici = ici_bytes_per_op(params, rc.level, ns, "hmult", packed=False)
+        ici = ici_bytes_per_op(params, rc.level, ns, "hmult")
 
         def op_once():
             return Ciphertext(gather_cols(f(a, b, key)), rc.level - 1,
                               ct1.scale * ct2.scale / params.qs[rc.level - 1])
     else:
-        f = make_shardmap_hrotate(eng.dc, rc.level, mesh, packed=False)
+        f = make_shardmap_hrotate(eng.dc, rc.level, mesh)
         route = eng.dc.automorph_shard_route(params.galois_elt(1), ns)
         key = shard_cols(eng.rot_keys[1], ns)
         ici = ici_bytes_per_op(params, rc.level, ns, "hrotate",
-                               route_identity=route[2], packed=False)
+                               route_identity=route[2])
 
         def op_once():
             return Ciphertext(gather_cols(f(a, route, key)), rc.level,

@@ -25,6 +25,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from .parallel.mesh import pack_k_for
 from .params import CkksParams
 
 EVAL = "eval"
@@ -93,7 +94,13 @@ class NttBasis:
     shard_axis): mid, mid_inv and their Shoup tables are then this rank's
     contiguous column slice [M, n1, n2/ns], every other table is the
     whole basis's, and ntt/intt run as the phase-split transform around an
-    all_to_all (ops/ntt.py)."""
+    all_to_all (ops/ntt.py).
+
+    pack: on a sharded basis, the lane-group size k of the lane-packed
+    phase kernels B10-B13 (the JAX basis's pfwd_packed / pinv_packed), or
+    0 for the per-limb kernels B6-B9. The packed kernels read the same
+    per-limb tables: lane j of group g reads limb min((g mod G)*k + j div
+    c, M - 1), G = ceil(M/k) groups a copy (ops/ntt.py)."""
 
     q: torch.Tensor
     tw1: torch.Tensor
@@ -112,6 +119,7 @@ class NttBasis:
     n2: int
     rows: Tuple[int, ...] = ()
     shard: Optional[Tuple[int, int]] = None
+    pack: int = 0
 
 
 @dataclasses.dataclass
@@ -240,14 +248,29 @@ class DeviceContext:
         return self.tensor(w), self.tensor(_shoup(w, q))
 
     # ---- tables ----------------------------------------------------------
+    def _pack_k(self, shard: Optional[Tuple[int, int]], packed: bool) -> int:
+        """k of the lane-packed kernels for this shard count, 0 where they
+        do not run (unsharded, packed=False, or pack_k_for gives 0)."""
+        if shard is None or not packed:
+            return 0
+        t = self.params.ntt
+        return pack_k_for(t.n1, t.n2, shard[1])
+
     def ntt_basis(self, rows: Tuple[int, ...],
-                  shard: Optional[Tuple[int, int]] = None) -> NttBasis:
+                  shard: Optional[Tuple[int, int]] = None,
+                  packed: bool = False) -> NttBasis:
         """The basis of `rows`; with shard = (rank, ns), its coefficient-
-        sharded form for that rank (see NttBasis)."""
+        sharded form for that rank, lane-packed (pack = k) when `packed`
+        and pack_k_for gives k > 0 at ns (see NttBasis)."""
         rows = tuple(rows)
-        key = (rows, shard)
+        k = self._pack_k(shard, packed)
+        key = (rows, shard, k)
         if key in self._nt_cache:
             return self._nt_cache[key]
+        if k:
+            nb = dataclasses.replace(self.ntt_basis(rows, shard), pack=k)
+            self._nt_cache[key] = nb
+            return nb
         if shard is not None:
             nb = self._shard_basis(self.ntt_basis(rows), shard)
             self._nt_cache[key] = nb
@@ -290,20 +313,22 @@ class DeviceContext:
                for k in ("mid", "mid_sh", "mid_inv", "mid_inv_sh")})
 
     def keyswitch_tables(self, level: int,
-                         shard: Optional[Tuple[int, int]] = None
-                         ) -> KeySwitchLevelTables:
+                         shard: Optional[Tuple[int, int]] = None,
+                         packed: bool = False) -> KeySwitchLevelTables:
         """Tables of the accelerated key-switch route at `level` (the
         fused ModDown + rescale tail needs level >= 2). With shard =
         (rank, ns): the same tables with every NTT basis in its sharded
-        form for that rank; all other tables are the unsharded ones."""
-        key = (level, shard)
+        form for that rank (lane-packed where `packed` and pack_k_for
+        allow, as ntt_basis); all other tables are the unsharded ones."""
+        k = self._pack_k(shard, packed)
+        key = (level, shard, k)
         if key in self._ks_cache:
             return self._ks_cache[key]
         if shard is not None:
             kt = self.keyswitch_tables(level)
 
             def cut(nb: NttBasis) -> NttBasis:
-                return self.ntt_basis(nb.rows, shard)
+                return self.ntt_basis(nb.rows, shard, bool(k))
 
             tail = kt.tail and dataclasses.replace(
                 kt.tail, last_nt=cut(kt.tail.last_nt),

@@ -1,12 +1,15 @@
 // Negacyclic 4-step NTT (kernel B1) and its inverse (kernel B2) over RNS
-// limbs, and the four phase kernels of the coefficient-sharded transform
-// (B6-B9), for Hopper (sm_90a).
+// limbs, and the phase kernels of the coefficient-sharded transform, per
+// limb (B6-B9) and lane-packed (B10-B13), for Hopper (sm_90a).
 //
 // Replaces: homulator_tpu/ops/ntt_pallas.py::ntt_pallas (B1),
 // ::intt_pallas (B2), ::ntt_phase1_pallas (B6), ::ntt_phase2_pallas (B7),
-// ::intt_phase2_pallas (B8) and ::intt_phase1_pallas (B9). Same network and
-// tables as the plain versions (homulator_tpu_torch/ops/ntt.py), so the
-// outputs are the same canonical residues bit for bit.
+// ::intt_phase2_pallas (B8), ::intt_phase1_pallas (B9) and their packed
+// forms ::ntt_phase1_packed_pallas (B10), ::ntt_phase2_packed_pallas (B11),
+// ::intt_phase2_packed_pallas (B12), ::intt_phase1_packed_pallas (B13).
+// Same network and tables as the plain versions
+// (homulator_tpu_torch/ops/ntt.py), so the outputs are the same canonical
+// residues bit for bit.
 //
 // What bounds it on the card: a whole N = 2^16 limb is 256 KiB of uint32,
 // more than the 227 KB of shared memory a block can hold, so the TPU design
@@ -47,6 +50,18 @@
 // the data. A grid is (rows, c/TC): at N = 2^16 and 4 shards, B6 on 35 limbs
 // is 70 blocks, about half the card's 132 SMs.
 // Table rows are limb % M, so rep stacked copies share one basis's tables.
+//
+// B10-B13 are B6-B9 on the JAX package's lane-packed layout [rows, n, k*c]
+// (k = 128/c limbs side by side, rows padded to a multiple of k a copy),
+// which it takes at c <= 32 to fill the TPU's 128-lane registers; the
+// packed layout also fixes which rows cross the exchange, so the port keeps
+// it. On this card packing buys whole 32-column tiles (c = 8 and 16 are
+// one limb's tile of 8 or 16 columns in B6-B9), at the price of fewer
+// blocks: a grid is (rows, k*c/32), 12 blocks for 35 limbs at c = 8
+// against B9's 35, so a packed block runs 1024 threads. The kernels read
+// the per-limb tables (the flat stage rows, the shard's [M, n1, c] mid
+// slices) at each lane's limb, so no pre-broadcast lane table exists on
+// the card.
 // Stage twiddles are flat [M, n] tables: stage s, block b at column 2^s + b.
 // Multiplies use Shoup pairs (w, floor(w * 2^32 / q)) and __umulhi.
 
@@ -65,6 +80,7 @@ using hk::kLogTileCols;
 using hk::kThreads;
 using hk::load_tile;
 using hk::min_int;
+using hk::mul_cols;
 using hk::store_tile;
 using hk::store_tile_t;
 using hk::tile_smem;
@@ -153,6 +169,70 @@ ntt_inv_b(const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
   store_tile(s, out + limb * len, log1, logtc, ld, 1 << logc, c0);
 }
 
+// The lane-packed phase kernels B10-B13 on [rows, n, m] lane groups, m =
+// k*c lanes: lane block j of group g is limb (g mod G)*k + j of its rep
+// copy (G groups a copy), or the copy's last limb M - 1 for the padding
+// lanes of its last group, whose data _pack_pad made copies of that limb.
+// A block owns the [n, 32] lane tile at lane 32*blockIdx.y of group
+// blockIdx.x: 32/c limbs side by side. A thread works one lane for the
+// whole kernel (ntt_tile.cuh), so it loads its limb's q and twiddle rows
+// once and hands them to the shared stage loops; the mid tables are the
+// per-limb [M, n, c] slices of B6/B9, read at the thread's limb and column.
+template <bool kFwd, bool kMid>
+__device__ inline void packed_tile(const uint32_t* __restrict__ x,
+                                   uint32_t* __restrict__ out,
+                                   const uint32_t* __restrict__ q,
+                                   const uint32_t* __restrict__ tw,
+                                   const uint32_t* __restrict__ tw_sh,
+                                   const uint32_t* __restrict__ mid,
+                                   const uint32_t* __restrict__ mid_sh, int G,
+                                   int M, int logk, int logn, int logc) {
+  extern __shared__ uint32_t s[];
+  constexpr int lt = kLogTileCols, ld = (1 << lt) + 1;
+  const int logm = logk + logc;
+  const int g = blockIdx.x, lane0 = blockIdx.y << lt;
+  const int lane = lane0 + (threadIdx.x & ((1 << lt) - 1));
+  const int limb = min(((g % G) << logk) + (lane >> logc), M - 1);
+  const uint32_t qq = q[limb];
+  const size_t len = (size_t)1 << (logn + logm);
+  const size_t trow = (size_t)limb << logn;
+  const size_t mcol =
+      ((size_t)limb << (logn + logc)) + (lane & ((1 << logc) - 1));
+  load_tile(s, x + g * len, logn, lt, ld, 1 << logm, lane0, nullptr, nullptr,
+            qq);
+  if constexpr (kFwd) {
+    ct_rows(s, logn, lt, ld, tw + trow, tw_sh + trow, qq);
+    if constexpr (kMid)
+      mul_cols(s, mid + mcol, mid_sh + mcol, logn, lt, ld, 1 << logc, qq);
+  } else {
+    if constexpr (kMid)
+      mul_cols(s, mid + mcol, mid_sh + mcol, logn, lt, ld, 1 << logc, qq);
+    gs_rows(s, logn, lt, ld, tw + trow, tw_sh + trow, qq);
+  }
+  store_tile(s, out + g * len, logn, lt, ld, 1 << logm, lane0);
+}
+
+// 1024 threads a block: 4 butterflies a thread a stage on the 32-column
+// tile, against 16 with kThreads = 256, which halves B10-B13's time on an
+// H100 (PERF.md). A thread still keeps one column: 1024 % 32 == 0.
+constexpr int kPackedThreads = 1024;
+#define HK_PACKED_KERNEL(name, fwd, with_mid)                               \
+  __global__ void __launch_bounds__(kPackedThreads)                         \
+      name(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,      \
+           const uint32_t* __restrict__ q, const uint32_t* __restrict__ tw, \
+           const uint32_t* __restrict__ tw_sh,                              \
+           const uint32_t* __restrict__ mid,                                \
+           const uint32_t* __restrict__ mid_sh, int G, int M, int logk,     \
+           int logn, int logc) {                                            \
+    packed_tile<fwd, with_mid>(x, out, q, tw, tw_sh, mid, mid_sh, G, M,     \
+                               logk, logn, logc);                           \
+  }
+HK_PACKED_KERNEL(packed_fwd1, true, true)     // B10: stage 1, mid slice
+HK_PACKED_KERNEL(packed_fwd2, true, false)    // B11: stage 2
+HK_PACKED_KERNEL(packed_inv2, false, false)   // B12: inverse stage 2
+HK_PACKED_KERNEL(packed_inv1, false, true)    // B13: mid_inv, inverse stage 1
+#undef HK_PACKED_KERNEL
+
 bool bad_shape(int rows, int M, int log1, int log2) {
   return rows <= 0 || M <= 0 || rows % M != 0 || log1 < 1 || log2 < 1 ||
          log1 > 10 || log2 > 10;
@@ -163,6 +243,36 @@ bool bad_shape(int rows, int M, int log1, int log2) {
 bool bad_phase(int rows, int M, int logn, int logc) {
   return rows <= 0 || M <= 0 || rows % M != 0 || logn < 1 || logn > 10 ||
          logc < 0 || logc > logn;
+}
+
+using PackedKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
+                              const uint32_t*, const uint32_t*,
+                              const uint32_t*, const uint32_t*, int, int, int,
+                              int, int);
+
+// A packed phase kernel on [rows, n, k*c], rows = rep*G with G =
+// ceil(M/k); k, n, c powers of two, c <= 32 <= k*c, n in [2, 1024]. Grid
+// (rows, k*c/32).
+int launch_packed(PackedKernel kernel, const void* x, void* out,
+                  const void* q, const void* tw, const void* tw_sh,
+                  const void* mid, const void* mid_sh, int rows, int G, int M,
+                  int k, int n, int c, void* stream) {
+  const int logk = ilog2(k), logn = ilog2(n), logc = ilog2(c);
+  if (rows <= 0 || G <= 0 || M <= 0 || rows % G != 0 || logk < 0 ||
+      logc < 0 || logc > kLogTileCols || logk + logc < kLogTileCols ||
+      logn < 1 || logn > 10 || (G << logk) < M || ((G - 1) << logk) >= M)
+    return cudaErrorInvalidValue;
+  size_t smem;
+  cudaError_t err;
+  if ((err = tile_smem(kernel, logn, kLogTileCols, &smem)) != cudaSuccess)
+    return err;
+  kernel<<<dim3(rows, 1 << (logk + logc - kLogTileCols)), kPackedThreads,
+           smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
+      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(tw),
+      static_cast<const uint32_t*>(tw_sh), static_cast<const uint32_t*>(mid),
+      static_cast<const uint32_t*>(mid_sh), G, M, logk, logn, logc);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -313,6 +423,41 @@ int hk_intt_phase1(const void* x, void* out, const void* q,
       static_cast<const uint32_t*>(itw1), static_cast<const uint32_t*>(itw1_sh),
       M, log1, logc, lt);
   return cudaGetLastError();
+}
+
+// B10: x [rows, n1, k*c] -> out, same layout; mid, mid_sh [M, n1, c].
+int hk_ntt_phase1_packed(const void* x, void* out, const void* q,
+                         const void* tw1, const void* tw1_sh, const void* mid,
+                         const void* mid_sh, int rows, int G, int M, int k,
+                         int n1, int c, void* stream) {
+  return launch_packed(packed_fwd1, x, out, q, tw1, tw1_sh, mid, mid_sh, rows,
+                       G, M, k, n1, c, stream);
+}
+
+// B11: x [rows, n2, k*c] -> out, same layout.
+int hk_ntt_phase2_packed(const void* x, void* out, const void* q,
+                         const void* tw2, const void* tw2_sh, int rows, int G,
+                         int M, int k, int n2, int c, void* stream) {
+  return launch_packed(packed_fwd2, x, out, q, tw2, tw2_sh, nullptr, nullptr,
+                       rows, G, M, k, n2, c, stream);
+}
+
+// B12: x [rows, n2, k*c] -> out, same layout.
+int hk_intt_phase2_packed(const void* x, void* out, const void* q,
+                          const void* itw2, const void* itw2_sh, int rows,
+                          int G, int M, int k, int n2, int c, void* stream) {
+  return launch_packed(packed_inv2, x, out, q, itw2, itw2_sh, nullptr,
+                       nullptr, rows, G, M, k, n2, c, stream);
+}
+
+// B13: x [rows, n1, k*c] -> out, same layout; mid_inv, mid_inv_sh
+// [M, n1, c].
+int hk_intt_phase1_packed(const void* x, void* out, const void* q,
+                          const void* mid_inv, const void* mid_inv_sh,
+                          const void* itw1, const void* itw1_sh, int rows,
+                          int G, int M, int k, int n1, int c, void* stream) {
+  return launch_packed(packed_inv1, x, out, q, itw1, itw1_sh, mid_inv,
+                       mid_inv_sh, rows, G, M, k, n1, c, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Column-tile NTT building blocks shared by the NTT kernels (ntt.cu: B1,
-// B2 and the phase kernels B6-B9) and the fused HPIP kernel (hpip.cu: B4).
+// B2, the phase kernels B6-B9 and their lane-packed forms B10-B13) and the
+// fused HPIP kernel (hpip.cu: B4).
 //
 // A block owns an [n, TC] column tile of one limb in shared memory (row
 // stride ld = TC + 1: no bank conflicts in the transposed write; TC =
@@ -7,6 +8,12 @@
 // every butterfly stage of one axis on it. Stage twiddles are flat [n]
 // rows: stage s, block b at column 2^s + b. Values stay fully reduced in
 // [0, q) after every butterfly.
+//
+// Every loop below gives thread t the tile column t % TC, and blockDim is a
+// multiple of TC, so a thread keeps one column for the whole kernel. That
+// makes the per-lane forms of the lane-packed kernels free: a thread may
+// pass ct_rows / gs_rows its own q and twiddle row (those of its column's
+// limb), and mul_cols its own column of a per-element table.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -110,19 +117,29 @@ __device__ inline void store_tile_t(const uint32_t* s,
   }
 }
 
+// Multiply each tile column by a column of a per-element Shoup table: w and
+// w_sh point at row 0 of THIS thread's column (see above), rows `stride`
+// apart; q is this thread's.
+__device__ inline void mul_cols(uint32_t* s, const uint32_t* __restrict__ w,
+                                const uint32_t* __restrict__ w_sh, int logn,
+                                int logtc, int ld, int stride, uint32_t q) {
+  for (int t = threadIdx.x; t < (1 << (logn + logtc)); t += blockDim.x) {
+    const int r = t >> logtc;
+    const int c = t & ((1 << logtc) - 1);
+    const size_t g = (size_t)r * stride;
+    s[r * ld + c] = shoup_mul(s[r * ld + c], w[g], w_sh[g], q);
+  }
+  __syncthreads();
+}
+
 // Multiply the tile by a per-element Shoup table laid out like its source
 // (row-major [n, stride], tile at column c0): coalesced table reads.
 __device__ inline void mul_tile(uint32_t* s, const uint32_t* __restrict__ w,
                                 const uint32_t* __restrict__ w_sh, int logn,
                                 int logtc, int ld, int stride, int c0,
                                 uint32_t q) {
-  for (int t = threadIdx.x; t < (1 << (logn + logtc)); t += blockDim.x) {
-    const int r = t >> logtc;
-    const int c = t & ((1 << logtc) - 1);
-    const size_t g = (size_t)r * stride + c0 + c;
-    s[r * ld + c] = shoup_mul(s[r * ld + c], w[g], w_sh[g], q);
-  }
-  __syncthreads();
+  const int c = c0 + (threadIdx.x & ((1 << logtc) - 1));
+  mul_cols(s, w + c, w_sh + c, logn, logtc, ld, stride, q);
 }
 
 // Forward stage 1 on one limb: the [n1, TC] tile at column c0 of x

@@ -37,7 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launch concurrently, so updates and the first load hold a lock.
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "bconv": 0, "hpip": 0,
             "ntt_phase1": 0, "ntt_phase2": 0, "intt_phase2": 0,
-            "intt_phase1": 0}
+            "intt_phase1": 0, "ntt_phase1_packed": 0, "ntt_phase2_packed": 0,
+            "intt_phase2_packed": 0, "intt_phase1_packed": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -54,6 +55,12 @@ _SIGNATURES = {
     "hk_ntt_phase2": [_P] * 5 + [_I] * 4 + [_P],
     "hk_intt_phase2": [_P] * 5 + [_I] * 4 + [_P],
     "hk_intt_phase1": [_P] * 7 + [_I] * 4 + [_P],
+    # the lane-packed B10-B13: x, out, q, the same tables, rows (rep*G),
+    # G, M, k, n, c, stream
+    "hk_ntt_phase1_packed": [_P] * 7 + [_I] * 6 + [_P],
+    "hk_ntt_phase2_packed": [_P] * 5 + [_I] * 6 + [_P],
+    "hk_intt_phase2_packed": [_P] * 5 + [_I] * 6 + [_P],
+    "hk_intt_phase1_packed": [_P] * 7 + [_I] * 6 + [_P],
     # x, out, s, s_sh, in_q, mat, mat_sh, out_q, nd, center, m_out, ncoef,
     # stream
     "hk_bconv": [_P] * 8 + [_I] * 3 + [ctypes.c_longlong, _P],

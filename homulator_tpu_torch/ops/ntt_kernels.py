@@ -1,14 +1,18 @@
 """Wrappers of the CUDA NTT kernels: B1 (forward) and B2 (inverse), and the
-phase kernels B6-B9 of the coefficient-sharded transform.
+phase kernels B6-B9 and B10-B13 of the coefficient-sharded transform.
 
 B1 and B2 replace `homulator_tpu/ops/ntt_pallas.py::ntt_pallas` and
 `::intt_pallas`; each transform is two launches on PyTorch's current
 stream, through a scratch array the wrapper allocates, and the wrapper
 counts one launch of its kernel per transform. B6-B9 replace
 `::ntt_phase1_pallas`, `::ntt_phase2_pallas`, `::intt_phase2_pallas` and
-`::intt_phase1_pallas`: one launch each on [rep*M, n, c] column slices
-(csrc/ntt.cu has the design note). The plain versions are in ops/ntt.py:
-callers dispatch CPU tensors there, never here.
+`::intt_phase1_pallas`: one launch each on [rep*M, n, c] column slices.
+B10-B13 replace their lane-packed forms `::ntt_phase1_packed_pallas`,
+`::ntt_phase2_packed_pallas`, `::intt_phase2_packed_pallas` and
+`::intt_phase1_packed_pallas`: one launch each on [rep*G, n, k*c] lane
+groups, reading the per-limb tables of the basis (csrc/ntt.cu has the
+design note). The plain versions are in ops/ntt.py: callers dispatch CPU
+tensors there, never here.
 """
 
 from __future__ import annotations
@@ -115,6 +119,75 @@ def intt_phase1(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
     return _launch_phase("intt_phase1", x, nb, rep,
                          ("mid_inv", "mid_inv_sh", "itw1", "itw1_sh"), nb.n1,
                          ("mid_inv", "mid_inv_sh"))
+
+
+def _launch_packed(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
+                   tables, n: int, mid=()) -> torch.Tensor:
+    """One lane-packed phase kernel on x [rep*G, n, k*c] (k = nb.pack, G
+    = ceil(M/k) groups a copy, c a power of two up to 32 with k*c a
+    multiple of 32) -> a new [rep*G, n, k*c]. The tables named in `mid`
+    are the shard's per-limb [M, n, c] mid slice; the others flat [M, n]
+    stage tables. Lane j of group g reads limb min((g mod G)*k + j div c,
+    M - 1)."""
+    if not x.is_cuda:
+        raise ValueError(f"{name}: CUDA kernel called on {x.device}")
+    M, k = nb.q.shape[0], nb.pack
+    G = -(-M // k) if k else 0
+    if (k < 1 or rep < 1 or x.ndim != 3 or x.shape[0] != rep * G
+            or x.shape[1] != n or x.shape[2] % k):
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not "
+                         f"[{rep}*{G}, {n}, {k}*c] (pack k={k})")
+    c = x.shape[2] // k
+    if (n > _MAX_N or c < 1 or c > 32 or c & (c - 1) or k & (k - 1)
+            or (k * c) % 32):
+        raise ValueError(f"{name}: n={n}, k={k}, c={c}: need power-of-two "
+                         f"k and c <= 32, k*c a multiple of 32, n <= {_MAX_N}")
+    kernels.require_cuda_int32("x", x, x.device)
+    kernels.require_cuda_int32("q", nb.q, x.device, (M,))
+    for t in tables:
+        kernels.require_cuda_int32(t, getattr(nb, t), x.device,
+                                   (M, n, c) if t in mid else (M, n))
+    lib = kernels.load()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, "hk_" + name)(
+            kernels.ptr(x), kernels.ptr(out), kernels.ptr(nb.q),
+            *(kernels.ptr(getattr(nb, t)) for t in tables),
+            rep * G, G, M, k, n, c, kernels.stream(x))
+    kernels.check(rc, name)
+    kernels.count(name)
+    return out
+
+
+def ntt_phase1_packed(x: torch.Tensor, nb: NttBasis,
+                      rep: int = 1) -> torch.Tensor:
+    """Kernel B10: B6 on lane-packed groups, int32 [rep*G, n1, k*c] ->
+    the same layout in [0, q) per lane."""
+    return _launch_packed("ntt_phase1_packed", x, nb, rep,
+                          ("tw1", "tw1_sh", "mid", "mid_sh"), nb.n1,
+                          ("mid", "mid_sh"))
+
+
+def ntt_phase2_packed(x: torch.Tensor, nb: NttBasis,
+                      rep: int = 1) -> torch.Tensor:
+    """Kernel B11: B7 on lane-packed groups [rep*G, n2, k*c]."""
+    return _launch_packed("ntt_phase2_packed", x, nb, rep,
+                          ("tw2", "tw2_sh"), nb.n2)
+
+
+def intt_phase2_packed(x: torch.Tensor, nb: NttBasis,
+                       rep: int = 1) -> torch.Tensor:
+    """Kernel B12: B8 on lane-packed groups [rep*G, n2, k*c]."""
+    return _launch_packed("intt_phase2_packed", x, nb, rep,
+                          ("itw2", "itw2_sh"), nb.n2)
+
+
+def intt_phase1_packed(x: torch.Tensor, nb: NttBasis,
+                       rep: int = 1) -> torch.Tensor:
+    """Kernel B13: B9 on lane-packed groups [rep*G, n1, k*c]."""
+    return _launch_packed("intt_phase1_packed", x, nb, rep,
+                          ("mid_inv", "mid_inv_sh", "itw1", "itw1_sh"), nb.n1,
+                          ("mid_inv", "mid_inv_sh"))
 
 
 def ntt_fwd(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:

@@ -21,6 +21,12 @@ shard-permutation automorphism (`:123`). Here they are one interface,
                           (gloo on the CPU, NCCL on a machine with a card
                           per shard).
 
+A mesh may also have a data extent d (the JAX meshes' "data" axis): d rows
+of ns coefficient shards, `ThreadMesh(ns, device, data=d)` or one DistMesh
+per process over its row's process group. The collectives of a Comm run
+within its row (`row`); `index` = row * ns + rank is its place in the
+mesh's row-major list of shards.
+
 Every Comm counts in `recv_bytes` the bytes its rank received from other
 ranks; a rank's own chunk is not counted, as in
 `parallel/sharded.ici_bytes_per_op`.
@@ -35,7 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -92,7 +98,13 @@ class Comm:
 
     rank: int
     size: int
+    row: int = 0
     recv_bytes: int
+
+    @property
+    def index(self) -> int:
+        """This shard's place in its mesh's row-major shard list."""
+        return self.row * self.size + self.rank
 
     def all_to_all(self, x: torch.Tensor, split_dim: int,
                    cat_dim: int) -> torch.Tensor:
@@ -113,8 +125,9 @@ class Comm:
 
 
 class _ThreadComm(Comm):
-    def __init__(self, mesh: "ThreadMesh", rank: int):
+    def __init__(self, mesh: "ThreadMesh", row: int, rank: int):
         self.mesh = mesh
+        self.row = row
         self.rank = rank
         self.size = mesh.size
         self.recv_bytes = 0
@@ -122,21 +135,21 @@ class _ThreadComm(Comm):
 
     def all_to_all(self, x, split_dim, cat_dim):
         _check_split(x, split_dim, self.size)
-        got = self.mesh._exchange(self.rank, x.chunk(self.size, split_dim))
+        got = self.mesh._exchange(self, x.chunk(self.size, split_dim))
         parts = [chunks[self.rank] for chunks in got]
         self.recv_bytes += sum(_nbytes(p) for j, p in enumerate(parts)
                                if j != self.rank)
         return torch.cat(parts, cat_dim)
 
     def all_gather(self, x, dim):
-        got = self.mesh._exchange(self.rank, x)
+        got = self.mesh._exchange(self, x)
         self.recv_bytes += sum(_nbytes(p) for j, p in enumerate(got)
                                if j != self.rank)
         return torch.cat(got, dim)
 
     def ppermute(self, x, pairs):
         src = _sources(pairs, self.size).get(self.rank)
-        got = self.mesh._exchange(self.rank, x)
+        got = self.mesh._exchange(self, x)
         if src is None:
             return torch.zeros_like(x)
         if src != self.rank:
@@ -145,14 +158,17 @@ class _ThreadComm(Comm):
 
 
 class ThreadMesh:
-    """ns shard programs as ns threads of this process on one device.
+    """ns shard programs as ns threads of this process on one device; with
+    data=d, d rows of ns shards (d*ns threads), each row exchanging only
+    within itself.
 
-    `run(body)` calls body(comm) once per rank, each in its own thread
-    with that rank's Comm bound (`current()`), and returns the results in
-    rank order. The exchanges wait on a `threading.Barrier` with a
-    timeout: a shard that raises aborts the barrier, so the others stop
-    at their next exchange, and `run` re-raises the first failure. A run
-    never hangs and never returns a partial result.
+    `run(body)` calls body(comm) once per shard, each in its own thread
+    with that shard's Comm bound (`current()`), and returns the results in
+    row-major order (`Comm.index`). The exchanges of a row wait on its
+    `threading.Barrier` with a timeout: a shard that raises aborts every
+    barrier, so the others stop at their next exchange, and `run`
+    re-raises the first failure. A run never hangs and never returns a
+    partial result.
 
     A shard runs its host code only while it holds the mesh's baton, a
     lock it gives up while it waits at an exchange. The shards' host code
@@ -161,23 +177,28 @@ class ThreadMesh:
     each other at every call, and on an H100 host 4 shards took 106 ms
     per set-B hmult where the card was busy for 7.4 ms of it."""
 
-    def __init__(self, ns: int, device="cuda", timeout: float = 300.0):
-        if ns < 1:
-            raise ValueError(f"ThreadMesh needs ns >= 1, got {ns}")
+    def __init__(self, ns: int, device="cuda", timeout: float = 300.0, *,
+                 data: int = 1):
+        if ns < 1 or data < 1:
+            raise ValueError(f"ThreadMesh needs ns, data >= 1, got {ns}, "
+                             f"{data}")
         self.size = ns
+        self.data = data
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ThreadMesh(device='cuda'): "
                                "torch.cuda.is_available() is False")
         self.timeout = timeout
-        self.comms = [_ThreadComm(self, r) for r in range(ns)]
-        self._slots: List[object] = [None] * ns
-        self._barrier: Optional[threading.Barrier] = None
+        self.comms = [_ThreadComm(self, row, r) for row in range(data)
+                      for r in range(ns)]
+        self._slots: List[List[object]] = [[None] * ns for _ in range(data)]
+        self._barriers: List[threading.Barrier] = []
         self._baton = threading.Lock()
 
     @property
     def recv_bytes(self) -> List[int]:
-        """Bytes each rank received from the other ranks so far."""
+        """Bytes each shard received from the others of its row so far, in
+        row-major order."""
         return [c.recv_bytes for c in self.comms]
 
     def reset_counts(self) -> None:
@@ -195,45 +216,47 @@ class ThreadMesh:
             comm.holds_baton = False
             self._baton.release()
 
-    def _exchange(self, rank: int, item) -> list:
-        """Publish item, wait for every rank's, take a snapshot of all of
-        them, and wait until every rank has taken its snapshot."""
-        comm = self.comms[rank]
-        self._slots[rank] = item
+    def _exchange(self, comm: "_ThreadComm", item) -> list:
+        """Publish item, wait for every rank of comm's row, take a
+        snapshot of all of theirs, and wait until each has taken its
+        snapshot."""
+        slots, barrier = self._slots[comm.row], self._barriers[comm.row]
+        slots[comm.rank] = item
         self._give_baton(comm)
         try:
-            self._barrier.wait()
-            got = list(self._slots)
-            self._barrier.wait()
+            barrier.wait()
+            got = list(slots)
+            barrier.wait()
         finally:
             self._take_baton(comm)
         return got
 
     def run(self, body: Callable[[Comm], object]) -> list:
-        ns = self.size
-        self._barrier = threading.Barrier(ns, timeout=self.timeout)
-        results: List[object] = [None] * ns
+        self._barriers = [threading.Barrier(self.size, timeout=self.timeout)
+                          for _ in range(self.data)]
+        results: List[object] = [None] * len(self.comms)
         errors: List[BaseException] = []  # in the order the shards failed
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
 
-        def work(r: int) -> None:
-            comm = self.comms[r]
+        def work(comm: _ThreadComm) -> None:
             try:
                 self._take_baton(comm)
                 with contextlib.ExitStack() as stack:
                     stack.enter_context(_bound(comm))
                     if stream is not None:
                         stack.enter_context(torch.cuda.stream(stream))
-                    results[r] = body(comm)
+                    results[comm.index] = body(comm)
             except BaseException as e:  # noqa: BLE001 - re-raised by run()
                 errors.append(e)  # list.append is atomic
-                self._barrier.abort()
+                for b in self._barriers:
+                    b.abort()
             finally:
                 self._give_baton(comm)
 
-        threads = [threading.Thread(target=work, args=(r,), name=f"shard{r}")
-                   for r in range(ns)]
+        threads = [threading.Thread(target=work, args=(c,),
+                                    name=f"shard{c.row}.{c.rank}")
+                   for c in self.comms]
         for t in threads:
             t.start()
         for t in threads:
@@ -251,15 +274,22 @@ class DistMesh(Comm):
     group when None). `run(body)` calls body(self) with this Comm bound
     and returns [its result]: the results of the shards this process
     runs, as ThreadMesh.run returns all of them. Every process of the
-    group runs the same program."""
+    group runs the same program.
 
-    def __init__(self, group=None):
+    On a mesh of d data rows, group is this process's row (a group from
+    `dist.new_group`, one per row) and row its index, data = d."""
+
+    def __init__(self, group=None, *, row: int = 0, data: int = 1):
         import torch.distributed as dist
 
+        if not 0 <= row < data:
+            raise ValueError(f"DistMesh: row {row} outside {data} data rows")
         self._dist = dist
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
+        self.row = row
+        self.data = data
         self.recv_bytes = 0
 
     def reset_counts(self) -> None:

@@ -8,8 +8,11 @@ hmult / hrotate graph (api.hmult_graph, api.hrotate_tail) on its slices
 with its own tables (DeviceContext.keyswitch_tables(level, shard=(r, ns))),
 and only two things cross shards:
 
-  * every NTT and iNTT splits into two phase kernels (B6/B7, B8/B9) around
-    one all_to_all (ops/ntt.py);
+  * every NTT and iNTT splits into two phase kernels around one
+    all_to_all (ops/ntt.py): the per-limb B6/B7, B8/B9, or, where the JAX
+    package packs (packed=True, the default, and pack_k_for > 0: ns >= 8
+    at N = 2^16), their lane-packed forms B10/B11, B12/B13 around a packed
+    exchange that carries each call's rows padded to a multiple of k;
   * the automorphism is one whole-shard ppermute and a local gather, or
     the all_gather form where the column map is not block-aligned
     (ops/automorph.py).
@@ -24,14 +27,19 @@ arrays already laid out over the mesh: each operand is indexed by rank (a
 list of every rank's column slice, `shard_cols`; in a DistMesh process a
 mapping that holds its own rank's), and the result is the list of the
 slices of the shards this process ran (`gather_cols` joins a
-ThreadMesh's). The JAX package's batch axis (`data_axis`) is not ported
-yet (ROADMAP A12); nor are its lane-packed phase kernels B10-B13, which it
-runs where `pack_k_for` is non-zero (ns >= 8 at N = 2^16).
+ThreadMesh's).
+
+make_shardmap_hmult(..., data_axis="data") is the JAX package's batch
+axis: a mesh of d data rows of ns shards, operands [B, 2, level, n2, n1]
+cut into d batch blocks and ns column slices (`shard_batch`, indexed by
+`Comm.index`; the key by rank alone), each shard running its B/d
+elements one after another (the JAX body's vmap) with the collectives in
+its row; `gather_batch` joins the result.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -54,40 +62,71 @@ def gather_cols(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat(list(parts), dim=-1)
 
 
+def shard_batch(x: torch.Tensor, d: int, ns: int) -> List[torch.Tensor]:
+    """x [B, ...] cut into d batch blocks (data rows) of B/d elements and
+    each block into ns column slices: element row * ns + rank is that
+    shard's [B/d, ..., n1/ns] (`Comm.index` order)."""
+    if x.shape[0] % d:
+        raise ValueError(f"batch of {x.shape[0]} does not split into {d} "
+                         "data rows")
+    return [p for blk in x.chunk(d, dim=0) for p in shard_cols(blk, ns)]
+
+
+def gather_batch(parts: Sequence[torch.Tensor], d: int) -> torch.Tensor:
+    """The whole batch from shard_batch's row-major list of slices."""
+    ns = len(parts) // d
+    return torch.cat([gather_cols(parts[r * ns:(r + 1) * ns])
+                      for r in range(d)], dim=0)
+
+
 def _shard_tables(dc: DeviceContext, level: int, mesh, packed: bool):
-    """Per-rank key-switch tables, after checking that the mesh can run
-    this shape on the per-limb phase kernels."""
+    """Per-rank key-switch tables, lane-packed where `packed` and
+    pack_k_for > 0 (DeviceContext.keyswitch_tables)."""
     ns = mesh.size
     t = dc.params.ntt
     if t.n1 % ns or t.n2 % ns:
         raise ValueError(f"{ns} shards do not divide n1={t.n1}, n2={t.n2}")
-    k = pack_k_for(t.n1, t.n2, ns)
-    if packed and k:
-        raise NotImplementedError(
-            f"packed=True at n1={t.n1}, n2={t.n2}, ns={ns} selects the "
-            f"lane-packed phase kernels (k={k}), which are not ported: "
-            "ROADMAP B10-B13. packed=False runs the per-limb kernels B6-B9.")
-    return [dc.keyswitch_tables(level, shard=(r, ns)) for r in range(ns)]
+    return [dc.keyswitch_tables(level, shard=(r, ns), packed=packed)
+            for r in range(ns)]
+
+
+def _check_data_axis(mesh, data_axis) -> None:
+    if data_axis is None and mesh.data > 1:
+        raise ValueError(f"mesh has {mesh.data} data rows: pass "
+                         "data_axis='data'")
+    if data_axis not in (None, "data"):
+        raise ValueError(f"data_axis {data_axis!r}: a mesh's batch axis is "
+                         "'data'")
 
 
 def make_shardmap_hmult(dc: DeviceContext, level: int, mesh, *,
+                        data_axis: Optional[str] = None,
                         packed: bool = True):
     """hmult at `level` over `mesh` with the coefficient axis sharded.
     Returns f(a, b, key) -> out, each a list of per-rank column slices
     (a, b: [2, level, n2, n1/ns]; key: [dnum, 2, K, n2, n1/ns]; out:
-    [2, level-1, n2, n1/ns]). packed=True raises NotImplementedError where
-    the JAX package would take its lane-packed kernels (see module
-    docstring); packed=False runs B6-B9 at any ns that divides n1 and
-    n2."""
+    [2, level-1, n2, n1/ns]). packed=True (the JAX default) takes the
+    lane-packed kernels B10-B13 where pack_k_for > 0, packed=False the
+    per-limb B6-B9 at any ns that divides n1 and n2.
+
+    With data_axis="data" over a mesh of d data rows: a and b are
+    shard_batch lists of [B/d, 2, level, n2, n1/ns] (indexed by
+    Comm.index), key is indexed by rank, and out is the list of each
+    shard's [B/d, 2, level-1, n2, n1/ns] (gather_batch joins them)."""
     if level < 2:
         raise ValueError(f"level {level}: hmult needs level >= 2 (rescale "
                          "drops one limb)")
+    _check_data_axis(mesh, data_axis)
     kts = _shard_tables(dc, level, mesh, packed)
 
     def run(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor],
             key: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        return mesh.run(lambda comm: hmult_graph(
-            a[comm.rank], b[comm.rank], key[comm.rank], kts[comm.rank]))
+        if data_axis is None:
+            return mesh.run(lambda comm: hmult_graph(
+                a[comm.rank], b[comm.rank], key[comm.rank], kts[comm.rank]))
+        return mesh.run(lambda comm: torch.stack([
+            hmult_graph(x, y, key[comm.rank], kts[comm.rank])
+            for x, y in zip(a[comm.index], b[comm.index])]))
 
     return run
 
@@ -98,7 +137,9 @@ def make_shardmap_hrotate(dc: DeviceContext, level: int, mesh, *,
     Returns f(a, route, key) -> out over per-rank column slices, where
     route = dc.automorph_shard_route(galois_elt(step), ns): the
     shard-permutation route, or its gather sentinel (pairs None, local_src
-    the whole permutation), which takes the all_gather form."""
+    the whole permutation), which takes the all_gather form. packed as in
+    make_shardmap_hmult."""
+    _check_data_axis(mesh, None)
     kts = _shard_tables(dc, level, mesh, packed)
 
     def run(a: Sequence[torch.Tensor], route,
@@ -152,9 +193,10 @@ def ici_bytes_per_op(params, level: int, ns: int, op: str = "hmult", *,
     row. Each automorphism is one whole-shard ppermute of [level, n2,
     n1/ns]: level * N/ns * 4 bytes, none when the route's block map is
     the identity (route_identity=True). Where the JAX package takes its
-    lane-packed kernels (k = pack_k_for > 0 and packed is not False), each
-    call's rows round up to a multiple of k, as its packed exchanges
-    carry."""
+    lane-packed kernels (k = pack_k_for > 0 and packed is not False, as
+    make_shardmap_* run by default), each call's rows round up to a
+    multiple of k, as its packed exchanges carry. With a data axis, a
+    shard receives this once per element of its batch block."""
     n = params.n
     t = params.ntt
     k = 0 if packed is False else pack_k_for(t.n1, t.n2, ns)

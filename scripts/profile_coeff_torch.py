@@ -2,11 +2,16 @@
 """Latency and device time of the coefficient-sharded hmult and hrotate of
 the PyTorch + CUDA port, by shard count, on one CUDA GPU.
 
-    python3 scripts/profile_coeff_torch.py [--shards 1 2 4] [--no-baton]
+    python3 scripts/profile_coeff_torch.py [--shards 1 2 4 8 16 32] [--no-baton]
 
 Runs `parallel.sharded.make_shardmap_hmult` and `make_shardmap_hrotate`
 (step 1) at (45,35,15) of parameter set B (N = 2^16) on a `ThreadMesh` of
 each shard count on this one card, and the single-device ops beside them.
+At their default routing, as in the JAX package, a shard count where
+`pack_k_for` > 0 (8, 16, 32) takes the lane-packed phase kernels B10-B13;
+there each op also runs with packed=False (the per-limb B6-B9), the A/B of
+whether packing pays on this card, and the "phase kernels" column gives
+the device time of the phase kernels of the run (B10-B13 or B6-B9).
 The single-device hmult also runs in a new thread per call, as a
 ThreadMesh starts its shard threads. For each: the eager latency (CUDA
 events around a synchronised call, median of 20 after 3 warm-up calls;
@@ -35,6 +40,10 @@ LEVEL = 35
 CALLS = 5
 
 GROUPS = (  # (group, substrings of the kernel name); the first match wins
+    ("B10 ntt_phase1_packed", ("packed_fwd1",)),
+    ("B11 ntt_phase2_packed", ("packed_fwd2",)),
+    ("B12 intt_phase2_packed", ("packed_inv2",)),
+    ("B13 intt_phase1_packed", ("packed_inv1",)),
     ("B6 ntt_phase1", ("ntt_fwd_a<false>",)),
     ("B8 intt_phase2", ("ntt_inv_a<false>",)),
     ("B1 ntt_fwd (phase A)", ("ntt_fwd_a<true>",)),
@@ -48,6 +57,10 @@ GROUPS = (  # (group, substrings of the kernel name); the first match wins
     ("torch reductions", ("reduce",)),
     ("torch elementwise", ("elementwise", "Memset")),
 )
+
+
+# the coefficient shards' phase kernels (per limb, lane-packed)
+PHASE_GROUPS = ("B6", "B7", "B8", "B9", "B10", "B11", "B12", "B13")
 
 
 def group_of(name: str) -> str:
@@ -103,7 +116,8 @@ def device_ms(torch, fn):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--shards", type=int, nargs="+", default=[1, 2, 4])
+    ap.add_argument("--shards", type=int, nargs="+",
+                    default=[1, 2, 4, 8, 16, 32])
     ap.add_argument("--no-baton", action="store_true",
                     help="shard threads without ThreadMesh's baton lock")
     args = ap.parse_args()
@@ -118,6 +132,7 @@ def main() -> int:
     from chip_smoke import latency_ms
     from homulator_tpu_torch.api import CkksEngine, get_params
     from homulator_tpu_torch.parallel.comm import ThreadMesh
+    from homulator_tpu_torch.parallel.mesh import pack_k_for
     from homulator_tpu_torch.parallel.sharded import (
         make_shardmap_hmult, make_shardmap_hrotate, shard_cols,
     )
@@ -160,30 +175,39 @@ def main() -> int:
         key, rkey = (shard_cols(k, ns) for k in (eng.relin_key,
                                                  eng.rot_keys[1]))
         route = eng.dc.automorph_shard_route(params.galois_elt(1), ns)
-        fh = make_shardmap_hmult(eng.dc, LEVEL, mesh)
-        fr = make_shardmap_hrotate(eng.dc, LEVEL, mesh)
-        runs[f"hmult {ns} shards"] = (
-            lambda fh=fh, a=a, b=b, key=key: fh(a, b, key))
-        runs[f"hrotate {ns} shards"] = (
-            lambda fr=fr, a=a, route=route, rkey=rkey: fr(a, route, rkey))
+        k = pack_k_for(params.ntt.n1, params.ntt.n2, ns)
+        for packed in (True, False) if k else (True,):
+            tag = (f", packed k={k}" if packed else ", packed=False") if k \
+                else ""
+            fh = make_shardmap_hmult(eng.dc, LEVEL, mesh, packed=packed)
+            fr = make_shardmap_hrotate(eng.dc, LEVEL, mesh, packed=packed)
+            runs[f"hmult {ns} shards{tag}"] = (
+                lambda fh=fh, a=a, b=b, key=key: fh(a, b, key))
+            runs[f"hrotate {ns} shards{tag}"] = (
+                lambda fr=fr, a=a, route=route, rkey=rkey: fr(a, route,
+                                                              rkey))
 
     baton = "without the baton" if args.no_baton else "with the baton"
     print(f"# (45,{LEVEL},15) on one card, shard threads {baton}; eager: "
           "median of 20 after 3 warm-ups; device: torch.profiler over "
           f"{CALLS} calls")
     print("| Op | eager ms | device ms | idle share | host ms | "
-          "waiting runtime calls / op | device ms by group |")
-    print("|---|---|---|---|---|---|---|")
+          "phase kernels ms | waiting runtime calls / op | "
+          "device ms by group |")
+    print("|---|---|---|---|---|---|---|---|")
     for label, fn in runs.items():
         lat = latency_ms(torch, fn)
         host = host_ms(torch, fn)
         dev, groups, waits = device_ms(torch, fn)
+        phase = sum(v for g, v in groups.items()
+                    if g.split()[0] in PHASE_GROUPS) if "shards" in label \
+            else float("nan")  # B7 and B9's groups hold B1 and B2's halves
         top = ", ".join(f"{g} {v:.3f}" for g, v in
                         sorted(groups.items(), key=lambda kv: -kv[1]))
         wait = ", ".join(f"{k} {v:g}" for k, v in sorted(waits.items()))
         print(f"| {label} | {lat:.3f} | {dev:.3f} | "
-              f"{max(0.0, 1 - dev / lat):.2f} | {host:.3f} | {wait or 0} "
-              f"| {top} |")
+              f"{max(0.0, 1 - dev / lat):.2f} | {host:.3f} | {phase:.3f} | "
+              f"{wait or 0} | {top} |")
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "homulator_tpu"))
     if bad:

@@ -55,3 +55,23 @@ def test_cli_names_roadmap_item_of_unported(argv, item, capsys):
     err = capsys.readouterr().err
     assert rc == 2
     assert f"ROADMAP {item}" in err
+
+
+@pytest.mark.parametrize("op", ["hmult", "hrotate"])
+def test_cli_coeff_dispatch_packed(op, tmp_path, capsys):
+    """`--dispatch coeff` at 8 shards of N = 4096 (n1 = 64, c = 8: the
+    lane-packed route, k = 16) exits 0, bit-exact, and reports the JAX
+    CLI's bytes per shard (its ici_bytes_per_op at the default routing)."""
+    from homulator_tpu.parallel.sharded import ici_bytes_per_op
+    from homulator_tpu.params import get_params
+
+    cfg = tmp_path / "n4096.cfg"
+    cfg.write_text("N = 4096\ncluster = 1\n")
+    rc = cli.main(["run", str(cfg), op, "4", "4", "2", "8", "--dispatch",
+                   "coeff", "--device", "cpu", "--verify", "--iters", "1"])
+    outp = capsys.readouterr().out
+    assert rc == 0, outp
+    p = get_params(n=4096, max_level=4, alpha=2)
+    want = ici_bytes_per_op(p, 4, 8, op)
+    assert f"ici_bytes_per_shard={want} ntt=lane-packed k=16" in outp
+    assert "bit-exact" in outp and "verify max-abs-err" in outp

@@ -150,7 +150,10 @@ def test_phase_wrappers_refuse_cpu_tensors(ctx):
     nb = dc.ntt_basis(ROWS, shard=(0, NS))
     x = torch.zeros((len(ROWS), p.ntt.n1, C), dtype=torch.int32)
     for fn in (ntt_kernels.ntt_phase1, ntt_kernels.ntt_phase2,
-               ntt_kernels.intt_phase2, ntt_kernels.intt_phase1):
+               ntt_kernels.intt_phase2, ntt_kernels.intt_phase1,
+               ntt_kernels.ntt_phase1_packed, ntt_kernels.ntt_phase2_packed,
+               ntt_kernels.intt_phase2_packed,
+               ntt_kernels.intt_phase1_packed):
         with pytest.raises(ValueError, match="CUDA kernel"):
             fn(x, nb)
 

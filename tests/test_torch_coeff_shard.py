@@ -147,20 +147,6 @@ def test_sharded_ops_match_single_device(engines, ns):
     assert torch.equal(gather_cols(rot), eng.hrotate(a, STEP).data)
 
 
-def test_packed_raises_before_compute():
-    """packed=True where the JAX package would take its lane-packed kernels
-    (n = 4096: n1 = 64, 4 shards, c = 16, k = 8) raises at build time;
-    packed=False builds the per-limb route."""
-    from homulator_tpu_torch.context import DeviceContext
-
-    dc = DeviceContext(get_params(n=4096, max_level=3, alpha=2), "cpu")
-    mesh = ThreadMesh(4, "cpu")
-    for make in (make_shardmap_hmult, make_shardmap_hrotate):
-        with pytest.raises(NotImplementedError, match="B10-B13"):
-            make(dc, 3, mesh)
-        assert callable(make(dc, 3, mesh, packed=False))
-
-
 @pytest.mark.parametrize("ns", [2, 4, 8])
 @pytest.mark.parametrize("step", [1, 3, 17, "conj"])
 def test_shard_route_matches_jax(engines, ns, step):
@@ -189,10 +175,11 @@ def test_shard_route_matches_jax(engines, ns, step):
 
 
 @pytest.mark.parametrize("op", ["hmult", "hrotate"])
-@pytest.mark.parametrize("ns", [2, 4, 8])
+@pytest.mark.parametrize("ns", [2, 4, 8, 16, 32])
 def test_ici_bytes_match_jax(op, ns):
-    """The port's ici_bytes_per_op == the JAX one, packed=False, at the
-    test shape and at set B (a pure count)."""
+    """The port's ici_bytes_per_op == the JAX one, packed=False and at the
+    default routing (lane-packed at set B from 8 shards on), at the test
+    shape and at set B (a pure count)."""
     for p, level in ((get_params(n=256, max_level=8, alpha=4), 8),
                      (get_params(n=1 << 16, max_level=45, alpha=15), 35)):
         for ident in (False, True):
