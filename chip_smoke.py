@@ -25,12 +25,20 @@ failure and the script then exits non-zero:
      the last rank's [G, n, 128] lane groups at 8, 16 and 32 shards (c =
      32, 16, 8; k = 4, 8, 16; the main rows M = 35), and at 8 shards also
      the specials (M = 15) and the tail's last limb (M = 1) at rep = 2,
-     each copy's rows padded to a multiple of k;
+     each copy's rows padded to a multiple of k; the graph route's
+     base-conversion step 2 (B5) at ModUp digits 0 (16 -> 35 rows, the
+     count row included) and 2 (6 -> 45) and ModDown (16 -> 35), and the
+     whole graph-route conversion (torch step 1 and count row, then B5)
+     against B3 on the same inputs, equal bits, both timed;
   4. an independent oracle at N = 2^13 (n1 = 64 != n2 = 128), maxLevel 8,
      level 8, alpha 3 (a partial digit): the exact numpy engine
      (`RefCkks`) equals the port's hmult, hsquare, hrotate (steps 1 and
-     -1) and the fused-route hmult on the card bit for bit, and conjugate
-     equals the same engine on the CPU bit for bit;
+     -1), the fused-route hmult and the graph-route (ntt_mode="jnp")
+     hmult and hrotate (steps 1 and -1) on the card bit for bit, and
+     conjugate equals the same engine on the CPU bit for bit; a 16 x 16
+     `linalg.bsgs_matvec` on the graph route decrypts within 1e-2 of
+     M @ x (at this size: set B's four more rotation keys would cost
+     about 20 s of host numpy);
   5. parameter set B (N = 2^16, 45 main + 15 special primes) through
      `CkksEngine(device="cuda")`, level 35. The main path: hmult and
      hrotate(step 1) on the piecewise key-switch route, then both with
@@ -42,7 +50,16 @@ failure and the script then exits non-zero:
      the CPU) bit for bit; all 32768 slots decrypt within 1e-2 of v1*v2
      (hmult), v1*v1 (hsquare) and np.roll(v1, -1) (hrotate);
      hrotate_hoisted(ct, [1, 2]) equals two single hrotates; the host
-     seconds of each key. Then the coefficient-sharded dispatch
+     seconds of each key. Then the graph route: a second engine with
+     ntt_mode="jnp", given the first one's keys, runs hmult, hsquare,
+     hrotate(1), conjugate, hrotate_hoisted([1, 2]), keyswitch_poly and
+     rescale, each equal to the accelerated route bit for bit, each run
+     with the launch counts set to 0 just before and read just after: B1,
+     B2 and B5 must launch (rescale, which converts no base on either
+     route: B1 and B2) and B3 and B4 must not. hadd, hsub, padd, pmult,
+     cmult, cadd, rescale and mod_drop equal the CPU plain path bit for bit
+     and decrypt within 1e-2 in all 32768 slots. Then the
+     coefficient-sharded dispatch
      (`parallel.sharded.make_shardmap_hmult` / `make_shardmap_hrotate`,
      step 1, at their default routing, as the JAX package's): on
      `ThreadMesh(4, "cuda")` (4 shards run as 4 threads on this one card,
@@ -61,10 +78,11 @@ failure and the script then exits non-zero:
      hmults on a 2 x 4 mesh (`ThreadMesh(4, "cuda", data=2)`,
      `data_axis="data"`) equals the two single-device hmults bit for bit;
   6. latency (CUDA events around eager calls, median of 20 after 3 warm-up
-     runs) and device time (graph replay) of hmult and hsquare, of hrotate
-     on both key-switch routes and of hmult on the fused route; the eager
-     latency of the sharded ops on 4 and 8 shards (all on one card: not a
-     multi-card latency; no graph capture across the shard threads);
+     runs) and device time (graph replay) of hmult and hsquare, of hmult
+     and hrotate on all three key-switch routes (piecewise, fused, graph);
+     the eager latency of hadd, pmult, padd and rescale, and of the
+     sharded ops on 4 and 8 shards (all on one card: not a multi-card
+     latency; no graph capture across the shard threads);
   7. one JSON line of per-kernel results (each kernel's times and bound at
      one shape the main path launches, named in `shape`; `max_abs_err`
      over every shape checked; `launches` summed over the main-path runs,
@@ -78,7 +96,8 @@ H100 SM has 64 int32 lanes. Operations are counted from the shapes with a
 fixed cost per primitive (`OPS`): a Shoup product 6 (three multiplies, a
 subtract, a conditional subtract), a modular add or subtract 3, a
 butterfly 12, a lazy Shoup product-accumulate 6, a Montgomery
-product-accumulate 9, a final reduction 6.
+product-accumulate 9, a final reduction 6; B3 and B5 both sum lazy
+products and reduce each output once.
 """
 
 import json
@@ -107,6 +126,8 @@ REPLACES = {  # kernel -> (source in this repo, TPU kernel it replaces)
               "homulator_tpu/ops/bconv_fused.py:131"),
     "hpip": ("homulator_tpu_torch/csrc/hpip.cu",
              "homulator_tpu/ops/hpip_pallas.py:117"),
+    "bconv_step2": ("homulator_tpu_torch/csrc/bconv_step2.cu",
+                    "homulator_tpu/ops/bconv_pallas.py:44"),
     "ntt_phase1": ("homulator_tpu_torch/csrc/ntt.cu",
                    "homulator_tpu/ops/ntt_pallas.py:329"),
     "ntt_phase2": ("homulator_tpu_torch/csrc/ntt.cu",
@@ -127,6 +148,8 @@ REPLACES = {  # kernel -> (source in this repo, TPU kernel it replaces)
 KERNELS = tuple(REPLACES)
 PIECES_KERNELS = ("ntt_fwd", "ntt_inv", "bconv")
 FUSED_KERNELS = PIECES_KERNELS + ("hpip",)
+GRAPH_KERNELS = ("ntt_fwd", "ntt_inv", "bconv_step2")
+RESCALE_KERNELS = ("ntt_fwd", "ntt_inv")
 PHASE_KERNELS = ("ntt_phase1", "ntt_phase2", "intt_phase2", "intt_phase1")
 PACKED_KERNELS = tuple(k + "_packed" for k in PHASE_KERNELS)
 COEFF_KERNELS = PHASE_KERNELS + ("bconv",)
@@ -228,6 +251,15 @@ def bconv_bound(nd, m_out, center, n):
     return bound(nbytes, ops)
 
 
+def step2_bound(nd, m_out, n):
+    """B5: nd rows in (the count row included), m_out out, the matrix
+    Shoup pair and the primes; B3's lazy product-accumulate and final
+    reduction (hk::shoup_dot_lazy), without step 1."""
+    nbytes = 4 * (nd * n + m_out * n + 2 * m_out * nd + m_out)
+    return bound(nbytes,
+                 n * m_out * (nd * OPS["lazy_mac"] + OPS["reduce"]))
+
+
 def hpip_bound(kt):
     """B4 at kt's level: the converted rows, the own rows, the key rows
     read (beta x 2 x K), the ext basis's mid and stage tables, the output;
@@ -324,7 +356,7 @@ def check_kernels(np, torch, dc, rng, results):
         compare(torch, "bconv", label,
                 lambda: bconv_fused(x, s, s_sh, iq, mat, mat_sh, out_q,
                                     center=center),
-                lambda: bconv_plain(x, s, iq, mat, out_q, center),
+                lambda: bconv_plain(x, s, s_sh, iq, mat, out_q, center),
                 bconv_bound(x.shape[0], out_q.shape[0], center, n1 * n2),
                 results)
 
@@ -349,6 +381,59 @@ def check_kernels(np, torch, dc, rng, results):
                 lambda: hpip_kernel(convs, d_eval, key, kl),
                 lambda: hpip_plain(convs, d_eval, key, kl),
                 hpip_bound(kl), results)
+
+
+def check_step2_kernel(np, torch, dc, rng, results):
+    """Phase 3, the graph route's conversion: B5 vs its plain version at
+    the set-B shapes it takes (ModUp digits 0 and 2, ModDown), and the
+    whole graph-route conversion (step 1 and the count row as torch ops,
+    then B5) vs B3 on the same inputs: equal bits, both timed (the A/B of
+    the two routes' conversions). Runs after check_kernels, whose B3 rows
+    at these conversions it prints beside B5's."""
+    from homulator_tpu_torch.ops.bconv import (
+        bconv_step1_centered, bconv_step2, bconv_step2_plain,
+    )
+    from homulator_tpu_torch.ops.bconv_fused import bconv_fused
+
+    kt = dc.keyswitch_tables(LEVEL_B)
+    n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
+    d0, d2 = kt.digits[0], kt.digits[2]
+    cases = {  # label -> (step-1 pair, input primes, matrix pair, out q)
+        f"modup digit{d}": ((dt.step1, dt.step1_sh), dt.in_q,
+                            (dt.mat, dt.mat_sh), dt.other_nt.q)
+        for d, dt in ((0, d0), (2, d2))}
+    cases["moddown"] = ((kt.md_s1, kt.md_s1_sh), kt.special_nt.q,
+                        (kt.md_mat, kt.md_mat_sh), kt.main_nt.q)
+    for label, ((s, s_sh), iq, (mat, mat_sh), out_q) in cases.items():
+        nd, m_out = iq.shape[0], out_q.shape[0]
+        x = random_residues(np, torch, rng, iq.cpu().numpy(), (nd, n1, n2))
+
+        def step1_rows():  # torch step 1 and the centering count row
+            return bconv_step1_centered(x, s, s_sh, iq)
+
+        xhat = step1_rows().to(torch.int32)
+        full = f"{label} {nd + 1}->{m_out}"
+        compare(torch, "bconv_step2", full,
+                lambda: bconv_step2(xhat, mat, mat_sh, out_q),
+                lambda: bconv_step2_plain(xhat, mat, out_q),
+                step2_bound(nd + 1, m_out, n1 * n2), results)
+
+        def graph_conv():
+            return bconv_step2(step1_rows(), mat, mat_sh, out_q)
+
+        def b3():
+            return bconv_fused(x, s, s_sh, iq, mat, mat_sh, out_q,
+                               center=True)
+
+        if not torch.equal(graph_conv(), b3()):
+            raise AssertionError(f"{full}: graph-route conversion != B3")
+        b3_row = next(r for r in results["bconv"]
+                      if r[0] == f"{label} {nd}+1->{m_out}")
+        print(f"# A/B {full}: B5 {results['bconv_step2'][-1][2]:.4f} ms "
+              f"(step 2 only); graph conversion (torch step 1 + count row + "
+              f"B5) {device_ms(torch, graph_conv):.4f} ms; B3 (steps 1 and "
+              f"2, centering fused) {b3_row[2]:.4f} ms, "
+              f"{device_ms(torch, b3):.4f} ms again; equal bits")
 
 
 def check_phase_kernels(np, torch, dc, rng, results):
@@ -401,8 +486,8 @@ def check_phase_kernels(np, torch, dc, rng, results):
             f"ns=4 c=64 modup digit0 {nd}+1->{dt.mat.shape[0]}",
             lambda: bconv_fused(x, dt.step1, dt.step1_sh, dt.in_q, dt.mat,
                                 dt.mat_sh, dt.other_nt.q, center=True),
-            lambda: bconv_plain(x, dt.step1, dt.in_q, dt.mat, dt.other_nt.q,
-                                True),
+            lambda: bconv_plain(x, dt.step1, dt.step1_sh, dt.in_q, dt.mat,
+                                dt.other_nt.q, True),
             bconv_bound(nd, dt.mat.shape[0], True, n1 * n2 // NS), results)
 
 
@@ -444,7 +529,10 @@ def check_packed_kernels(np, torch, dc, rng, results):
 
 
 def check_oracle(np, torch, CkksEngine, get_params, api):
-    """Phase 4: the port on the card vs RefCkks at N = 2^13, L8, a3."""
+    """Phase 4: the port on the card vs RefCkks at N = 2^13, L8, a3, and
+    a 16 x 16 linalg.bsgs_matvec on the graph route there; returns the
+    matvec's decrypt error."""
+    from homulator_tpu_torch import linalg
     from homulator_tpu_torch.context import Ciphertext
 
     pm = get_params(n=1 << 13, max_level=8, alpha=3)
@@ -479,9 +567,31 @@ def check_oracle(np, torch, CkksEngine, get_params, api):
     conj_cpu = cpu.conjugate(Ciphertext(a.data.cpu(), a.level, a.scale))
     if not torch.equal(conj.data.cpu(), conj_cpu.data):
         raise AssertionError("conjugate at N=2^13: GPU != CPU plain path")
+    eg = CkksEngine(pm, seed=3, device="cuda", ntt_mode="jnp")
+    eg.relin_key, eg.rot_keys = em.relin_key, em.rot_keys
+    if not np.array_equal(ref.data, eg.dc.download(eg.hmult(a, b).data)):
+        raise AssertionError("graph-route hmult at N=2^13 != RefCkks.hmult")
+    for step in (1, -1):
+        got = eg.dc.download(eg.hrotate(a, step).data)
+        if not np.array_equal(em.ref.hrotate(em.to_ref(a), step).data, got):
+            raise AssertionError(f"graph-route hrotate({step}) at N=2^13 != "
+                                 "RefCkks.hrotate")
     print("# oracle N=2^13 L8 l8 a3: hmult, hsquare, hrotate(1), hrotate(-1) "
-          "and fused-route hmult == RefCkks; conjugate == CPU plain path; "
-          "bit-exact")
+          "and fused-route hmult == RefCkks; graph-route (ntt_mode='jnp') "
+          "hmult, hrotate(1), hrotate(-1) == RefCkks; conjugate == CPU plain "
+          "path; bit-exact")
+    # encrypted linear algebra on the graph route: a 16 x 16 BSGS matvec
+    # (baby steps 1-3 hoisted, giant steps 4, 8, 12)
+    eg.ref = em.ref
+    d = 16
+    M, xv = rng.normal(size=(d, d)) / d, rng.normal(size=d)
+    mv = linalg.bsgs_matvec(eg, linalg.encrypt_vector(eg, xv, 8, SCALE), M)
+    err = float(np.max(np.abs(eg.decrypt_complex(mv).real[:d] - M @ xv)))
+    print(f"# linalg.bsgs_matvec 16x16 at N=2^13 L8 l8 a3, graph route: "
+          f"verify max-abs-err {err:.3e} against M @ x")
+    if not err < GATE:
+        raise AssertionError(f"bsgs_matvec decrypt gate {GATE} failed")
+    return err
 
 
 def drive(torch, kernels, name, fn, expect):
@@ -513,7 +623,7 @@ def main() -> int:
 
     from homulator_tpu_torch import api, kernels
     from homulator_tpu_torch.api import CkksEngine, get_params
-    from homulator_tpu_torch.context import Ciphertext
+    from homulator_tpu_torch.context import Ciphertext, Plaintext
     from homulator_tpu_torch.parallel.comm import ThreadMesh
     from homulator_tpu_torch.parallel.sharded import (
         gather_batch, gather_cols, ici_bytes_per_op, make_shardmap_hmult,
@@ -550,10 +660,11 @@ def main() -> int:
     check_kernels(np, torch, eng.dc, np.random.default_rng(2), results)
     check_phase_kernels(np, torch, eng.dc, np.random.default_rng(3), results)
     check_packed_kernels(np, torch, eng.dc, np.random.default_rng(5), results)
+    check_step2_kernel(np, torch, eng.dc, np.random.default_rng(6), results)
     print(f"# kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # 4. independent oracle at a mid size with a partial digit
-    check_oracle(np, torch, CkksEngine, get_params, api)
+    err_matvec = check_oracle(np, torch, CkksEngine, get_params, api)
 
     # 5. set B through the engine
     for what, fn in (("relin key", eng.keygen),
@@ -602,6 +713,7 @@ def main() -> int:
         raise AssertionError("hmult(45,35,15): GPU != CPU plain path")
     if not torch.equal(rot.data.cpu(), rot_cpu.data):
         raise AssertionError("hrotate(45,35,15): GPU != CPU plain path")
+    errs = {}
     err_mult = float(np.max(np.abs(eng.decrypt_complex(out) - v1 * v2)))
     sq = eng.hsquare(ct1)
     err_sq = float(np.max(np.abs(eng.decrypt_complex(sq) - v1 * v1)))
@@ -618,9 +730,71 @@ def main() -> int:
     print("# hrotate_hoisted(ct, [1, 2]) == hrotate(ct, 1), hrotate(ct, 2), "
           "bit-exact")
 
+    # 5, the graph route: a second engine (ntt_mode="jnp") holding the
+    # first one's host engine and uploaded keys
+    geng = CkksEngine(params, seed=1, device="cuda", ntt_mode="jnp")
+    geng.ref, geng.relin_key = eng.ref, eng.relin_key
+    geng.rot_keys = dict(eng.rot_keys)
+    conj = eng.conjugate(ct1)  # makes the conjugation key
+    geng._conj_keys = dict(eng._conj_keys)
+    rkey = eng.rot_keys[1]
+    graph_runs = {  # label -> (fn, accelerated result, kernels)
+        "hmult graph": (lambda: geng.hmult(ct1, ct2).data, out.data,
+                        GRAPH_KERNELS),
+        "hsquare graph": (lambda: geng.hsquare(ct1).data, sq.data,
+                          GRAPH_KERNELS),
+        "hrotate graph": (lambda: geng.hrotate(ct1, 1).data, rot.data,
+                          GRAPH_KERNELS),
+        "conjugate graph": (lambda: geng.conjugate(ct1).data, conj.data,
+                            GRAPH_KERNELS),
+        "hrotate_hoisted graph": (
+            lambda: torch.stack([c.data for c in
+                                 geng.hrotate_hoisted(ct1, [1, 2])]),
+            torch.stack([h.data for h in hoisted]), GRAPH_KERNELS),
+        "keyswitch_poly graph": (
+            lambda: geng.keyswitch_poly(ct1.data[1], rkey, LEVEL_B),
+            eng.keyswitch_poly(ct1.data[1], rkey, LEVEL_B), GRAPH_KERNELS),
+        # rescale has no base conversion on either route
+        "rescale graph": (lambda: geng.rescale(ct1).data,
+                          eng.rescale(ct1).data, RESCALE_KERNELS),
+    }
+    for label, (fn, want, expect) in graph_runs.items():
+        got, launches[label] = drive(torch, kernels, f"{label} (45,35,15)",
+                                     fn, expect)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: != the accelerated route")
+    print("# graph route (ntt_mode='jnp') == accelerated route: hmult, "
+          "hsquare, hrotate(1), conjugate, hrotate_hoisted([1, 2]), "
+          "keyswitch_poly, rescale; bit-exact")
+    # the elementwise surface vs the CPU plain path, full-slot decrypts
+    pt2 = geng.plaintext_complex(v2, LEVEL_B, SCALE)
+    pt_cpu = Plaintext(pt2.data.cpu(), pt2.level, pt2.scale)
+    elem = {  # label -> (op on (engine, a, b, pt), expected slots)
+        "hadd": (lambda e, a, b, p: e.hadd(a, b), v1 + v2),
+        "hsub": (lambda e, a, b, p: e.hsub(a, b), v1 - v2),
+        "padd": (lambda e, a, b, p: e.padd(a, p), v1 + v2),
+        "pmult": (lambda e, a, b, p: e.pmult(a, p), v1 * v2),
+        "cmult": (lambda e, a, b, p: e.cmult(a, 0.5), 0.5 * v1),
+        "cadd": (lambda e, a, b, p: e.cadd(a, 0.25), v1 + 0.25),
+        "rescale": (lambda e, a, b, p: e.rescale(e.pmult(a, p)), v1 * v2),
+        "mod_drop": (lambda e, a, b, p: e.mod_drop(a), v1),
+    }
+    for label, (f, expected) in elem.items():
+        got = f(geng, ct1, ct2, pt2)
+        if not torch.equal(got.data.cpu(), f(cpu, *cts_cpu, pt_cpu).data):
+            raise AssertionError(f"{label}(45,35,15): GPU != CPU plain path")
+        errs[label] = float(np.max(np.abs(geng.decrypt_complex(got)
+                                          - expected)))
+        if not errs[label] < GATE:
+            raise AssertionError(f"{label} decrypt gate {GATE} failed: "
+                                 f"{errs[label]:.3e}")
+    print("# hadd, hsub, padd, pmult, cmult(0.5), cadd(0.25), rescale(pmult), "
+          "mod_drop == CPU plain path, bit-exact; verify max-abs-err "
+          + ", ".join(f"{errs[k]:.3e} ({k})" for k in elem)
+          + f", all {slots} slots")
+
     # 5, sharded: the coefficient dispatch on 4, 8, 16 and 32 shards of
     # this one card, at the JAX package's default routing
-    rkey = eng.rot_keys[1]
     sharded = {}  # label -> (fn, single-device result, bytes, kernels)
     for ns in (NS,) + NS_PACKED:
         mesh = ThreadMesh(ns, "cuda")
@@ -642,7 +816,6 @@ def main() -> int:
         sharded[f"hrotate coeff x{ns}"] = (
             mesh, lambda f=sh_rot, a=a_s, r=route, k=rkey_s: f(a, r, k),
             rot.data, ici[1], expect)
-    errs = {}
     for label, (mesh, fn, want, ici, expect) in sharded.items():
         mesh.reset_counts()
         got, launches[label] = drive(torch, kernels, f"{label} (45,35,15)",
@@ -687,6 +860,8 @@ def main() -> int:
         "hrotate": (lambda: eng.hrotate(ct1, 1), False),
         "hmult fused": (lambda: eng.hmult(ct1, ct2), True),
         "hrotate fused": (lambda: eng.hrotate(ct1, 1), True),
+        "hmult graph": (lambda: geng.hmult(ct1, ct2), False),
+        "hrotate graph": (lambda: geng.hrotate(ct1, 1), False),
     }
     timings = {}
     for label, (fn, fused) in timed.items():
@@ -698,6 +873,12 @@ def main() -> int:
             api.USE_FUSED_HPIP = False
         print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager, "
               f"{timings[label][1]:.3f} ms device time")
+    for label, fn in (("hadd", lambda: geng.hadd(ct1, ct2)),
+                      ("pmult", lambda: geng.pmult(ct1, pt2)),
+                      ("padd", lambda: geng.padd(ct1, pt2)),
+                      ("rescale", lambda: geng.rescale(ct1))):
+        timings[label] = (latency_ms(torch, fn), None)
+        print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager")
     for label in ("hmult coeff x4", "hrotate coeff x4", "hmult coeff x8",
                   "hrotate coeff x8"):
         timings[label] = (latency_ms(torch, sharded[label][1]), None)
@@ -717,7 +898,8 @@ def main() -> int:
     # headline shape of each kernel: one that the main path launches
     headline = {"ntt_fwd": "tail out M=34 rep=2", "ntt_inv": "main M=35 rep=1",
                 "bconv": results["bconv"][0][0],
-                "hpip": results["hpip"][0][0]}
+                "hpip": results["hpip"][0][0],
+                "bconv_step2": results["bconv_step2"][0][0]}
     headline.update({k: "ns=4 c=64 main M=35 rep=1" for k in PHASE_KERNELS})
     headline.update({k: "ns=8 c=32 k=4 main M=35 rep=1"
                      for k in PACKED_KERNELS})
@@ -741,7 +923,8 @@ def main() -> int:
         "device_ms": {k: v[1] for k, v in timings.items()
                       if v[1] is not None},
         "verify_max_err": dict({"hmult": err_mult, "hsquare": err_sq,
-                                "hrotate": err_rot}, **errs)}))
+                                "hrotate": err_rot,
+                                "bsgs_matvec N=2^13": err_matvec}, **errs)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,13 +7,16 @@ the numpy-only host modules (`params`, `numtheory`, `refimpl`, `encoder`,
 bit with the same array layouts at every public function, and imports
 nothing of `homulator_tpu` and no JAX.
 
-Slices implemented so far: `CkksEngine.hmult` / `hsquare` on the
-accelerated single-device route (ModUp, digit inner product, fused
-ModDown + rescale tail) and `hrotate` / `conjugate` / `hrotate_hoisted`,
-each on the piecewise key-switch route or, with `api.USE_FUSED_HPIP`, the
-fused HPIP route. They are carried by four CUDA kernels (`csrc/`): the
-4-step NTT, its inverse, the RNS base conversion and the fused ModUp NTT +
-key inner product.
+Implemented so far: the single-device engine surface of the JAX
+`CkksEngine` but `op_cost_counters` (`api.py`: hmult, hsquare, hrotate,
+conjugate, hrotate_hoisted, keyswitch_poly, rescale, the elementwise ops,
+plaintexts, the ntt / intt views) on the JAX package's three key-switch
+routes (accelerated piecewise, fused HPIP with `api.USE_FUSED_HPIP`, and
+the graph route with `ntt_mode="jnp"`), the CLI (`cli.py`), `serialize`,
+`linalg`, and the coefficient-sharded hmult and hrotate (`parallel/`).
+They are carried by the CUDA kernels of `csrc/`: the 4-step NTT and its
+inverse, the two base conversions (fused and step 2), the fused ModUp NTT
++ key inner product, and the sharded NTT's phase kernels.
 """
 
 __version__ = "0.2.0"

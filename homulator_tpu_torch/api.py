@@ -1,12 +1,18 @@
 """Public operation API of the port: `CkksEngine` with hmult, hsquare,
-hrotate, conjugate and hrotate_hoisted.
+hrotate, conjugate, hrotate_hoisted, the elementwise ops (hadd, hsub,
+padd, pmult, cmult, cadd), mod_drop / align_levels, keyswitch_poly,
+rescale and the ntt / intt host views.
 
-The counterpart of `homulator_tpu/api.py:37-42, 71-234, 263-477`. Key
-generation, encoding, encryption and decryption run on the host through
-the exact reference engine (the port's copy of `refimpl.RefCkks`, pure
-numpy); keys and ciphertexts are uploaded in the JAX package's layouts,
-and the homomorphic operations run on the engine's torch device. PyTorch
-runs eagerly, so the op graphs are plain functions (no jit).
+The counterpart of `homulator_tpu/api.py` (all but `op_cost_counters`).
+Key generation, encoding, encryption and decryption run on the host
+through the exact reference engine (the port's copy of `refimpl.RefCkks`,
+pure numpy); keys and ciphertexts are uploaded in the JAX package's
+layouts, and the homomorphic operations run on the engine's torch device.
+PyTorch runs eagerly, so the op graphs are plain functions (no jit). The
+engine's `ntt_mode` picks the key-switch route as in the JAX package:
+"auto" the accelerated one, "jnp" the graph one (context.DeviceContext);
+both give the same bits. Elementwise ops are PyTorch ops on the int64
+carrier, as the JAX package computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -16,13 +22,18 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .context import EVAL, Ciphertext, DeviceContext, KeySwitchLevelTables
+from .context import (
+    EVAL, Ciphertext, DeviceContext, KeySwitchLevelTables, Plaintext,
+)
 from .ops.automorph import automorph_eval
 from .ops.keyswitch import (
-    hpip_acc, inner_product_pieces, keyswitch_fused, keyswitch_pieces,
-    moddown_pair2, moddown_rescale2, modup_conv_all, modup_convs_coeff,
+    hpip_acc, inner_product_moddown, inner_product_pieces, keyswitch,
+    keyswitch_fused, keyswitch_pieces, moddown_pair2, moddown_rescale2,
+    modup_all, modup_conv_all, modup_convs_coeff,
 )
-from .ops.modmath import modadd, mulmod
+from .ops.modmath import col, modadd, modsub, mulmod
+from .ops.ntt import intt, ntt
+from .ops.rescale import rescale_poly
 # get_params is re-exported: callers of the port take their parameter sets
 # from the port's own API.
 from .params import CkksParams, get_params  # noqa: F401
@@ -33,20 +44,28 @@ from .stats import Statistic, op_modmul_count
 # (B4, ops/hpip.py) instead of the piecewise path. Off by default, as in
 # the JAX package; both routes give the same bits. A coefficient-sharded
 # key switch (kt.main_nt.shard set) always takes the piecewise route, as
-# in the JAX package: B4 runs whole-limb NTTs.
+# in the JAX package: B4 runs whole-limb NTTs; the graph route
+# (kt.graph) never takes it.
 USE_FUSED_HPIP = False
 
 
 def _fused(kt: KeySwitchLevelTables) -> bool:
-    return USE_FUSED_HPIP and kt.main_nt.shard is None
+    return USE_FUSED_HPIP and kt.main_nt.shard is None and not kt.graph
 
 
 def _keyswitch_rescale_tail(d0, d1, d2, key, kt: KeySwitchLevelTables):
     """KeySwitch(d2) -> relinearisation add -> rescale of both components.
     The JAX package ends its sharded branch in one moddown_rescale per
     component (api.py:98-103); the batched moddown_rescale2 gives the same
-    bits and moves the same rows through each exchange."""
+    bits and moves the same rows through each exchange. The graph route
+    (kt.graph, JAX api.py:104-110) runs keyswitch's pieces, the adds and
+    one rescale_poly per component on the tables kt.rescale."""
     d2 = d2.to(torch.int32)
+    if kt.graph:
+        e0, e1 = inner_product_moddown(modup_all(d2, kt), key, kt)
+        q = col(kt.main_nt.q)
+        return torch.stack([rescale_poly(modadd(d0, e0, q), kt.rescale),
+                            rescale_poly(modadd(d1, e1, q), kt.rescale)])
     if _fused(kt):
         alpha = kt.special_nt.q.shape[0]
         acc = hpip_acc(modup_convs_coeff(d2, kt), d2, key, kt)
@@ -61,7 +80,7 @@ def hmult_graph(a: torch.Tensor, b: torch.Tensor, key: torch.Tensor,
                 kt: KeySwitchLevelTables) -> torch.Tensor:
     """Tensor product -> KeySwitch(d2) -> relinearisation add -> rescale.
     a, b: int32 [2, level, n2, n1]; returns int32 [2, level-1, n2, n1]."""
-    q = kt.main_nt.q.long().view(-1, 1, 1)
+    q = col(kt.main_nt.q)
     d0 = mulmod(a[0], b[0], q)
     d1 = modadd(mulmod(a[0], b[1], q), mulmod(a[1], b[0], q), q)
     d2 = mulmod(a[1], b[1], q)
@@ -71,7 +90,7 @@ def hmult_graph(a: torch.Tensor, b: torch.Tensor, key: torch.Tensor,
 def hsquare_graph(a: torch.Tensor, key: torch.Tensor,
                   kt: KeySwitchLevelTables) -> torch.Tensor:
     """d0 = c0^2, d1 = 2 c0 c1, d2 = c1^2, then the hmult tail."""
-    q = kt.main_nt.q.long().view(-1, 1, 1)
+    q = col(kt.main_nt.q)
     d0 = mulmod(a[0], a[0], q)
     cross = mulmod(a[0], a[1], q)
     d1 = modadd(cross, cross, q)
@@ -84,9 +103,10 @@ def hrotate_tail(r0: torch.Tensor, r1: torch.Tensor, key: torch.Tensor,
     """hrotate after the automorphism: KeySwitch(r1) -> add r0. The JAX
     package switches each component's ModDown on its own when sharded
     (keyswitch.py:193-197); keyswitch_pieces keeps them batched, with the
-    same bits."""
-    q = kt.main_nt.q.long().view(-1, 1, 1)
-    ks = keyswitch_fused if _fused(kt) else keyswitch_pieces
+    same bits. The graph route takes keyswitch() (JAX api.py:148-149)."""
+    q = col(kt.main_nt.q)
+    ks = (keyswitch if kt.graph else
+          keyswitch_fused if _fused(kt) else keyswitch_pieces)
     e = ks(r1, key, kt)
     return torch.stack([modadd(r0, e[0], q).to(torch.int32), e[1]])
 
@@ -104,11 +124,21 @@ def hrotate_hoisted_graph(a: torch.Tensor, perms: Sequence[torch.Tensor],
                           kt: KeySwitchLevelTables) -> torch.Tensor:
     """Several rotations of one ciphertext sharing one ModUp (Halevi-Shoup
     hoisting): the automorphism commutes with the digit decomposition, so
-    it is applied to each converted piece. Always the piecewise route, as
-    in the JAX package. Returns int32 [len(perms), 2, level, n2, n1]."""
-    q = kt.main_nt.q.long().view(-1, 1, 1)
-    convs = modup_conv_all(a[1], kt)
+    it is applied to each converted piece (the piecewise route, never the
+    fused one, as in the JAX package) or, on the graph route, to each
+    whole ext digit (JAX api.py:203-209). Returns int32
+    [len(perms), 2, level, n2, n1]."""
+    q = col(kt.main_nt.q)
     outs = []
+    if kt.graph:
+        ext_digits = modup_all(a[1], kt)
+        for perm, key in zip(perms, keys):
+            rot = [automorph_eval(dg, perm) for dg in ext_digits]
+            e0, e1 = inner_product_moddown(rot, key, kt)
+            r0 = automorph_eval(a[0], perm)
+            outs.append(torch.stack([modadd(r0, e0, q).to(torch.int32), e1]))
+        return torch.stack(outs)
+    convs = modup_conv_all(a[1], kt)
     for perm, key in zip(perms, keys):
         rot_convs = [automorph_eval(c, perm) for c in convs]
         r1 = automorph_eval(a[1], perm)
@@ -124,26 +154,30 @@ class CkksEngine:
 
     On "cuda" the NTTs and base conversions run as the CUDA kernels of
     csrc/ (built at first use); on "cpu" they run as their plain PyTorch
-    versions. The two give the same bits."""
+    versions. The two give the same bits. ntt_mode: "auto" (the
+    accelerated key-switch route) or "jnp" (the graph route), as the JAX
+    engine's; the two give the same bits."""
 
-    def __init__(self, params: CkksParams, seed: int = 0, device="cuda"):
+    def __init__(self, params: CkksParams, seed: int = 0, device="cuda",
+                 ntt_mode: str = "auto"):
         self.params = params
-        self.dc = DeviceContext(params, device)
+        self.dc = DeviceContext(params, device, ntt_mode)
         self.ref = RefCkks(params, seed)
         self.relin_key: Optional[torch.Tensor] = None
         self.rot_keys: Dict[int, torch.Tensor] = {}
         self._conj_keys: Dict[int, torch.Tensor] = {}
+        self._const_cache: Dict[tuple, torch.Tensor] = {}
         # the reference's Statistic counters (same keys as the JAX engine)
         self.stats = Statistic()
 
-    def _count(self, op: str, level: int) -> None:
+    def _count(self, op: str, level: int, components: int = 2) -> None:
         p = self.params
         self.stats.increase(f"op/{op}")
         self.stats.increase(
             "modmul_total",
             op_modmul_count(op, p.n, level, p.alpha, p.beta(level)))
-        # words in + out of device memory for the two-component operands
-        self.stats.increase("MEM_words", 3 * 2 * level * p.n)
+        # words in + out of device memory for the ciphertext operands
+        self.stats.increase("MEM_words", 3 * components * level * p.n)
 
     # ---- keys ------------------------------------------------------------
     def keygen(self) -> None:
@@ -160,11 +194,21 @@ class CkksEngine:
         ct = self.ref.encrypt(self.ref.encode_ints(coeffs, level, scale))
         return self.dc.upload_ct(ct.data, level, scale)
 
+    def plaintext_ints(self, coeffs: np.ndarray, level: int,
+                       scale: float) -> Plaintext:
+        pt = self.ref.encode_ints(coeffs, level, scale)
+        return self.dc.upload_pt(pt.data, level, scale)
+
     def encrypt_complex(self, values: np.ndarray, level: int,
                         scale: float) -> Ciphertext:
         """Encrypt N/2 complex slots (canonical-embedding encode + encrypt)."""
         ct = self.ref.encrypt(self.ref.encode_complex(values, level, scale))
         return self.dc.upload_ct(ct.data, level, scale)
+
+    def plaintext_complex(self, values: np.ndarray, level: int,
+                          scale: float) -> Plaintext:
+        pt = self.ref.encode_complex(values, level, scale)
+        return self.dc.upload_pt(pt.data, level, scale)
 
     def to_ref(self, ct: Ciphertext) -> RefCiphertext:
         """The ciphertext as the host reference engine's type."""
@@ -186,6 +230,83 @@ class CkksEngine:
                 f"operand at level {a.level} ({a.domain}): need an eval-domain "
                 f"ciphertext at level >= {min_level}"
                 + (" (rescale drops one limb)" if min_level > 1 else ""))
+
+    @staticmethod
+    def _same_level(a, b) -> None:
+        if a.level != b.level:
+            raise ValueError(f"levels differ: {a.level} != {b.level}")
+        if a.domain != EVAL or b.domain != EVAL:
+            raise ValueError(f"domains {a.domain}, {b.domain}: need eval")
+
+    def hadd(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        self._same_level(a, b)
+        self._count("hadd", a.level)
+        q = col(self.dc.q_level(a.level))
+        return Ciphertext(modadd(a.data, b.data, q).to(torch.int32), a.level,
+                          a.scale)
+
+    def hsub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        self._same_level(a, b)
+        self._count("hsub", a.level)
+        q = col(self.dc.q_level(a.level))
+        return Ciphertext(modsub(a.data, b.data, q).to(torch.int32), a.level,
+                          a.scale)
+
+    def padd(self, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+        """Add a plaintext to c0."""
+        self._same_level(a, pt)
+        self._count("padd", a.level)
+        q = col(self.dc.q_level(a.level))
+        c0 = modadd(a.data[0], pt.data, q).to(torch.int32)
+        return Ciphertext(torch.stack([c0, a.data[1]]), a.level, a.scale)
+
+    def pmult(self, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+        """Multiply both components by a plaintext (no rescale)."""
+        self._same_level(a, pt)
+        l = a.level
+        self._count("pmult", l)
+        q = col(self.dc.q_level(l))
+        return Ciphertext(mulmod(a.data, pt.data, q).to(torch.int32), l,
+                          a.scale * pt.scale)
+
+    def cmult(self, a: Ciphertext, value: float,
+              scale_bits: Optional[int] = None) -> Ciphertext:
+        """Multiply by a public real scalar (no encoding round trip): by
+        the residues of round(value * 2^scale_bits), which the JAX engine
+        holds in Montgomery form; the product is the same residue."""
+        sb = self.params.scale_bits if scale_bits is None else scale_bits
+        delta = float(1 << sb)
+        c = int(round(value * delta))
+        l = a.level
+        key = (c, l)
+        if key not in self._const_cache:
+            qs = self.params.q_arr[:l].astype(np.int64)
+            self._const_cache[key] = self.dc.tensor(np.int64(c) % qs)
+        q = col(self.dc.q_level(l))
+        out = mulmod(a.data, col(self._const_cache[key]), q)
+        return Ciphertext(out.to(torch.int32), l, a.scale * delta)
+
+    def cadd(self, a: Ciphertext, value: float) -> Ciphertext:
+        """Add a public real scalar (to the constant coefficient)."""
+        m = np.zeros(self.params.n, dtype=np.int64)
+        m[0] = int(round(value * a.scale))
+        return self.padd(a, self.plaintext_ints(m, a.level, a.scale))
+
+    def mod_drop(self, a: Ciphertext, levels: int = 1) -> Ciphertext:
+        """Drop limbs without rescaling (modulus switch by truncation);
+        used to align operand levels."""
+        new_level = a.level - levels
+        if new_level < 1:
+            raise ValueError(f"mod_drop({levels}) at level {a.level}")
+        return Ciphertext(a.data[:, :new_level].contiguous(), new_level,
+                          a.scale)
+
+    def align_levels(self, a: Ciphertext, b: Ciphertext):
+        if a.level == b.level:
+            return a, b
+        if a.level > b.level:
+            return self.mod_drop(a, a.level - b.level), b
+        return a, self.mod_drop(b, b.level - a.level)
 
     def hmult(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         self._check_ks_operand(a)
@@ -244,3 +365,35 @@ class CkksEngine:
                                      [self.rot_keys[s] for s in steps],
                                      self.dc.keyswitch_tables(a.level))
         return [Ciphertext(o, a.level, a.scale) for o in outs]
+
+    def keyswitch_poly(self, d: torch.Tensor, key: torch.Tensor,
+                       level: int) -> torch.Tensor:
+        """Switch d (int32 [level, n2, n1] eval) under key: always the JAX
+        package's keyswitch() (its tables' branches). Returns int32
+        [2, level, n2, n1] (e0, e1)."""
+        return keyswitch(d, key, self.dc.keyswitch_tables(level))
+
+    def rescale(self, a: Ciphertext) -> Ciphertext:
+        """Divide by the last prime (rescale_poly on each component)."""
+        l = a.level
+        if l < 2:
+            raise ValueError(f"rescale at level {l}: no limb to drop")
+        rt = self.dc.rescale_tables(l)
+        out = torch.stack([rescale_poly(a.data[k], rt) for k in (0, 1)])
+        return Ciphertext(out, l - 1, a.scale / self.params.qs[l - 1])
+
+    def ntt(self, x: torch.Tensor, level: int) -> torch.Tensor:
+        """x: int32 [M, N] flat coeff order -> [M, N] flat eval order over
+        the first `level` primes (a host-view utility; the op graphs keep
+        the tile layouts)."""
+        t = self.params.ntt
+        y = ntt(x.reshape(x.shape[0], t.n1, t.n2).contiguous(),
+                self.dc.ntt_basis(self.dc.main_rows(level)))
+        return y.reshape(x.shape[0], self.params.n)
+
+    def intt(self, x: torch.Tensor, level: int) -> torch.Tensor:
+        """The inverse of ntt: [M, N] flat eval -> [M, N] flat coeff."""
+        t = self.params.ntt
+        y = intt(x.reshape(x.shape[0], t.n2, t.n1).contiguous(),
+                 self.dc.ntt_basis(self.dc.main_rows(level)))
+        return y.reshape(x.shape[0], self.params.n)

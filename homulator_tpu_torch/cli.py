@@ -2,11 +2,14 @@
 <alpha> [cluster] [--verify] [--device cuda|cpu] [--fused-hpip]
 [--dispatch auto|limb|coeff|hybrid|gspmd]`.
 
-The reference's positional contract, as in `homulator_tpu/cli.py`, for the
-ops this port has so far (hmult, hsquare, hrotate by one step). The
-others exit with status 2 and name the ROADMAP item that ports them.
-`--verify` decrypts every slot and prints the JAX CLI's `# verify
-max-abs-err = ...` line; an error above 1e-2 exits with 1. `--fused-hpip`
+The reference's positional contract, as in `homulator_tpu/cli.py`: its
+five operations hmult, hadd, hrotate (by one step), pmult and padd, and
+the JAX CLI's hsub and hsquare; pmult and padd take the plaintext of the
+second operand's slots. An unknown op exits with status 1 and the JAX
+CLI's message. `--verify` decrypts every slot and prints the JAX CLI's
+`# verify max-abs-err = ...` line against the same expectations; an error
+above 1e-2 exits with 1. The key switches take the accelerated route (the
+graph route is the engine's ntt_mode="jnp"). `--fused-hpip`
 (or the cfg key `fused_hpip = 1`) routes key switches through the fused
 HPIP kernel (api.USE_FUSED_HPIP) for the run and restores the flag
 afterwards.
@@ -19,8 +22,9 @@ device, where `coeff_shard_ok` allows it, routed as the JAX CLI routes it
 `pack_k_for` > 0, e.g. 8 to 32 shards at N = 2^16); it checks the bytes
 each shard received against `ici_bytes_per_op` of that routing, and with
 `--verify` the result against the single-device op bit for bit. The other
-dispatches (auto, the default, and limb, hybrid, gspmd) exit with status
-2 and name ROADMAP A12.
+dispatches (auto, the default, and limb, hybrid, gspmd), and the ops
+other than hmult and hrotate at [cluster] > 1 (which the JAX CLI runs
+through GSPMD), exit with status 2 and name ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -31,13 +35,7 @@ import time
 
 import numpy as np
 
-PORTED = ("hmult", "hsquare", "hrotate")
-NOT_PORTED = {  # op -> ROADMAP item that ports it
-    "hadd": "A8 (elementwise ops)",
-    "hsub": "A8 (elementwise ops)",
-    "padd": "A8 (elementwise ops)",
-    "pmult": "A8 (elementwise ops)",
-}
+OPS = ("hmult", "hadd", "hrotate", "pmult", "padd", "hsub", "hsquare")
 
 
 def run_op(args) -> int:
@@ -45,25 +43,24 @@ def run_op(args) -> int:
     from .params import get_params
     from .stats import Statistic, op_modmul_count
 
-    if args.op not in PORTED:
-        item = NOT_PORTED.get(args.op)
-        print(f"op {args.op!r} is not ported to homulator_tpu_torch yet"
-              + (f": ROADMAP {item}" if item else
-                 f" (ported ops: {', '.join(PORTED)})"), file=sys.stderr)
-        return 2
+    if args.op not in OPS:
+        print(f"unknown op {args.op!r} (expected {'|'.join(OPS)})",
+              file=sys.stderr)
+        return 1
     ns = args.cluster if args.cluster is not None else 1
     if ns <= 1 and args.dispatch in ("limb", "coeff", "hybrid"):
         print(f"--dispatch {args.dispatch} needs the [cluster] positional "
               "> 1", file=sys.stderr)
         return 2
+    if ns > 1 and args.op not in ("hmult", "hrotate"):
+        print(f"cluster={ns} {args.op}: the JAX CLI runs it through GSPMD, "
+              "which is not ported to homulator_tpu_torch yet: ROADMAP A12",
+              file=sys.stderr)
+        return 2
     if ns > 1 and args.dispatch != "coeff":
         print(f"cluster={ns} --dispatch {args.dispatch}: only the "
               "coefficient dispatch (--dispatch coeff) is ported to "
               "homulator_tpu_torch yet; the others: ROADMAP A12",
-              file=sys.stderr)
-        return 2
-    if ns > 1 and args.op not in ("hmult", "hrotate"):
-        print(f"--dispatch coeff runs hmult and hrotate, not {args.op!r}",
               file=sys.stderr)
         return 2
     import torch
@@ -110,12 +107,21 @@ def run_op(args) -> int:
     with stats.timer("setup/encrypt"):
         ct1 = eng.encrypt_complex(v1, rc.level, scale)
         ct2 = eng.encrypt_complex(v2, rc.level, scale)
+        pt2 = eng.plaintext_complex(v2, rc.level, scale)
 
     def op_once():
         if rc.op == "hmult":
             return eng.hmult(ct1, ct2)
+        if rc.op == "hadd":
+            return eng.hadd(ct1, ct2)
         if rc.op == "hrotate":
             return eng.hrotate(ct1, 1)
+        if rc.op == "pmult":
+            return eng.pmult(ct1, pt2)
+        if rc.op == "padd":
+            return eng.padd(ct1, pt2)
+        if rc.op == "hsub":
+            return eng.hsub(ct1, ct2)
         return eng.hsquare(ct1)
 
     single = op_once
@@ -161,8 +167,10 @@ def run_op(args) -> int:
                 return 1
         with stats.timer("verify/decrypt"):
             got = eng.decrypt_complex(out)
-        expected = {"hmult": v1 * v2, "hsquare": v1 * v1,
-                    "hrotate": np.roll(v1, -1)}[rc.op]
+        expected = {"hmult": v1 * v2, "hadd": v1 + v2,
+                    "hrotate": np.roll(v1, -1), "pmult": v1 * v2,
+                    "padd": v1 + v2, "hsub": v1 - v2,
+                    "hsquare": v1 * v1}[rc.op]
         err = float(np.max(np.abs(got - expected)))
         print(f"# verify max-abs-err = {err:.3e}")
         if err > 1e-2:

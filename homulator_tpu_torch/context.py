@@ -172,8 +172,20 @@ class TailTables:
 
 
 @dataclasses.dataclass
+class RescaleTables:
+    """rescale_poly's tables for dropping limb level-1 (ops/rescale.py):
+    last_nt, the dropped limb's basis; out_nt, the main basis at level-1;
+    qinv/qinv_sh: [level-1] [q_last^{-1}]_{q_i} Shoup pair."""
+
+    last_nt: NttBasis
+    out_nt: NttBasis
+    qinv: torch.Tensor
+    qinv_sh: torch.Tensor
+
+
+@dataclasses.dataclass
 class KeySwitchLevelTables:
-    """Key-switch tables of one level on the accelerated route.
+    """Key-switch tables of one level.
 
     ext_nt: NTT basis of the ext rows (specials first, alpha+level rows):
     its primes serve the Montgomery key product and its forward tables
@@ -182,7 +194,12 @@ class KeySwitchLevelTables:
     [level, alpha+1] ModDown conversion [P/p_j]_{q_i} plus the centering
     column [-P]_{q_i} (params.ks.moddown_step2); pinv: [level]
     [P^{-1}]_{q_i}. tail: the fused ModDown + rescale tables (None at
-    level 1, where there is no limb to drop)."""
+    level 1, where there is no limb to drop, and on the graph route).
+    graph: the key switch takes the graph route of a context made with
+    ntt_mode="jnp" (the JAX tables' `use_pallas` False): whole ext digits
+    NTT'd, step-2 conversions through kernel B5, each key component's
+    ModDown on its own, rescale_poly after it (ops/keyswitch.py) on the
+    tables `rescale` (set on the graph route at level >= 2 only)."""
 
     digits: Tuple[ModUpDigitTables, ...]
     main_nt: NttBasis
@@ -197,6 +214,8 @@ class KeySwitchLevelTables:
     pinv_sh: torch.Tensor
     tail: Optional[TailTables]
     level: int
+    graph: bool = False
+    rescale: Optional[RescaleTables] = None
 
 
 class DeviceContext:
@@ -204,9 +223,17 @@ class DeviceContext:
 
     device: "cuda" (the kernels' device; raises when torch has no CUDA
     device) or "cpu" (every kernel wrapper then runs its plain PyTorch
-    version)."""
+    version).
 
-    def __init__(self, params: CkksParams, device="cuda"):
+    ntt_mode: "auto", the accelerated route the JAX package takes on its
+    accelerator (own digit rows pass through, base conversions in B3, the
+    fused ModDown + rescale tail), or "jnp", the JAX package's graph route
+    (KeySwitchLevelTables.graph), which it takes on every other backend.
+    Both give the same bits. The JAX modes "pallas" and "interpret" have
+    no meaning here."""
+
+    def __init__(self, params: CkksParams, device="cuda",
+                 ntt_mode: str = "auto"):
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -214,8 +241,12 @@ class DeviceContext:
                 "False")
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {dev}")
+        if ntt_mode not in ("auto", "jnp"):
+            raise ValueError(f"ntt_mode {ntt_mode!r}: 'auto' (the "
+                             "accelerated route) or 'jnp' (the graph route)")
         self.params = params
         self.device = dev
+        self.ntt_mode = ntt_mode
         t = params.ntt
         self._tw1 = _flat_stages(t.sub1.stage_tw, t.n1)
         self._tw2 = _flat_stages(t.sub2.stage_tw, t.n2)
@@ -225,6 +256,8 @@ class DeviceContext:
         self._ks_cache: Dict[tuple, KeySwitchLevelTables] = {}
         self._perm_cache: Dict[int, torch.Tensor] = {}
         self._route_cache: Dict[Tuple[int, int], tuple] = {}
+        self._q_cache: Dict[int, torch.Tensor] = {}
+        self._rs_cache: Dict[int, RescaleTables] = {}
 
     # ---- basis row helpers (same orders as the JAX DeviceContext) --------
     def main_rows(self, level: int) -> Tuple[int, ...]:
@@ -315,15 +348,22 @@ class DeviceContext:
     def keyswitch_tables(self, level: int,
                          shard: Optional[Tuple[int, int]] = None,
                          packed: bool = False) -> KeySwitchLevelTables:
-        """Tables of the accelerated key-switch route at `level` (the
-        fused ModDown + rescale tail needs level >= 2). With shard =
+        """Key-switch tables at `level` for this context's route (the
+        accelerated route's fused ModDown + rescale tail needs level >= 2;
+        the graph route builds none, as the JAX package). With shard =
         (rank, ns): the same tables with every NTT basis in its sharded
         form for that rank (lane-packed where `packed` and pack_k_for
-        allow, as ntt_basis); all other tables are the unsharded ones."""
+        allow, as ntt_basis); all other tables are the unsharded ones.
+        The graph route has no sharded form."""
         k = self._pack_k(shard, packed)
         key = (level, shard, k)
         if key in self._ks_cache:
             return self._ks_cache[key]
+        if shard is not None and self.ntt_mode == "jnp":
+            raise NotImplementedError(
+                "the graph route (ntt_mode='jnp') has no coefficient-sharded "
+                "form: it is kept single-device, for parity with the JAX "
+                "engine and as kernel B5's path (ROADMAP A5)")
         if shard is not None:
             kt = self.keyswitch_tables(level)
 
@@ -372,8 +412,11 @@ class DeviceContext:
             ext_qinv=self.tensor(p.qinv_neg[np.array(ext)]),
             md_s1=md_s1, md_s1_sh=md_s1_sh, md_mat=md_mat,
             md_mat_sh=md_mat_sh, pinv=pinv, pinv_sh=pinv_sh,
-            tail=self._tail_tables(level) if level >= 2 else None,
-            level=level,
+            tail=(self._tail_tables(level)
+                  if level >= 2 and self.ntt_mode != "jnp" else None),
+            level=level, graph=self.ntt_mode == "jnp",
+            rescale=(self.rescale_tables(level)
+                     if level >= 2 and self.ntt_mode == "jnp" else None),
         )
         self._ks_cache[key] = kt
         return kt
@@ -415,6 +458,30 @@ class DeviceContext:
             last_nt=self.ntt_basis((lm1,)),
             out_nt=self.ntt_basis(self.main_rows(lm1)),
         )
+
+    def q_level(self, level: int) -> torch.Tensor:
+        """int32 [level] the first `level` primes on this device (the
+        elementwise ops' modulus column; the JAX q_level triple's q, as
+        the port multiplies in int64 and needs no Montgomery constants)."""
+        if level not in self._q_cache:
+            self._q_cache[level] = self.tensor(self.params.q_arr[:level])
+        return self._q_cache[level]
+
+    def rescale_qinv(self, level: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(plain, Shoup) pair of [level-1] [q_{level-1}^{-1}]_{q_i}: the
+        pair of the JAX rescale_qinv_mont triple that rescale_poly reads."""
+        p = self.params
+        return self._pair(p.rescale_qinv[level - 1, :level - 1],
+                          p.q_arr[:level - 1])
+
+    def rescale_tables(self, level: int) -> RescaleTables:
+        """rescale_poly's tables for dropping limb level-1 (level >= 2)."""
+        if level not in self._rs_cache:
+            self._rs_cache[level] = RescaleTables(
+                self.ntt_basis((level - 1,)),
+                self.ntt_basis(self.main_rows(level - 1)),
+                *self.rescale_qinv(level))
+        return self._rs_cache[level]
 
     def automorph_perm(self, g: int) -> torch.Tensor:
         """int64 [N] gather indices of sigma_g over the flat eval order
@@ -460,6 +527,11 @@ class DeviceContext:
                   scale: float) -> Ciphertext:
         return Ciphertext(self.tensor(self._eval_tiles(data_u64)), level,
                           scale, EVAL)
+
+    def upload_pt(self, data_u64: np.ndarray, level: int,
+                  scale: float) -> Plaintext:
+        return Plaintext(self.tensor(self._eval_tiles(data_u64)), level,
+                         scale, EVAL)
 
     def upload_kskey_mont(self, digits: List[np.ndarray]) -> torch.Tensor:
         """Stack key digits ([2, K, N] each) as ONE Montgomery-form array

@@ -78,11 +78,7 @@ bconv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
     const uint32_t p = sq[j];
     const uint32_t* mj = smat + j * ndt;
     const uint32_t* mjs = smat_sh + j * ndt;
-    uint64_t acc = 0;
-#pragma unroll
-    for (int i = 0; i < MAXND; ++i) {
-      if (i < nd) acc += shoup_mul_lazy(xh[i], mj[i], mjs[i], p);
-    }
+    uint64_t acc = hk::shoup_dot_lazy<MAXND>(xh, nd, mj, mjs, p);
     if (center) acc += shoup_mul_lazy(v, mj[nd], mjs[nd], p);
     out[j * ncoef + c] = static_cast<uint32_t>(acc % p);
   }

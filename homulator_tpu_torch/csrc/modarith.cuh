@@ -37,6 +37,24 @@ __device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w,
   return r >= q ? r - q : r;
 }
 
+// sum_{i < n} x[i] * w[i] over register-resident inputs x (any uint32: an
+// input may exceed q), each term a lazy Shoup product in [0, 2q) summed in
+// uint64, which no n <= MAXND <= 2^31 can overflow; the caller reduces the
+// sum mod q once. The multiply-accumulate of both base conversions (B3,
+// B5), with w, w_sh one output row of the matrix Shoup pair.
+template <int MAXND>
+__device__ __forceinline__ uint64_t shoup_dot_lazy(const uint32_t (&x)[MAXND],
+                                                   int n, const uint32_t* w,
+                                                   const uint32_t* w_sh,
+                                                   uint32_t q) {
+  uint64_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < MAXND; ++i) {
+    if (i < n) acc += shoup_mul_lazy(x[i], w[i], w_sh[i], q);
+  }
+  return acc;
+}
+
 // a - m if a >= m, else a.
 __device__ __forceinline__ uint32_t csub(uint32_t a, uint32_t m) {
   return a >= m ? a - m : a;

@@ -36,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches its kernel, and nowhere else. The shard threads of a ThreadMesh
 # launch concurrently, so updates and the first load hold a lock.
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "bconv": 0, "hpip": 0,
+            "bconv_step2": 0,
             "ntt_phase1": 0, "ntt_phase2": 0, "intt_phase2": 0,
             "intt_phase1": 0, "ntt_phase1_packed": 0, "ntt_phase2_packed": 0,
             "intt_phase2_packed": 0, "intt_phase1_packed": 0}
@@ -64,6 +65,8 @@ _SIGNATURES = {
     # x, out, s, s_sh, in_q, mat, mat_sh, out_q, nd, center, m_out, ncoef,
     # stream
     "hk_bconv": [_P] * 8 + [_I] * 3 + [ctypes.c_longlong, _P],
+    # xhat, out, mat, mat_sh, out_q, nd, m_out, ncoef, stream
+    "hk_bconv_step2": [_P] * 5 + [_I] * 2 + [ctypes.c_longlong, _P],
     # convs, conv_rows, spans (host arrays), d_eval, key, scratch, out, q,
     # qinv, 6 tables, beta, alpha, level, k_full, n1, n2, stream
     "hk_hpip": [_P] * 15 + [_I] * 6 + [_P],

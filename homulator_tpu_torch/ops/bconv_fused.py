@@ -2,7 +2,7 @@
 
 The counterpart of `homulator_tpu/ops/bconv_fused.py::bconv_fused` (and of
 the centered conversion of `ops/bconv.py` + `keyswitch.modup_digit`'s
-virtual count row). For x [nd, R, C] over input primes in_q:
+virtual count row); its plain version is ops/bconv.py's two steps. For x [nd, R, C] over input primes in_q:
 
   xh_i  = x_i * s_i mod in_q_i
   v     = #{i : xh_i >= (in_q_i >> 1) + 1}           (center=True only)
@@ -18,29 +18,20 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .modmath import mulmod
+from .bconv import bconv_step1, bconv_step1_centered, bconv_step2_plain
 
 _MAX_ND = 32  # csrc/bconv.cu instantiates nd <= 16 and nd <= 32
 
 
-def bconv_plain(x, s, in_q, mat, out_q, center: bool) -> torch.Tensor:
-    """Plain version of kernel B3 on int64 carriers; int32 [m_out, R, C]."""
+def bconv_plain(x, s, s_sh, in_q, mat, out_q, center: bool) -> torch.Tensor:
+    """Plain version of kernel B3 on int64 carriers: step 1 (with the count
+    row when centering), then step 2 (ops/bconv.py); int32 [m_out, R, C]."""
     nd = x.shape[0]
-    iq = in_q.long().view(-1, 1, 1)
-    xh = mulmod(x, s.long().view(-1, 1, 1), iq)
-    if center:
-        v = (xh >= (iq >> 1) + 1).sum(dim=0, keepdim=True)
-        xh = torch.cat([xh, v], dim=0)
-    if mat.shape[1] != xh.shape[0]:
+    if mat.shape[1] != nd + int(center):
         raise ValueError(f"matrix {tuple(mat.shape)} for {nd} input rows "
                          f"(center={center})")
-    oq = out_q.long().view(-1, 1, 1)
-    m = mat.long()
-    acc = torch.zeros((m.shape[0],) + tuple(x.shape[1:]), dtype=torch.int64,
-                      device=x.device)
-    for i in range(xh.shape[0]):  # each term reduced: the sum stays < 2^37
-        acc += mulmod(xh[i][None], m[:, i].view(-1, 1, 1), oq)
-    return (acc % oq).to(torch.int32)
+    step1 = bconv_step1_centered if center else bconv_step1
+    return bconv_step2_plain(step1(x, s, s_sh, in_q), mat, out_q)
 
 
 def bconv_fused(x, s, s_sh, in_q, mat, mat_sh, out_q, *,
@@ -51,7 +42,7 @@ def bconv_fused(x, s, s_sh, in_q, mat, mat_sh, out_q, *,
     Shoup pair (read by the kernel only). A CPU tensor runs bconv_plain; a
     CUDA tensor launches kernel B3 (csrc/bconv.cu)."""
     if x.device.type == "cpu":
-        return bconv_plain(x, s, in_q, mat, out_q, center)
+        return bconv_plain(x, s, s_sh, in_q, mat, out_q, center)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
     nd, R, C = x.shape

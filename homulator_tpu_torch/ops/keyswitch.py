@@ -1,8 +1,9 @@
-"""Hybrid key switching with the fused ModDown + rescale tail: the
-accelerated single-device route of `homulator_tpu/ops/keyswitch.py`.
+"""Hybrid key switching: both routes of `homulator_tpu/ops/keyswitch.py`.
+
+The accelerated route (what the JAX package runs on its accelerator):
 
   modup_convs_coeff   iNTT of the main limbs, then per digit a centered
-                      base conversion to the rows outside the digit
+                      base conversion (B3) to the rows outside the digit
   modup_conv_all      ... and the NTT of each digit's converted rows
   inner_product_pieces  digit inner product against the Montgomery key
   hpip_acc            modup_conv_all's NTTs and the inner product fused in
@@ -13,13 +14,27 @@ accelerated single-device route of `homulator_tpu/ops/keyswitch.py`.
   moddown_rescale2    ModDown, relinearisation add and rescale of both key
                       components as one division by P * q_last
 
+The graph route (`ntt_mode="jnp"`, `KeySwitchLevelTables.graph`: what the
+JAX package runs on every other backend, and what its engine's
+`keyswitch_poly` exposes):
+
+  modup_digit         one digit lifted to the whole ext basis, coeff
+                      domain: step 1, the centering count row v, step 2
+                      (B5, ops/bconv.py), own rows put back in place
+  modup_digit_eval    ... NTT'd over the whole ext basis (graph), or the
+                      accelerated route's B3 + own-row passthrough
+  modup_all           iNTT once, then every digit's modup_digit_eval
+  inner_product       digit inner product over the assembled ext digits
+  moddown             ModDown of one component: step 1, v, B5 and P^{-1}
+                      (graph), or B3 and P^{-1} (accelerated)
+  inner_product_moddown, keyswitch
+                      inner product, then each component's moddown
+
 Each function computes what its JAX namesake computes, on the same tables,
-so every array is the same canonical residue. The JAX package's jnp route
-(`keyswitch()`, `rescale_poly`) is bit-identical to this one; here the
-plain PyTorch versions of the kernels play its role. Elementwise steps are
-PyTorch ops on int64 carriers (ops/modmath.py); NTTs and base conversions
-go through the kernel wrappers (ops/ntt.py, ops/bconv_fused.py,
-ops/hpip.py).
+so every array is the same canonical residue and both routes give the same
+bits. Elementwise steps are PyTorch ops on int64 carriers
+(ops/modmath.py); NTTs and base conversions go through the kernel wrappers
+(ops/ntt.py, ops/bconv_fused.py, ops/bconv.py, ops/hpip.py).
 """
 
 from __future__ import annotations
@@ -29,17 +44,13 @@ from typing import List, Tuple
 import torch
 
 from ..context import KeySwitchLevelTables
+from .bconv import bconv_step1_centered, bconv_step2
 from .bconv_fused import bconv_fused
 from .hpip import hpip_kernel, hpip_plain
 from .modmath import (
-    lazy_sum_reduce, lazy_tree_sum, modadd, modsub, mont_mul, shoup_mul,
+    col, lazy_sum_reduce, lazy_tree_sum, modadd, modsub, mont_mul, shoup_mul,
 )
 from .ntt import intt, intt_rep, ntt, ntt_rep
-
-
-def _col(v: torch.Tensor) -> torch.Tensor:
-    """[K] constants as int64 [K, 1, 1] against [K, R, C] tiles."""
-    return v.long().view(-1, 1, 1)
 
 
 def _col2(v: torch.Tensor) -> torch.Tensor:
@@ -79,7 +90,7 @@ def inner_product_pieces(
     int64 in [0, q)."""
     alpha = kt.special_nt.q.shape[0]
     k_ext = alpha + kt.level
-    q, qinv = _col(kt.ext_nt.q), _col(kt.ext_qinv)
+    q, qinv = col(kt.ext_nt.q), col(kt.ext_qinv)
     exts = []
     for conv, dt in zip(convs, kt.digits):
         cut = alpha + dt.lo  # converted rows before the digit's own rows
@@ -217,3 +228,97 @@ def moddown_rescale2(acc0, acc1, d0, d1,
     out = shoup_mul(modsub(z, e, oq), _col2(tt.pq_inv), _col2(tt.pq_inv_sh),
                     oq)
     return out.to(torch.int32)
+
+
+# ---- the graph route (and the accelerated branches of its functions) ---
+
+def modup_digit(c_coeff: torch.Tensor, kt: KeySwitchLevelTables,
+                d: int) -> torch.Tensor:
+    """Digit d of c (coeff domain, [level, n1, n2]) lifted to the ext basis:
+    int32 [alpha+level, n1, n2], specials first. The graph route's
+    centered conversion: step 1, the count row v, step 2 (B5) to the rows
+    outside the digit, the digit's own rows put back in place."""
+    dt = kt.digits[d]
+    own = c_coeff[dt.lo:dt.hi].to(torch.int32)
+    conv = bconv_step2(
+        bconv_step1_centered(own, dt.step1, dt.step1_sh, dt.in_q),
+        dt.mat, dt.mat_sh, dt.other_nt.q)
+    cut = kt.special_nt.q.shape[0] + dt.lo
+    return torch.cat([conv[:cut], own, conv[cut:]])
+
+
+def modup_digit_eval(d_eval: torch.Tensor, c_coeff: torch.Tensor,
+                     kt: KeySwitchLevelTables, d: int) -> torch.Tensor:
+    """Digit d lifted to the ext basis, eval domain: int32
+    [alpha+level, n2, n1]. Graph route: the NTT of modup_digit over the
+    whole ext basis. Accelerated route: the conversion reproduces the
+    digit's own rows exactly, so they are copied from d_eval, and only the
+    other rows run B3 and an NTT."""
+    if kt.graph:
+        return ntt(modup_digit(c_coeff, kt, d), kt.ext_nt)
+    dt = kt.digits[d]
+    conv = bconv_fused(c_coeff[dt.lo:dt.hi], dt.step1, dt.step1_sh, dt.in_q,
+                       dt.mat, dt.mat_sh, dt.other_nt.q, center=True)
+    conv_eval = ntt(conv, dt.other_nt)
+    cut = kt.special_nt.q.shape[0] + dt.lo
+    return torch.cat([conv_eval[:cut], d_eval[dt.lo:dt.hi].to(torch.int32),
+                      conv_eval[cut:]])
+
+
+def modup_all(d_eval: torch.Tensor, kt: KeySwitchLevelTables):
+    """Decompose, ModUp and NTT every digit once: a tuple of int32
+    [alpha+level, n2, n1]. The hoistable prefix of a key switch: an
+    automorphism commutes with the digit decomposition, so rotations of
+    one ciphertext can share it."""
+    c_coeff = intt(d_eval.to(torch.int32), kt.main_nt)
+    return tuple(modup_digit_eval(d_eval, c_coeff, kt, d)
+                 for d in range(len(kt.digits)))
+
+
+def inner_product(ext_digits, key: torch.Tensor,
+                  kt: KeySwitchLevelTables) -> Tuple[torch.Tensor, ...]:
+    """acc_k = sum_d ext_digit_d * key[d, k] over the ext basis (the key's
+    specials-first prefix of alpha+level rows), for k = 0, 1: int64
+    [alpha+level, n2, n1] in [0, q) each."""
+    k_ext = kt.special_nt.q.shape[0] + kt.level
+    q, qinv = col(kt.ext_nt.q), col(kt.ext_qinv)
+    return tuple(
+        lazy_sum_reduce([mont_mul(e, key[d, k, :k_ext], q, qinv)
+                         for d, e in enumerate(ext_digits)], q)
+        for k in (0, 1))
+
+
+def moddown(c_ext: torch.Tensor, kt: KeySwitchLevelTables) -> torch.Tensor:
+    """[alpha+level, n2, n1] eval over the ext basis (specials first) ->
+    int32 [level, n2, n1] eval mod Q: (c_main - conv_P(c_sp)) * P^{-1}
+    with the centered conversion. Graph route: step 1, the count row and
+    step 2 (B5); accelerated route: moddown_pair (B3)."""
+    alpha = kt.special_nt.q.shape[0]
+    if not kt.graph:
+        return moddown_pair((c_ext[:alpha], c_ext[alpha:]), kt)
+    b = intt(c_ext[:alpha].to(torch.int32), kt.special_nt)
+    conv = bconv_step2(
+        bconv_step1_centered(b, kt.md_s1, kt.md_s1_sh, kt.special_nt.q),
+        kt.md_mat, kt.md_mat_sh, kt.main_nt.q)
+    conv_eval = ntt(conv, kt.main_nt)
+    mq = col(kt.main_nt.q)
+    diff = modsub(c_ext[alpha:], conv_eval, mq)
+    return shoup_mul(diff, col(kt.pinv), col(kt.pinv_sh),
+                     mq).to(torch.int32)
+
+
+def inner_product_moddown(ext_digits, key: torch.Tensor,
+                          kt: KeySwitchLevelTables):
+    """Inner product, then each key component's ModDown on its own: the
+    per-key tail of a key switch. Returns (e0, e1), int32
+    [level, n2, n1] each."""
+    acc0, acc1 = inner_product(ext_digits, key, kt)
+    return moddown(acc0, kt), moddown(acc1, kt)
+
+
+def keyswitch(d_eval: torch.Tensor, key: torch.Tensor,
+              kt: KeySwitchLevelTables) -> torch.Tensor:
+    """The JAX package's keyswitch(): modup_all, inner product, each
+    component's moddown. Returns int32 [2, level, n2, n1] (e0, e1), to add
+    to (c0, c1)."""
+    return torch.stack(inner_product_moddown(modup_all(d_eval, kt), key, kt))

@@ -28,6 +28,12 @@ def _u32(x: torch.Tensor) -> torch.Tensor:
     return x.long() & _MASK32
 
 
+def col(v: torch.Tensor, ndim: int = 3) -> torch.Tensor:
+    """[K] per-prime constants as int64 [K, 1, ..., 1] against [K, ...]
+    data of rank ndim ([K, R, C] tiles by default)."""
+    return v.long().view((-1,) + (1,) * (ndim - 1))
+
+
 def modadd(a, b, q) -> torch.Tensor:
     s = a.long() + b.long()
     return torch.where(s >= q, s - q, s)

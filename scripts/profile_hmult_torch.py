@@ -3,15 +3,17 @@
 CUDA port.
 
     python3 scripts/profile_hmult_torch.py [--op hmult|hrotate] [--fused-hpip]
-        [--trace hmult_trace.json]
+        [--ntt-mode auto|jnp] [--trace hmult_trace.json]
 
 Runs the op at (45,35,15) of parameter set B (N = 2^16) eagerly on one
 CUDA GPU, CALLS times after 3 warm-up calls, under torch.profiler and
-groups the CUDA kernels it launched by name: the port's four kernels (B1
-ntt_fwd, B2 ntt_inv, B3 bconv, B4 hpip), torch's copies and
-concatenations and gathers, its reductions, and its other elementwise
-kernels (the int64 arithmetic of homulator_tpu_torch/ops/modmath.py).
-`--fused-hpip` runs the key switch on the fused HPIP route. Prints each
+groups the CUDA kernels it launched by name: the port's kernels of the
+single-device routes (B1 ntt_fwd, B2 ntt_inv, B3 bconv, B4 hpip, B5
+bconv_step2), torch's copies and concatenations and gathers, its
+reductions, and its other elementwise kernels (the int64 arithmetic of
+homulator_tpu_torch/ops/modmath.py). `--fused-hpip` runs the key switch
+on the fused HPIP route, `--ntt-mode jnp` on the graph route (B5 in place
+of B3, the engine's ntt_mode). Prints each
 group's device time and launches per op, after the card's name and power
 limit. Imports no JAX and nothing of the JAX package.
 """
@@ -29,6 +31,7 @@ CALLS = 10
 GROUPS = (  # (group, substrings of the kernel name); the first match wins
     ("B1 ntt_fwd", ("ntt_fwd",)),
     ("B2 ntt_inv", ("ntt_inv",)),
+    ("B5 bconv_step2", ("bconv_step2",)),
     ("B3 bconv", ("bconv",)),
     ("B4 hpip", ("hpip",)),
     ("torch copies, concatenations and gathers",
@@ -50,6 +53,9 @@ def main() -> int:
     ap.add_argument("--op", choices=["hmult", "hrotate"], default="hmult")
     ap.add_argument("--fused-hpip", action="store_true",
                     help="key switch through the fused HPIP kernel B4")
+    ap.add_argument("--ntt-mode", choices=["auto", "jnp"], default="auto",
+                    help="the engine's key-switch route: accelerated (auto) "
+                         "or graph (jnp)")
     ap.add_argument("--trace", help="write a Chrome trace to this path")
     args = ap.parse_args()
 
@@ -70,7 +76,7 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
 
     params = get_params(n=1 << 16, max_level=45, alpha=15)
-    eng = CkksEngine(params, seed=1, device="cuda")
+    eng = CkksEngine(params, seed=1, device="cuda", ntt_mode=args.ntt_mode)
     eng.keygen()
     if args.op == "hrotate":
         eng.gen_rotation_key(1)
@@ -110,7 +116,8 @@ def main() -> int:
     total = sum(us.values())
     if total == 0:
         raise RuntimeError("the profiler recorded no device kernels")
-    route = "fused HPIP" if args.fused_hpip else "piecewise"
+    route = ("graph" if args.ntt_mode == "jnp" else
+             "fused HPIP" if args.fused_hpip else "piecewise")
     print(f"# {args.op}(45,{LEVEL},15), {route} key switch: device kernel "
           f"time {total / CALLS / 1e3:.3f} ms per {args.op} over {CALLS} "
           f"eager calls (torch.profiler); wrapper launches "

@@ -101,7 +101,8 @@ def test_max_digit_stress_nd31():
         return torch.from_numpy(np.asarray(a, dtype=np.uint64)
                                 .astype(np.uint32).view(np.int32))
 
-    got = _u32(bconv_plain(t(x), t(s), t(in_q), t(mat), t(out_q), False))
+    got = _u32(bconv_plain(t(x), t(s), t(s_sh), t(in_q), t(mat), t(out_q),
+                           False))
     assert np.array_equal(got, want)
     xh = (x.astype(object) * s[:, None, None].astype(object)) % in_q[
         :, None, None].astype(object)
@@ -115,4 +116,5 @@ def test_plain_rejects_mismatched_matrix(tables):
     dt = kt.digits[0]
     x = torch.zeros((dt.hi - dt.lo, 4, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="center"):
-        bconv_plain(x, dt.step1, dt.in_q, dt.mat, dt.other_nt.q, False)
+        bconv_plain(x, dt.step1, dt.step1_sh, dt.in_q, dt.mat,
+                    dt.other_nt.q, False)

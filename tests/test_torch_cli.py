@@ -9,7 +9,8 @@ from homulator_tpu_torch import api, cli
 CFG = "configs/tiny.cfg"
 
 
-@pytest.mark.parametrize("op", ["hmult", "hsquare", "hrotate"])
+@pytest.mark.parametrize("op", ["hmult", "hsquare", "hrotate", "hadd", "hsub",
+                                "padd", "pmult"])
 def test_cli_verify(op, capsys):
     rc = cli.main(["run", CFG, op, "8", "4", "4", "--verify", "--iters", "1",
                    "--device", "cpu"])
@@ -46,15 +47,21 @@ def test_cli_fused_hpip_cfg_key(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["padd", "8", "4", "4"], "A8"),
-    (["hadd", "8", "4", "4"], "A8"),
     (["hmult", "8", "4", "4", "2"], "A12"),
+    (["hadd", "8", "4", "4", "2", "--dispatch", "coeff"], "A12"),
 ])
 def test_cli_names_roadmap_item_of_unported(argv, item, capsys):
     rc = cli.main(["run", CFG, *argv, "--device", "cpu"])
     err = capsys.readouterr().err
     assert rc == 2
     assert f"ROADMAP {item}" in err
+
+
+def test_cli_unknown_op_gets_jax_message(capsys):
+    rc = cli.main(["run", CFG, "hdiv", "8", "4", "4", "--device", "cpu"])
+    assert rc == 1
+    assert ("unknown op 'hdiv' (expected hmult|hadd|hrotate|pmult|padd"
+            "|hsub|hsquare)") in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("op", ["hmult", "hrotate"])

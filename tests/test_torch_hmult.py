@@ -120,10 +120,12 @@ def test_cuda_device_is_explicit(small_params):
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports every module of the port (its ops and
-    parallel packages included) and chip_smoke, takes get_params from the
-    port, runs a tiny hmult, hrotate, fused-route hmult and 2-shard
-    coefficient-sharded hmult, and has loaded neither jax nor any module
-    of the JAX package homulator_tpu."""
+    parallel packages, serialize and linalg included) and chip_smoke,
+    takes get_params from the port, runs a tiny hmult, hrotate,
+    fused-route hmult, 2-shard coefficient-sharded hmult, graph-route
+    hmult, the elementwise ops, a serialize round trip and a linalg dot,
+    and has loaded neither jax nor any module of the JAX package
+    homulator_tpu."""
     code = (
         "import pkgutil, sys\n"
         "import numpy as np\n"
@@ -150,10 +152,25 @@ def test_port_imports_no_jax():
         "out = sharded.gather_cols(f(s(a.data, 2), s(a.data, 2),"
         " s(e.relin_key, 2)))\n"
         "assert (out == e.hmult(a, a).data).all()\n"
+        "g = CkksEngine(e.params, seed=1, device='cpu', ntt_mode='jnp')\n"
+        "g.relin_key = e.relin_key\n"
+        "assert (g.hmult(a, a).data == e.hmult(a, a).data).all()\n"
+        "pt = e.plaintext_complex(np.ones(32), 3, 2.0**29)\n"
+        "b = e.cadd(e.cmult(e.padd(e.hsub(e.hadd(a, a), a), pt), 0.5), 1.0)\n"
+        "assert e.rescale(e.mod_drop(b)).level == 1\n"
+        "assert e.pmult(a, pt).level == 3\n"
+        "import os, tempfile\n"
+        "from homulator_tpu_torch import linalg, serialize\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'ct.npz')\n"
+        "serialize.save_ciphertext(path, a, e.params)\n"
+        "assert (serialize.load_ciphertext(path, e.dc).data == a.data).all()\n"
+        "assert linalg.dot(e, a, np.ones(32)).level == 2\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'homulator_tpu'))\n"
         "assert not bad, bad\n"
-        "assert 'homulator_tpu_torch.ops.hpip' in sys.modules\n"
+        "for m in ('ops.hpip', 'ops.bconv', 'ops.rescale', 'serialize',"
+        " 'linalg'):\n"
+        "    assert 'homulator_tpu_torch.' + m in sys.modules, m\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
