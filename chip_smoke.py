@@ -30,6 +30,21 @@ failure and the script then exits non-zero:
      count row included) and 2 (6 -> 45) and ModDown (16 -> 35), and the
      whole graph-route conversion (torch step 1 and count row, then B5)
      against B3 on the same inputs, equal bits, both timed;
+ 3b. the NTT anatomy and roofline path, on no op's path: the anatomy
+     kernels on set B's 35 main limbs [256, 256] (B14: copy^T, midT,
+     stages1, stages2x and full, which is B1; B15: 16 stages with the
+     production, natmul and approx Shoup products; B16: copy, transpose,
+     mid, stages1), the bf16-plane product B17 on ModUp digit 0 (16 rows
+     -> 35, all 140 rows computed), each peak chain (squaring, Shoup,
+     Montgomery) on the roofline's 8 Mi residues over 8 iterations of 32
+     links and the stream pass over two 256 MB arrays, each against its
+     plain version bit for bit (tolerance 0), with its time, bound and,
+     where one PyTorch call computes the same function (a transpose, a
+     copy, the bf16 matmul), that call's time; then the path itself, one
+     eager call of each of these kernels on the same inputs, driven once
+     with the launch counts set to 0 just before and read just after
+     (every one must launch); then one short sample of each of the
+     roofline's five peaks (CUDA-graph replay), printed;
   4. an independent oracle at N = 2^13 (n1 = 64 != n2 = 128), maxLevel 8,
      level 8, alpha 3 (a partial digit): the exact numpy engine
      (`RefCkks`) equals the port's hmult, hsquare, hrotate (steps 1 and
@@ -86,26 +101,33 @@ failure and the script then exits non-zero:
   7. one JSON line of per-kernel results (each kernel's times and bound at
      one shape the main path launches, named in `shape`; `max_abs_err`
      over every shape checked; `launches` summed over the main-path runs,
-     per run in `launches_by_run`), then the device line last.
+     per run in `launches_by_run`; for the kernels of 3b every variant's
+     numbers in `variants`), then the device line last.
 
-Bound of a kernel call: the larger of the bytes it must move (each input
-read once, each output written once) over 3.35 TB/s and its int32
-operations over 16.75 T/s. The int32 rate is the float32 peak of 67
-TFLOP/s (128 lanes an SM, an FMA counted as two operations) over four: an
-H100 SM has 64 int32 lanes. Operations are counted from the shapes with a
-fixed cost per primitive (`OPS`): a Shoup product 6 (three multiplies, a
-subtract, a conditional subtract), a modular add or subtract 3, a
-butterfly 12, a lazy Shoup product-accumulate 6, a Montgomery
-product-accumulate 9, a final reduction 6; B3 and B5 both sum lazy
-products and reduce each output once.
+Bound of a kernel call (`benchlib.bound`): the larger of the bytes it must
+move (each input read once, each output written once) over 3.35 TB/s and
+its int32 operations over 16.75 T/s. The int32 rate is the float32 peak of
+67 TFLOP/s (128 lanes an SM, an FMA counted as two operations) over four:
+an H100 SM has 64 int32 lanes. Operations are counted from the shapes with
+a fixed cost per primitive (`benchlib.OPS`): a Shoup product 5 (three
+multiplies, a subtract, an unsigned min; the measured Shoup chain leaves
+room for no more), a modular add or subtract 3, a butterfly 11, a lazy
+Shoup product-accumulate 6, a Montgomery product-accumulate 9, a final
+reduction 6; B3 and B5 both sum lazy products and reduce each output once.
+B17's products are bf16 operations over the dense tensor-core rate of 989
+TFLOP/s; a link of a peak chain is counted as `PEAK_LINK_OPS` says.
 """
 
 import json
 import os
-import statistics
-import subprocess
 import sys
 import time
+
+from homulator_tpu_torch import benchlib
+from homulator_tpu_torch.benchlib import (
+    BF16_FLOP_PER_S, OPS, bound, device_ms, latency_ms, ntt_ops, peak_inputs,
+    residues,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SET_B = dict(n=1 << 16, max_level=45, alpha=15)
@@ -113,10 +135,10 @@ LEVEL_B = 35
 HPIP_LEVELS = (35, 20)
 SCALE = float(1 << 29)
 GATE = 1e-2
-MEM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
-OPS = dict(shoup=6, modadd=3, butterfly=12, lazy_mac=6, mont_mac=9,
-           reduce=6)
+# int32 operations a link of a peak chain: a multiply-add (squaring), a
+# Shoup or a Montgomery product
+PEAK_LINK_OPS = dict(square=1, shoup=OPS["shoup"], mont=OPS["mont"])
+PEAK_ITERS = 8  # chain iterations of the anatomy path's peak sample
 REPLACES = {  # kernel -> (source in this repo, TPU kernel it replaces)
     "ntt_fwd": ("homulator_tpu_torch/csrc/ntt.cu",
                 "homulator_tpu/ops/ntt_pallas.py:244"),
@@ -144,8 +166,27 @@ REPLACES = {  # kernel -> (source in this repo, TPU kernel it replaces)
                            "homulator_tpu/ops/ntt_pallas.py:587"),
     "intt_phase1_packed": ("homulator_tpu_torch/csrc/ntt.cu",
                            "homulator_tpu/ops/ntt_pallas.py:597"),
+    # on no op's path: the NTT anatomy and roofline tooling
+    "ntt_anatomy": ("homulator_tpu_torch/csrc/anatomy.cu",
+                    "scripts/microbench_ntt.py:34"),
+    "ntt_shoup_forms": ("homulator_tpu_torch/csrc/anatomy.cu",
+                        "scripts/microbench_ntt2.py:109"),
+    "ntt_components": ("homulator_tpu_torch/csrc/anatomy.cu",
+                       "scripts/bench_ntt_variants.py:60"),
+    "bconv_planes_mm": ("homulator_tpu_torch/csrc/bconv_mma.cu",
+                        "scripts/roofline.py:359"),
+    # the roofline's peak loops (XLA-fused on the TPU, no Pallas kernel)
+    "peak_square": ("homulator_tpu_torch/csrc/peaks.cu",
+                    "scripts/roofline.py:183"),
+    "peak_shoup": ("homulator_tpu_torch/csrc/peaks.cu",
+                   "scripts/roofline.py:194"),
+    "peak_mont": ("homulator_tpu_torch/csrc/peaks.cu",
+                  "scripts/roofline.py:202"),
+    "peak_stream": ("homulator_tpu_torch/csrc/peaks.cu",
+                    "scripts/roofline.py:257"),
 }
 KERNELS = tuple(REPLACES)
+ANATOMY_KERNELS = KERNELS[KERNELS.index("ntt_anatomy"):]
 PIECES_KERNELS = ("ntt_fwd", "ntt_inv", "bconv")
 FUSED_KERNELS = PIECES_KERNELS + ("hpip",)
 GRAPH_KERNELS = ("ntt_fwd", "ntt_inv", "bconv_step2")
@@ -160,63 +201,6 @@ NS_PACKED = (8, 16, 32)  # shard counts that take the lane-packed kernels
 # ns -> (hmult, hrotate(1)), the JAX package's ici_bytes_per_op
 PACKED_BYTES = {8: (7684096, 9748480), 16: (4546560, 5447680),
                 32: (2793472, 3112960)}
-
-
-def latency_ms(torch, fn, iters=20, warmup=3):
-    """Median over `iters` eager calls of fn, each between two CUDA events
-    and synchronised: what a caller waits for, host overhead included."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_ms(torch, fn, calls=10, replays=20):
-    """Device time of one fn call without host overhead: `calls` calls
-    captured in a CUDA graph, the graph replayed `replays` times between
-    CUDA events; the median replay divided by `calls`."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture, as advised
-        fn()
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    times = []
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
-def bound(nbytes, ops):
-    """(bound_ms, bound_by) of a call moving nbytes and doing ops."""
-    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return 1e3 * max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
-
-
-def ntt_ops(rows, n):
-    """One forward or inverse NTT of `rows` limbs of n coefficients:
-    n/2 * log2(n) butterflies and n mid-twiddle products each."""
-    return rows * (n // 2 * (n.bit_length() - 1) * OPS["butterfly"]
-                   + n * OPS["shoup"])
 
 
 def ntt_bound(nb, rep):
@@ -278,28 +262,46 @@ def hpip_bound(kt):
     return bound(nbytes, ops)
 
 
-def random_residues(np, torch, rng, q, shape):
-    """int32 tensor on the GPU: uniform residues, row i mod q[i]."""
-    q = np.asarray(q, dtype=np.int64)
-    x = rng.integers(0, q.reshape((-1,) + (1,) * (len(shape) - 1)),
-                     size=shape, dtype=np.int64)
-    return torch.from_numpy(x.astype(np.int32)).cuda()
+def anatomy_bound(M, n1, n2, passes, mid):
+    """B14-B16 on M limbs [n1, n2]: x read and the output written, the mid
+    pair (mid variants), the stage-1 pair (stage variants) and q; passes *
+    n1/2 * log2(n1) butterflies on each of n2 columns and n1 * n2 mid
+    products (mid variants), a limb."""
+    nbytes = 4 * (2 * M * n1 * n2 + int(mid) * 2 * M * n1 * n2
+                  + int(passes > 0) * 2 * M * n1 + int(mid or passes > 0) * M)
+    ops = M * (passes * n2 * (n1 // 2) * (n1.bit_length() - 1)
+               * OPS["butterfly"] + int(mid) * n1 * n2 * OPS["shoup"])
+    return bound(nbytes, ops)
 
 
-def compare(torch, name, label, kernel, plain, bnd, results):
+def planes_mm_bound(nd, m_out, n):
+    """B17: x [nd, n] read, D_0 [m_out, n] written, the bf16 table read;
+    2 * (4 m_out) * (4 nd) * n bf16 operations (all 4 m_out rows, as the
+    kernel computes them) at the dense tensor-core rate."""
+    flop = 2 * (4 * m_out) * (4 * nd) * n
+    return bound(4 * (nd + m_out) * n + 2 * (4 * m_out) * (4 * nd), flop,
+                 BF16_FLOP_PER_S)
+
+
+def compare(torch, name, label, kernel, plain, bnd, results, library=None,
+            **timing):
     """Run kernel() and plain() on the card, require equal bits, time
-    both, and record (label, err, ms, plain_ms, bound_ms, bound_by)."""
+    both (and library(), one PyTorch call computing the same function,
+    when given; device_ms takes `timing`), and record (label, err, ms,
+    plain_ms, bound_ms, bound_by, library_ms)."""
     got = kernel()
     want = plain()
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max())
     if err:
         raise AssertionError(f"{name} {label}: differs by {err}")
-    ms = device_ms(torch, kernel)
-    plain_ms = device_ms(torch, plain)
+    ms = device_ms(kernel, **timing)
+    plain_ms = device_ms(plain, **timing)
+    lib_ms = device_ms(library, **timing) if library else None
     print(f"# {name} {label}: bit-exact (tolerance 0), kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
-    results[name].append((label, err, ms, plain_ms) + bnd)
+          f"plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
+          + (f", library {lib_ms:.4f} ms" if library else ""))
+    results[name].append((label, err, ms, plain_ms) + bnd + (lib_ms,))
 
 
 def check_kernels(np, torch, dc, rng, results):
@@ -332,7 +334,7 @@ def check_kernels(np, torch, dc, rng, results):
              (n2, n1))):
         for label, (nb, rep) in cases.items():
             q = np.tile(nb.q.cpu().numpy(), rep)
-            x = random_residues(np, torch, rng, q, (len(q),) + shape)
+            x = residues(q, (len(q),) + shape, rng)
             compare(torch, name, label,
                     lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
                     ntt_bound(nb, rep), results)
@@ -350,8 +352,7 @@ def check_kernels(np, torch, dc, rng, results):
         kt.special_nt.q, (kt.md_s1, kt.md_s1_sh, kt.special_nt.q, kt.md_mat,
                           kt.md_mat_sh, kt.main_nt.q), True)
     for label, (in_q, tabs, center) in cases.items():
-        x = random_residues(np, torch, rng, in_q.cpu().numpy(),
-                            (in_q.shape[0], n1, n2))
+        x = residues(in_q, (in_q.shape[0], n1, n2), rng)
         s, s_sh, iq, mat, mat_sh, out_q = tabs
         compare(torch, "bconv", label,
                 lambda: bconv_fused(x, s, s_sh, iq, mat, mat_sh, out_q,
@@ -364,17 +365,14 @@ def check_kernels(np, torch, dc, rng, results):
     # [dnum, 2, K_full, n2, n1] over the specials-first primes.
     p = dc.params
     key_q = np.concatenate([p.q_arr[p.max_level:], p.q_arr[:p.max_level]])
-    key = random_residues(
-        np, torch, rng, np.tile(key_q, 2 * p.dnum),
-        (2 * p.dnum * p.num_primes, n2, n1)).view(
-            p.dnum, 2, p.num_primes, n2, n1)
+    key = residues(np.tile(key_q, 2 * p.dnum),
+                   (2 * p.dnum * p.num_primes, n2, n1), rng).view(
+                       p.dnum, 2, p.num_primes, n2, n1)
     for level in HPIP_LEVELS:
         kl = dc.keyswitch_tables(level)
-        convs = [random_residues(np, torch, rng, dt.other_nt.q.cpu().numpy(),
-                                 (dt.other_nt.q.shape[0], n1, n2))
-                 for dt in kl.digits]
-        d_eval = random_residues(np, torch, rng, kl.main_nt.q.cpu().numpy(),
-                                 (level, n2, n1))
+        convs = [residues(dt.other_nt.q, (dt.other_nt.q.shape[0], n1, n2),
+                          rng) for dt in kl.digits]
+        d_eval = residues(kl.main_nt.q, (level, n2, n1), rng)
         spans = " ".join(f"({dt.lo},{dt.hi})" for dt in kl.digits)
         label = f"level {level} K={kl.ext_nt.q.shape[0]} digits {spans}"
         compare(torch, "hpip", label,
@@ -406,7 +404,7 @@ def check_step2_kernel(np, torch, dc, rng, results):
                         (kt.md_mat, kt.md_mat_sh), kt.main_nt.q)
     for label, ((s, s_sh), iq, (mat, mat_sh), out_q) in cases.items():
         nd, m_out = iq.shape[0], out_q.shape[0]
-        x = random_residues(np, torch, rng, iq.cpu().numpy(), (nd, n1, n2))
+        x = residues(iq, (nd, n1, n2), rng)
 
         def step1_rows():  # torch step 1 and the centering count row
             return bconv_step1_centered(x, s, s_sh, iq)
@@ -431,9 +429,9 @@ def check_step2_kernel(np, torch, dc, rng, results):
                       if r[0] == f"{label} {nd}+1->{m_out}")
         print(f"# A/B {full}: B5 {results['bconv_step2'][-1][2]:.4f} ms "
               f"(step 2 only); graph conversion (torch step 1 + count row + "
-              f"B5) {device_ms(torch, graph_conv):.4f} ms; B3 (steps 1 and "
+              f"B5) {device_ms(graph_conv):.4f} ms; B3 (steps 1 and "
               f"2, centering fused) {b3_row[2]:.4f} ms, "
-              f"{device_ms(torch, b3):.4f} ms again; equal bits")
+              f"{device_ms(b3):.4f} ms again; equal bits")
 
 
 def check_phase_kernels(np, torch, dc, rng, results):
@@ -474,14 +472,13 @@ def check_phase_kernels(np, torch, dc, rng, results):
         for label, (nb, rep, ns) in cases.items():
             c = cols // ns
             q = np.tile(nb.q.cpu().numpy(), rep)
-            x = random_residues(np, torch, rng, q, (len(q), n, c))
+            x = residues(q, (len(q), n, c), rng)
             compare(torch, name, label,
                     lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
                     phase_bound(nb, rep * nb.q.shape[0], n, c, mid), results)
     dt = k4.digits[0]
     nd = dt.hi - dt.lo
-    x = random_residues(np, torch, rng, dt.in_q.cpu().numpy(),
-                        (nd, n1, n2 // NS))
+    x = residues(dt.in_q, (nd, n1, n2 // NS), rng)
     compare(torch, "bconv",
             f"ns=4 c=64 modup digit0 {nd}+1->{dt.mat.shape[0]}",
             lambda: bconv_fused(x, dt.step1, dt.step1_sh, dt.in_q, dt.mat,
@@ -520,12 +517,87 @@ def check_packed_kernels(np, torch, dc, rng, results):
             M, k, ns = nb.q.shape[0], nb.pack, nb.shard[1]
             c = n // ns
             q = np.tile(nb.q.cpu().numpy(), rep)
-            x = ntt_mod._pack_pad(random_residues(np, torch, rng, q,
-                                                  (len(q), n, c)), k, rep)
+            x = ntt_mod._pack_pad(residues(q, (len(q), n, c), rng), k, rep)
             rows = x.shape[0] * k
             compare(torch, name, label,
                     lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
                     phase_bound(nb, rows, n, c, mid), results)
+
+
+def check_anatomy_kernels(np, torch, dc, rng, results):
+    """Phase 3b, the NTT anatomy and roofline path (on no op's path): B14's
+    variants, B15's forms and B16's parts on the M = 35 main limbs [256,
+    256], B17 on ModUp digit 0 (its 15 rows and a zero row -> 35 rows),
+    each against its plain version bit for bit, with the one PyTorch call
+    that computes the same function where there is one; each peak chain
+    and the stream pass on the inputs the path gives them
+    (benchlib.peak_inputs: 8 Mi residues, PEAK_ITERS iterations of 32
+    links; two 256 MB arrays). Returns the path's inputs."""
+    from homulator_tpu_torch.ops import anatomy, peaks
+    from homulator_tpu_torch.ops.bconv_fused import (
+        bconv_planes_mm, bconv_planes_mm_plain, build_bf16_tables,
+        byte_planes,
+    )
+
+    kt = dc.keyswitch_tables(LEVEL_B)
+    nb = kt.main_nt
+    M, n1, n2 = nb.q.shape[0], nb.n1, nb.n2
+    x = residues(nb.q, (M, n1, n2), rng)
+    copy_out = torch.empty_like(x)
+
+    def transpose():
+        return x.transpose(1, 2).contiguous()
+
+    def bnd(spec):  # stage passes and mid product of a variant
+        return anatomy_bound(M, n1, n2, *spec[:2])
+
+    for v, spec in anatomy.B14_VARIANTS.items():
+        compare(torch, "ntt_anatomy", f"{v} M={M}",
+                lambda: anatomy.ntt_anatomy(x, nb, v),
+                lambda: anatomy.ntt_anatomy_plain(x, nb, v),
+                ntt_bound(nb, 1) if spec is None else bnd(spec), results,
+                library=transpose if v == "copy" else None)
+    for form, spec in anatomy.B15_FORMS.items():
+        compare(torch, "ntt_shoup_forms", f"{form} M={M}",
+                lambda: anatomy.ntt_shoup_forms(x, nb, form),
+                lambda: anatomy.ntt_shoup_forms_plain(x, nb, form),
+                bnd(spec), results)
+    library = {"copy": lambda: copy_out.copy_(x), "transpose": transpose}
+    for part, spec in anatomy.B16_PARTS.items():
+        compare(torch, "ntt_components", f"{part} M={M}",
+                lambda: anatomy.ntt_components(x, nb, part),
+                lambda: anatomy.ntt_components_plain(x, nb, part),
+                bnd(spec), results, library=library.get(part))
+
+    dt = kt.digits[0]
+    nd, m_out = dt.hi - dt.lo, dt.other_nt.q.shape[0]
+    mbig = build_bf16_tables(dt.mat.cpu().numpy(),
+                             dt.other_nt.q.cpu().numpy())[0].cuda()
+    xd = residues(dt.in_q, (nd, n1, n2), rng)
+    xdp = torch.cat([xd, torch.zeros_like(xd[:1])])
+    planes = byte_planes(xdp).view(4 * (nd + 1), n1 * n2).to(torch.bfloat16)
+    compare(torch, "bconv_planes_mm",
+            f"modup digit0 {nd}+1->{m_out} ({4 * m_out} rows computed)",
+            lambda: bconv_planes_mm(xdp, mbig),
+            lambda: bconv_planes_mm_plain(xdp, mbig),
+            planes_mm_bound(nd + 1, m_out, n1 * n2), results,
+            library=lambda: torch.matmul(mbig, planes))
+
+    x0, z, zx = peak_inputs()
+    n, links = x0.numel(), PEAK_ITERS * peaks.S
+    for op, link_ops in PEAK_LINK_OPS.items():
+        # the plain chain is `links` rounds of int64 torch ops over x0
+        compare(torch, "peak_" + op, f"n={n} iters={PEAK_ITERS} "
+                f"({links} links)",
+                lambda: peaks.chain(x0, PEAK_ITERS, op),
+                lambda: peaks.chain_plain(x0, PEAK_ITERS, op),
+                bound(8 * n, n * links * link_ops), results, calls=1,
+                replays=3)
+    big = z.numel()
+    compare(torch, "peak_stream", f"n={big} (two 256 MB arrays)",
+            lambda: peaks.stream(z, zx), lambda: peaks.stream_plain(z, zx),
+            bound(12 * big, 2 * big), results, calls=2, replays=5)
+    return nb, x, xdp, mbig, (x0, z, zx)
 
 
 def check_oracle(np, torch, CkksEngine, get_params, api):
@@ -623,6 +695,8 @@ def main() -> int:
 
     from homulator_tpu_torch import api, kernels
     from homulator_tpu_torch.api import CkksEngine, get_params
+    from homulator_tpu_torch.ops import anatomy, peaks
+    from homulator_tpu_torch.ops.bconv_fused import bconv_planes_mm
     from homulator_tpu_torch.context import Ciphertext, Plaintext
     from homulator_tpu_torch.parallel.comm import ThreadMesh
     from homulator_tpu_torch.parallel.sharded import (
@@ -631,11 +705,7 @@ def main() -> int:
     )
 
     # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(benchlib.card_line())
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
@@ -663,6 +733,37 @@ def main() -> int:
     check_step2_kernel(np, torch, eng.dc, np.random.default_rng(6), results)
     print(f"# kernel checks: {time.perf_counter() - t0:.1f} s")
 
+    # 3b. the NTT anatomy and roofline path: its kernels vs their plain
+    # versions, then the path driven once with the launch counts around it
+    t0 = time.perf_counter()
+    nb_a, x_a, xdp, mbig, (x0, z, zx) = check_anatomy_kernels(
+        np, torch, eng.dc, np.random.default_rng(9), results)
+
+    def anatomy_path():
+        """What the anatomy and roofline scripts run, each kernel called
+        eagerly, so each count is a kernel the card ran: the peak chains
+        and the stream at the roofline's sizes, every anatomy variant, and
+        B17 (the scripts time the same calls by CUDA-graph replay)."""
+        for op in PEAK_LINK_OPS:
+            peaks.chain(x0, PEAK_ITERS, op)
+        peaks.stream(z, zx)
+        for v in anatomy.B14_VARIANTS:
+            anatomy.ntt_anatomy(x_a, nb_a, v)
+        for form in anatomy.B15_FORMS:
+            anatomy.ntt_shoup_forms(x_a, nb_a, form)
+        for part in anatomy.B16_PARTS:
+            anatomy.ntt_components(x_a, nb_a, part)
+        bconv_planes_mm(xdp, mbig)
+
+    launches = {}
+    _, launches["anatomy and roofline path"] = drive(
+        torch, kernels, "anatomy and roofline path", anatomy_path,
+        ANATOMY_KERNELS + ("ntt_fwd",))
+    peak_rates = benchlib.peak_rates(iters=PEAK_ITERS, replays=3)
+    print("# peaks, one short sample each (CUDA-graph replay): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in peak_rates.items()))
+    print(f"# anatomy checks and path: {time.perf_counter() - t0:.1f} s")
+
     # 4. independent oracle at a mid size with a partial digit
     err_matvec = check_oracle(np, torch, CkksEngine, get_params, api)
 
@@ -680,7 +781,6 @@ def main() -> int:
     ct1 = eng.encrypt_complex(v1, LEVEL_B, SCALE)
     ct2 = eng.encrypt_complex(v2, LEVEL_B, SCALE)
     print(f"# set B encrypt (host numpy): {time.perf_counter() - t0:.1f} s")
-    launches = {}
     out, launches["hmult"] = drive(torch, kernels, "hmult(45,35,15)",
                                    lambda: eng.hmult(ct1, ct2), PIECES_KERNELS)
     rot, launches["hrotate"] = drive(torch, kernels, "hrotate(45,35,15)",
@@ -867,21 +967,21 @@ def main() -> int:
     for label, (fn, fused) in timed.items():
         api.USE_FUSED_HPIP = fused
         try:
-            timings[label] = (latency_ms(torch, fn),
-                              device_ms(torch, fn, calls=2))
+            timings[label] = (latency_ms(fn), device_ms(fn, calls=2))
         finally:
             api.USE_FUSED_HPIP = False
         print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager, "
               f"{timings[label][1]:.3f} ms device time")
-    for label, fn in (("hadd", lambda: geng.hadd(ct1, ct2)),
-                      ("pmult", lambda: geng.pmult(ct1, pt2)),
-                      ("padd", lambda: geng.padd(ct1, pt2)),
-                      ("rescale", lambda: geng.rescale(ct1))):
-        timings[label] = (latency_ms(torch, fn), None)
+    for label, eager_ms in (
+            ("hadd", lambda: benchlib.hadd_ms(geng, ct1, ct2, eager=True)),
+            ("pmult", lambda: benchlib.pmult_ms(geng, ct1, pt2, eager=True)),
+            ("padd", lambda: benchlib.padd_ms(geng, ct1, pt2, eager=True)),
+            ("rescale", lambda: latency_ms(lambda: geng.rescale(ct1)))):
+        timings[label] = (eager_ms(), None)
         print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager")
     for label in ("hmult coeff x4", "hrotate coeff x4", "hmult coeff x8",
                   "hrotate coeff x8"):
-        timings[label] = (latency_ms(torch, sharded[label][1]), None)
+        timings[label] = (latency_ms(sharded[label][1]), None)
         print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager "
               "(all shards on one card, not a multi-card latency)")
     peak = torch.cuda.max_memory_allocated() / 2**20
@@ -906,19 +1006,27 @@ def main() -> int:
     rows = []
     for name in KERNELS:
         res = results[name]
-        ms, plain_ms, bound_ms, bound_by = next(
-            r[2:] for r in res if r[0] == headline[name])
-        rows.append({
+        ms, plain_ms, bound_ms, bound_by, library_ms = next(
+            r[2:] for r in res if r[0] == headline.get(name, res[0][0]))
+        row = {
             "name": name, "route": "cuda", "source": REPLACES[name][0],
-            "replaces": REPLACES[name][1], "shape": headline[name],
+            "replaces": REPLACES[name][1],
+            "shape": headline.get(name, res[0][0]),
             "launches": sum(c[name] for c in launches.values()),
             "launches_by_run": {run: c[name] for run, c in launches.items()},
             "max_abs_err": max(r[1] for r in res), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
-        })
+            "library_ms": library_ms,
+        }
+        if name in ANATOMY_KERNELS:
+            row["note"] = ("on no op's path: launched by the anatomy and "
+                           "roofline path only")
+            row["variants"] = {r[0]: dict(zip(
+                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+                r[2:])) for r in res}
+        rows.append(row)
     print(json.dumps({
-        "kernels": rows,
+        "kernels": rows, "peaks_short_sample": peak_rates,
         "eager_ms": {k: v[0] for k, v in timings.items()},
         "device_ms": {k: v[1] for k, v in timings.items()
                       if v[1] is not None},

@@ -16,7 +16,10 @@ the graph route with `ntt_mode="jnp"`), the CLI (`cli.py`), `serialize`,
 `linalg`, and the coefficient-sharded hmult and hrotate (`parallel/`).
 They are carried by the CUDA kernels of `csrc/`: the 4-step NTT and its
 inverse, the two base conversions (fused and step 2), the fused ModUp NTT
-+ key inner product, and the sharded NTT's phase kernels.
++ key inner product, and the sharded NTT's phase kernels. On no op's
+path, `csrc/` also holds the NTT anatomy kernels, the base conversion's
+bf16-plane product on tensor cores and the roofline's peak chains, which
+`benchlib.py` and the roofline and anatomy scripts time.
 """
 
 __version__ = "0.2.0"

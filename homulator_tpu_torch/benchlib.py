@@ -1,0 +1,221 @@
+"""Timing helpers of the port: the counterpart of `homulator_tpu/benchlib.py`.
+
+The JAX package times a device-side chained loop and takes a difference
+quotient (`time_chained`), because a single dispatch through its TPU
+transport cannot be timed reliably. That is a workaround for the
+transport, not part of what is measured, so it has no counterpart here:
+on the card, CUDA events bracket the work.
+
+  latency_ms(fn)  median over eager calls of fn, each between two CUDA
+                  events and synchronised: what a caller waits for, host
+                  overhead included.
+  device_ms(fn)   device time of one call without host overhead: calls
+                  captured in a CUDA graph, the graph replayed between
+                  CUDA events.
+
+The op timers (ntt_pair_ms, hmult_ms, hrotate_ms, hadd_ms, padd_ms,
+pmult_ms: the JAX package's *_seconds) return the device time of one call,
+or its eager latency with eager=True. peak_rates measures the roofline's
+five peaks (scripts/roofline_torch.py) on peak_inputs. Every timer needs a
+CUDA device and none falls back to the CPU.
+
+The bound of a kernel call (chip_smoke.py, scripts/roofline_torch.py):
+bound() is the larger of the bytes it must move over MEM_BYTES_PER_S and
+its operations over the card's peak rate for their type, INT32_OPS_PER_S
+unless given: the float32 peak of 67 TFLOP/s (128 lanes an SM, an FMA two
+operations) over four, as an H100 SM has 64 int32 lanes. OPS is the one
+count of int32 operations a primitive costs; ntt_ops counts a transform
+with it.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+
+import numpy as np
+import torch
+
+from .ops import peaks
+from .ops.ntt import intt, ntt
+
+MEM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+BF16_FLOP_PER_S = 989e12  # dense tensor-core rate
+# int32 operations of a primitive. A Shoup product: a high and two low
+# multiplies, a subtract, and an unsigned min as the conditional subtract,
+# 5; the Shoup chain (csrc/peaks.cu) runs 3.06 T links/s on an H100, room
+# for 5.47 operations a link at INT32_OPS_PER_S (PERF.md). A Montgomery
+# product 5 the same way; a modular add or subtract 3; a butterfly a Shoup
+# product, an add and a subtract; a lazy Shoup product-accumulate 6; a
+# Montgomery product-accumulate 9; a final reduction 6.
+OPS = dict(shoup=5, mont=5, modadd=3, lazy_mac=6, mont_mac=9, reduce=6)
+OPS["butterfly"] = OPS["shoup"] + 2 * OPS["modadd"]
+
+
+def bound(nbytes, ops, ops_per_s=INT32_OPS_PER_S):
+    """(bound_ms, bound_by) of a call moving nbytes and doing ops at the
+    card's peak rate for their type (int32 unless given)."""
+    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, ops / ops_per_s
+    return 1e3 * max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
+
+
+def ntt_ops(rows, n):
+    """int32 operations of one forward or inverse NTT of `rows` limbs of n
+    coefficients: n/2 * log2(n) butterflies and n mid-twiddle products
+    each."""
+    return rows * (n // 2 * (n.bit_length() - 1) * OPS["butterfly"]
+                   + n * OPS["shoup"])
+
+
+def latency_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median over `iters` eager calls of fn, each between two CUDA events
+    and synchronised: what a caller waits for, host overhead included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 10, replays: int = 20) -> float:
+    """Device time of one fn call without host overhead: `calls` calls
+    captured in a CUDA graph, the graph replayed `replays` times between
+    CUDA events; the median replay divided by `calls`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as advised
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them (first card)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def residues(q, shape, rng=0) -> torch.Tensor:
+    """int32 tensor of `shape` on the card: uniform residues, row i of the
+    first axis mod q[i] (q numpy or torch; rng numpy's generator or its
+    seed)."""
+    if isinstance(q, torch.Tensor):
+        q = q.cpu().numpy()
+    q = np.asarray(q, dtype=np.int64).reshape((-1,) + (1,) * (len(shape) - 1))
+    x = np.random.default_rng(rng).integers(0, q, size=shape, dtype=np.int64)
+    return torch.from_numpy(x.astype(np.int32)).cuda()
+
+
+def _time(fn, eager: bool) -> float:
+    return latency_ms(fn) if eager else device_ms(fn, calls=2)
+
+
+def ntt_pair_ms(eng, x: torch.Tensor, level: int) -> float:
+    """Device time of one NTT after one iNTT (B2 then B1) of `level`
+    limbs: x int32 eval tiles [level, n2, n1] on the card."""
+    nb = eng.dc.ntt_basis(eng.dc.main_rows(level))
+    return device_ms(lambda: ntt(intt(x, nb), nb))
+
+
+def hmult_ms(eng, ct1, ct2, eager: bool = False) -> float:
+    return _time(lambda: eng.hmult(ct1, ct2), eager)
+
+
+def hrotate_ms(eng, ct, step: int = 1, eager: bool = False) -> float:
+    if step not in eng.rot_keys:
+        eng.gen_rotation_key(step)
+    return _time(lambda: eng.hrotate(ct, step), eager)
+
+
+def hadd_ms(eng, ct1, ct2, eager: bool = False) -> float:
+    return _time(lambda: eng.hadd(ct1, ct2), eager)
+
+
+def padd_ms(eng, ct, pt, eager: bool = False) -> float:
+    return _time(lambda: eng.padd(ct, pt), eager)
+
+
+def pmult_ms(eng, ct, pt, eager: bool = False) -> float:
+    return _time(lambda: eng.pmult(ct, pt), eager)
+
+
+def peak_inputs(elems: int = 8 << 20, stream_elems: int = 64 << 20,
+                seed: int = 0):
+    """The peak kernels' inputs on the card, from torch's generator at
+    `seed`: x0 int32 [elems] residues in [0, peaks.Q) for the chains, and
+    z, x int32 [stream_elems] of any bits for the stream pass."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x0 = torch.randint(0, peaks.Q, (elems,), dtype=torch.int32,
+                       device="cuda", generator=gen)
+    z, x = (torch.randint(-(1 << 31), 1 << 31, (stream_elems,),
+                          dtype=torch.int32, device="cuda", generator=gen)
+            for _ in range(2))
+    return x0, z, x
+
+
+def peak_rates(elems: int = 8 << 20, iters: int = 64,
+               stream_elems: int = 64 << 20, dim: int = 4096,
+               replays: int = 20, seed: int = 0) -> dict:
+    """One sample of each peak of the roofline (roofline.py:170-267), each
+    the device time of its kernel (CUDA-graph replay) on
+    peak_inputs(elems, stream_elems, seed):
+
+      peak_u32_mul_per_s       squaring links a second (csrc/peaks.cu)
+      peak_shoup_modmul_per_s  Shoup products a second
+      peak_mont_modmul_per_s   Montgomery products a second
+      peak_bf16_flop_per_s     torch.matmul of two dim x dim bf16 matrices
+                               with f32 accumulation (outside any kernel
+                               of the port, as jnp.dot in roofline.py)
+      hbm_stream_gb_per_s      the stream pass: two arrays of stream_elems
+                               uint32 read, one written
+
+    The chains run `iters` iterations of S links over `elems` residues."""
+    x0, z, x = peak_inputs(elems, stream_elems, seed)
+    links = elems * peaks.S * iters
+    out = {}
+    for key, op in (("peak_u32_mul_per_s", "square"),
+                    ("peak_shoup_modmul_per_s", "shoup"),
+                    ("peak_mont_modmul_per_s", "mont")):
+        ms = device_ms(lambda: peaks.chain(x0, iters, op), calls=2,
+                       replays=replays)
+        out[key] = links / (ms * 1e-3)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    a = (torch.randn((dim, dim), device="cuda", generator=gen) * 1e-2).to(
+        torch.bfloat16)
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False  # f32 sums
+    try:
+        ms = device_ms(lambda: torch.matmul(a, a), replays=replays)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = prev
+    out["peak_bf16_flop_per_s"] = 2 * dim ** 3 / (ms * 1e-3)
+    ms = device_ms(lambda: peaks.stream(z, x), calls=4, replays=replays)
+    out["hbm_stream_gb_per_s"] = 3 * 4 * stream_elems / (ms * 1e-3) / 1e9
+    return out

@@ -5,14 +5,16 @@
 The reference's positional contract, as in `homulator_tpu/cli.py`: its
 five operations hmult, hadd, hrotate (by one step), pmult and padd, and
 the JAX CLI's hsub and hsquare; pmult and padd take the plaintext of the
-second operand's slots. An unknown op exits with status 1 and the JAX
-CLI's message. `--verify` decrypts every slot and prints the JAX CLI's
-`# verify max-abs-err = ...` line against the same expectations; an error
-above 1e-2 exits with 1. The key switches take the accelerated route (the
-graph route is the engine's ntt_mode="jnp"). `--fused-hpip`
-(or the cfg key `fused_hpip = 1`) routes key switches through the fused
-HPIP kernel (api.USE_FUSED_HPIP) for the run and restores the flag
-afterwards.
+second operand's slots. An unknown op (with the JAX CLI's message) and a
+usage error (`--dispatch limb|coeff|hybrid` without a [cluster] above 1,
+a tile that `coeff_shard_ok` rejects) exit with status 1, as the JAX
+CLI's `SystemExit` does. `--verify` decrypts every slot and prints the
+JAX CLI's `# verify max-abs-err = ...` line against the same
+expectations; an error above 1e-2 exits with 1. The key switches take the
+accelerated route (the graph route is the engine's ntt_mode="jnp").
+`--fused-hpip` (or the cfg key `fused_hpip = 1`) routes key switches
+through the fused HPIP kernel (api.USE_FUSED_HPIP) for the run and
+restores the flag afterwards.
 
 A [cluster] positional above 1 selects a multi-device dispatch, as in the
 JAX CLI. `--dispatch coeff` runs hmult or hrotate coefficient-sharded
@@ -25,6 +27,10 @@ each shard received against `ici_bytes_per_op` of that routing, and with
 dispatches (auto, the default, and limb, hybrid, gspmd), and the ops
 other than hmult and hrotate at [cluster] > 1 (which the JAX CLI runs
 through GSPMD), exit with status 2 and name ROADMAP A12.
+
+The stat table has the JAX CLI's keys `batchCount` (N/256) and, on a
+sharded run, `ICI_bytes_per_device` (the bytes each shard received in one
+run), beside the port's `launches/*`.
 """
 
 from __future__ import annotations
@@ -50,8 +56,9 @@ def run_op(args) -> int:
     ns = args.cluster if args.cluster is not None else 1
     if ns <= 1 and args.dispatch in ("limb", "coeff", "hybrid"):
         print(f"--dispatch {args.dispatch} needs the [cluster] positional "
-              "> 1", file=sys.stderr)
-        return 2
+              "> 1 (the sharded paths are multi-device dispatches)",
+              file=sys.stderr)
+        return 1
     if ns > 1 and args.op not in ("hmult", "hrotate"):
         print(f"cluster={ns} {args.op}: the JAX CLI runs it through GSPMD, "
               "which is not ported to homulator_tpu_torch yet: ROADMAP A12",
@@ -92,7 +99,7 @@ def run_op(args) -> int:
         print(f"--dispatch coeff needs n1, n2 % {ns} == 0 and per-shard "
               f"tiles >= 8 (n1={params.ntt.n1}, n2={params.ntt.n2})",
               file=sys.stderr)
-        return 2
+        return 1
     with stats.timer("setup/engine"):
         eng = CkksEngine(params, seed=args.seed, device=args.device)
     with stats.timer("setup/keygen"):
@@ -149,7 +156,7 @@ def run_op(args) -> int:
     if ns > 1:
         # bytes each shard received per run: ici_bytes_per_op's count
         got = mesh.recv_bytes
-        stats.set("exchange_bytes_per_shard", ici)
+        stats.set("ICI_bytes_per_device", ici)
         if got != [ici * args.iters] * ns:
             print(f"shards received {got} bytes in {args.iters} runs, "
                   f"ici_bytes_per_op gives {ici} a run", file=sys.stderr)
@@ -157,6 +164,7 @@ def run_op(args) -> int:
     stats.set("modmul_count", op_modmul_count(
         rc.op, rc.n, rc.level, rc.alpha, params.beta(rc.level)))
     stats.set("limbs", rc.level)
+    stats.set("batchCount", rc.n // 256)  # reference batch granularity
 
     if args.verify:
         if ns > 1:

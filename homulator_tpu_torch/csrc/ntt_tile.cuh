@@ -1,6 +1,7 @@
 // Column-tile NTT building blocks shared by the NTT kernels (ntt.cu: B1,
-// B2, the phase kernels B6-B9 and their lane-packed forms B10-B13) and the
-// fused HPIP kernel (hpip.cu: B4).
+// B2, the phase kernels B6-B9 and their lane-packed forms B10-B13), the
+// fused HPIP kernel (hpip.cu: B4) and the NTT anatomy kernels (anatomy.cu:
+// B14-B16).
 //
 // A block owns an [n, TC] column tile of one limb in shared memory (row
 // stride ld = TC + 1: no bank conflicts in the transposed write; TC =
@@ -27,9 +28,20 @@ namespace hk {
 constexpr int kThreads = 256;
 constexpr int kLogTileCols = 5;  // TC = 32 columns: 128-byte row segments
 
+// The Shoup product a * w mod q in [0, q) of the stage loops (__umulhi).
+// A type, so that csrc/anatomy.cu can time other forms of it in ct_rows.
+struct ShoupMul {
+  __device__ __forceinline__ static uint32_t mul(uint32_t a, uint32_t w,
+                                                 uint32_t w_sh, uint32_t q) {
+    return shoup_mul(a, w, w_sh, q);
+  }
+};
+
 // CT (DIT) butterflies along the rows of an [n, tc] tile in shared memory
 // (row stride ld). Thread t takes column t % tc of butterfly t / tc, so a
-// warp touches 32 consecutive words of a row.
+// warp touches 32 consecutive words of a row. Mul::mul is the twiddle
+// product; it must return a * w mod q in [0, q).
+template <class Mul = ShoupMul>
 __device__ inline void ct_rows(uint32_t* s, int logn, int logtc, int ld,
                                const uint32_t* __restrict__ tw,
                                const uint32_t* __restrict__ tw_sh,
@@ -45,7 +57,7 @@ __device__ inline void ct_rows(uint32_t* s, int logn, int logtc, int ld,
       const int r1 = r0 + (1 << logh);
       const int k = (1 << st) + b;
       const uint32_t u = s[r0 * ld + col];
-      const uint32_t v = shoup_mul(s[r1 * ld + col], tw[k], tw_sh[k], q);
+      const uint32_t v = Mul::mul(s[r1 * ld + col], tw[k], tw_sh[k], q);
       s[r0 * ld + col] = mod_add(u, v, q);
       s[r1 * ld + col] = mod_sub(u, v, q);
     }

@@ -39,7 +39,12 @@ LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "bconv": 0, "hpip": 0,
             "bconv_step2": 0,
             "ntt_phase1": 0, "ntt_phase2": 0, "intt_phase2": 0,
             "intt_phase1": 0, "ntt_phase1_packed": 0, "ntt_phase2_packed": 0,
-            "intt_phase2_packed": 0, "intt_phase1_packed": 0}
+            "intt_phase2_packed": 0, "intt_phase1_packed": 0,
+            # on no op's path: the NTT anatomy (B14-B16), the bf16-plane
+            # product (B17) and the roofline's peak chains
+            "ntt_anatomy": 0, "ntt_shoup_forms": 0, "ntt_components": 0,
+            "bconv_planes_mm": 0, "peak_square": 0, "peak_shoup": 0,
+            "peak_mont": 0, "peak_stream": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -70,6 +75,16 @@ _SIGNATURES = {
     # convs, conv_rows, spans (host arrays), d_eval, key, scratch, out, q,
     # qinv, 6 tables, beta, alpha, level, k_full, n1, n2, stream
     "hk_hpip": [_P] * 15 + [_I] * 6 + [_P],
+    # x, out, q, tw1, tw1_sh, mid, mid_sh, passes, mid product, transposed,
+    # form, rows, M, n1, n2, stream
+    "hk_ntt_anatomy": [_P] * 7 + [_I] * 8 + [_P],
+    # x, mbig, out, nd, m_out, ncoef, stream
+    "hk_bconv_planes_mm": [_P] * 3 + [_I] * 2 + [ctypes.c_longlong, _P],
+    # x, y, n, iters, op, three constants, stream
+    "hk_peak_chain": [_P] * 2 + [ctypes.c_longlong] + [_I] * 2
+                     + [ctypes.c_uint] * 3 + [_P],
+    # z, x, out, n, stream
+    "hk_peak_stream": [_P] * 3 + [ctypes.c_longlong, _P],
 }
 
 

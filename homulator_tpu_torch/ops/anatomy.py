@@ -1,0 +1,183 @@
+"""NTT anatomy kernels B14, B15 and B16, and their plain versions.
+
+The parts of the forward 4-step NTT's first phase, each a kernel of its
+own (csrc/anatomy.cu, which has the design note), on limbs x int32
+[M, n1, n2] of canonical residues over an unsharded NTT basis nb of M
+rows. Every output is in [0, q):
+
+  B14, `scripts/microbench_ntt.py::make_variant`: ntt_anatomy(x, nb, v)
+    copy      x^T                                   -> [M, n2, n1]
+    midT      (x * mid mod q)^T
+    stages1   (the stage-1 CT butterflies along n1)^T
+    stages2x  (stage 1 twice: 16 stages at n1 = 256)^T
+    full      the forward NTT: kernel B1 itself (ops/ntt.py)
+  B15, `scripts/microbench_ntt2.py::make_kernel`: ntt_shoup_forms(x, nb, f)
+    stages2x, with the butterflies' Shoup product in form f: production
+    (the exact high word, __umulhi), natmul (the exact high word from four
+    16-bit partial products, the TPU's form) or approx (the TPU's
+    3-product high word, short by at most 1, so the product lies in
+    [0, 3q) before two conditional subtracts)
+  B16, `scripts/bench_ntt_variants.py::main` (k_copy, k_transpose, k_mid,
+  k_stages1): ntt_components(x, nb, p)
+    copy, transpose, mid (x * mid mod q), stages1; only transpose
+    transposes                                       -> [M, n1, n2]
+
+The TPU kernels leave B14's stages1 and stages2x (and its full variant)
+lazy in [0, 3q); they agree with these mod q. microbench_ntt2's natmul and
+approx variants run the fine stages unswapped on row-swapped tables, so
+they compute another function than stage 1 twice; these forms compute
+stage 1 twice (PERF.md §6).
+
+A CPU tensor runs the plain version; a CUDA tensor launches the kernel,
+counted once under its table's name in kernels.LAUNCHES, or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from ..context import NttBasis
+from .modmath import _u32, cond_sub, mulmod
+from .ntt import _ct_stages, _rep_rows, _tables, ntt, ntt_plain
+
+# the Shoup forms of B15, in hk_ntt_anatomy's numbering
+FORMS = ("production", "natmul", "approx")
+# variant -> (stage passes, mid product, transposed store, Shoup form), the
+# flags hk_ntt_anatomy instantiates; B14's "full" is B1
+B14_VARIANTS = {"copy": (0, False, True, "production"),
+                "midT": (0, True, True, "production"),
+                "stages1": (1, False, True, "production"),
+                "stages2x": (2, False, True, "production"), "full": None}
+B15_FORMS = {f: (2, False, True, f) for f in FORMS}
+B16_PARTS = {"copy": (0, False, False, "production"),
+             "transpose": (0, False, True, "production"),
+             "mid": (0, True, False, "production"),
+             "stages1": (1, False, False, "production")}
+_MAX_N1 = 1024  # the [n1, 32] tile: n1 * 33 words of shared memory
+
+
+def shoup_form(a, w, w_sh, q, form: str) -> torch.Tensor:
+    """a * w mod q in [0, q) (int64) through the high word of a * w_sh /
+    2^32 of `form`, as the kernel computes it: production and natmul give
+    the exact high word; approx drops the low partial product, so a * w -
+    hi * q lies in [0, 3q). a, w < q < 2^32/6; w_sh uint32 bits."""
+    a, wsh = a.long(), _u32(w_sh)
+    if form == "approx":
+        a0, a1, b0, b1 = a & 0xFFFF, a >> 16, wsh & 0xFFFF, wsh >> 16
+        hi = a1 * b1 + ((a0 * b1 + a1 * b0) >> 16)
+    elif form in ("production", "natmul"):
+        hi = (a * wsh) >> 32
+    else:
+        raise ValueError(f"unknown Shoup form {form!r}")
+    return cond_sub(cond_sub(a * w.long() - hi * q, q + q), q)
+
+
+def _plain(spec: tuple, x: torch.Tensor, nb: NttBasis) -> torch.Tensor:
+    passes, mid, transposed, form = spec
+    rows = _rep_rows(nb, 1)
+    q, tw1, tw1_sh, mids = _tables(nb, rows, "q", "tw1", "tw1_sh", "mid")
+    q4 = q.view(-1, 1, 1, 1)
+    mul = None  # _ct_stages' own product is the production form
+    if form != "production":
+        def mul(v, lo, hi):
+            return shoup_form(v, tw1[:, lo:hi, None, None],
+                              tw1_sh[:, lo:hi, None, None], q4, form)
+    y = x.long()
+    for _ in range(passes):
+        y = _ct_stages(y, tw1, q4, mul)
+    if mid:
+        y = mulmod(y, mids, q4[:, 0])
+    if transposed:
+        y = y.transpose(1, 2)
+    return y.to(torch.int32).contiguous()
+
+
+def _launch(name: str, spec: tuple, x: torch.Tensor,
+            nb: NttBasis) -> torch.Tensor:
+    if not x.is_cuda:
+        raise ValueError(f"{name}: CUDA kernel called on {x.device}")
+    if nb.shard is not None:
+        raise ValueError(f"{name}: sharded basis {nb.shard}")
+    M, n1, n2 = nb.q.shape[0], nb.n1, nb.n2
+    if n1 > _MAX_N1:
+        raise ValueError(f"{name}: n1={n1} above {_MAX_N1}")
+    dev = x.device
+    kernels.require_cuda_int32("x", x, dev, (M, n1, n2))
+    kernels.require_cuda_int32("q", nb.q, dev, (M,))
+    for t, shape in (("tw1", (M, n1)), ("tw1_sh", (M, n1)),
+                     ("mid", (M, n1, n2)), ("mid_sh", (M, n1, n2))):
+        kernels.require_cuda_int32(t, getattr(nb, t), dev, shape)
+    lib = kernels.load()
+    passes, mid, transposed, form = spec
+    out = torch.empty((M, n2, n1) if transposed else (M, n1, n2),
+                      dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.hk_ntt_anatomy(
+            kernels.ptr(x), kernels.ptr(out), kernels.ptr(nb.q),
+            kernels.ptr(nb.tw1), kernels.ptr(nb.tw1_sh), kernels.ptr(nb.mid),
+            kernels.ptr(nb.mid_sh), passes, int(mid), int(transposed),
+            FORMS.index(form), M, M, n1, n2, kernels.stream(x))
+    kernels.check(rc, name)
+    kernels.count(name)
+    return out
+
+
+def _run(name: str, spec: tuple, x: torch.Tensor,
+         nb: NttBasis) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return _plain(spec, x, nb)
+    return _launch(name, spec, x, nb)
+
+
+def _spec(table: dict, key: str, what: str) -> tuple | None:
+    if key not in table:
+        raise ValueError(f"unknown {what} {key!r} (expected "
+                         f"{'|'.join(table)})")
+    return table[key]
+
+
+def ntt_anatomy(x: torch.Tensor, nb: NttBasis, variant: str) -> torch.Tensor:
+    """Kernel B14: `variant` of the forward NTT's first phase on x int32
+    [M, n1, n2] -> [M, n2, n1] in [0, q) (see the module docstring);
+    "full" is the NTT itself, kernel B1."""
+    spec = _spec(B14_VARIANTS, variant, "B14 variant")
+    if spec is None:
+        return ntt(x, nb)
+    return _run("ntt_anatomy", spec, x, nb)
+
+
+def ntt_anatomy_plain(x: torch.Tensor, nb: NttBasis,
+                      variant: str) -> torch.Tensor:
+    """Plain version of kernel B14 (on the tensor's device; "full" is
+    B1's plain version)."""
+    spec = _spec(B14_VARIANTS, variant, "B14 variant")
+    if spec is None:
+        return ntt_plain(x, nb)
+    return _plain(spec, x, nb)
+
+
+def ntt_shoup_forms(x: torch.Tensor, nb: NttBasis, form: str) -> torch.Tensor:
+    """Kernel B15: 16 CT stages (stage 1 twice) along n1 of x int32
+    [M, n1, n2] with the Shoup product in `form` -> [M, n2, n1] in [0, q),
+    the same for every form."""
+    return _run("ntt_shoup_forms", _spec(B15_FORMS, form, "Shoup form"), x,
+                nb)
+
+
+def ntt_shoup_forms_plain(x: torch.Tensor, nb: NttBasis,
+                          form: str) -> torch.Tensor:
+    """Plain version of kernel B15 (the form's high word in int64)."""
+    return _plain(_spec(B15_FORMS, form, "Shoup form"), x, nb)
+
+
+def ntt_components(x: torch.Tensor, nb: NttBasis, part: str) -> torch.Tensor:
+    """Kernel B16: one `part` of the 4-step NTT on x int32 [M, n1, n2]:
+    copy, transpose ([M, n2, n1]), mid, stages1 ([M, n1, n2])."""
+    return _run("ntt_components", _spec(B16_PARTS, part, "B16 part"), x, nb)
+
+
+def ntt_components_plain(x: torch.Tensor, nb: NttBasis,
+                         part: str) -> torch.Tensor:
+    """Plain version of kernel B16."""
+    return _plain(_spec(B16_PARTS, part, "B16 part"), x, nb)

@@ -51,15 +51,19 @@ from . import ntt_kernels
 from .modmath import modadd, modsub, mulmod
 
 
-def _ct_stages(x: torch.Tensor, tw: torch.Tensor, q: torch.Tensor):
+def _ct_stages(x: torch.Tensor, tw: torch.Tensor, q: torch.Tensor,
+               mul=None):
     """CT (DIT) butterflies along axis 1 of int64 [R, n, m]; tw int64
-    [R, n] flat stage twiddles; q int64 [R, 1, 1, 1]."""
+    [R, n] flat stage twiddles; q int64 [R, 1, 1, 1]. mul(v, lo, hi), when
+    given, is the twiddle product of v [R, B, H, m] by the columns lo:hi
+    of the stage tables (ops/anatomy.py's Shoup forms); else mulmod."""
     R, n, m = x.shape
     for s in range(n.bit_length() - 1):
         B, H = 1 << s, n >> (s + 1)
         xr = x.view(R, B, 2, H, m)
         u = xr[:, :, 0]
-        v = mulmod(xr[:, :, 1], tw[:, B: 2 * B, None, None], q)
+        v = (mulmod(xr[:, :, 1], tw[:, B: 2 * B, None, None], q)
+             if mul is None else mul(xr[:, :, 1], B, 2 * B))
         x = torch.stack([modadd(u, v, q), modsub(u, v, q)], dim=2)
         x = x.view(R, n, m)
     return x

@@ -30,7 +30,6 @@ limit first. Imports no JAX and nothing of the JAX package.
 
 import argparse
 import os
-import subprocess
 import sys
 import threading
 from collections import defaultdict
@@ -129,8 +128,8 @@ def main() -> int:
         print("profile_coeff_torch: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from chip_smoke import latency_ms
     from homulator_tpu_torch.api import CkksEngine, get_params
+    from homulator_tpu_torch.benchlib import card_line, latency_ms
     from homulator_tpu_torch.parallel.comm import ThreadMesh
     from homulator_tpu_torch.parallel.mesh import pack_k_for
     from homulator_tpu_torch.parallel.sharded import (
@@ -144,11 +143,7 @@ def main() -> int:
         def _give_baton(self, comm):
             pass
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
 
     params = get_params(n=1 << 16, max_level=45, alpha=15)
     eng = CkksEngine(params, seed=1, device="cuda")
@@ -196,7 +191,7 @@ def main() -> int:
           "device ms by group |")
     print("|---|---|---|---|---|---|---|---|")
     for label, fn in runs.items():
-        lat = latency_ms(torch, fn)
+        lat = latency_ms(fn)
         host = host_ms(torch, fn)
         dev, groups, waits = device_ms(torch, fn)
         phase = sum(v for g, v in groups.items()

@@ -2,6 +2,8 @@
 process on the tiny config with `--device cpu` (the kernels' plain
 versions). Every run goes through `--verify` (full-slot decrypt check)."""
 
+import re
+
 import pytest
 
 from homulator_tpu_torch import api, cli
@@ -82,3 +84,40 @@ def test_cli_coeff_dispatch_packed(op, tmp_path, capsys):
     want = ici_bytes_per_op(p, 4, 8, op)
     assert f"ici_bytes_per_shard={want} ntt=lane-packed k=16" in outp
     assert "bit-exact" in outp and "verify max-abs-err" in outp
+    assert _stat(outp, "ICI_bytes_per_device") == want
+    assert _stat(outp, "batchCount") == 4096 // 256
+
+
+def _stat(outp, key):
+    """The value of `key` in the CLI's stat table (Statistic.table)."""
+    m = re.search(rf"^{key}\s+(\d+)$", outp, re.MULTILINE)
+    assert m, f"{key} not in the stat table:\n{outp}"
+    return int(m.group(1))
+
+
+def test_cli_stat_table_keys(capsys):
+    """The JAX CLI's stat keys: batchCount = N/256 on every run
+    (homulator_tpu/cli.py:420); a single-device run has no
+    ICI_bytes_per_device."""
+    rc = cli.main(["run", CFG, "hadd", "8", "4", "4", "--iters", "1",
+                   "--device", "cpu"])
+    outp = capsys.readouterr().out
+    assert rc == 0, outp
+    assert _stat(outp, "batchCount") == 256 // 256
+    assert "ICI_bytes_per_device" not in outp
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["hmult", "8", "4", "4", "--dispatch", "coeff"], "needs the [cluster]"),
+    (["hmult", "8", "4", "4", "1", "--dispatch", "limb"],
+     "needs the [cluster]"),
+    (["hrotate", "8", "4", "4", "--dispatch", "hybrid"],
+     "needs the [cluster]"),
+    (["hmult", "8", "8", "4", "4", "--dispatch", "coeff"], "per-shard tiles"),
+])
+def test_cli_usage_errors_exit_1(argv, msg, capsys):
+    """Usage errors exit with 1, as the JAX CLI's SystemExit("...")
+    (homulator_tpu/cli.py:101-104, 146-149); 2 stays "not ported yet"."""
+    rc = cli.main(["run", CFG, *argv, "--device", "cpu"])
+    assert rc == 1
+    assert msg in capsys.readouterr().err

@@ -274,7 +274,8 @@ def test_cli_coeff_dispatch(capsys):
     """`run configs/tiny.cfg hmult 8 8 4 2 --dispatch coeff --device cpu
     --verify` (N = 256, n1 = 16: 2 shards is the most coeff_shard_ok
     allows) exits 0 and matches the single-device op; the dispatches not
-    ported exit 2 naming ROADMAP A12."""
+    ported exit 2 naming ROADMAP A12; a tile coeff_shard_ok rejects is a
+    usage error, exit 1 as in the JAX CLI."""
     rc = cli.main(["run", "configs/tiny.cfg", "hmult", "8", "8", "4", "2",
                    "--dispatch", "coeff", "--device", "cpu", "--verify",
                    "--iters", "1"])
@@ -288,4 +289,4 @@ def test_cli_coeff_dispatch(capsys):
         assert rc == 2 and "ROADMAP A12" in capsys.readouterr().err
     rc = cli.main(["run", "configs/tiny.cfg", "hmult", "8", "8", "4", "4",
                    "--dispatch", "coeff", "--device", "cpu"])
-    assert rc == 2 and "per-shard tiles" in capsys.readouterr().err
+    assert rc == 1 and "per-shard tiles" in capsys.readouterr().err

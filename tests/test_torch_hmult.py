@@ -120,7 +120,9 @@ def test_cuda_device_is_explicit(small_params):
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports every module of the port (its ops and
-    parallel packages, serialize and linalg included) and chip_smoke,
+    parallel packages, serialize, linalg, benchlib, the anatomy and peak
+    kernels' wrappers included), chip_smoke and the port's scripts
+    (scripts/*_torch.py: the roofline and the three NTT anatomy scripts),
     takes get_params from the port, runs a tiny hmult, hrotate,
     fused-route hmult, 2-shard coefficient-sharded hmult, graph-route
     hmult, the elementwise ops, a serialize round trip and a linalg dot,
@@ -165,11 +167,20 @@ def test_port_imports_no_jax():
         "serialize.save_ciphertext(path, a, e.params)\n"
         "assert (serialize.load_ciphertext(path, e.dc).data == a.data).all()\n"
         "assert linalg.dot(e, a, np.ones(32)).level == 2\n"
+        "import glob, importlib.util\n"
+        "scripts = sorted(glob.glob('scripts/*_torch.py'))\n"
+        "for path in scripts:\n"
+        "    spec = importlib.util.spec_from_file_location("
+        "os.path.basename(path)[:-3], path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "for name in ('roofline_torch', 'microbench_ntt_torch',"
+        " 'microbench_ntt2_torch', 'bench_ntt_variants_torch'):\n"
+        "    assert f'scripts/{name}.py' in scripts, name\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'homulator_tpu'))\n"
         "assert not bad, bad\n"
         "for m in ('ops.hpip', 'ops.bconv', 'ops.rescale', 'serialize',"
-        " 'linalg'):\n"
+        " 'linalg', 'benchlib', 'ops.anatomy', 'ops.peaks'):\n"
         "    assert 'homulator_tpu_torch.' + m in sys.modules, m\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
