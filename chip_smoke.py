@@ -8,12 +8,17 @@ JAX and nothing of the JAX package `homulator_tpu`. Every phase raises on
 failure and the script then exits non-zero:
 
   1. the card's name and power limit (nvidia-smi);
-  2. the kernel build (nvcc, one process per source) and its time;
+  2. the kernel build (nvcc, one process per source) and its time, with
+     ptxas's registers and spills of each instantiation of B1's and B2's
+     register-radix phase kernels (one for each axis length 2^1 .. 2^10),
+     failing if one is missing or takes local memory;
   3. each CUDA kernel against its plain PyTorch version on the card, at the
      shapes parameter set B gives it, bit for bit (tolerance 0), with the
      device time of each (CUDA graph replay between CUDA events, so host
      overhead is excluded) and its bound (below): the NTTs (B1, B2) at the
-     bases hmult and hrotate use, the base conversion (B3) at every ModUp
+     bases hmult and hrotate use, and at every ring degree N = 2^2 .. 2^20
+     (M = 2 rows, the largest primes, rep 1 and 2: every axis length and
+     launch geometry they take), the base conversion (B3) at every ModUp
      digit and the tail, and the fused HPIP kernel (B4) at level 35 (K =
      50, digits (0,15) (15,30) (30,35)) and level 20 (two digits, the last
      partial); the phase kernels of the coefficient-sharded NTT (B6-B9) on
@@ -126,7 +131,7 @@ import time
 from homulator_tpu_torch import benchlib
 from homulator_tpu_torch.benchlib import (
     BF16_FLOP_PER_S, OPS, bound, device_ms, latency_ms, ntt_ops, peak_inputs,
-    residues,
+    radix_ntt_ops, residues,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -203,13 +208,32 @@ PACKED_BYTES = {8: (7684096, 9748480), 16: (4546560, 5447680),
                 32: (2793472, 3112960)}
 
 
-def ntt_bound(nb, rep):
-    """B1/B2 on rep stacked copies of basis nb: x and out, the mid table
-    and its Shoup table, the stage tables and q."""
+def ntt_cases(kt):
+    """The shapes a set-B key switch at kt's level gives B1 and B2:
+    {"ntt_fwd" | "ntt_inv": {label: (basis, rep)}}."""
+    d0, d2 = kt.digits[0], kt.digits[2]
+    both = {"main M=35 rep=2": (kt.main_nt, 2),
+            "ext M=50 rep=2": (kt.ext_nt, 2),
+            "special M=15 rep=2": (kt.special_nt, 2)}
+    return {
+        "ntt_fwd": dict(both, **{
+            "digit0 other M=35 rep=1": (d0.other_nt, 1),
+            "digit2 other M=45 rep=1": (d2.other_nt, 1),
+            "tail out M=34 rep=2": (kt.tail.out_nt, 2)}),
+        "ntt_inv": dict(both, **{
+            "main M=35 rep=1": (kt.main_nt, 1),
+            "tail last M=1 rep=2": (kt.tail.last_nt, 2)}),
+    }
+
+
+def ntt_bound(nb, rep, fwd):
+    """B1 (fwd) / B2 on rep stacked copies of basis nb: x and out, the mid
+    table and its Shoup table, the stage tables and q; the operations the
+    register-radix kernels do (benchlib.radix_ntt_ops)."""
     M, n1, n2 = nb.q.shape[0], nb.n1, nb.n2
     n = n1 * n2
     nbytes = 4 * (2 * rep * M * n + 2 * M * n + 2 * M * (n1 + n2) + M)
-    return bound(nbytes, ntt_ops(rep * M, n))
+    return bound(nbytes, radix_ntt_ops(rep * M, n, fwd))
 
 
 def phase_bound(nb, rows, n, c, mid):
@@ -304,6 +328,57 @@ def compare(torch, name, label, kernel, plain, bnd, results, library=None,
     results[name].append((label, err, ms, plain_ms) + bnd + (lib_ms,))
 
 
+def radix_registers(log_text):
+    """ptxas's registers and local-memory bytes (stack frame, spill stores
+    and loads) of each instantiation of the B1/B2 phase kernels in nvcc's
+    log: {kernel: {L: (registers, local bytes)}}."""
+    import re
+
+    out, entry, spill = {}, None, 0
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(ntt_(?:fwd|inv)_radix_[ab])ILi(\d+)E", line)
+            entry, spill = (m.group(1), int(m.group(2))) if m else None, 0
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            spill = sum(int(g) for g in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.setdefault(entry[0], {})[entry[1]] = (int(m.group(1)), spill)
+            entry = None
+    return out
+
+
+def check_radix_sweep(np, torch, get_params):
+    """B1 and B2 against their plain versions, bit for bit, at every ring
+    degree N = 2^2 .. 2^20 (n1 x n2 from 2 x 2 to 1024 x 1024: every axis
+    length, so every kernel instantiation, and the narrow tiles of small
+    n), on M = 2 rows (the largest prime and the first main), rep 1 and
+    2."""
+    from homulator_tpu_torch.context import DeviceContext
+    from homulator_tpu_torch.ops import ntt_kernels
+    from homulator_tpu_torch.ops.ntt import intt_plain, ntt_plain
+
+    shapes = []
+    for logn in range(2, 21):
+        p = get_params(n=1 << logn, max_level=2, alpha=1)
+        nb = DeviceContext(p, "cuda").ntt_basis((p.max_level, 0))
+        for rep in (1, 2):
+            q = np.tile(nb.q.cpu().numpy(), rep)
+            for kernel, plain, shape in (
+                    (ntt_kernels.ntt_fwd, ntt_plain, (nb.n1, nb.n2)),
+                    (ntt_kernels.ntt_inv, intt_plain, (nb.n2, nb.n1))):
+                x = residues(q, (len(q),) + shape, logn)
+                if not torch.equal(kernel(x, nb, rep), plain(x, nb, rep)):
+                    raise AssertionError(f"{kernel.__name__} at N=2^{logn} "
+                                         f"rep={rep} != its plain version")
+        shapes.append(f"{nb.n1}x{nb.n2}")
+    print(f"# ntt_fwd, ntt_inv at N=2^2..2^20 ({', '.join(shapes)}), M=2, "
+          "rep 1 and 2: bit-exact (tolerance 0)")
+
+
 def check_kernels(np, torch, dc, rng, results):
     """Phase 3: every kernel vs its plain version at the set-B shapes."""
     from homulator_tpu_torch.ops import ntt_kernels
@@ -313,31 +388,16 @@ def check_kernels(np, torch, dc, rng, results):
 
     kt = dc.keyswitch_tables(LEVEL_B)
     n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
-    d0, d2 = kt.digits[0], kt.digits[2]
-    ntt_cases = {  # label -> (basis, rep)
-        "main M=35 rep=2": (kt.main_nt, 2),
-        "ext M=50 rep=2": (kt.ext_nt, 2),
-        "special M=15 rep=2": (kt.special_nt, 2),
-    }
-    fwd_cases = dict(ntt_cases, **{
-        "digit0 other M=35 rep=1": (d0.other_nt, 1),
-        "digit2 other M=45 rep=1": (d2.other_nt, 1),
-        "tail out M=34 rep=2": (kt.tail.out_nt, 2),
-    })
-    inv_cases = dict(ntt_cases, **{
-        "main M=35 rep=1": (kt.main_nt, 1),
-        "tail last M=1 rep=2": (kt.tail.last_nt, 2),
-    })
-    for name, kernel, plain, cases, shape in (
-            ("ntt_fwd", ntt_kernels.ntt_fwd, ntt_plain, fwd_cases, (n1, n2)),
-            ("ntt_inv", ntt_kernels.ntt_inv, intt_plain, inv_cases,
-             (n2, n1))):
-        for label, (nb, rep) in cases.items():
+    cases = ntt_cases(kt)
+    for name, kernel, plain, shape in (
+            ("ntt_fwd", ntt_kernels.ntt_fwd, ntt_plain, (n1, n2)),
+            ("ntt_inv", ntt_kernels.ntt_inv, intt_plain, (n2, n1))):
+        for label, (nb, rep) in cases[name].items():
             q = np.tile(nb.q.cpu().numpy(), rep)
             x = residues(q, (len(q),) + shape, rng)
             compare(torch, name, label,
                     lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
-                    ntt_bound(nb, rep), results)
+                    ntt_bound(nb, rep, name == "ntt_fwd"), results)
 
     cases = {}
     for d, dt in enumerate(kt.digits):
@@ -555,7 +615,8 @@ def check_anatomy_kernels(np, torch, dc, rng, results):
         compare(torch, "ntt_anatomy", f"{v} M={M}",
                 lambda: anatomy.ntt_anatomy(x, nb, v),
                 lambda: anatomy.ntt_anatomy_plain(x, nb, v),
-                ntt_bound(nb, 1) if spec is None else bnd(spec), results,
+                ntt_bound(nb, 1, True) if spec is None else bnd(spec),
+                results,
                 library=transpose if v == "copy" else None)
     for form, spec in anatomy.B15_FORMS.items():
         compare(torch, "ntt_shoup_forms", f"{form} M={M}",
@@ -716,9 +777,25 @@ def main() -> int:
     print(f"# kernel build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {nvcc_s:.1f} s) -> {os.path.relpath(kernels.library_path(), ROOT)}")
     with open(kernels.library_path()[:-3] + ".log") as f:
-        for line in f:
-            if "registers" in line or "Compiling entry" in line:
-                print("#   " + line.strip())
+        log_text = f.read()
+    for line in log_text.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print("#   " + line.strip())
+    radix_regs = radix_registers(log_text)
+    for name, by_l in sorted(radix_regs.items()):
+        print(f"# {name} (B1/B2) ptxas, L: registers / local bytes: "
+              + ", ".join(f"{l}: {r} / {sp}" for l, (r, sp)
+                          in sorted(by_l.items())))
+    if sorted(radix_regs) != ["ntt_fwd_radix_a", "ntt_fwd_radix_b",
+                              "ntt_inv_radix_a", "ntt_inv_radix_b"] or any(
+            len(v) != 10 for v in radix_regs.values()):
+        raise AssertionError("nvcc's log lacks B1/B2 radix instantiations: "
+                             f"{radix_regs}")
+    spilled = {f"{name}<{l}>": sp for name, by_l in radix_regs.items()
+               for l, (_, sp) in by_l.items() if sp}
+    if spilled:
+        raise AssertionError("B1/B2 instantiations use local memory (stack "
+                             f"or spill bytes): {spilled}")
 
     # 3. kernels vs plain versions at the set-B shapes
     t0 = time.perf_counter()
@@ -728,6 +805,7 @@ def main() -> int:
     results = {k: [] for k in KERNELS}
     t0 = time.perf_counter()
     check_kernels(np, torch, eng.dc, np.random.default_rng(2), results)
+    check_radix_sweep(np, torch, get_params)
     check_phase_kernels(np, torch, eng.dc, np.random.default_rng(3), results)
     check_packed_kernels(np, torch, eng.dc, np.random.default_rng(5), results)
     check_step2_kernel(np, torch, eng.dc, np.random.default_rng(6), results)

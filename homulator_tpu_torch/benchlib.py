@@ -25,7 +25,7 @@ its operations over the card's peak rate for their type, INT32_OPS_PER_S
 unless given: the float32 peak of 67 TFLOP/s (128 lanes an SM, an FMA two
 operations) over four, as an H100 SM has 64 int32 lanes. OPS is the one
 count of int32 operations a primitive costs; ntt_ops counts a transform
-with it.
+of the column-tile kernels with it, radix_ntt_ops one of B1 or B2.
 """
 
 from __future__ import annotations
@@ -48,9 +48,14 @@ BF16_FLOP_PER_S = 989e12  # dense tensor-core rate
 # for 5.47 operations a link at INT32_OPS_PER_S (PERF.md). A Montgomery
 # product 5 the same way; a modular add or subtract 3; a butterfly a Shoup
 # product, an add and a subtract; a lazy Shoup product-accumulate 6; a
-# Montgomery product-accumulate 9; a final reduction 6.
-OPS = dict(shoup=5, mont=5, modadd=3, lazy_mac=6, mont_mac=9, reduce=6)
+# Montgomery product-accumulate 9; a final reduction 6. Lazy forms
+# (csrc/ntt_reg.cuh): a Shoup product without its conditional subtract 4;
+# a conditional subtract 2; a Harvey butterfly (ct_lazy, gs_lazy) a lazy
+# product, a conditional subtract and three adds or subtracts, 9.
+OPS = dict(shoup=5, mont=5, modadd=3, lazy_mac=6, mont_mac=9, reduce=6,
+           lazy_shoup=4, csub=2)
 OPS["butterfly"] = OPS["shoup"] + 2 * OPS["modadd"]
+OPS["lazy_butterfly"] = OPS["lazy_shoup"] + OPS["csub"] + 3
 
 
 def bound(nbytes, ops, ops_per_s=INT32_OPS_PER_S):
@@ -62,10 +67,23 @@ def bound(nbytes, ops, ops_per_s=INT32_OPS_PER_S):
 
 def ntt_ops(rows, n):
     """int32 operations of one forward or inverse NTT of `rows` limbs of n
-    coefficients: n/2 * log2(n) butterflies and n mid-twiddle products
+    coefficients as B4's column-tile phases compute it, reduced after
+    every step: n/2 * log2(n) butterflies and n mid-twiddle products
     each."""
     return rows * (n // 2 * (n.bit_length() - 1) * OPS["butterfly"]
                    + n * OPS["shoup"])
+
+
+def radix_ntt_ops(rows, n, fwd):
+    """int32 operations of B1 (fwd) or B2 on `rows` limbs of n coefficients
+    as csrc/ntt_reg.cuh computes them: n/2 * log2(n) Harvey butterflies
+    and, an element, B1's mid product reduced to [0, q) (a lazy product and
+    a conditional subtract) and two conditional subtracts before phase B's
+    store; B2's lazy mid_inv product and one conditional subtract before
+    each phase's store."""
+    per_elem = OPS["lazy_shoup"] + (3 if fwd else 2) * OPS["csub"]
+    return rows * (n // 2 * (n.bit_length() - 1) * OPS["lazy_butterfly"]
+                   + n * per_elem)
 
 
 def latency_ms(fn, iters: int = 20, warmup: int = 3) -> float:

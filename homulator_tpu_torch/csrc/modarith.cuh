@@ -1,7 +1,9 @@
 // Modular arithmetic on uint32 residues for the kernels of this directory.
 //
-// Every prime q is below 2^30 (homulator_tpu/numtheory.py PRIME_CAP), so
-// sums of two residues and the Shoup remainder (< 2q) never leave uint32.
+// Every prime q is below PRIME_CAP = 2^32/6 < 2^30
+// (homulator_tpu_torch/numtheory.py:49), so sums of two residues and the
+// Shoup remainder (< 2q) never leave uint32, nor do the lazy [0, 4q) ranges
+// of B1 and B2 (ntt_reg.cuh).
 // Hopper multiplies 32x32 -> 64 natively: __umulhi gives the exact high
 // word, so the TPU's 16-bit partial products and approximate high word
 // (homulator_tpu/ops/modmath.py:36-58, 136-157) have no counterpart here.

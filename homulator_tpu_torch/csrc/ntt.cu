@@ -11,40 +11,50 @@
 // (homulator_tpu_torch/ops/ntt.py), so the outputs are the same canonical
 // residues bit for bit.
 //
-// What bounds it on the card: a whole N = 2^16 limb is 256 KiB of uint32,
-// more than the 227 KB of shared memory a block can hold, so the TPU design
-// (one limb in VMEM, all stages on chip) does not carry over. Each
-// transform is two launches (the phase-split template of
-// ntt_pallas.py:274-407): a block owns an [n, TC] column tile of one limb,
-// loads it with coalesced row reads, runs all log2(n) butterfly stages of
-// one axis in shared memory, and writes it out; the 4-step transpose
-// happens in the write of the first phase (through a scratch array). Per
-// limb each phase reads and writes the limb once, and the mid-twiddle phase
-// also reads its value and Shoup tables: about 1.5 MiB of device memory
-// traffic per limb at N = 2^16, against some 12 integer instructions for
-// each of the N/2 * log2(N) butterflies, so the two are of the same order
-// on an H100. This first version is kept simple: values are fully reduced
-// after every butterfly, twiddles come from global memory through the
-// cache, and a block synchronises between stages.
-//
-// Every kernel takes its limbs as rows of pitch 2^logc and tiles of TC =
-// min(32, 2^logc) columns. Forward, [rows, n1, n2] coeff -> [rows, n2, n1]
-// eval tiles:
-//   phase A  ntt_fwd_a<true>, grid (rows, n2/TC), pitch n2: CT stages along
-//            n1, times tw_mid, written transposed into scratch [rows, n2, n1]
-//   phase B  ntt_fwd_b, grid (rows, n1/TC), pitch n1: CT stages along n2
+// What bounds B1 and B2 on the card: a whole N = 2^16 limb is 256 KiB of
+// uint32, more than the 227 KB of shared memory a block can hold, so the
+// TPU design (one limb in VMEM, all stages on chip) does not carry over.
+// Each transform is two launches (the phase-split template of
+// ntt_pallas.py:274-407) through a scratch array, and each phase reads and
+// writes the limb once; the phase with the mid product also reads its value
+// and Shoup tables. That is about 1.5 MiB of device memory traffic a limb
+// at N = 2^16 against some 9 integer instructions for each of the N/2 *
+// log2(N) lazy butterflies, of the same order on an H100; the first version
+// (a block synchronising after each of the 8 shared-memory stages of an
+// axis, 256 threads, values reduced after every butterfly) ran at 13-21%
+// of that bound. B1 and B2 therefore run on ntt_reg.cuh's register passes:
+//   - a 2^L-point axis is two register passes (16 x 16 at L = 8), one
+//     exchange through shared memory between them, and the twiddle pair
+//     loaded into shared memory once a block: two barriers a phase;
+//   - Harvey's lazy butterflies, one reduction to [0, q) before each store;
+//   - the columns a block holds (TC) come from the host
+//     (ops/ntt_kernels.py::radix_phases), so that a few limbs still give
+//     the card enough blocks; TC * 2^floor(L/2) threads a block.
+// Both global streams of a phase are coalesced: a warp moves TC consecutive
+// columns of each of 32/TC rows, and the transposed side (B1 phase A's
+// store, B2 phase B's load, where mid_inv is applied) moves 2^ceil(L/2)
+// consecutive words a thread. Forward, [rows, n1, n2] coeff -> [rows, n2,
+// n1] eval tiles:
+//   phase A  ntt_fwd_radix_a<log n1>, grid (rows, n2/TC): CT along n1,
+//            times mid, written transposed into scratch [rows, n2, n1]
+//   phase B  ntt_fwd_radix_b<log n2>, grid (rows, n1/TC): CT along n2
 // Inverse, [rows, n2, n1] -> [rows, n1, n2]:
-//   phase A  ntt_inv_a<true>, pitch n1: GS stages along n2, written
-//            transposed into scratch [rows, n1, n2]
-//   phase B  ntt_inv_b, pitch n2: times tw_mid_inv (carries 1/N), GS stages
-//            along n1
-// On a coefficient shard the transpose is the all_to_all between the two
-// halves (ops/ntt.py), so each half is its own entry point on a column
-// slice of c = n/ns columns, output in its input's layout:
-//   B6 ntt_fwd_a<false>  [rows, n1, c] -> [rows, n1, c]
-//   B7 ntt_fwd_b         [rows, n2, c] -> [rows, n2, c]
-//   B8 ntt_inv_a<false>  [rows, n2, c] -> [rows, n2, c]
-//   B9 ntt_inv_b         [rows, n1, c] -> [rows, n1, c]
+//   phase A  ntt_inv_radix_a<log n2>, grid (rows, n1/TC): GS along n2,
+//            scratch [rows, n2, n1] in the input's layout
+//   phase B  ntt_inv_radix_b<log n1>, grid (rows, n2/TC): reads scratch
+//            transposed, times mid_inv (carries 1/N), GS along n1
+//
+// The sharded phase kernels keep the column-tile helpers of ntt_tile.cuh
+// (a block owns an [n, TC] tile in shared memory and synchronises after
+// each stage). Every one takes its limbs as rows of pitch 2^logc and tiles
+// of TC = min(32, 2^logc) columns. On a coefficient shard the transpose is
+// the all_to_all between the two halves (ops/ntt.py), so each half is its
+// own entry point on a column slice of c = n/ns columns, output in its
+// input's layout:
+//   B6 ntt_fwd_a  [rows, n1, c] -> [rows, n1, c]
+//   B7 ntt_fwd_b  [rows, n2, c] -> [rows, n2, c]
+//   B8 ntt_inv_a  [rows, n2, c] -> [rows, n2, c]
+//   B9 ntt_inv_b  [rows, n1, c] -> [rows, n1, c]
 // B6 and B9 take the shard's mid / mid_inv tables as their own contiguous
 // [M, n1, c] column slice (DeviceContext builds one per rank), indexed like
 // the data. A grid is (rows, c/TC): at N = 2^16 and 4 shards, B6 on 35 limbs
@@ -68,7 +78,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
+#include "ntt_reg.cuh"
 #include "ntt_tile.cuh"
 
 namespace {
@@ -82,12 +94,10 @@ using hk::load_tile;
 using hk::min_int;
 using hk::mul_cols;
 using hk::store_tile;
-using hk::store_tile_t;
 using hk::tile_smem;
 
-// Forward stage 1 (B1 phase A, B6): x[limb] is [n1, 2^logc]; tile [n1, TC]
-// at column c0.
-template <bool kTranspose>
+// Forward stage 1 (B6): x[limb] is [n1, 2^logc]; tile [n1, TC] at column
+// c0, written back in x's layout.
 __global__ void __launch_bounds__(kThreads)
 ntt_fwd_a(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
           const uint32_t* __restrict__ q, const uint32_t* __restrict__ tw1,
@@ -98,13 +108,13 @@ ntt_fwd_a(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   extern __shared__ uint32_t s[];
   const int limb = blockIdx.x, m = limb % M;
   const size_t len = (size_t)1 << (log1 + logc);
-  hk::fwd_a_tile<kTranspose>(
+  hk::fwd_a_tile<false>(
       s, x + limb * len, y + limb * len, q[m], tw1 + ((size_t)m << log1),
       tw1_sh + ((size_t)m << log1), mid + m * len, mid_sh + m * len, log1,
       logc, logtc, blockIdx.y << logtc);
 }
 
-// Forward stage 2 (B1 phase B, B7): y[limb] is [n2, 2^logc]; tile [n2, TC]
+// Forward stage 2 (B7): y[limb] is [n2, 2^logc]; tile [n2, TC]
 // at column c0.
 __global__ void __launch_bounds__(kThreads)
 ntt_fwd_b(const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
@@ -123,9 +133,8 @@ ntt_fwd_b(const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
   store_tile(s, out + limb * len, log2, logtc, ld, 1 << logc, c0);
 }
 
-// Inverse stage 2 (B2 phase A, B8): x[limb] is [n2, 2^logc]; tile [n2, TC]
-// at column c0. kTranspose: written transposed into y [2^logc, n2].
-template <bool kTranspose>
+// Inverse stage 2 (B8): x[limb] is [n2, 2^logc]; tile [n2, TC] at column
+// c0, written back in x's layout.
 __global__ void __launch_bounds__(kThreads)
 ntt_inv_a(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
           const uint32_t* __restrict__ q, const uint32_t* __restrict__ itw2,
@@ -140,14 +149,10 @@ ntt_inv_a(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
             nullptr, qq);
   gs_rows(s, log2, logtc, ld, itw2 + ((size_t)m << log2),
           itw2_sh + ((size_t)m << log2), qq);
-  if constexpr (kTranspose) {
-    store_tile_t(s, y + limb * len, log2, logtc, ld, c0);
-  } else {
-    store_tile(s, y + limb * len, log2, logtc, ld, 1 << logc, c0);
-  }
+  store_tile(s, y + limb * len, log2, logtc, ld, 1 << logc, c0);
 }
 
-// Inverse stage 1 (B2 phase B, B9): y[limb] is [n1, 2^logc] and so is the
+// Inverse stage 1 (B9): y[limb] is [n1, 2^logc] and so is the
 // limb's mid_inv table; tile [n1, TC] at column c0.
 __global__ void __launch_bounds__(kThreads)
 ntt_inv_b(const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
@@ -233,6 +238,76 @@ HK_PACKED_KERNEL(packed_inv2, false, false)   // B12: inverse stage 2
 HK_PACKED_KERNEL(packed_inv1, false, true)    // B13: mid_inv, inverse stage 1
 #undef HK_PACKED_KERNEL
 
+// B1 and B2: one phase each on the [2^L, TC] tile at column TC*blockIdx.y
+// of limb blockIdx.x, x and y [rows, 2^L * ncols] (ntt_reg.cuh's
+// radix_phase says which side is transposed). mid, mid_sh: [M, 2^L * ncols]
+// in the untransposed side's layout (kT only); tw, tw_sh: flat [M, 2^L].
+#define HK_RADIX_KERNEL(name, fwd, transposed)                              \
+  template <int L>                                                          \
+  __global__ void __launch_bounds__(hk::RadixSplit<L>::kMaxThreads,         \
+                                    hk::RadixSplit<L>::kMinBlocks)          \
+      name(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,        \
+           const uint32_t* __restrict__ q, const uint32_t* __restrict__ tw, \
+           const uint32_t* __restrict__ tw_sh,                              \
+           const uint32_t* __restrict__ mid,                                \
+           const uint32_t* __restrict__ mid_sh, int M, int ncols,           \
+           int logtc) {                                                     \
+    const int limb = blockIdx.x, m = limb % M;                              \
+    const size_t len = (size_t)ncols << L;                                  \
+    hk::radix_phase<L, fwd, transposed>(                                    \
+        x + limb * len, y + limb * len, q[m], tw + ((size_t)m << L),        \
+        tw_sh + ((size_t)m << L), transposed ? mid + m * len : nullptr,     \
+        transposed ? mid_sh + m * len : nullptr, ncols, logtc,              \
+        blockIdx.y << logtc);                                               \
+  }
+HK_RADIX_KERNEL(ntt_fwd_radix_a, true, true)    // B1: CT n1, mid, transpose
+HK_RADIX_KERNEL(ntt_fwd_radix_b, true, false)   // B1: CT n2
+HK_RADIX_KERNEL(ntt_inv_radix_a, false, false)  // B2: GS n2
+HK_RADIX_KERNEL(ntt_inv_radix_b, false, true)   // B2: transpose, mid_inv, GS n1
+#undef HK_RADIX_KERNEL
+
+using RadixKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
+                             const uint32_t*, const uint32_t*,
+                             const uint32_t*, const uint32_t*, int, int, int);
+
+// f(std::integral_constant<int, L>()) for the runtime logn = L in [1, 10].
+template <int L = 1, class F>
+int with_log(int logn, F&& f) {
+  if constexpr (L > 10) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (logn == L) return f(std::integral_constant<int, L>());
+    return with_log<L + 1>(logn, f);
+  }
+}
+
+// One radix phase on rows limbs of [2^L, ncols], tiles of TC = 2^logtc
+// columns (ops/ntt_kernels.py::radix_phases chooses it): grid (rows,
+// ncols/TC), TC * 2^floor(L/2) threads, TC <= RadixSplit's 16.
+template <int L>
+int launch_radix(RadixKernel kernel, const void* x, void* y, const void* q,
+                 const void* tw, const void* tw_sh, const void* mid,
+                 const void* mid_sh, int rows, int M, int logcols, int logtc,
+                 cudaStream_t st) {
+  if (logtc < 0 || logtc > logcols ||
+      (1 << logtc) > hk::RadixSplit<L>::kMaxTileCols)
+    return cudaErrorInvalidValue;
+  const size_t smem = hk::radix_smem_words<L>(1 << logtc) * sizeof(uint32_t);
+  cudaError_t err;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return err;
+  kernel<<<dim3(rows, 1 << (logcols - logtc)),
+           (1 << logtc) << hk::RadixSplit<L>::kLB, smem, st>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
+      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(tw),
+      static_cast<const uint32_t*>(tw_sh), static_cast<const uint32_t*>(mid),
+      static_cast<const uint32_t*>(mid_sh), M, 1 << logcols, logtc);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int rows, int M, int log1, int log2) {
   return rows <= 0 || M <= 0 || rows % M != 0 || log1 < 1 || log2 < 1 ||
          log1 > 10 || log2 > 10;
@@ -283,66 +358,53 @@ const char* hk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x [rows, n1, n2] -> out [rows, n2, n1]; scratch [rows, n2, n1].
+// B1: x [rows, n1, n2] -> out [rows, n2, n1]; scratch [rows, n2, n1];
+// tiles of 2^logtc_a columns in phase A, 2^logtc_b in phase B.
 int hk_ntt_fwd(const void* x, void* scratch, void* out, const void* q,
                const void* tw1, const void* tw1_sh, const void* mid,
                const void* mid_sh, const void* tw2, const void* tw2_sh,
-               int rows, int M, int n1, int n2, void* stream) {
-  const int log1 = ilog2(n1), log2 = ilog2(n2);
-  if (bad_shape(rows, M, log1, log2)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const uint32_t*>(q);
-  size_t smem;
-  cudaError_t err;
-  const int lta = min_int(kLogTileCols, log2);
-  if ((err = tile_smem(ntt_fwd_a<true>, log1, lta, &smem)) != cudaSuccess)
-    return err;
-  ntt_fwd_a<true><<<dim3(rows, n2 >> lta), kThreads, smem, st>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(scratch), qp,
-      static_cast<const uint32_t*>(tw1), static_cast<const uint32_t*>(tw1_sh),
-      static_cast<const uint32_t*>(mid), static_cast<const uint32_t*>(mid_sh),
-      M, log1, log2, lta);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int ltb = min_int(kLogTileCols, log1);
-  if ((err = tile_smem(ntt_fwd_b, log2, ltb, &smem)) != cudaSuccess)
-    return err;
-  ntt_fwd_b<<<dim3(rows, n1 >> ltb), kThreads, smem, st>>>(
-      static_cast<const uint32_t*>(scratch), static_cast<uint32_t*>(out), qp,
-      static_cast<const uint32_t*>(tw2), static_cast<const uint32_t*>(tw2_sh),
-      M, log2, log1, ltb);
-  return cudaGetLastError();
-}
-
-// x [rows, n2, n1] -> out [rows, n1, n2]; scratch [rows, n1, n2].
-int hk_ntt_inv(const void* x, void* scratch, void* out, const void* q,
-               const void* itw2, const void* itw2_sh, const void* mid_inv,
-               const void* mid_inv_sh, const void* itw1,
-               const void* itw1_sh, int rows, int M, int n1, int n2,
+               int rows, int M, int n1, int n2, int logtc_a, int logtc_b,
                void* stream) {
   const int log1 = ilog2(n1), log2 = ilog2(n2);
   if (bad_shape(rows, M, log1, log2)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const uint32_t*>(q);
-  size_t smem;
-  cudaError_t err;
-  const int lta = min_int(kLogTileCols, log1);
-  if ((err = tile_smem(ntt_inv_a<true>, log2, lta, &smem)) != cudaSuccess)
-    return err;
-  ntt_inv_a<true><<<dim3(rows, n1 >> lta), kThreads, smem, st>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(scratch), qp,
-      static_cast<const uint32_t*>(itw2),
-      static_cast<const uint32_t*>(itw2_sh), M, log2, log1, lta);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int ltb = min_int(kLogTileCols, log2);
-  if ((err = tile_smem(ntt_inv_b, log1, ltb, &smem)) != cudaSuccess)
-    return err;
-  ntt_inv_b<<<dim3(rows, n2 >> ltb), kThreads, smem, st>>>(
-      static_cast<const uint32_t*>(scratch), static_cast<uint32_t*>(out), qp,
-      static_cast<const uint32_t*>(mid_inv),
-      static_cast<const uint32_t*>(mid_inv_sh),
-      static_cast<const uint32_t*>(itw1),
-      static_cast<const uint32_t*>(itw1_sh), M, log1, log2, ltb);
-  return cudaGetLastError();
+  int err = with_log(log1, [&](auto l) {
+    constexpr int L = decltype(l)::value;
+    return launch_radix<L>(ntt_fwd_radix_a<L>, x, scratch, q, tw1,
+                           tw1_sh, mid, mid_sh, rows, M, log2, logtc_a, st);
+  });
+  if (err != cudaSuccess) return err;
+  return with_log(log2, [&](auto l) {
+    constexpr int L = decltype(l)::value;
+    return launch_radix<L>(ntt_fwd_radix_b<L>, scratch, out, q, tw2,
+                           tw2_sh, nullptr, nullptr, rows, M, log1, logtc_b,
+                           st);
+  });
+}
+
+// B2: x [rows, n2, n1] -> out [rows, n1, n2]; scratch [rows, n2, n1];
+// tiles of 2^logtc_a columns (of n1) in phase A, 2^logtc_b (of n2) in B.
+int hk_ntt_inv(const void* x, void* scratch, void* out, const void* q,
+               const void* itw2, const void* itw2_sh, const void* mid_inv,
+               const void* mid_inv_sh, const void* itw1,
+               const void* itw1_sh, int rows, int M, int n1, int n2,
+               int logtc_a, int logtc_b, void* stream) {
+  const int log1 = ilog2(n1), log2 = ilog2(n2);
+  if (bad_shape(rows, M, log1, log2)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = with_log(log2, [&](auto l) {
+    constexpr int L = decltype(l)::value;
+    return launch_radix<L>(ntt_inv_radix_a<L>, x, scratch, q, itw2,
+                           itw2_sh, nullptr, nullptr, rows, M, log1,
+                           logtc_a, st);
+  });
+  if (err != cudaSuccess) return err;
+  return with_log(log1, [&](auto l) {
+    constexpr int L = decltype(l)::value;
+    return launch_radix<L>(ntt_inv_radix_b<L>, scratch, out, q, itw1,
+                           itw1_sh, mid_inv, mid_inv_sh, rows, M, log2,
+                           logtc_b, st);
+  });
 }
 
 // B6: x [rows, n1, c] -> out [rows, n1, c]; mid, mid_sh [M, n1, c].
@@ -354,9 +416,9 @@ int hk_ntt_phase1(const void* x, void* out, const void* q, const void* tw1,
   const int lt = min_int(kLogTileCols, logc);
   size_t smem;
   cudaError_t err;
-  if ((err = tile_smem(ntt_fwd_a<false>, log1, lt, &smem)) != cudaSuccess)
+  if ((err = tile_smem(ntt_fwd_a, log1, lt, &smem)) != cudaSuccess)
     return err;
-  ntt_fwd_a<false><<<dim3(rows, c >> lt), kThreads, smem,
+  ntt_fwd_a<<<dim3(rows, c >> lt), kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(tw1),
@@ -393,9 +455,9 @@ int hk_intt_phase2(const void* x, void* out, const void* q, const void* itw2,
   const int lt = min_int(kLogTileCols, logc);
   size_t smem;
   cudaError_t err;
-  if ((err = tile_smem(ntt_inv_a<false>, log2, lt, &smem)) != cudaSuccess)
+  if ((err = tile_smem(ntt_inv_a, log2, lt, &smem)) != cudaSuccess)
     return err;
-  ntt_inv_a<false><<<dim3(rows, c >> lt), kThreads, smem,
+  ntt_inv_a<<<dim3(rows, c >> lt), kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(itw2),

@@ -52,9 +52,10 @@ _LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, scratch, out, q, 6 tables, rows, M, n1, n2, stream
-    "hk_ntt_fwd": [_P] * 10 + [_I] * 4 + [_P],
-    "hk_ntt_inv": [_P] * 10 + [_I] * 4 + [_P],
+    # x, scratch, out, q, 6 tables, rows, M, n1, n2, log2 of the tile
+    # columns of phases A and B, stream
+    "hk_ntt_fwd": [_P] * 10 + [_I] * 6 + [_P],
+    "hk_ntt_inv": [_P] * 10 + [_I] * 6 + [_P],
     # x, out, q, 4 tables (B6: tw1, tw1_sh, mid, mid_sh; B9: mid_inv,
     # mid_inv_sh, itw1, itw1_sh) or 2 (B7, B8), rows, M, n, c, stream
     "hk_ntt_phase1": [_P] * 7 + [_I] * 4 + [_P],

@@ -2,8 +2,9 @@
 phase kernels B6-B9 and B10-B13 of the coefficient-sharded transform.
 
 B1 and B2 replace `homulator_tpu/ops/ntt_pallas.py::ntt_pallas` and
-`::intt_pallas`; each transform is two launches on PyTorch's current
-stream, through a scratch array the wrapper allocates, and the wrapper
+`::intt_pallas`; each transform is two launches of the register-radix
+kernels on PyTorch's current stream, through a scratch array the wrapper
+allocates, with the tile widths of `radix_phases`, and the wrapper
 counts one launch of its kernel per transform. B6-B9 replace
 `::ntt_phase1_pallas`, `::ntt_phase2_pallas`, `::intt_phase2_pallas` and
 `::intt_phase1_pallas`: one launch each on [rep*M, n, c] column slices.
@@ -17,6 +18,8 @@ tensors there, never here.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from .. import kernels
@@ -24,7 +27,33 @@ from ..context import NttBasis
 
 _FWD_TABLES = ("tw1", "tw1_sh", "mid", "mid_sh", "tw2", "tw2_sh")
 _INV_TABLES = ("itw2", "itw2_sh", "mid_inv", "mid_inv_sh", "itw1", "itw1_sh")
-_MAX_N = 1024  # per-axis tile length: n * 33 words of shared memory
+_MAX_N = 1024  # per-axis length: B6-B13 hold n * 33 words in shared memory
+
+# B1 and B2's launch geometry: a block holds TILE_COLS[i] columns, the
+# widest that still gives MIN_BLOCKS blocks (two for each of an H100's 132
+# SMs), else the narrowest; at most csrc/ntt_reg.cuh's kMaxTileCols = 16.
+# The kernel takes TC and derives the rest: a block per TC columns of a
+# limb, TC * 2^floor(log2(n)/2) threads, radix_smem_words<L>(TC) words of
+# shared memory.
+TILE_COLS = (16, 8, 4)
+MIN_BLOCKS = 2 * 132
+
+
+def radix_tile_cols(rows: int, n: int, ncols: int) -> int:
+    """Columns a block holds (TC) in a B1/B2 phase that transforms each of
+    ncols columns of rows limbs [n, ncols] along its n points."""
+    fits = [tc for tc in TILE_COLS if tc <= ncols] or [ncols]
+    return next((t for t in fits if rows * (ncols // t) >= MIN_BLOCKS),
+                fits[-1])
+
+
+def radix_phases(rows: int, n1: int, n2: int,
+                 fwd: bool) -> Tuple[Tuple[int, int, int], ...]:
+    """(n, ncols, TC) of phases A and B of B1 (fwd: along n1 on n2
+    columns, then along n2 on n1) or B2 (along n2 on n1 columns, then along
+    n1 on n2)."""
+    ab = ((n1, n2), (n2, n1)) if fwd else ((n2, n1), (n1, n2))
+    return tuple((n, c, radix_tile_cols(rows, n, c)) for n, c in ab)
 
 
 def _launch(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
@@ -35,15 +64,16 @@ def _launch(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
     if rep < 1 or x.ndim != 3 or x.shape[0] != rep * M:
         raise ValueError(f"{name}: x {tuple(x.shape)} is not [{rep}*{M}, ...]")
     n1, n2 = nb.n1, nb.n2
-    if max(n1, n2) > _MAX_N:
-        raise ValueError(f"{name}: n1={n1}, n2={n2} above {_MAX_N}")
+    if any(m < 2 or m > _MAX_N or m & (m - 1) for m in (n1, n2)):
+        raise ValueError(f"{name}: n1={n1}, n2={n2}: need powers of two in "
+                         f"[2, {_MAX_N}]")
     kernels.require_cuda_int32("x", x, x.device, (rep * M, in_rows, in_cols))
     kernels.require_cuda_int32("q", nb.q, x.device, (M,))
     for k in tables:
         kernels.require_cuda_int32(k, getattr(nb, k), x.device)
+    phases = radix_phases(rep * M, n1, n2, name == "ntt_fwd")
     lib = kernels.load()
-    scratch = torch.empty((rep * M, in_cols, in_rows), dtype=torch.int32,
-                          device=x.device)
+    scratch = torch.empty_like(x)
     out = torch.empty((rep * M, in_cols, in_rows), dtype=torch.int32,
                       device=x.device)
     with torch.cuda.device(x.device):
@@ -51,7 +81,8 @@ def _launch(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
             kernels.ptr(x), kernels.ptr(scratch), kernels.ptr(out),
             kernels.ptr(nb.q),
             *(kernels.ptr(getattr(nb, k)) for k in tables),
-            rep * M, M, n1, n2, kernels.stream(x))
+            rep * M, M, n1, n2, *(tc.bit_length() - 1 for _, _, tc in phases),
+            kernels.stream(x))
     kernels.check(rc, name)
     kernels.count(name)
     return out

@@ -11,10 +11,10 @@ product), stages1 (the 8 stage-1 CT stages), stages2x (16 stages, stage 1
 twice) and full, the NTT itself (kernel B1). Each is reported in
 microseconds per limb from its device time (CUDA-graph replay). On Hopper
 a 256 KiB limb does not fit one block, so B1 is two launches; under
-torch.profiler the script also times them apart: ntt_fwd_a (stage 1, mid,
-transposed store) and ntt_fwd_b (stage 2). Prints the card's name and
-power limit, then one JSON line. Imports no JAX and nothing of the JAX
-package.
+torch.profiler the script also times them apart: ntt_fwd_radix_a (stage 1,
+mid, transposed store) and ntt_fwd_radix_b (stage 2). Prints the card's
+name and power limit, then one JSON line. Imports no JAX and nothing of
+the JAX package.
 """
 
 import json
@@ -55,7 +55,7 @@ def main() -> int:
         for _ in range(CALLS):
             ntt_anatomy(x, nb, "full")
         torch.cuda.synchronize()
-    for half in ("ntt_fwd_a", "ntt_fwd_b"):
+    for half in ("ntt_fwd_radix_a", "ntt_fwd_radix_b"):
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and half in e.name]

@@ -43,12 +43,12 @@ GROUPS = (  # (group, substrings of the kernel name); the first match wins
     ("B11 ntt_phase2_packed", ("packed_fwd2",)),
     ("B12 intt_phase2_packed", ("packed_inv2",)),
     ("B13 intt_phase1_packed", ("packed_inv1",)),
-    ("B6 ntt_phase1", ("ntt_fwd_a<false>",)),
-    ("B8 intt_phase2", ("ntt_inv_a<false>",)),
-    ("B1 ntt_fwd (phase A)", ("ntt_fwd_a<true>",)),
-    ("B2 ntt_inv (phase A)", ("ntt_inv_a<true>",)),
-    ("B7 ntt_phase2 / B1 phase B", ("ntt_fwd_b",)),
-    ("B9 intt_phase1 / B2 phase B", ("ntt_inv_b",)),
+    ("B1 ntt_fwd", ("ntt_fwd_radix",)),
+    ("B2 ntt_inv", ("ntt_inv_radix",)),
+    ("B6 ntt_phase1", ("ntt_fwd_a",)),
+    ("B8 intt_phase2", ("ntt_inv_a",)),
+    ("B7 ntt_phase2", ("ntt_fwd_b",)),
+    ("B9 intt_phase1", ("ntt_inv_b",)),
     ("B3 bconv", ("bconv",)),
     ("B4 hpip", ("hpip",)),
     ("torch copies, concatenations and gathers",
@@ -195,8 +195,7 @@ def main() -> int:
         host = host_ms(torch, fn)
         dev, groups, waits = device_ms(torch, fn)
         phase = sum(v for g, v in groups.items()
-                    if g.split()[0] in PHASE_GROUPS) if "shards" in label \
-            else float("nan")  # B7 and B9's groups hold B1 and B2's halves
+                    if g.split()[0] in PHASE_GROUPS)
         top = ", ".join(f"{g} {v:.3f}" for g, v in
                         sorted(groups.items(), key=lambda kv: -kv[1]))
         wait = ", ".join(f"{k} {v:g}" for k, v in sorted(waits.items()))

@@ -21,8 +21,9 @@ highest rate) and the median and worst as `<key>_med` and `<key>_worst`.
               transform, modmul/s (log2(N) * N/2 + N a transform), HBM GB/s
               (a limb read and written a transform), and the issue
               ceiling: N times the port's own count of int32 operations an
-              element (benchlib's OPS and ntt_ops: a butterfly 11, a Shoup
-              product 5, so log2(N)/2 * 11 + 5 = 93 at N = 2^16) over the
+              element, the mean of B1's and B2's (benchlib.radix_ntt_ops:
+              a Harvey butterfly 9, log2(N)/2 a transform, and 10 / 8 for
+              the mid product and the reductions; 81 at N = 2^16), over the
               Shoup chain's measured rate times its 5 operations a product.
               The TPU's NTT_OPS_PER_ELEM = 186 counts VPU instructions of
               its Pallas kernel and is not used.
@@ -72,7 +73,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from homulator_tpu_torch import benchlib
-    from homulator_tpu_torch.benchlib import OPS, ntt_ops
+    from homulator_tpu_torch.benchlib import OPS, radix_ntt_ops
     from homulator_tpu_torch.api import CkksEngine, get_params
     from homulator_tpu_torch.ops.automorph import automorph_eval
     from homulator_tpu_torch.ops.bconv_fused import (
@@ -133,14 +134,17 @@ def main() -> int:
         results["ntt_hbm_gb_per_s"] = 2 * n * 4 / per_tf / 1e9
         results["ntt_pct_of_hbm_peak"] = (
             100 * results["ntt_hbm_gb_per_s"] / results["hbm_stream_gb_per_s"])
-        ops_per_elem = ntt_ops(1, n) / n
+        ops_per_elem = (radix_ntt_ops(1, n, True)
+                        + radix_ntt_ops(1, n, False)) / (2 * n)
         ceiling_s = n * ops_per_elem / (OPS["shoup"]
                                         * results["peak_shoup_modmul_per_s"])
         results["ntt_ops_per_elem"] = ops_per_elem
         results["ntt_ops_per_elem_count"] = (
-            "benchlib.ntt_ops / OPS: int32 operations, a butterfly "
-            f"{OPS['butterfly']} (N/2 log2 N), a mid Shoup product "
-            f"{OPS['shoup']} (N); the Shoup chain's link "
+            "benchlib.radix_ntt_ops / OPS, the mean of B1 and B2: int32 "
+            f"operations, a Harvey butterfly {OPS['lazy_butterfly']} (N/2 "
+            f"log2 N), a lazy mid product {OPS['lazy_shoup']} and "
+            "conditional subtracts (3 in B1, 2 in B2) "
+            f"{OPS['csub']} each (N); the Shoup chain's link "
             f"{OPS['shoup']}. Not the TPU's 186 VPU instructions.")
         results["ntt_issue_ceiling_us"] = ceiling_s * 1e6
         results["ntt_pct_of_issue_ceiling"] = 100 * ceiling_s / per_tf
