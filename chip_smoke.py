@@ -10,8 +10,10 @@ failure and the script then exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build (nvcc, one process per source) and its time, with
      ptxas's registers and spills of each instantiation of B1's and B2's
-     register-radix phase kernels (one for each axis length 2^1 .. 2^10),
-     failing if one is missing or takes local memory;
+     register-radix phase kernels (one for each axis length 2^1 .. 2^10)
+     and of B3's and B17's tensor-core kernels (`bconv_kernel`,
+     `planes_mm`: one for each count of k32 steps, 1 .. 4), failing if one
+     is missing or takes local memory;
   3. each CUDA kernel against its plain PyTorch version on the card, at the
      shapes parameter set B gives it, bit for bit (tolerance 0), with the
      device time of each (CUDA graph replay between CUDA events, so host
@@ -19,7 +21,10 @@ failure and the script then exits non-zero:
      bases hmult and hrotate use, and at every ring degree N = 2^2 .. 2^20
      (M = 2 rows, the largest primes, rep 1 and 2: every axis length and
      launch geometry they take), the base conversion (B3) at every ModUp
-     digit and the tail, and the fused HPIP kernel (B4) at level 35 (K =
+     digit, ModDown and the tail, at the worst case (every input q - 1) of
+     ModUp digit 0 and of the tail, on 999 coefficients (a ragged last
+     tile, 4-byte loads) and at the conversions of the N = 2^13 oracle
+     below, and the fused HPIP kernel (B4) at level 35 (K =
      50, digits (0,15) (15,30) (30,35)) and level 20 (two digits, the last
      partial); the phase kernels of the coefficient-sharded NTT (B6-B9) on
      rank 1's column slices at 4 shards (c = 64: the main rows M = 35, the
@@ -39,7 +44,7 @@ failure and the script then exits non-zero:
      kernels on set B's 35 main limbs [256, 256] (B14: copy^T, midT,
      stages1, stages2x and full, which is B1; B15: 16 stages with the
      production, natmul and approx Shoup products; B16: copy, transpose,
-     mid, stages1), the bf16-plane product B17 on ModUp digit 0 (16 rows
+     mid, stages1), the byte-plane product B17 on ModUp digit 0 (16 rows
      -> 35, all 140 rows computed), each peak chain (squaring, Shoup,
      Montgomery) on the roofline's 8 Mi residues over 8 iterations of 32
      links and the stream pass over two 256 MB arrays, each against its
@@ -109,18 +114,21 @@ failure and the script then exits non-zero:
      per run in `launches_by_run`; for the kernels of 3b every variant's
      numbers in `variants`), then the device line last.
 
-Bound of a kernel call (`benchlib.bound`): the larger of the bytes it must
-move (each input read once, each output written once) over 3.35 TB/s and
-its int32 operations over 16.75 T/s. The int32 rate is the float32 peak of
-67 TFLOP/s (128 lanes an SM, an FMA counted as two operations) over four:
-an H100 SM has 64 int32 lanes. Operations are counted from the shapes with
-a fixed cost per primitive (`benchlib.OPS`): a Shoup product 5 (three
-multiplies, a subtract, an unsigned min; the measured Shoup chain leaves
-room for no more), a modular add or subtract 3, a butterfly 11, a lazy
-Shoup product-accumulate 6, a Montgomery product-accumulate 9, a final
-reduction 6; B3 and B5 both sum lazy products and reduce each output once.
-B17's products are bf16 operations over the dense tensor-core rate of 989
-TFLOP/s; a link of a peak chain is counted as `PEAK_LINK_OPS` says.
+Bound of a kernel call (`benchlib.bound`): the largest of the bytes it
+must move (each input read once, each output written once) over 3.35
+TB/s, its int32 operations over 16.75 T/s and its tensor-core u8
+operations over 1979 T/s (the dense int8 rate). The int32 rate is the
+float32 peak of 67 TFLOP/s (128 lanes an SM, an FMA counted as two
+operations) over four: an H100 SM has 64 int32 lanes. Operations are
+counted from the shapes with a fixed cost per primitive (`benchlib.OPS`):
+a Shoup product 5 (three multiplies, a subtract, an unsigned min; the
+measured Shoup chain leaves room for no more), a modular add or subtract
+3, a butterfly 11, a lazy Shoup product-accumulate 6, a Montgomery
+product-accumulate 9, a final reduction 6; B5 sums lazy products and
+reduces each output once. B3 counts as it computes (`bconv_bound`): step
+1, the centering count, its epilogue and the u8 products of all four
+planes; B17 its u8 products alone. A link of a peak chain is counted as
+`PEAK_LINK_OPS` says.
 """
 
 import json
@@ -130,8 +138,8 @@ import time
 
 from homulator_tpu_torch import benchlib
 from homulator_tpu_torch.benchlib import (
-    BF16_FLOP_PER_S, OPS, bound, device_ms, latency_ms, ntt_ops, peak_inputs,
-    radix_ntt_ops, residues,
+    OPS, bound, device_ms, latency_ms, ntt_ops, peak_inputs, radix_ntt_ops,
+    residues,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -251,12 +259,19 @@ def phase_bound(nb, rows, n, c, mid):
 
 
 def bconv_bound(nd, m_out, center, n):
-    """B3: nd limbs in, m_out out, the step-1 and matrix Shoup pairs."""
+    """B3 as csrc/bconv.cu computes it: nd limbs in, m_out out, the step-1
+    pair and in_q, the table (a byte an entry), horner_sh and out_q; the
+    int32 operations of step 1 (a Shoup product a row), the centering
+    count (a compare and an add a row) and the epilogue
+    (OPS["planes_reduce"] an output; the byte planes are the words
+    themselves), and the u8 tensor-core products of all 4 m_out plane
+    rows."""
     ndt = nd + int(center)
-    nbytes = 4 * (nd * n + m_out * n + 3 * nd + 2 * m_out * ndt + m_out)
+    nbytes = (4 * (nd * n + m_out * n + 3 * nd + 2 * m_out)
+              + (4 * m_out) * (4 * ndt))
     ops = n * (nd * OPS["shoup"] + int(center) * 2 * nd
-               + m_out * (ndt * OPS["lazy_mac"] + OPS["reduce"]))
-    return bound(nbytes, ops)
+               + m_out * OPS["planes_reduce"])
+    return bound(nbytes, ops, 2 * (4 * m_out) * (4 * ndt) * n)
 
 
 def step2_bound(nd, m_out, n):
@@ -300,11 +315,10 @@ def anatomy_bound(M, n1, n2, passes, mid):
 
 def planes_mm_bound(nd, m_out, n):
     """B17: x [nd, n] read, D_0 [m_out, n] written, the bf16 table read;
-    2 * (4 m_out) * (4 nd) * n bf16 operations (all 4 m_out rows, as the
-    kernel computes them) at the dense tensor-core rate."""
-    flop = 2 * (4 * m_out) * (4 * nd) * n
-    return bound(4 * (nd + m_out) * n + 2 * (4 * m_out) * (4 * nd), flop,
-                 BF16_FLOP_PER_S)
+    2 * (4 m_out) * (4 nd) * n u8 tensor-core operations (all 4 m_out
+    rows, as the kernel computes them); no int32 work."""
+    return bound(4 * (nd + m_out) * n + 2 * (4 * m_out) * (4 * nd), 0,
+                 2 * (4 * m_out) * (4 * nd) * n)
 
 
 def compare(torch, name, label, kernel, plain, bnd, results, library=None,
@@ -328,16 +342,25 @@ def compare(torch, name, label, kernel, plain, bnd, results, library=None,
     results[name].append((label, err, ms, plain_ms) + bnd + (lib_ms,))
 
 
-def radix_registers(log_text):
+# kernel templates whose every instantiation chip_smoke holds to no local
+# memory: name -> instantiations (B1/B2: axis length 2^L, L = 1..10;
+# B3/B17: k32 steps 1..4)
+CHECKED_INSTANTIATIONS = {"ntt_fwd_radix_a": 10, "ntt_fwd_radix_b": 10,
+                          "ntt_inv_radix_a": 10, "ntt_inv_radix_b": 10,
+                          "bconv_kernel": 4, "planes_mm": 4}
+
+
+def kernel_registers(log_text):
     """ptxas's registers and local-memory bytes (stack frame, spill stores
-    and loads) of each instantiation of the B1/B2 phase kernels in nvcc's
-    log: {kernel: {L: (registers, local bytes)}}."""
+    and loads) of each instantiation of CHECKED_INSTANTIATIONS' kernels in
+    nvcc's log: {kernel: {template argument: (registers, local bytes)}}."""
     import re
 
+    names = "|".join(CHECKED_INSTANTIATIONS)
     out, entry, spill = {}, None, 0
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(ntt_(?:fwd|inv)_radix_[ab])ILi(\d+)E", line)
+            m = re.search(rf"\d({names})ILi(\d+)E", line)
             entry, spill = (m.group(1), int(m.group(2))) if m else None, 0
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -379,10 +402,44 @@ def check_radix_sweep(np, torch, get_params):
           "rep 1 and 2: bit-exact (tolerance 0)")
 
 
-def check_kernels(np, torch, dc, rng, results):
-    """Phase 3: every kernel vs its plain version at the set-B shapes."""
-    from homulator_tpu_torch.ops import ntt_kernels
+def bconv_cases(kt, prefix=""):
+    """B3's conversions at kt's level: {label: (input primes, (s, s_sh,
+    in_q, mat, mat_mma, horner_sh, out_q), center)}: every ModUp digit,
+    the fused tail, ModDown."""
+    cases = {}
+    for d, dt in enumerate(kt.digits):
+        label = f"modup digit{d} {dt.hi - dt.lo}+1->{dt.mat.shape[0]}"
+        cases[prefix + label] = (
+            dt.in_q, (dt.step1, dt.step1_sh, dt.in_q, dt.mat, dt.mat_mma,
+                      dt.horner_sh, dt.other_nt.q), True)
+    tt = kt.tail
+    cases[f"{prefix}tail {tt.in_q.shape[0]}->{tt.mat.shape[0]}"] = (
+        tt.in_q, (tt.one, tt.one_sh, tt.in_q, tt.mat, tt.mma, tt.horner_sh,
+                  tt.out_nt.q), False)
+    label = f"moddown {kt.md_s1.shape[0]}+1->{kt.md_mat.shape[0]}"
+    cases[prefix + label] = (
+        kt.special_nt.q, (kt.md_s1, kt.md_s1_sh, kt.special_nt.q, kt.md_mat,
+                          kt.md_mma, kt.md_horner_sh, kt.main_nt.q), True)
+    return cases
+
+
+def check_bconv(torch, label, x, tabs, center, results):
+    """B3 against bconv_plain on x, bit for bit, timed, with its bound."""
     from homulator_tpu_torch.ops.bconv_fused import bconv_fused, bconv_plain
+
+    s, s_sh, iq, mat, tab, hsh, out_q = tabs
+    compare(torch, "bconv", label,
+            lambda: bconv_fused(x, s, s_sh, iq, mat, tab, hsh, out_q,
+                                center=center),
+            lambda: bconv_plain(x, s, s_sh, iq, mat, out_q, center),
+            bconv_bound(x.shape[0], out_q.shape[0], center,
+                        x.shape[1] * x.shape[2]), results)
+
+
+def check_kernels(np, torch, dc, rng, results, get_params):
+    """Phase 3: every kernel vs its plain version at the set-B shapes."""
+    from homulator_tpu_torch.context import DeviceContext
+    from homulator_tpu_torch.ops import ntt_kernels
     from homulator_tpu_torch.ops.hpip import hpip_kernel, hpip_plain
     from homulator_tpu_torch.ops.ntt import intt_plain, ntt_plain
 
@@ -399,27 +456,29 @@ def check_kernels(np, torch, dc, rng, results):
                     lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
                     ntt_bound(nb, rep, name == "ntt_fwd"), results)
 
-    cases = {}
-    for d, dt in enumerate(kt.digits):
-        cases[f"modup digit{d} {dt.hi - dt.lo}+1->{dt.mat.shape[0]}"] = (
-            dt.in_q, (dt.step1, dt.step1_sh, dt.in_q, dt.mat, dt.mat_sh,
-                      dt.other_nt.q), True)
-    tt = kt.tail
-    cases[f"tail {tt.in_q.shape[0]}->{tt.mat.shape[0]}"] = (
-        tt.in_q, (tt.one, tt.one_sh, tt.in_q, tt.mat, tt.mat_sh,
-                  tt.out_nt.q), False)
-    cases[f"moddown {kt.md_s1.shape[0]}+1->{kt.md_mat.shape[0]}"] = (
-        kt.special_nt.q, (kt.md_s1, kt.md_s1_sh, kt.special_nt.q, kt.md_mat,
-                          kt.md_mat_sh, kt.main_nt.q), True)
+    # B3: set B's five main-path conversions; the worst case (every
+    # input q - 1: the tail's words enter the product as they are, nd = 18;
+    # ModUp digit 0 through step 1); a ragged edge (ncoef = 999, 4-byte
+    # loads, the last warp tile part full); the N = 2^13 oracle's shapes
+    cases = bconv_cases(kt)
     for label, (in_q, tabs, center) in cases.items():
         x = residues(in_q, (in_q.shape[0], n1, n2), rng)
-        s, s_sh, iq, mat, mat_sh, out_q = tabs
-        compare(torch, "bconv", label,
-                lambda: bconv_fused(x, s, s_sh, iq, mat, mat_sh, out_q,
-                                    center=center),
-                lambda: bconv_plain(x, s, s_sh, iq, mat, out_q, center),
-                bconv_bound(x.shape[0], out_q.shape[0], center, n1 * n2),
+        check_bconv(torch, label, x, tabs, center, results)
+    for label in (next(iter(cases)), next(k for k in cases if "tail" in k)):
+        in_q, tabs, center = cases[label]
+        worst = (in_q - 1).view(-1, 1, 1).expand(-1, n1, n2).contiguous()
+        check_bconv(torch, f"{label} worst case (x = q-1)", worst, tabs,
+                    center, results)
+    in_q, tabs, center = cases[next(iter(cases))]
+    check_bconv(torch, "modup digit0 ragged ncoef=999",
+                residues(in_q, (in_q.shape[0], 27, 37), rng), tabs, center,
                 results)
+    pm = get_params(n=1 << 13, max_level=8, alpha=3)
+    for label, (in_q, tabs, center) in bconv_cases(
+            DeviceContext(pm, "cuda").keyswitch_tables(8),
+            "N=2^13 l8 a3 ").items():
+        x = residues(in_q, (in_q.shape[0], pm.ntt.n1, pm.ntt.n2), rng)
+        check_bconv(torch, label, x, tabs, center, results)
 
     # B4: random pieces, own rows and a random Montgomery-form key
     # [dnum, 2, K_full, n2, n1] over the specials-first primes.
@@ -456,13 +515,17 @@ def check_step2_kernel(np, torch, dc, rng, results):
     kt = dc.keyswitch_tables(LEVEL_B)
     n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
     d0, d2 = kt.digits[0], kt.digits[2]
-    cases = {  # label -> (step-1 pair, input primes, matrix pair, out q)
+    cases = {  # label -> (step-1 pair, input primes, matrix Shoup pair,
+        # bf16 table pair, out q)
         f"modup digit{d}": ((dt.step1, dt.step1_sh), dt.in_q,
-                            (dt.mat, dt.mat_sh), dt.other_nt.q)
+                            (dt.mat, dt.mat_sh), (dt.mat_mma, dt.horner_sh),
+                            dt.other_nt.q)
         for d, dt in ((0, d0), (2, d2))}
     cases["moddown"] = ((kt.md_s1, kt.md_s1_sh), kt.special_nt.q,
-                        (kt.md_mat, kt.md_mat_sh), kt.main_nt.q)
-    for label, ((s, s_sh), iq, (mat, mat_sh), out_q) in cases.items():
+                        (kt.md_mat, kt.md_mat_sh),
+                        (kt.md_mma, kt.md_horner_sh), kt.main_nt.q)
+    for label, ((s, s_sh), iq, (mat, mat_sh), (mbig, hsh),
+                out_q) in cases.items():
         nd, m_out = iq.shape[0], out_q.shape[0]
         x = residues(iq, (nd, n1, n2), rng)
 
@@ -480,7 +543,7 @@ def check_step2_kernel(np, torch, dc, rng, results):
             return bconv_step2(step1_rows(), mat, mat_sh, out_q)
 
         def b3():
-            return bconv_fused(x, s, s_sh, iq, mat, mat_sh, out_q,
+            return bconv_fused(x, s, s_sh, iq, mat, mbig, hsh, out_q,
                                center=True)
 
         if not torch.equal(graph_conv(), b3()):
@@ -500,7 +563,6 @@ def check_phase_kernels(np, torch, dc, rng, results):
     4-shard slice."""
     from homulator_tpu_torch.ops import ntt as ntt_mod
     from homulator_tpu_torch.ops import ntt_kernels
-    from homulator_tpu_torch.ops.bconv_fused import bconv_fused, bconv_plain
 
     n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
     k4 = dc.keyswitch_tables(LEVEL_B, shard=(1, NS))
@@ -536,16 +598,11 @@ def check_phase_kernels(np, torch, dc, rng, results):
             compare(torch, name, label,
                     lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
                     phase_bound(nb, rep * nb.q.shape[0], n, c, mid), results)
-    dt = k4.digits[0]
-    nd = dt.hi - dt.lo
-    x = residues(dt.in_q, (nd, n1, n2 // NS), rng)
-    compare(torch, "bconv",
-            f"ns=4 c=64 modup digit0 {nd}+1->{dt.mat.shape[0]}",
-            lambda: bconv_fused(x, dt.step1, dt.step1_sh, dt.in_q, dt.mat,
-                                dt.mat_sh, dt.other_nt.q, center=True),
-            lambda: bconv_plain(x, dt.step1, dt.step1_sh, dt.in_q, dt.mat,
-                                dt.other_nt.q, True),
-            bconv_bound(nd, dt.mat.shape[0], True, n1 * n2 // NS), results)
+    label, (in_q, tabs, center) = next(iter(bconv_cases(k4, "ns=4 c=64 ")
+                                            .items()))
+    check_bconv(torch, label,
+                residues(in_q, (in_q.shape[0], n1, n2 // NS), rng), tabs,
+                center, results)
 
 
 def check_packed_kernels(np, torch, dc, rng, results):
@@ -595,8 +652,7 @@ def check_anatomy_kernels(np, torch, dc, rng, results):
     links; two 256 MB arrays). Returns the path's inputs."""
     from homulator_tpu_torch.ops import anatomy, peaks
     from homulator_tpu_torch.ops.bconv_fused import (
-        bconv_planes_mm, bconv_planes_mm_plain, build_bf16_tables,
-        byte_planes,
+        bconv_planes_mm, bconv_planes_mm_plain, byte_planes,
     )
 
     kt = dc.keyswitch_tables(LEVEL_B)
@@ -632,8 +688,7 @@ def check_anatomy_kernels(np, torch, dc, rng, results):
 
     dt = kt.digits[0]
     nd, m_out = dt.hi - dt.lo, dt.other_nt.q.shape[0]
-    mbig = build_bf16_tables(dt.mat.cpu().numpy(),
-                             dt.other_nt.q.cpu().numpy())[0].cuda()
+    mbig = dt.mat_bf16
     xd = residues(dt.in_q, (nd, n1, n2), rng)
     xdp = torch.cat([xd, torch.zeros_like(xd[:1])])
     planes = byte_planes(xdp).view(4 * (nd + 1), n1 * n2).to(torch.bfloat16)
@@ -781,21 +836,20 @@ def main() -> int:
     for line in log_text.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("#   " + line.strip())
-    radix_regs = radix_registers(log_text)
-    for name, by_l in sorted(radix_regs.items()):
-        print(f"# {name} (B1/B2) ptxas, L: registers / local bytes: "
-              + ", ".join(f"{l}: {r} / {sp}" for l, (r, sp)
-                          in sorted(by_l.items())))
-    if sorted(radix_regs) != ["ntt_fwd_radix_a", "ntt_fwd_radix_b",
-                              "ntt_inv_radix_a", "ntt_inv_radix_b"] or any(
-            len(v) != 10 for v in radix_regs.values()):
-        raise AssertionError("nvcc's log lacks B1/B2 radix instantiations: "
-                             f"{radix_regs}")
-    spilled = {f"{name}<{l}>": sp for name, by_l in radix_regs.items()
-               for l, (_, sp) in by_l.items() if sp}
+    regs = kernel_registers(log_text)
+    for name, by_arg in sorted(regs.items()):
+        arg = "KS" if name in ("bconv_kernel", "planes_mm") else "L"
+        print(f"# {name} ptxas, {arg}: registers / local bytes: "
+              + ", ".join(f"{a}: {r} / {sp}" for a, (r, sp)
+                          in sorted(by_arg.items())))
+    if {k: len(v) for k, v in regs.items()} != CHECKED_INSTANTIATIONS:
+        raise AssertionError("nvcc's log lacks B1/B2/B3/B17 "
+                             f"instantiations: {regs}")
+    spilled = {f"{name}<{a}>": sp for name, by_arg in regs.items()
+               for a, (_, sp) in by_arg.items() if sp}
     if spilled:
-        raise AssertionError("B1/B2 instantiations use local memory (stack "
-                             f"or spill bytes): {spilled}")
+        raise AssertionError("B1/B2/B3/B17 instantiations use local memory "
+                             f"(stack or spill bytes): {spilled}")
 
     # 3. kernels vs plain versions at the set-B shapes
     t0 = time.perf_counter()
@@ -804,7 +858,8 @@ def main() -> int:
     eng = CkksEngine(params, seed=1, device="cuda")
     results = {k: [] for k in KERNELS}
     t0 = time.perf_counter()
-    check_kernels(np, torch, eng.dc, np.random.default_rng(2), results)
+    check_kernels(np, torch, eng.dc, np.random.default_rng(2), results,
+                  get_params)
     check_radix_sweep(np, torch, get_params)
     check_phase_kernels(np, torch, eng.dc, np.random.default_rng(3), results)
     check_packed_kernels(np, torch, eng.dc, np.random.default_rng(5), results)

@@ -20,12 +20,13 @@ five peaks (scripts/roofline_torch.py) on peak_inputs. Every timer needs a
 CUDA device and none falls back to the CPU.
 
 The bound of a kernel call (chip_smoke.py, scripts/roofline_torch.py):
-bound() is the larger of the bytes it must move over MEM_BYTES_PER_S and
-its operations over the card's peak rate for their type, INT32_OPS_PER_S
-unless given: the float32 peak of 67 TFLOP/s (128 lanes an SM, an FMA two
-operations) over four, as an H100 SM has 64 int32 lanes. OPS is the one
-count of int32 operations a primitive costs; ntt_ops counts a transform
-of the column-tile kernels with it, radix_ntt_ops one of B1 or B2.
+bound() is the largest of the bytes it must move over MEM_BYTES_PER_S,
+its int32 operations over INT32_OPS_PER_S (the float32 peak of 67 TFLOP/s,
+128 lanes an SM and an FMA two operations, over four, as an H100 SM has
+64 int32 lanes) and its tensor-core u8 operations over INT8_OPS_PER_S.
+OPS is the one count of int32 operations a primitive costs; ntt_ops
+counts a transform of the column-tile kernels with it, radix_ntt_ops one
+of B1 or B2.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from .ops.ntt import intt, ntt
 
 MEM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
-BF16_FLOP_PER_S = 989e12  # dense tensor-core rate
+INT8_OPS_PER_S = 1979e12  # dense tensor-core rate, int8 (and u8)
 # int32 operations of a primitive. A Shoup product: a high and two low
 # multiplies, a subtract, and an unsigned min as the conditional subtract,
 # 5; the Shoup chain (csrc/peaks.cu) runs 3.06 T links/s on an H100, room
@@ -51,17 +52,23 @@ BF16_FLOP_PER_S = 989e12  # dense tensor-core rate
 # Montgomery product-accumulate 9; a final reduction 6. Lazy forms
 # (csrc/ntt_reg.cuh): a Shoup product without its conditional subtract 4;
 # a conditional subtract 2; a Harvey butterfly (ct_lazy, gs_lazy) a lazy
-# product, a conditional subtract and three adds or subtracts, 9.
+# product, a conditional subtract and three adds or subtracts, 9. B3's
+# epilogue (csrc/bconv.cu) from four plane sums to a residue: two
+# shift-and-add folds (4), a lazy Shoup product by 2^16 (4), a lazy
+# reduction of the low fold (3), their sum (1) and two conditional
+# subtracts (4), 16.
 OPS = dict(shoup=5, mont=5, modadd=3, lazy_mac=6, mont_mac=9, reduce=6,
-           lazy_shoup=4, csub=2)
+           lazy_shoup=4, csub=2, planes_reduce=16)
 OPS["butterfly"] = OPS["shoup"] + 2 * OPS["modadd"]
 OPS["lazy_butterfly"] = OPS["lazy_shoup"] + OPS["csub"] + 3
 
 
-def bound(nbytes, ops, ops_per_s=INT32_OPS_PER_S):
-    """(bound_ms, bound_by) of a call moving nbytes and doing ops at the
-    card's peak rate for their type (int32 unless given)."""
-    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, ops / ops_per_s
+def bound(nbytes, ops, tc_ops=0):
+    """(bound_ms, bound_by) of a call moving nbytes and doing ops int32
+    operations and tc_ops tensor-core u8 operations, each at the card's
+    peak rate: bound_by "bytes" or "operations", whichever takes longer."""
+    t_mem = nbytes / MEM_BYTES_PER_S
+    t_ops = max(ops / INT32_OPS_PER_S, tc_ops / INT8_OPS_PER_S)
     return 1e3 * max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
 
 

@@ -25,6 +25,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from .ops.bconv_fused import build_bf16_tables, mma_table
 from .parallel.mesh import pack_k_for
 from .params import CkksParams
 
@@ -129,14 +130,20 @@ class ModUpDigitTables:
     step1/step1_sh: [nd] [(Q_d/q_i)^{-1}]_{q_i} for the digit's primes
     in_q. mat/mat_sh: [m_other, nd+1] [Q_d/q_i]_{p_j} for every ext row j
     outside the digit, plus the centering column [-Q_d]_{p_j}
-    (params.ks.modup_step2). other_nt: NTT basis of those rows (ext
-    order). lo/hi: the digit's span of main rows."""
+    (params.ks.modup_step2). mat_bf16/horner_sh: build_bf16_tables of
+    mat (the JAX ModUpDigitTables' pair); mat_mma: mat_bf16 in kernel B3's
+    device layout (ops/bconv_fused.py::mma_table). other_nt:
+    NTT basis of those rows (ext order). lo/hi: the digit's span of main
+    rows."""
 
     step1: torch.Tensor
     step1_sh: torch.Tensor
     in_q: torch.Tensor
     mat: torch.Tensor
     mat_sh: torch.Tensor
+    mat_bf16: torch.Tensor
+    horner_sh: torch.Tensor
+    mat_mma: torch.Tensor
     other_nt: NttBasis
     lo: int
     hi: int
@@ -147,9 +154,11 @@ class TailTables:
     """Fused ModDown + relinearisation add + rescale (one division by
     P * q_last), as in homulator_tpu/context.py TailTables.
 
-    mat/mat_sh: [level-1, alpha+3] conversion matrix: [P/p_j]_{q_i}, the
+    mat: [level-1, alpha+3] conversion matrix: [P/p_j]_{q_i}, the
     centering column [-P]_{q_i} (read by the explicit v_b row), [P]_{q_i}
-    (the w row) and [-P*q_last]_{q_i} (the w centering indicator row).
+    (the w row) and [-P*q_last]_{q_i} (the w centering indicator row);
+    bf16/horner_sh: its build_bf16_tables pair; mma: bf16 in kernel B3's
+    device layout (mma_table).
     in_q/one/one_sh: [alpha+3] input primes with placeholders and the
     identity step-1 pair. p_modq: [level] [P]_{q_i}; pq_inv: [level-1]
     [(P*q_last)^{-1}]_{q_i}; md2_last: [alpha+1] [P/p_j]_{q_last} plus
@@ -157,7 +166,9 @@ class TailTables:
     basis at level-1."""
 
     mat: torch.Tensor
-    mat_sh: torch.Tensor
+    bf16: torch.Tensor
+    horner_sh: torch.Tensor
+    mma: torch.Tensor
     in_q: torch.Tensor
     one: torch.Tensor
     one_sh: torch.Tensor
@@ -192,7 +203,10 @@ class KeySwitchLevelTables:
     the fused HPIP kernel's NTTs. ext_qinv: [alpha+level] -q^{-1} mod
     2^32. md_s1: [alpha] [(P/p_j)^{-1}]_{p_j}; md_mat/md_mat_sh:
     [level, alpha+1] ModDown conversion [P/p_j]_{q_i} plus the centering
-    column [-P]_{q_i} (params.ks.moddown_step2); pinv: [level]
+    column [-P]_{q_i} (params.ks.moddown_step2); md_bf16/md_horner_sh:
+    its build_bf16_tables pair (the JAX tables' moddown_bf16 /
+    moddown_horner_sh), md_mma: md_bf16 in kernel B3's device layout
+    (mma_table); pinv: [level]
     [P^{-1}]_{q_i}. tail: the fused ModDown + rescale tables (None at
     level 1, where there is no limb to drop, and on the graph route).
     graph: the key switch takes the graph route of a context made with
@@ -210,6 +224,9 @@ class KeySwitchLevelTables:
     md_s1_sh: torch.Tensor
     md_mat: torch.Tensor
     md_mat_sh: torch.Tensor
+    md_bf16: torch.Tensor
+    md_horner_sh: torch.Tensor
+    md_mma: torch.Tensor
     pinv: torch.Tensor
     pinv_sh: torch.Tensor
     tail: Optional[TailTables]
@@ -279,6 +296,13 @@ class DeviceContext:
     def _pair(self, w: np.ndarray, q: np.ndarray):
         """(w, floor(w * 2^32 / q)) as device tensors."""
         return self.tensor(w), self.tensor(_shoup(w, q))
+
+    def _bf16(self, mat: np.ndarray, q: np.ndarray):
+        """build_bf16_tables(mat, q) and the table's device layout for
+        kernel B3 (mma_table), on this device."""
+        mbig, horner_sh = build_bf16_tables(mat, q)
+        return (mbig.to(self.device), horner_sh.to(self.device),
+                mma_table(mbig).to(self.device))
 
     # ---- tables ----------------------------------------------------------
     def _pack_k(self, shard: Optional[Tuple[int, int]], packed: bool) -> int:
@@ -393,9 +417,11 @@ class DeviceContext:
             other = np.array([j for j in ext if not lo <= j < hi])
             mat_pl = p.ks.modup_step2[(level, d)][other]  # [m_other, nd+1]
             mat, mat_sh = self._pair(mat_pl, qn[other][:, None])
+            mat_bf16, horner_sh, mat_mma = self._bf16(mat_pl, qn[other])
             digits.append(ModUpDigitTables(
                 step1=step1, step1_sh=step1_sh, in_q=self.tensor(qn[lo:hi]),
-                mat=mat, mat_sh=mat_sh,
+                mat=mat, mat_sh=mat_sh, mat_bf16=mat_bf16,
+                horner_sh=horner_sh, mat_mma=mat_mma,
                 other_nt=self.ntt_basis(tuple(other.tolist())),
                 lo=lo, hi=hi,
             ))
@@ -403,6 +429,8 @@ class DeviceContext:
         md_s1, md_s1_sh = self._pair(p.ks.moddown_step1, sp_q)
         md_mat, md_mat_sh = self._pair(p.ks.moddown_step2[:level],
                                        qn[:level, None])
+        md_bf16, md_horner_sh, md_mma = self._bf16(
+            p.ks.moddown_step2[:level], qn[:level])
         pinv, pinv_sh = self._pair(p.ks.pinv_modq[:level], qn[:level])
         kt = KeySwitchLevelTables(
             digits=tuple(digits),
@@ -411,7 +439,9 @@ class DeviceContext:
             ext_nt=self.ntt_basis(ext),
             ext_qinv=self.tensor(p.qinv_neg[np.array(ext)]),
             md_s1=md_s1, md_s1_sh=md_s1_sh, md_mat=md_mat,
-            md_mat_sh=md_mat_sh, pinv=pinv, pinv_sh=pinv_sh,
+            md_mat_sh=md_mat_sh, md_bf16=md_bf16, md_horner_sh=md_horner_sh,
+            md_mma=md_mma,
+            pinv=pinv, pinv_sh=pinv_sh,
             tail=(self._tail_tables(level)
                   if level >= 2 and self.ntt_mode != "jnp" else None),
             level=level, graph=self.ntt_mode == "jnp",
@@ -445,14 +475,16 @@ class DeviceContext:
         # a placeholder for the {0, 1} indicator row.
         in_q = np.concatenate(
             [sp_q, sp_q[:1], np.array([q_last, q_last], dtype=np.uint64)])
-        mat, mat_sh = self._pair(tail_mat, qn[:lm1, None])
+        mat = self.tensor(tail_mat)
+        bf16, horner_sh, mma = self._bf16(tail_mat, qn[:lm1])
         one, one_sh = self._pair(np.ones(len(in_q), dtype=np.uint64), in_q)
         pm, pm_sh = self._pair(p_modq, qn[:level])
         pqi, pqi_sh = self._pair(pq_inv, qn[:lm1])
         m2l, m2l_sh = self._pair(md2[lm1], np.full(md2.shape[1], q_last,
                                                    dtype=np.uint64))
         return TailTables(
-            mat=mat, mat_sh=mat_sh, in_q=self.tensor(in_q),
+            mat=mat, bf16=bf16, horner_sh=horner_sh, mma=mma,
+            in_q=self.tensor(in_q),
             one=one, one_sh=one_sh, p_modq=pm, p_modq_sh=pm_sh,
             pq_inv=pqi, pq_inv_sh=pqi_sh, md2_last=m2l, md2_last_sh=m2l_sh,
             last_nt=self.ntt_basis((lm1,)),

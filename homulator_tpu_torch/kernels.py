@@ -68,8 +68,8 @@ _SIGNATURES = {
     "hk_ntt_phase2_packed": [_P] * 5 + [_I] * 6 + [_P],
     "hk_intt_phase2_packed": [_P] * 5 + [_I] * 6 + [_P],
     "hk_intt_phase1_packed": [_P] * 7 + [_I] * 6 + [_P],
-    # x, out, s, s_sh, in_q, mat, mat_sh, out_q, nd, center, m_out, ncoef,
-    # stream
+    # x, out, s, s_sh, in_q, the table's device layout, horner_sh, out_q,
+    # nd, center, m_out, ncoef, stream
     "hk_bconv": [_P] * 8 + [_I] * 3 + [ctypes.c_longlong, _P],
     # xhat, out, mat, mat_sh, out_q, nd, m_out, ncoef, stream
     "hk_bconv_step2": [_P] * 5 + [_I] * 2 + [ctypes.c_longlong, _P],

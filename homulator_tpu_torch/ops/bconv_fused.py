@@ -9,13 +9,15 @@ virtual count row); its plain version is ops/bconv.py's two steps. For x [nd, R,
   out_j = (sum_i xh_i * mat[j, i] + v * mat[j, nd]) mod out_q_j
 
 `mat` holds [m_out, nd (+1 with center)] plain residues mod out_q (the
-centering column last). The TPU kernel's bf16 planes, 128-lane re-tile and
-pairing epilogue compute the same residues and have no counterpart in B3.
+centering column last). Kernel B3 (csrc/bconv.cu) computes step 2 as the
+TPU kernel does, as a product of xh's byte planes with the table of
+build_bf16_tables, on the tensor cores (csrc/planes_mma.cuh): it takes
+that table in its device layout (mma_table) and its horner_sh where the
+plain version takes `mat`.
 
-Its bf16-plane product alone is kernel B17 (bconv_planes_mm,
-csrc/bconv_mma.cu, the port's first tensor-core kernel; it replaces
-`scripts/roofline.py::main._mm_kernel`): rows [:m_out] of mbig @ planes(x)
-with the table of build_bf16_tables. It is on no op's path; the roofline
+The product alone is kernel B17 (bconv_planes_mm, csrc/bconv_mma.cu, on
+the same core; it replaces `scripts/roofline.py::main._mm_kernel`): rows
+[:m_out] of mbig @ planes(x). It is on no op's path; the roofline
 (scripts/roofline_torch.py) times it beside B3 on a ModUp digit.
 """
 
@@ -27,9 +29,66 @@ import torch
 from .. import kernels
 from .bconv import bconv_step1, bconv_step1_centered, bconv_step2_plain
 
-_MAX_ND = 32  # csrc/bconv.cu instantiates nd <= 16 and nd <= 32
+_MAX_ND = 32  # table columns / 4: build_bf16_tables' bound
 RADIX_BITS = 8
 NPLANES = 4  # ceil(30 / 8): primes < 2^30
+# csrc/planes_mma.cuh's launch geometry: 8 warps a block, a warp's x tile
+# [8 ks, 32] double-buffered with rows 40 words apart, table rows 32 ks +
+# 16 bytes apart
+_WARPS, _X_STRIDE, _TAB_PAD = 8, 40, 16
+SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block can take
+
+
+def _geometry(nd: int, m_out: int):
+    """(k32 steps, blocks of 8 output rows) of a table of nd columns / 4."""
+    return -(-nd // 8), -(-m_out // 8)
+
+
+def mma_smem_bytes(nd: int, m_out: int, raw: bool) -> int:
+    """Shared memory of a launch of B3 (raw False) or B17 (raw: mbig is
+    staged as it is, too), planes_mma.cuh's Layout, for a table of nd
+    columns / 4 and m_out output rows."""
+    ks, jb = _geometry(nd, m_out)
+    return (_WARPS * 2 * 8 * ks * _X_STRIDE * 4
+            + jb * 32 * (32 * ks + _TAB_PAD) + int(raw) * 32 * m_out * nd
+            + 8 * ks * 16 + jb * 8 * 8)
+
+
+def mma_table(mbig: torch.Tensor) -> torch.Tensor:
+    """The device layout of a table of build_bf16_tables for B3's
+    tensor-core core (csrc/planes_mma.cuh): uint8 [32 jb, 32 ks + 16] on
+    mbig's device, where byte 4 t + p of row (jb' * 4 + i) * 8 + r holds
+    mbig[i * m_out + j, p * nd + t] for output row j = 8 jb' + r < m_out
+    and input row t < nd, and every other byte is 0 (the last 16 of a row
+    keep ldmatrix free of bank conflicts)."""
+    m_out, nd = mbig.shape[0] // NPLANES, mbig.shape[1] // NPLANES
+    ks, jb = _geometry(nd, m_out)
+    mb = mbig.float().cpu().numpy().astype(np.uint8).reshape(
+        NPLANES, m_out, NPLANES, nd)  # [i, j, p, t]
+    tab = np.zeros((jb, NPLANES, 8, 32 * ks + _TAB_PAD), dtype=np.uint8)
+    j = np.arange(m_out)
+    tab[j // 8, :, j % 8, :4 * nd] = mb.transpose(1, 0, 3, 2).reshape(
+        m_out, NPLANES, 4 * nd)  # [j, i, k = 4 t + p]
+    return torch.from_numpy(tab.reshape(32 * jb, -1)).to(mbig.device)
+
+
+def _check_table(name, tab, shape, dtype, nd, m_out, dev):
+    """Raise unless tab is a contiguous, 16-byte aligned `dtype` tensor of
+    `shape` on dev, nd <= 32, and the launch fits a block's shared
+    memory."""
+    if nd > _MAX_ND:
+        raise ValueError(f"{name}: nd={nd} above {_MAX_ND}")
+    if tuple(tab.shape) != shape:
+        raise ValueError(f"{name}: table {tuple(tab.shape)}, expected "
+                         f"{shape} for {nd} input rows and {m_out} output "
+                         "rows")
+    if (tab.device != dev or tab.dtype != dtype or not tab.is_contiguous()
+            or tab.data_ptr() % 16):
+        raise ValueError(f"{name}: the table must be a contiguous, 16-byte "
+                         f"aligned {dtype} tensor on x's device")
+    if mma_smem_bytes(nd, m_out, dtype == torch.bfloat16) > SMEM_LIMIT:
+        raise ValueError(f"{name}: m_out={m_out} needs more shared memory "
+                         "than a block has")
 
 
 def bconv_plain(x, s, s_sh, in_q, mat, out_q, center: bool) -> torch.Tensor:
@@ -43,27 +102,30 @@ def bconv_plain(x, s, s_sh, in_q, mat, out_q, center: bool) -> torch.Tensor:
     return bconv_step2_plain(step1(x, s, s_sh, in_q), mat, out_q)
 
 
-def bconv_fused(x, s, s_sh, in_q, mat, mat_sh, out_q, *,
+def bconv_fused(x, s, s_sh, in_q, mat, mat_mma, horner_sh, out_q, *,
                 center: bool = False) -> torch.Tensor:
     """Base conversion of int32 x [nd, R, C] -> int32 [m_out, R, C].
 
-    s/s_sh: [nd] step-1 Shoup pair; mat/mat_sh: [m_out, nd+center] matrix
-    Shoup pair (read by the kernel only). A CPU tensor runs bconv_plain; a
-    CUDA tensor launches kernel B3 (csrc/bconv.cu)."""
+    s/s_sh: [nd] step-1 Shoup pair; mat: [m_out, nd+center] plain matrix
+    (read by the plain version only); mat_mma/horner_sh: the device layout
+    of its build_bf16_tables table (mma_table) and that table's horner_sh
+    (read by the kernel only). A CPU tensor runs bconv_plain; a CUDA tensor
+    launches kernel B3 (csrc/bconv.cu)."""
     if x.device.type == "cpu":
         return bconv_plain(x, s, s_sh, in_q, mat, out_q, center)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
     nd, R, C = x.shape
     m_out = out_q.shape[0]
-    if nd > _MAX_ND:
-        raise ValueError(f"bconv: nd={nd} above {_MAX_ND}")
     dev = x.device
+    ndt = nd + int(center)
+    ks, jb = _geometry(ndt, m_out)
+    _check_table("bconv", mat_mma, (32 * jb, 32 * ks + _TAB_PAD),
+                 torch.uint8, ndt, m_out, dev)
     kernels.require_cuda_int32("x", x, dev)
     for name, t, shape in (("s", s, (nd,)), ("s_sh", s_sh, (nd,)),
                            ("in_q", in_q, (nd,)),
-                           ("mat", mat, (m_out, nd + int(center))),
-                           ("mat_sh", mat_sh, (m_out, nd + int(center))),
+                           ("horner_sh", horner_sh, (m_out,)),
                            ("out_q", out_q, (m_out,))):
         kernels.require_cuda_int32(name, t, dev, shape)
     lib = kernels.load()
@@ -71,9 +133,9 @@ def bconv_fused(x, s, s_sh, in_q, mat, mat_sh, out_q, *,
     with torch.cuda.device(dev):
         rc = lib.hk_bconv(
             kernels.ptr(x), kernels.ptr(out), kernels.ptr(s),
-            kernels.ptr(s_sh), kernels.ptr(in_q), kernels.ptr(mat),
-            kernels.ptr(mat_sh), kernels.ptr(out_q), nd, int(center), m_out,
-            R * C, kernels.stream(x))
+            kernels.ptr(s_sh), kernels.ptr(in_q), kernels.ptr(mat_mma),
+            kernels.ptr(horner_sh), kernels.ptr(out_q), nd, int(center),
+            m_out, R * C, kernels.stream(x))
     kernels.check(rc, "bconv")
     kernels.count("bconv")
     return out
@@ -123,13 +185,13 @@ def bconv_planes_mm_plain(x: torch.Tensor, mbig: torch.Tensor) -> torch.Tensor:
 
 
 def bconv_planes_mm(x: torch.Tensor, mbig: torch.Tensor) -> torch.Tensor:
-    """Kernel B17: the bf16-plane product of a base conversion, x int32
+    """Kernel B17: the byte-plane product of a base conversion, x int32
     [nd, R, C] (a digit's rows with a zero row appended as the TPU kernel
     takes them, nd <= 32) and mbig bf16 [4*m_out, 4*nd] (build_bf16_tables)
     -> int32 [m_out, R, C], the plane-0 sums D_0. A CPU tensor runs
-    bconv_planes_mm_plain; a CUDA tensor launches B17 (mma.sync bf16 with
-    f32 accumulation), which computes all 4*m_out rows and stores the first
-    m_out, as the TPU kernel does."""
+    bconv_planes_mm_plain; a CUDA tensor launches B17 (B3's tensor-core
+    core, csrc/planes_mma.cuh), which computes all 4*m_out rows and stores
+    the first m_out, as the TPU kernel does."""
     nd, R, C = x.shape
     m_out = mbig.shape[0] // NPLANES
     if nd > _MAX_ND:
@@ -142,12 +204,8 @@ def bconv_planes_mm(x: torch.Tensor, mbig: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
     kernels.require_cuda_int32("x", x, x.device)
-    if (mbig.device != x.device or mbig.dtype != torch.bfloat16
-            or not mbig.is_contiguous()):
-        raise ValueError("mbig: a contiguous bf16 tensor on x's device")
-    if (R * C) % 256 or m_out > 64:
-        raise ValueError(f"bconv_planes_mm: R*C={R * C} not a multiple of "
-                         f"256, or m_out={m_out} above 64")
+    _check_table("bconv_planes_mm", mbig, tuple(mbig.shape), torch.bfloat16,
+                 nd, m_out, x.device)
     lib = kernels.load()
     out = torch.empty((m_out, R, C), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):

@@ -66,7 +66,8 @@ def modup_convs_coeff(d_eval: torch.Tensor,
     c_coeff = intt(d_eval, kt.main_nt)
     return [
         bconv_fused(c_coeff[dt.lo:dt.hi], dt.step1, dt.step1_sh, dt.in_q,
-                    dt.mat, dt.mat_sh, dt.other_nt.q, center=True)
+                    dt.mat, dt.mat_mma, dt.horner_sh, dt.other_nt.q,
+                    center=True)
         for dt in kt.digits
     ]
 
@@ -128,8 +129,8 @@ def _moddown(accs, kt: KeySwitchLevelTables) -> torch.Tensor:
                  kt.special_nt, rep)  # [rep*alpha, n1, n2]
     convs = [
         bconv_fused(b[k * alpha:(k + 1) * alpha], kt.md_s1, kt.md_s1_sh,
-                    kt.special_nt.q, kt.md_mat, kt.md_mat_sh, kt.main_nt.q,
-                    center=True)
+                    kt.special_nt.q, kt.md_mat, kt.md_mma, kt.md_horner_sh,
+                    kt.main_nt.q, center=True)
         for k in range(rep)
     ]
     ce = ntt_rep(torch.cat(convs), kt.main_nt, rep)
@@ -214,7 +215,8 @@ def moddown_rescale2(acc0, acc1, d0, d1,
         bconv_fused(
             torch.cat([bhat_ext[k], w[k][None], ind_w[k][None]])
             .to(torch.int32),
-            tt.one, tt.one_sh, tt.in_q, tt.mat, tt.mat_sh, tt.out_nt.q)
+            tt.one, tt.one_sh, tt.in_q, tt.mat, tt.mma, tt.horner_sh,
+            tt.out_nt.q)
         for k in (0, 1)
     ]
     e = ntt_rep(torch.cat(convs), tt.out_nt, 2)
@@ -258,7 +260,8 @@ def modup_digit_eval(d_eval: torch.Tensor, c_coeff: torch.Tensor,
         return ntt(modup_digit(c_coeff, kt, d), kt.ext_nt)
     dt = kt.digits[d]
     conv = bconv_fused(c_coeff[dt.lo:dt.hi], dt.step1, dt.step1_sh, dt.in_q,
-                       dt.mat, dt.mat_sh, dt.other_nt.q, center=True)
+                       dt.mat, dt.mat_mma, dt.horner_sh, dt.other_nt.q,
+                       center=True)
     conv_eval = ntt(conv, dt.other_nt)
     cut = kt.special_nt.q.shape[0] + dt.lo
     return torch.cat([conv_eval[:cut], d_eval[dt.lo:dt.hi].to(torch.int32),

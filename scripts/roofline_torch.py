@@ -27,11 +27,14 @@ highest rate) and the median and worst as `<key>_med` and `<key>_worst`.
               Shoup chain's measured rate times its 5 operations a product.
               The TPU's NTT_OPS_PER_ELEM = 186 counts VPU instructions of
               its Pallas kernel and is not used.
-    bconv     B3 (csrc/bconv.cu: Shoup products on CUDA cores, no tensor
-              cores) at ModUp digit 0 (15+1 -> 35 rows), and beside it B17
-              (csrc/bconv_mma.cu: the bf16-plane product alone on tensor
-              cores) on the same digit; bconv_pct_of_mxu_peak is B17's
-              bf16 FLOP/s (all 4 * m_out rows) over the measured bf16 peak.
+    bconv     B3 (csrc/bconv.cu: step 1, the byte-plane product on the
+              tensor cores, u8 x u8 -> s32, and the epilogue) at ModUp
+              digit 0 (15+1 -> 35 rows), and beside it B17
+              (csrc/bconv_mma.cu: the product alone, on the same core) on
+              the same digit; bconv_pct_of_int8_peak is B17's u8 tensor-core
+              operations a second (all 4 * m_out rows) over the published
+              dense int8 rate (benchlib.INT8_OPS_PER_S; no int8 peak is
+              measured), bconv_b3_over_b17 the ratio of their times.
     hmult, hrotate   modmul/s from stats.op_modmul_count over device time
     automorph        the gather of both components (ops/automorph.py), its
                      share of hrotate
@@ -77,7 +80,7 @@ def main() -> int:
     from homulator_tpu_torch.api import CkksEngine, get_params
     from homulator_tpu_torch.ops.automorph import automorph_eval
     from homulator_tpu_torch.ops.bconv_fused import (
-        bconv_fused, bconv_planes_mm, build_bf16_tables,
+        bconv_fused, bconv_planes_mm,
     )
     from homulator_tpu_torch.stats import op_modmul_count
 
@@ -157,24 +160,24 @@ def main() -> int:
         xd = ct1.data[0][:nd].transpose(1, 2).contiguous()  # [nd, n1, n2]
         lo, med, hi = sample(lambda: benchlib.device_ms(
             lambda: bconv_fused(xd, dt.step1, dt.step1_sh, dt.in_q, dt.mat,
-                                dt.mat_sh, dt.other_nt.q, center=True)))
+                                dt.mat_mma, dt.horner_sh, dt.other_nt.q,
+                                center=True)))
         put("bconv_us_per_digit", tuple(1e3 * v for v in (lo, med, hi)))
         results["bconv_modmul_equiv_per_s"] = m_out * nd * n / (lo * 1e-3)
         results["bconv_kernel"] = (
-            "B3 (csrc/bconv.cu) is a CUDA-core kernel (Shoup products, no "
-            "tensor cores); bconv_pct_of_mxu_peak is B17's (csrc/"
-            "bconv_mma.cu, the bf16-plane product alone, all 4*m_out rows)")
-        mbig = build_bf16_tables(dt.mat.cpu().numpy(),
-                                 dt.other_nt.q.cpu().numpy())[0].cuda()
+            "B3 (csrc/bconv.cu) and B17 (csrc/bconv_mma.cu, the product "
+            "alone, all 4*m_out rows) share csrc/planes_mma.cuh: u8 x u8 -> "
+            "s32 mma.sync on the tensor cores; bconv_pct_of_int8_peak is "
+            "B17's over the published dense int8 rate")
+        mbig = dt.mat_bf16
         xdp = torch.cat([xd, torch.zeros_like(xd[:1])])
         lo, med, hi = sample(lambda: benchlib.device_ms(
             lambda: bconv_planes_mm(xdp, mbig)))
         put("bconv_matmul_only_us", tuple(1e3 * v for v in (lo, med, hi)))
-        flop = 2 * (4 * m_out) * (4 * (nd + 1)) * n
-        results["bconv_mxu_flop_per_s"] = flop / (lo * 1e-3)
-        results["bconv_pct_of_mxu_peak"] = (
-            100 * results["bconv_mxu_flop_per_s"]
-            / results["peak_bf16_flop_per_s"])
+        tc_ops = 2 * (4 * m_out) * (4 * (nd + 1)) * n
+        results["bconv_tc_ops_per_s"] = tc_ops / (lo * 1e-3)
+        results["bconv_pct_of_int8_peak"] = (
+            100 * results["bconv_tc_ops_per_s"] / benchlib.INT8_OPS_PER_S)
         results["bconv_b3_over_b17"] = (results["bconv_us_per_digit"]
                                         / results["bconv_matmul_only_us"])
         flush()

@@ -52,8 +52,8 @@ def test_modup_digit_matches_jax(tables, d):
         jd.mat_bf16, jd.horner_sh, jd.other_nt.q, interpret=True,
         center=True))
     got = bconv_fused(torch.from_numpy(x.view(np.int32)), dt.step1,
-                      dt.step1_sh, dt.in_q, dt.mat, dt.mat_sh, dt.other_nt.q,
-                      center=True)
+                      dt.step1_sh, dt.in_q, dt.mat, dt.mat_mma, dt.horner_sh,
+                      dt.other_nt.q, center=True)
     assert np.array_equal(_u32(got), want)
 
 
@@ -73,7 +73,7 @@ def test_tail_matches_jax(tables):
         jnp.asarray(x), jt.one_pl, jt.one_sh, jt.in_q, jt.bf16, jt.horner_sh,
         jt.out_nt.q, interpret=True))
     got = bconv_fused(torch.from_numpy(x.view(np.int32)), tt.one, tt.one_sh,
-                      tt.in_q, tt.mat, tt.mat_sh, tt.out_nt.q)
+                      tt.in_q, tt.mat, tt.mma, tt.horner_sh, tt.out_nt.q)
     assert np.array_equal(_u32(got), want)
 
 
