@@ -9,11 +9,11 @@ failure and the script then exits non-zero:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build (nvcc, one process per source) and its time, with
-     ptxas's registers and spills of each instantiation of B1's and B2's
-     register-radix phase kernels (one for each axis length 2^1 .. 2^10)
-     and of B3's and B17's tensor-core kernels (`bconv_kernel`,
-     `planes_mm`: one for each count of k32 steps, 1 .. 4), failing if one
-     is missing or takes local memory;
+     ptxas's registers and spills of each instantiation of B1's, B2's and
+     B4's register-radix phase kernels (one for each axis length 2^1 ..
+     2^10, B4's 2^1 .. 2^8) and of B3's and B17's tensor-core kernels
+     (`bconv_kernel`, `planes_mm`: one for each count of k32 steps, 1 ..
+     4), failing if one is missing or takes local memory;
   3. each CUDA kernel against its plain PyTorch version on the card, at the
      shapes parameter set B gives it, bit for bit (tolerance 0), with the
      device time of each (CUDA graph replay between CUDA events, so host
@@ -25,8 +25,10 @@ failure and the script then exits non-zero:
      ModUp digit 0 and of the tail, on 999 coefficients (a ragged last
      tile, 4-byte loads) and at the conversions of the N = 2^13 oracle
      below, and the fused HPIP kernel (B4) at level 35 (K =
-     50, digits (0,15) (15,30) (30,35)) and level 20 (two digits, the last
-     partial); the phase kernels of the coefficient-sharded NTT (B6-B9) on
+     50, digits (0,15) (15,30) (30,35)), level 20 (two digits, the last
+     partial) and level 31 (a last digit of one row), and at level 35 in
+     the worst case (every piece, own-row and key word q - 1); the phase
+     kernels of the coefficient-sharded NTT (B6-B9) on
      rank 1's column slices at 4 shards (c = 64: the main rows M = 35, the
      partial digit's other rows M = 45, the specials M = 15 twice, and the
      tail's shapes) and at 2, 8, 16 and 32 shards (c = 128, 32, 16 and 8;
@@ -58,21 +60,23 @@ failure and the script then exits non-zero:
   4. an independent oracle at N = 2^13 (n1 = 64 != n2 = 128), maxLevel 8,
      level 8, alpha 3 (a partial digit): the exact numpy engine
      (`RefCkks`) equals the port's hmult, hsquare, hrotate (steps 1 and
-     -1), the fused-route hmult and the graph-route (ntt_mode="jnp")
-     hmult and hrotate (steps 1 and -1) on the card bit for bit, and
+     -1), the fused-route hmult, hsquare and hrotate(1) and the
+     graph-route (ntt_mode="jnp") hmult and hrotate (steps 1 and -1) on
+     the card bit for bit, and
      conjugate equals the same engine on the CPU bit for bit; a 16 x 16
      `linalg.bsgs_matvec` on the graph route decrypts within 1e-2 of
      M @ x (at this size: set B's four more rotation keys would cost
      about 20 s of host numpy);
   5. parameter set B (N = 2^16, 45 main + 15 special primes) through
      `CkksEngine(device="cuda")`, level 35. The main path: hmult and
-     hrotate(step 1) on the piecewise key-switch route, then both with
-     `api.USE_FUSED_HPIP` on; the launch counters are set to 0 just before
-     each of these four runs and read just after it, each run must launch
-     every kernel of its route (and the piecewise route must not launch
-     B4), and the fused results must equal the piecewise ones bit for
-     bit. Then: hmult and hrotate equal the plain path (the same engine on
-     the CPU) bit for bit; all 32768 slots decrypt within 1e-2 of v1*v2
+     hrotate(step 1) on the piecewise key-switch route, then both and
+     hsquare with `api.USE_FUSED_HPIP` on; the launch counters are set to
+     0 just before each of these five runs and read just after it, each
+     run must launch every kernel of its route (and the piecewise route
+     must not launch B4; the fused one launches it once an op), and the
+     fused results must equal the piecewise ones bit for bit. Then: hmult
+     and hrotate equal the plain path (the same engine on the CPU) bit for
+     bit; all 32768 slots decrypt within 1e-2 of v1*v2
      (hmult), v1*v1 (hsquare) and np.roll(v1, -1) (hrotate);
      hrotate_hoisted(ct, [1, 2]) equals two single hrotates; the host
      seconds of each key. Then the graph route: a second engine with
@@ -123,12 +127,14 @@ operations) over four: an H100 SM has 64 int32 lanes. Operations are
 counted from the shapes with a fixed cost per primitive (`benchlib.OPS`):
 a Shoup product 5 (three multiplies, a subtract, an unsigned min; the
 measured Shoup chain leaves room for no more), a modular add or subtract
-3, a butterfly 11, a lazy Shoup product-accumulate 6, a Montgomery
-product-accumulate 9, a final reduction 6; B5 sums lazy products and
-reduces each output once. B3 counts as it computes (`bconv_bound`): step
-1, the centering count, its epilogue and the u8 products of all four
-planes; B17 its u8 products alone. A link of a peak chain is counted as
-`PEAK_LINK_OPS` says.
+3, a butterfly 11, a lazy Shoup product-accumulate 6, a final reduction
+6; B5 sums lazy products and reduces each output once. B1, B2 and B4
+count their Harvey butterflies (9) and lazy products as they compute
+them (`benchlib.radix_ntt_ops`, `benchlib.hpip_ops`: B4's lazy
+Montgomery product-accumulate 7). B3 counts as it computes
+(`bconv_bound`): step 1, the centering count, its epilogue and the u8
+products of all four planes; B17 its u8 products alone. A link of a peak
+chain is counted as `PEAK_LINK_OPS` says.
 """
 
 import json
@@ -138,14 +144,15 @@ import time
 
 from homulator_tpu_torch import benchlib
 from homulator_tpu_torch.benchlib import (
-    OPS, bound, device_ms, latency_ms, ntt_ops, peak_inputs, radix_ntt_ops,
+    OPS, bound, device_ms, hpip_ops, latency_ms, peak_inputs, radix_ntt_ops,
     residues,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SET_B = dict(n=1 << 16, max_level=45, alpha=15)
 LEVEL_B = 35
-HPIP_LEVELS = (35, 20)
+# B4's levels: set B's, a last digit partly full, a last digit of one row
+HPIP_LEVELS = (35, 20, 31)
 SCALE = float(1 << 29)
 GATE = 1e-2
 # int32 operations a link of a peak chain: a multiply-add (squaring), a
@@ -285,9 +292,11 @@ def step2_bound(nd, m_out, n):
 
 def hpip_bound(kt):
     """B4 at kt's level: the converted rows, the own rows, the key rows
-    read (beta x 2 x K), the ext basis's mid and stage tables, the output;
-    the converted rows' NTTs, the Montgomery products and the final
-    reductions."""
+    read (beta x 2 x K), the ext basis's mid and stage tables, the output
+    (the phase-A scratch is not counted: the least the card could move);
+    the operations csrc/hpip.cu does (benchlib.hpip_ops: the converted
+    rows' NTTs in Harvey butterflies, the lazy Montgomery
+    product-accumulates, one reduction an output word)."""
     nt = kt.ext_nt
     n1, n2 = nt.n1, nt.n2
     n = n1 * n2
@@ -296,9 +305,7 @@ def hpip_bound(kt):
     conv_rows = sum(K - (dt.hi - dt.lo) for dt in kt.digits)
     nbytes = 4 * (conv_rows * n + kt.level * n + beta * 2 * K * n
                   + 2 * K * n + 2 * K * (n1 + n2) + 2 * K + 2 * K * n)
-    ops = (ntt_ops(conv_rows, n) + beta * 2 * K * n * OPS["mont_mac"]
-           + 2 * K * n * OPS["modadd"])
-    return bound(nbytes, ops)
+    return bound(nbytes, hpip_ops(conv_rows, K, beta, n))
 
 
 def anatomy_bound(M, n1, n2, passes, mid):
@@ -343,10 +350,11 @@ def compare(torch, name, label, kernel, plain, bnd, results, library=None,
 
 
 # kernel templates whose every instantiation chip_smoke holds to no local
-# memory: name -> instantiations (B1/B2: axis length 2^L, L = 1..10;
-# B3/B17: k32 steps 1..4)
+# memory: name -> instantiations (B1/B2: axis length 2^L, L = 1..10; B4's
+# two phases: L = 1..8; B3/B17: k32 steps 1..4)
 CHECKED_INSTANTIATIONS = {"ntt_fwd_radix_a": 10, "ntt_fwd_radix_b": 10,
                           "ntt_inv_radix_a": 10, "ntt_inv_radix_b": 10,
+                          "hpip_radix_a": 8, "hpip_radix_b": 8,
                           "bconv_kernel": 4, "planes_mm": 4}
 
 
@@ -481,22 +489,42 @@ def check_kernels(np, torch, dc, rng, results, get_params):
         check_bconv(torch, label, x, tabs, center, results)
 
     # B4: random pieces, own rows and a random Montgomery-form key
-    # [dnum, 2, K_full, n2, n1] over the specials-first primes.
+    # [dnum, 2, K_full, n2, n1] over the specials-first primes, at each of
+    # HPIP_LEVELS; then the worst case at level 35: every piece, own-row
+    # and key word q - 1 (the largest term and product the lazy ranges
+    # take)
     p = dc.params
     key_q = np.concatenate([p.q_arr[p.max_level:], p.q_arr[:p.max_level]])
     key = residues(np.tile(key_q, 2 * p.dnum),
                    (2 * p.dnum * p.num_primes, n2, n1), rng).view(
                        p.dnum, 2, p.num_primes, n2, n1)
-    for level in HPIP_LEVELS:
+
+    def q_minus_1(q, shape):  # row i of the first axis all q[i] - 1
+        if isinstance(q, torch.Tensor):
+            q = q.cpu().numpy()
+        q = torch.from_numpy(np.asarray(q, dtype=np.int64) - 1).to(
+            torch.int32).cuda()
+        return q.view((-1,) + (1,) * (len(shape) - 1)).expand(
+            shape).contiguous()
+
+    worst_key = q_minus_1(np.tile(key_q, 2 * p.dnum),
+                          (2 * p.dnum * p.num_primes, n2, n1)).view(key.shape)
+    for level, wc in [(lv, False) for lv in HPIP_LEVELS] + [(LEVEL_B, True)]:
         kl = dc.keyswitch_tables(level)
-        convs = [residues(dt.other_nt.q, (dt.other_nt.q.shape[0], n1, n2),
-                          rng) for dt in kl.digits]
-        d_eval = residues(kl.main_nt.q, (level, n2, n1), rng)
+
+        def make(q, shape):
+            return q_minus_1(q, shape) if wc else residues(q, shape, rng)
+
+        convs = [make(dt.other_nt.q, (dt.other_nt.q.shape[0], n1, n2))
+                 for dt in kl.digits]
+        d_eval = make(kl.main_nt.q, (level, n2, n1))
+        k = worst_key if wc else key
         spans = " ".join(f"({dt.lo},{dt.hi})" for dt in kl.digits)
-        label = f"level {level} K={kl.ext_nt.q.shape[0]} digits {spans}"
-        compare(torch, "hpip", label,
-                lambda: hpip_kernel(convs, d_eval, key, kl),
-                lambda: hpip_plain(convs, d_eval, key, kl),
+        compare(torch, "hpip",
+                f"level {level} K={kl.ext_nt.q.shape[0]} digits {spans}"
+                + (" worst case (all q-1)" if wc else ""),
+                lambda: hpip_kernel(convs, d_eval, k, kl),
+                lambda: hpip_plain(convs, d_eval, k, kl),
                 hpip_bound(kl), results)
 
 
@@ -664,8 +692,9 @@ def check_anatomy_kernels(np, torch, dc, rng, results):
     def transpose():
         return x.transpose(1, 2).contiguous()
 
-    def bnd(spec):  # stage passes and mid product of a variant
-        return anatomy_bound(M, n1, n2, *spec[:2])
+    def bnd(spec):  # stage passes and mid product of a variant (B16's
+        # copy, None: neither)
+        return anatomy_bound(M, n1, n2, *(spec or (0, False))[:2])
 
     for v, spec in anatomy.B14_VARIANTS.items():
         compare(torch, "ntt_anatomy", f"{v} M={M}",
@@ -742,11 +771,15 @@ def check_oracle(np, torch, CkksEngine, get_params, api):
             raise AssertionError(f"hrotate({step}) at N=2^13 != RefCkks.hrotate")
     api.USE_FUSED_HPIP = True
     try:
-        fused = em.dc.download(em.hmult(a, b).data)
+        fused = {"hmult": (em.hmult(a, b), ref),
+                 "hsquare": (em.hsquare(a), ref_sq),
+                 "hrotate(1)": (em.hrotate(a, 1),
+                                em.ref.hrotate(em.to_ref(a), 1))}
     finally:
         api.USE_FUSED_HPIP = False
-    if not np.array_equal(ref.data, fused):
-        raise AssertionError("fused-route hmult at N=2^13 != RefCkks.hmult")
+    for op, (got, want) in fused.items():
+        if not np.array_equal(want.data, em.dc.download(got.data)):
+            raise AssertionError(f"fused-route {op} at N=2^13 != RefCkks")
     conj = em.conjugate(a)
     cpu = CkksEngine(pm, seed=3, device="cpu")
     cpu.ref = em.ref
@@ -765,7 +798,8 @@ def check_oracle(np, torch, CkksEngine, get_params, api):
             raise AssertionError(f"graph-route hrotate({step}) at N=2^13 != "
                                  "RefCkks.hrotate")
     print("# oracle N=2^13 L8 l8 a3: hmult, hsquare, hrotate(1), hrotate(-1) "
-          "and fused-route hmult == RefCkks; graph-route (ntt_mode='jnp') "
+          "and fused-route hmult, hsquare, hrotate(1) == RefCkks; "
+          "graph-route (ntt_mode='jnp') "
           "hmult, hrotate(1), hrotate(-1) == RefCkks; conjugate == CPU plain "
           "path; bit-exact")
     # encrypted linear algebra on the graph route: a 16 x 16 BSGS matvec
@@ -843,12 +877,12 @@ def main() -> int:
               + ", ".join(f"{a}: {r} / {sp}" for a, (r, sp)
                           in sorted(by_arg.items())))
     if {k: len(v) for k, v in regs.items()} != CHECKED_INSTANTIATIONS:
-        raise AssertionError("nvcc's log lacks B1/B2/B3/B17 "
+        raise AssertionError("nvcc's log lacks B1/B2/B3/B4/B17 "
                              f"instantiations: {regs}")
     spilled = {f"{name}<{a}>": sp for name, by_arg in regs.items()
                for a, (_, sp) in by_arg.items() if sp}
     if spilled:
-        raise AssertionError("B1/B2/B3/B17 instantiations use local memory "
+        raise AssertionError("B1/B2/B3/B4/B17 instantiations use local memory "
                              f"(stack or spill bytes): {spilled}")
 
     # 3. kernels vs plain versions at the set-B shapes
@@ -927,12 +961,23 @@ def main() -> int:
         rot_f, launches["hrotate fused"] = drive(
             torch, kernels, "hrotate(45,35,15) fused",
             lambda: eng.hrotate(ct1, 1), FUSED_KERNELS)
+        sq_f, launches["hsquare fused"] = drive(
+            torch, kernels, "hsquare(45,35,15) fused",
+            lambda: eng.hsquare(ct1), FUSED_KERNELS)
     finally:
         api.USE_FUSED_HPIP = False
+    for label, c in (("hmult", launches["hmult fused"]),
+                     ("hrotate", launches["hrotate fused"]),
+                     ("hsquare", launches["hsquare fused"])):
+        if c["hpip"] != 1:
+            raise AssertionError(f"fused {label}: B4 launched {c['hpip']} "
+                                 "times, not once")
     if not (torch.equal(out.data, out_f.data)
-            and torch.equal(rot.data, rot_f.data)):
+            and torch.equal(rot.data, rot_f.data)
+            and torch.equal(eng.hsquare(ct1).data, sq_f.data)):
         raise AssertionError("fused HPIP route != piecewise route")
-    print("# fused HPIP route == piecewise route (hmult, hrotate), bit-exact")
+    print("# fused HPIP route == piecewise route (hmult, hrotate, hsquare), "
+          "bit-exact; B4 launched once an op")
 
     cpu = CkksEngine(params, seed=1, device="cpu")  # the plain path
     cpu.relin_key = eng.relin_key.cpu()

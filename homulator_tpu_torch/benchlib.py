@@ -24,9 +24,9 @@ bound() is the largest of the bytes it must move over MEM_BYTES_PER_S,
 its int32 operations over INT32_OPS_PER_S (the float32 peak of 67 TFLOP/s,
 128 lanes an SM and an FMA two operations, over four, as an H100 SM has
 64 int32 lanes) and its tensor-core u8 operations over INT8_OPS_PER_S.
-OPS is the one count of int32 operations a primitive costs; ntt_ops
-counts a transform of the column-tile kernels with it, radix_ntt_ops one
-of B1 or B2.
+OPS is the one count of int32 operations a primitive costs;
+radix_ntt_ops counts a transform of B1 or B2 with it, hpip_ops a call of
+B4.
 """
 
 from __future__ import annotations
@@ -49,18 +49,20 @@ INT8_OPS_PER_S = 1979e12  # dense tensor-core rate, int8 (and u8)
 # for 5.47 operations a link at INT32_OPS_PER_S (PERF.md). A Montgomery
 # product 5 the same way; a modular add or subtract 3; a butterfly a Shoup
 # product, an add and a subtract; a lazy Shoup product-accumulate 6; a
-# Montgomery product-accumulate 9; a final reduction 6. Lazy forms
-# (csrc/ntt_reg.cuh): a Shoup product without its conditional subtract 4;
-# a conditional subtract 2; a Harvey butterfly (ct_lazy, gs_lazy) a lazy
-# product, a conditional subtract and three adds or subtracts, 9. B3's
-# epilogue (csrc/bconv.cu) from four plane sums to a residue: two
-# shift-and-add folds (4), a lazy Shoup product by 2^16 (4), a lazy
-# reduction of the low fold (3), their sum (1) and two conditional
+# final reduction 6. Lazy forms (csrc/ntt_reg.cuh): a Shoup product
+# without its conditional subtract 4; a conditional subtract 2; a Harvey
+# butterfly (ct_lazy, gs_lazy) a lazy product, a conditional subtract and
+# three adds or subtracts, 9; B4's accumulate (csrc/hpip.cu) a Montgomery
+# product without its conditional subtract (4), an add and a conditional
+# subtract, 7. B3's epilogue (csrc/bconv.cu) from four plane sums to a
+# residue: two shift-and-add folds (4), a lazy Shoup product by 2^16 (4),
+# a lazy reduction of the low fold (3), their sum (1) and two conditional
 # subtracts (4), 16.
-OPS = dict(shoup=5, mont=5, modadd=3, lazy_mac=6, mont_mac=9, reduce=6,
-           lazy_shoup=4, csub=2, planes_reduce=16)
+OPS = dict(shoup=5, mont=5, modadd=3, lazy_mac=6, reduce=6, lazy_shoup=4,
+           csub=2, planes_reduce=16)
 OPS["butterfly"] = OPS["shoup"] + 2 * OPS["modadd"]
 OPS["lazy_butterfly"] = OPS["lazy_shoup"] + OPS["csub"] + 3
+OPS["lazy_mont_mac"] = (OPS["mont"] - 1) + 1 + OPS["csub"]
 
 
 def bound(nbytes, ops, tc_ops=0):
@@ -70,15 +72,6 @@ def bound(nbytes, ops, tc_ops=0):
     t_mem = nbytes / MEM_BYTES_PER_S
     t_ops = max(ops / INT32_OPS_PER_S, tc_ops / INT8_OPS_PER_S)
     return 1e3 * max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
-
-
-def ntt_ops(rows, n):
-    """int32 operations of one forward or inverse NTT of `rows` limbs of n
-    coefficients as B4's column-tile phases compute it, reduced after
-    every step: n/2 * log2(n) butterflies and n mid-twiddle products
-    each."""
-    return rows * (n // 2 * (n.bit_length() - 1) * OPS["butterfly"]
-                   + n * OPS["shoup"])
 
 
 def radix_ntt_ops(rows, n, fwd):
@@ -91,6 +84,21 @@ def radix_ntt_ops(rows, n, fwd):
     per_elem = OPS["lazy_shoup"] + (3 if fwd else 2) * OPS["csub"]
     return rows * (n // 2 * (n.bit_length() - 1) * OPS["lazy_butterfly"]
                    + n * per_elem)
+
+
+def hpip_ops(conv_rows, K, beta, n):
+    """int32 operations of B4 (csrc/hpip.cu) at a level with K ext rows and
+    beta digits, conv_rows converted rows in all, n coefficients a row:
+    each converted row's forward NTT as B1's phases compute it (n/2 *
+    log2(n) Harvey butterflies, and an element phase A's mid product
+    reduced to [0, q)), with no reduction after phase B; beta x 2 x K rows
+    of lazy Montgomery product-accumulates; one conditional subtract an
+    output word."""
+    return (conv_rows * (n // 2 * (n.bit_length() - 1)
+                         * OPS["lazy_butterfly"]
+                         + n * (OPS["lazy_shoup"] + OPS["csub"]))
+            + beta * 2 * K * n * OPS["lazy_mont_mac"]
+            + 2 * K * n * OPS["csub"])
 
 
 def latency_ms(fn, iters: int = 20, warmup: int = 3) -> float:

@@ -9,10 +9,20 @@
 // kernels k_copy, k_transpose, k_mid, k_stages1 (B16). The plain versions
 // are in homulator_tpu_torch/ops/anatomy.py.
 //
-// One kernel template, its flags fixed at compile time: kPasses stage-1 CT
-// passes along n1 (2 = the TPU's "stage 1 twice", 16 stages at n1 = 256),
-// kMid the Shoup product by the mid table after them, kT a transposed
-// store ([n1, n2] -> [n2, n1]), Mul the twiddle product of the butterflies.
+// B16's copy is a kernel of its own (copy_words): the TPU's k_copy is a
+// bare o_ref[...] = x_ref[...], and the 9.2 MB of 35 limbs stay in the
+// 50 MB L2, where a copy runs at the cache's rate, above HBM's. So no
+// shared memory and no loop: one 16-byte load and store a thread (the
+// last n % 4 words one a thread), 256 threads a block, the grid rounded up
+// to a multiple of the SM count (read from the device). On an H100 a
+// grid-stride loop over 8 or 16 blocks an SM, with 1 to 8 loads in flight
+// a thread, took 2-7% longer (PERF.md §6).
+//
+// Every other variant is one kernel template, its flags fixed at compile
+// time: kPasses stage-1 CT passes along n1 (2 = the TPU's "stage 1
+// twice", 16 stages at n1 = 256), kMid the Shoup product by the mid table
+// after them, kT a transposed store ([n1, n2] -> [n2, n1]), Mul the
+// twiddle product of the butterflies.
 // A block owns the [n1, 32] column tile of one limb that B1's phase A
 // (ntt_fwd_a) owns, with the same helpers of ntt_tile.cuh: coalesced row
 // loads into shared memory (row stride 33), the stage loop, and a store
@@ -111,6 +121,21 @@ anatomy(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   }
 }
 
+constexpr int kCopyThreads = 256;
+
+// y = x over 4 * n4 + tail words, x and y 16-byte aligned: thread i < n4
+// copies 16-byte word i, thread n4 + j word 4 * n4 + j of the tail.
+__global__ void __launch_bounds__(kCopyThreads)
+copy_words(const uint32_t* __restrict__ x, uint32_t* __restrict__ y, int n4,
+           int tail) {
+  const int i = blockIdx.x * kCopyThreads + threadIdx.x;
+  if (i < n4) {
+    reinterpret_cast<uint4*>(y)[i] = reinterpret_cast<const uint4*>(x)[i];
+  } else if (i - n4 < tail) {
+    y[4 * (size_t)n4 + (i - n4)] = x[4 * (size_t)n4 + (i - n4)];
+  }
+}
+
 using AnatomyKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
                                const uint32_t*, const uint32_t*,
                                const uint32_t*, const uint32_t*, int, int,
@@ -126,7 +151,6 @@ struct Variant {
   AnatomyKernel kernel;
 };
 const Variant kVariants[] = {
-    {0, false, false, 0, anatomy<0, false, false, hk::ShoupMul>},  // copy
     {0, false, true, 0, anatomy<0, false, true, hk::ShoupMul>},    // copy^T
     {0, true, false, 0, anatomy<0, true, false, hk::ShoupMul>},    // mid
     {0, true, true, 0, anatomy<0, true, true, hk::ShoupMul>},      // midT
@@ -174,6 +198,26 @@ int hk_ntt_anatomy(const void* x, void* out, const void* q, const void* tw1,
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(tw1),
       static_cast<const uint32_t*>(tw1_sh), static_cast<const uint32_t*>(mid),
       static_cast<const uint32_t*>(mid_sh), M, log1, log2, lt);
+  return cudaGetLastError();
+}
+
+// B16's copy: y = x over n < 2^32 words (x, y 16-byte aligned).
+int hk_copy_words(const void* x, void* y, long long n, void* stream) {
+  int dev, sms;
+  cudaError_t err;
+  if (n < 0 || n >= (1LL << 32) || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(y) % 16)
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int n4 = (int)(n >> 2), tail = (int)(n & 3);
+  const int blocks = (n4 + tail + kCopyThreads - 1) / kCopyThreads;
+  copy_words<<<(blocks + sms - 1) / sms * sms, kCopyThreads, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y), n4, tail);
   return cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-// Modular arithmetic on uint32 residues for the kernels of this directory.
+// Modular arithmetic on uint32 residues for the kernels of this directory
+// (and ilog2, which their hosts check lengths with).
 //
 // Every prime q is below PRIME_CAP = 2^32/6 < 2^30
 // (homulator_tpu_torch/numtheory.py:49), so sums of two residues and the
@@ -55,6 +56,13 @@ __device__ __forceinline__ uint64_t shoup_dot_lazy(const uint32_t (&x)[MAXND],
     if (i < n) acc += shoup_mul_lazy(x[i], w[i], w_sh[i], q);
   }
   return acc;
+}
+
+// log2(n) for a power of two n >= 1, else -1: the hosts' shape checks.
+inline int ilog2(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return (1 << l) == n ? l : -1;
 }
 
 // a - m if a >= m, else a.

@@ -78,7 +78,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "ntt_reg.cuh"
 #include "ntt_tile.cuh"
@@ -95,6 +94,7 @@ using hk::min_int;
 using hk::mul_cols;
 using hk::store_tile;
 using hk::tile_smem;
+using hk::with_log;
 
 // Forward stage 1 (B6): x[limb] is [n1, 2^logc]; tile [n1, TC] at column
 // c0, written back in x's layout.
@@ -108,7 +108,7 @@ ntt_fwd_a(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   extern __shared__ uint32_t s[];
   const int limb = blockIdx.x, m = limb % M;
   const size_t len = (size_t)1 << (log1 + logc);
-  hk::fwd_a_tile<false>(
+  hk::fwd_a_tile(
       s, x + limb * len, y + limb * len, q[m], tw1 + ((size_t)m << log1),
       tw1_sh + ((size_t)m << log1), mid + m * len, mid_sh + m * len, log1,
       logc, logtc, blockIdx.y << logtc);
@@ -270,17 +270,6 @@ using RadixKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
                              const uint32_t*, const uint32_t*,
                              const uint32_t*, const uint32_t*, int, int, int);
 
-// f(std::integral_constant<int, L>()) for the runtime logn = L in [1, 10].
-template <int L = 1, class F>
-int with_log(int logn, F&& f) {
-  if constexpr (L > 10) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (logn == L) return f(std::integral_constant<int, L>());
-    return with_log<L + 1>(logn, f);
-  }
-}
-
 // One radix phase on rows limbs of [2^L, ncols], tiles of TC = 2^logtc
 // columns (ops/ntt_kernels.py::radix_phases chooses it): grid (rows,
 // ncols/TC), TC * 2^floor(L/2) threads, TC <= RadixSplit's 16.
@@ -289,18 +278,12 @@ int launch_radix(RadixKernel kernel, const void* x, void* y, const void* q,
                  const void* tw, const void* tw_sh, const void* mid,
                  const void* mid_sh, int rows, int M, int logcols, int logtc,
                  cudaStream_t st) {
-  if (logtc < 0 || logtc > logcols ||
-      (1 << logtc) > hk::RadixSplit<L>::kMaxTileCols)
-    return cudaErrorInvalidValue;
-  const size_t smem = hk::radix_smem_words<L>(1 << logtc) * sizeof(uint32_t);
-  cudaError_t err;
-  if (smem > 48 * 1024 &&
-      (err = cudaFuncSetAttribute(kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess)
-    return err;
-  kernel<<<dim3(rows, 1 << (logcols - logtc)),
-           (1 << logtc) << hk::RadixSplit<L>::kLB, smem, st>>>(
+  int threads;
+  size_t smem;
+  const cudaError_t err =
+      hk::radix_block<L>(kernel, logcols, logtc, &threads, &smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(rows, 1 << (logcols - logtc)), threads, smem, st>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(tw),
       static_cast<const uint32_t*>(tw_sh), static_cast<const uint32_t*>(mid),

@@ -27,7 +27,10 @@
 // kernels reduce to [0, q) once, before they store.
 #pragma once
 
+#include <cuda_runtime.h>
+
 #include <cstdint>
+#include <type_traits>
 
 #include "modarith.cuh"
 
@@ -165,6 +168,31 @@ __device__ __forceinline__ void store_run(uint32_t* __restrict__ p,
   }
 }
 
+// The CT stages of one 2^L-point column c of a tile, all in registers but
+// for one exchange: v holds the strided rows u + U*t (t < R) of the
+// column, each in [0, 4q), and leaves holding its contiguous rows u*R + t
+// after all L stages, in [0, 4q). The exchange goes through tile (a
+// tile_at layout) and takes one barrier; tws is the stage row and its
+// Shoup row in shared memory. The tile may be written again once every
+// thread of the block has passed another barrier. B1's phase B stores the
+// values; B4's phase B (hpip.cu) multiplies them by its keys.
+template <int L>
+__device__ __forceinline__ void radix_ct_rows(
+    uint32_t (&v)[RadixSplit<L>::kR], uint32_t* tile, const uint32_t* tws,
+    uint32_t q, int u, int c, int logtc) {
+  using S = RadixSplit<L>;
+  constexpr int n = 1 << L, R = S::kR, U = S::kU, LA = S::kLA, LB = S::kLB;
+  ct_pass<LA>(v, 0, tws, n, 0, 0, q);
+#pragma unroll
+  for (int t = 0; t < R; ++t) tile[tile_at<L>(u + U * t, c, logtc)] = v[t];
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < R; ++t) v[t] = tile[tile_at<L>(u * R + t, c, logtc)];
+#pragma unroll
+  for (int k = 0; k < S::kSub; ++k)
+    ct_pass<LB>(v, k << LB, tws, n, LA, u * S::kSub + k, q);
+}
+
 // One phase of B1 or B2 on the [n, TC] tile at column c0 of one limb x
 // [n, ncols] (n = 2^L), with the limb's q, stage twiddle pair (tw, tw_sh
 // rows of n) and, for kT, mid pair (rows of the limb's [n, ncols] table).
@@ -214,15 +242,7 @@ __device__ __forceinline__ void radix_phase(
   __syncthreads();
 
   if constexpr (kFwd) {
-    ct_pass<LA>(v, 0, tws, n, 0, 0, q);  // [0, 4q)
-#pragma unroll
-    for (int t = 0; t < R; ++t) tile[tile_at<L>(u + U * t, c, logtc)] = v[t];
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < R; ++t) v[t] = tile[tile_at<L>(u * R + t, c, logtc)];
-#pragma unroll
-    for (int k = 0; k < S::kSub; ++k)
-      ct_pass<LB>(v, k << LB, tws, n, LA, u * S::kSub + k, q);  // [0, 4q)
+    radix_ct_rows<L>(v, tile, tws, q, u, c, logtc);  // [0, 4q)
     if constexpr (kT) {
 #pragma unroll
       for (int t = 0; t < R; ++t) {  // any uint32 times mid: [0, 2q)
@@ -248,6 +268,37 @@ __device__ __forceinline__ void radix_phase(
 #pragma unroll
     for (int t = 0; t < R; ++t)
       y[(size_t)(u + U * t) * ncols + col] = csub(v[t], q);
+  }
+}
+
+// The block of a radix phase kernel at axis 2^L and TC = 2^logtc of
+// 2^logcols columns: TC * 2^LB threads and radix_smem_words<L>(TC) words
+// of dynamic shared memory, the kernel's limit raised above the 48 KB
+// default when needed. cudaErrorInvalidValue for a TC it does not take
+// (above the columns or RadixSplit's kMaxTileCols).
+template <int L, class Kernel>
+cudaError_t radix_block(Kernel kernel, int logcols, int logtc, int* threads,
+                        size_t* smem) {
+  if (logtc < 0 || logtc > logcols ||
+      (1 << logtc) > RadixSplit<L>::kMaxTileCols)
+    return cudaErrorInvalidValue;
+  *threads = (1 << logtc) << RadixSplit<L>::kLB;
+  *smem = radix_smem_words<L>(1 << logtc) * sizeof(uint32_t);
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+// f(std::integral_constant<int, L>()) for the runtime logn = L in [1,
+// kMaxL]: the host's dispatch to a kernel's instantiation for an axis
+// length.
+template <int kMaxL = 10, int L = 1, class F>
+int with_log(int logn, F&& f) {
+  if constexpr (L > kMaxL) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (logn == L) return f(std::integral_constant<int, L>());
+    return with_log<kMaxL, L + 1>(logn, f);
   }
 }
 

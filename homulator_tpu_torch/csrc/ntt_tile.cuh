@@ -1,7 +1,6 @@
-// Column-tile NTT building blocks shared by the NTT kernels (ntt.cu: B1,
-// B2, the phase kernels B6-B9 and their lane-packed forms B10-B13), the
-// fused HPIP kernel (hpip.cu: B4) and the NTT anatomy kernels (anatomy.cu:
-// B14-B16).
+// Column-tile NTT building blocks shared by the phase kernels of the
+// coefficient-sharded NTT (ntt.cu: B6-B9 and their lane-packed forms
+// B10-B13) and the NTT anatomy kernels (anatomy.cu: B14-B16).
 //
 // A block owns an [n, TC] column tile of one limb in shared memory (row
 // stride ld = TC + 1: no bank conflicts in the transposed write; TC =
@@ -154,13 +153,11 @@ __device__ inline void mul_tile(uint32_t* s, const uint32_t* __restrict__ w,
   mul_cols(s, w + c, w_sh + c, logn, logtc, ld, stride, q);
 }
 
-// Forward stage 1 on one limb: the [n1, TC] tile at column c0 of x
-// [n1, 2^logc] (coeff rows of pitch c: n2 for a whole limb, the column
-// slice width on a coefficient shard), CT stages along n1 with this limb's
-// tw1 row, times its mid table (same layout as x). kTranspose (B1's phase
-// A, B4's phase A): written transposed into y [c, n1]. Otherwise (B6): y
-// has x's layout, since on a shard the exchange does the transpose.
-template <bool kTranspose = true>
+// Forward stage 1 on one limb (B6): the [n1, TC] tile at column c0 of x
+// [n1, 2^logc] (coeff rows of pitch c, the column slice width on a
+// coefficient shard), CT stages along n1 with this limb's tw1 row, times
+// its mid table (same layout as x), written back in x's layout: on a shard
+// the exchange does the transpose.
 __device__ inline void fwd_a_tile(uint32_t* s, const uint32_t* __restrict__ x,
                                   uint32_t* __restrict__ y, uint32_t q,
                                   const uint32_t* __restrict__ tw1,
@@ -172,17 +169,7 @@ __device__ inline void fwd_a_tile(uint32_t* s, const uint32_t* __restrict__ x,
   load_tile(s, x, log1, logtc, ld, 1 << logc, c0, nullptr, nullptr, q);
   ct_rows(s, log1, logtc, ld, tw1, tw1_sh, q);
   mul_tile(s, mid, mid_sh, log1, logtc, ld, 1 << logc, c0, q);
-  if constexpr (kTranspose) {
-    store_tile_t(s, y, log1, logtc, ld, c0);
-  } else {
-    store_tile(s, y, log1, logtc, ld, 1 << logc, c0);
-  }
-}
-
-inline int ilog2(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return (1 << l) == n ? l : -1;
+  store_tile(s, y, log1, logtc, ld, 1 << logc, c0);
 }
 
 inline int min_int(int a, int b) { return a < b ? a : b; }

@@ -74,11 +74,14 @@ _SIGNATURES = {
     # xhat, out, mat, mat_sh, out_q, nd, m_out, ncoef, stream
     "hk_bconv_step2": [_P] * 5 + [_I] * 2 + [ctypes.c_longlong, _P],
     # convs, conv_rows, spans (host arrays), d_eval, key, scratch, out, q,
-    # qinv, 6 tables, beta, alpha, level, k_full, n1, n2, stream
-    "hk_hpip": [_P] * 15 + [_I] * 6 + [_P],
+    # qinv, 6 tables, beta, alpha, level, k_full, n1, n2, log2 of the tile
+    # columns of phases A and B, stream
+    "hk_hpip": [_P] * 15 + [_I] * 8 + [_P],
     # x, out, q, tw1, tw1_sh, mid, mid_sh, passes, mid product, transposed,
     # form, rows, M, n1, n2, stream
     "hk_ntt_anatomy": [_P] * 7 + [_I] * 8 + [_P],
+    # x, out, words, stream
+    "hk_copy_words": [_P] * 2 + [ctypes.c_longlong, _P],
     # x, mbig, out, nd, m_out, ncoef, stream
     "hk_bconv_planes_mm": [_P] * 3 + [_I] * 2 + [ctypes.c_longlong, _P],
     # x, y, n, iters, op, three constants, stream

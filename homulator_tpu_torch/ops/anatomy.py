@@ -21,6 +21,8 @@ rows. Every output is in [0, q):
   k_stages1): ntt_components(x, nb, p)
     copy, transpose, mid (x * mid mod q), stages1; only transpose
     transposes                                       -> [M, n1, n2]
+    (copy is a plain vectorised copy of its own, hk_copy_words; the
+    other parts are variants of the anatomy template)
 
 The TPU kernels leave B14's stages1 and stages2x (and its full variant)
 lazy in [0, 3q); they agree with these mod q. microbench_ntt2's natmul and
@@ -44,13 +46,14 @@ from .ntt import _ct_stages, _rep_rows, _tables, ntt, ntt_plain
 # the Shoup forms of B15, in hk_ntt_anatomy's numbering
 FORMS = ("production", "natmul", "approx")
 # variant -> (stage passes, mid product, transposed store, Shoup form), the
-# flags hk_ntt_anatomy instantiates; B14's "full" is B1
+# flags hk_ntt_anatomy instantiates; B14's "full" is B1, B16's "copy" its
+# own kernel (hk_copy_words)
 B14_VARIANTS = {"copy": (0, False, True, "production"),
                 "midT": (0, True, True, "production"),
                 "stages1": (1, False, True, "production"),
                 "stages2x": (2, False, True, "production"), "full": None}
 B15_FORMS = {f: (2, False, True, f) for f in FORMS}
-B16_PARTS = {"copy": (0, False, False, "production"),
+B16_PARTS = {"copy": None,
              "transpose": (0, False, True, "production"),
              "mid": (0, True, False, "production"),
              "stages1": (1, False, False, "production")}
@@ -130,6 +133,21 @@ def _run(name: str, spec: tuple, x: torch.Tensor,
     return _launch(name, spec, x, nb)
 
 
+def _launch_copy(x: torch.Tensor, nb: NttBasis) -> torch.Tensor:
+    """B16's copy on the GPU (hk_copy_words): x int32 [M, n1, n2] -> a new
+    tensor of the same words, counted as ntt_components."""
+    kernels.require_cuda_int32("x", x, x.device,
+                               (nb.q.shape[0], nb.n1, nb.n2))
+    lib = kernels.load()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = lib.hk_copy_words(kernels.ptr(x), kernels.ptr(out), x.numel(),
+                               kernels.stream(x))
+    kernels.check(rc, "ntt_components")
+    kernels.count("ntt_components")
+    return out
+
+
 def _spec(table: dict, key: str, what: str) -> tuple | None:
     if key not in table:
         raise ValueError(f"unknown {what} {key!r} (expected "
@@ -174,10 +192,18 @@ def ntt_shoup_forms_plain(x: torch.Tensor, nb: NttBasis,
 def ntt_components(x: torch.Tensor, nb: NttBasis, part: str) -> torch.Tensor:
     """Kernel B16: one `part` of the 4-step NTT on x int32 [M, n1, n2]:
     copy, transpose ([M, n2, n1]), mid, stages1 ([M, n1, n2])."""
-    return _run("ntt_components", _spec(B16_PARTS, part, "B16 part"), x, nb)
+    spec = _spec(B16_PARTS, part, "B16 part")
+    if x.device.type == "cpu":
+        return ntt_components_plain(x, nb, part)
+    if spec is None:
+        return _launch_copy(x, nb)
+    return _launch("ntt_components", spec, x, nb)
 
 
 def ntt_components_plain(x: torch.Tensor, nb: NttBasis,
                          part: str) -> torch.Tensor:
-    """Plain version of kernel B16."""
-    return _plain(_spec(B16_PARTS, part, "B16 part"), x, nb)
+    """Plain version of kernel B16 (on the tensor's device)."""
+    spec = _spec(B16_PARTS, part, "B16 part")
+    if spec is None:
+        return x.clone()
+    return _plain(spec, x, nb)

@@ -14,7 +14,9 @@ conv_d holds digit d's converted rows in the COEFF domain (ext order minus
 its own rows: conv-local row r for r < alpha+lo, r - nd for r >= alpha+hi).
 The result is the inner product of the unfused route
 (`inner_product_pieces(modup_conv_all(...))`) without the eval-domain
-lifted digits ever being stored. csrc/hpip.cu has the design note.
+lifted digits ever being stored. csrc/hpip.cu has the design note: two
+launches on B1's register radix passes, their tile widths from
+hpip_phases.
 """
 
 from __future__ import annotations
@@ -27,10 +29,18 @@ from .. import kernels
 from ..context import KeySwitchLevelTables
 from .modmath import mont_mul
 from .ntt import ntt_plain
+from .ntt_kernels import radix_tile_cols
 
 _MAX_BETA = 16  # csrc/hpip.cu kMaxBeta
-_MAX_TILE = 256 * 32  # phase-B tile [n2, min(32, n1)]: 32 words per thread
+_MAX_N = 256  # per-axis length, csrc/hpip.cu kMaxLog: N <= 2^16
 _FWD_TABLES = ("tw1", "tw1_sh", "mid", "mid_sh", "tw2", "tw2_sh")
+
+
+def hpip_phases(conv_rows: int, K: int, n1: int, n2: int):
+    """Tile columns (TC) of B4's two launches: phase A transforms each of
+    conv_rows converted rows along n1 on n2 columns, as B1's phase A;
+    phase B each of K ext rows along n2 on n1 columns, as B1's phase B."""
+    return radix_tile_cols(conv_rows, n1, n2), radix_tile_cols(K, n2, n1)
 
 
 def hpip_plain(convs, d_eval: torch.Tensor, key: torch.Tensor,
@@ -53,8 +63,9 @@ def hpip_plain(convs, d_eval: torch.Tensor, key: torch.Tensor,
 
 def hpip_kernel(convs, d_eval: torch.Tensor, key: torch.Tensor,
                 kt: KeySwitchLevelTables) -> torch.Tensor:
-    """Kernel B4 on the GPU (two launches through a phase-A scratch);
-    counts one launch. Same arguments and result as hpip_plain."""
+    """Kernel B4 on the GPU (two launches through a phase-A scratch, tile
+    widths from hpip_phases); counts one launch. Same arguments and
+    result as hpip_plain."""
     dev = d_eval.device
     if not d_eval.is_cuda:
         raise ValueError(f"hpip: CUDA kernel called on {dev}")
@@ -67,8 +78,9 @@ def hpip_kernel(convs, d_eval: torch.Tensor, key: torch.Tensor,
     if len(convs) != beta or beta > _MAX_BETA:
         raise ValueError(f"hpip: {len(convs)} conversion pieces for {beta} "
                          f"digits (at most {_MAX_BETA})")
-    if n2 * min(32, n1) > _MAX_TILE:
-        raise ValueError(f"hpip: n2={n2} above the phase-B tile")
+    if any(m < 2 or m > _MAX_N or m & (m - 1) for m in (n1, n2)):
+        raise ValueError(f"hpip: n1={n1}, n2={n2}: need powers of two in "
+                         f"[2, {_MAX_N}]")
     kernels.require_cuda_int32("d_eval", d_eval, dev, (level, n2, n1))
     if (key.ndim != 5 or key.shape[0] < beta or key.shape[1] != 2
             or key.shape[2] < K or tuple(key.shape[3:]) != (n2, n1)):
@@ -88,6 +100,7 @@ def hpip_kernel(convs, d_eval: torch.Tensor, key: torch.Tensor,
     conv_rows = (ctypes.c_int * beta)(*rows)
     spans = (ctypes.c_int * (2 * beta))(
         *(v for dt in kt.digits for v in (dt.lo, dt.hi)))
+    tc_a, tc_b = hpip_phases(sum(rows), K, n1, n2)
     scratch = torch.empty((sum(rows), n2, n1), dtype=torch.int32, device=dev)
     out = torch.empty((2, K, n2, n1), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -97,7 +110,9 @@ def hpip_kernel(convs, d_eval: torch.Tensor, key: torch.Tensor,
             kernels.ptr(scratch), kernels.ptr(out), kernels.ptr(nt.q),
             kernels.ptr(kt.ext_qinv),
             *(kernels.ptr(getattr(nt, k)) for k in _FWD_TABLES),
-            beta, alpha, level, key.shape[2], n1, n2, kernels.stream(d_eval))
+            beta, alpha, level, key.shape[2], n1, n2,
+            tc_a.bit_length() - 1, tc_b.bit_length() - 1,
+            kernels.stream(d_eval))
     kernels.check(rc, "hpip")
     kernels.count("hpip")
     return out

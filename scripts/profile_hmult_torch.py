@@ -8,8 +8,8 @@ CUDA port.
 Runs the op at (45,35,15) of parameter set B (N = 2^16) eagerly on one
 CUDA GPU, CALLS times after 3 warm-up calls, under torch.profiler and
 groups the CUDA kernels it launched by name: the port's kernels of the
-single-device routes (B1 ntt_fwd, B2 ntt_inv, B3 bconv, B4 hpip, B5
-bconv_step2), torch's copies and concatenations and gathers, its
+single-device routes (B1 ntt_fwd, B2 ntt_inv, B3 bconv, B4 hpip with its
+two launches apart, B5 bconv_step2), torch's copies and concatenations and gathers, its
 reductions, and its other elementwise kernels (the int64 arithmetic of
 homulator_tpu_torch/ops/modmath.py). `--fused-hpip` runs the key switch
 on the fused HPIP route, `--ntt-mode jnp` on the graph route (B5 in place
@@ -33,7 +33,8 @@ GROUPS = (  # (group, substrings of the kernel name); the first match wins
     ("B2 ntt_inv", ("ntt_inv",)),
     ("B5 bconv_step2", ("bconv_step2",)),
     ("B3 bconv", ("bconv",)),
-    ("B4 hpip", ("hpip",)),
+    ("B4 hpip phase A", ("hpip_radix_a",)),
+    ("B4 hpip phase B", ("hpip_radix_b",)),
     ("torch copies, concatenations and gathers",
      ("copy", "Cat", "Memcpy", "index", "gather")),
     ("torch reductions", ("reduce",)),

@@ -122,7 +122,8 @@ def test_port_imports_no_jax():
     """A fresh interpreter imports every module of the port (its ops and
     parallel packages, serialize, linalg, benchlib, the anatomy and peak
     kernels' wrappers included), chip_smoke and the port's scripts
-    (scripts/*_torch.py: the roofline and the three NTT anatomy scripts),
+    (scripts/*_torch.py: the roofline, the three NTT anatomy scripts and
+    B4's bench among them),
     takes get_params from the port, runs a tiny hmult, hrotate,
     fused-route hmult, 2-shard coefficient-sharded hmult, graph-route
     hmult, the elementwise ops, a serialize round trip and a linalg dot,
@@ -174,7 +175,8 @@ def test_port_imports_no_jax():
         "os.path.basename(path)[:-3], path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "for name in ('roofline_torch', 'microbench_ntt_torch',"
-        " 'microbench_ntt2_torch', 'bench_ntt_variants_torch'):\n"
+        " 'microbench_ntt2_torch', 'bench_ntt_variants_torch',"
+        " 'bench_hpip_torch'):\n"
         "    assert f'scripts/{name}.py' in scripts, name\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'homulator_tpu'))\n"

@@ -199,6 +199,32 @@ def _pass(v, off, lr, s0, g, tw, q, fwd):
                     v[i0], v[i0 + h], w, w_sh, q)
 
 
+def _rows(L):
+    """A thread's row sets at axis 2^L, each [U, 1] by value t < R: the
+    strided rows u + U*t and the contiguous rows u*R + t."""
+    _, _, R, U = _split(L)
+    u = torch.arange(U)[:, None]
+    return [u + U * t for t in range(R)], [u * R + t for t in range(R)]
+
+
+def _ct_rows(v, L, ncols, tw, q):
+    """csrc/ntt_reg.cuh::radix_ct_rows<L> on every column at once: v, the
+    values of the strided rows (each [rows, U, ncols], below 4q) -> the
+    values of the contiguous rows after all L CT stages, in [0, 4q)."""
+    la, lb, R, U = _split(L)
+    n, sub = 1 << L, R >> lb
+    u = torch.arange(U)[:, None]
+    strided, contig = _rows(L)
+    _pass(v, 0, la, 0, torch.zeros_like(u), tw, q, True)
+    tile = torch.empty((v[0].shape[0], n, ncols), dtype=torch.int64)
+    for t, i in enumerate(strided):
+        tile[:, i[:, 0]] = v[t]
+    v = [tile[:, i[:, 0]] for i in contig]
+    for k in range(sub):
+        _pass(v, k << lb, lb, la, u * sub + k, tw, q, True)
+    return v
+
+
 def _phase(x, L, ncols, q, tw, mid, fwd, transposed):
     """radix_phase<L, fwd, transposed> on every column tile at once: x
     int64 [rows, 2^L * ncols] -> y, the same size, in [0, q)."""
@@ -207,36 +233,28 @@ def _phase(x, L, ncols, q, tw, mid, fwd, transposed):
     u = torch.arange(U)[:, None]
     col = torch.arange(ncols)[None, :]
     q = q[:, None, None]
-    strided = [u + U * t for t in range(R)]  # row of value t, [U, 1]
-    contig = [u * R + t for t in range(R)]
+    strided, contig = _rows(L)
 
     def at(i):  # flat index on the untransposed side, [U, ncols]
         return i * ncols + col
 
     if fwd:
-        v = [x[:, at(i)] for i in strided]
-    elif not transposed:
-        v = [x[:, at(i)] for i in contig]
+        v = _ct_rows([x[:, at(i)] for i in strided], L, ncols, tw, q)
     else:
-        v = [_lazy(x[:, col * n + i], mid[0][:, at(i)], mid[1][:, at(i)], q)
-             for i in contig]
-        _count("lazy_shoup", x)
-    first, second = (strided, contig) if fwd else (contig, strided)
-    zero = torch.zeros_like(u)
-    if fwd:
-        _pass(v, 0, la, 0, zero, tw, q, True)
-    else:
+        if not transposed:
+            v = [x[:, at(i)] for i in contig]
+        else:
+            v = [_lazy(x[:, col * n + i], mid[0][:, at(i)],
+                       mid[1][:, at(i)], q) for i in contig]
+            _count("lazy_shoup", x)
         for k in range(sub):
             _pass(v, k << lb, lb, la, u * sub + k, tw, q, False)
-    tile = torch.empty((x.shape[0], n, ncols), dtype=torch.int64)
-    for t, i in enumerate(first):
-        tile[:, i[:, 0]] = v[t]
-    v = [tile[:, i[:, 0]] for i in second]
-    if fwd:
-        for k in range(sub):
-            _pass(v, k << lb, lb, la, u * sub + k, tw, q, True)
-    else:
-        _pass(v, 0, la, 0, zero, tw, q, False)
+        tile = torch.empty((x.shape[0], n, ncols), dtype=torch.int64)
+        for t, i in enumerate(contig):
+            tile[:, i[:, 0]] = v[t]
+        v = [tile[:, i[:, 0]] for i in strided]
+        _pass(v, 0, la, 0, torch.zeros_like(u), tw, q, False)
+    second = contig if fwd else strided
     y = torch.empty_like(x)
     if fwd and transposed:
         _count("lazy_shoup", y)
