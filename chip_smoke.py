@@ -9,11 +9,11 @@ failure and the script then exits non-zero:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build (nvcc, one process per source) and its time, with
-     ptxas's registers and spills of each instantiation of B1's, B2's and
-     B4's register-radix phase kernels (one for each axis length 2^1 ..
-     2^10, B4's 2^1 .. 2^8) and of B3's and B17's tensor-core kernels
-     (`bconv_kernel`, `planes_mm`: one for each count of k32 steps, 1 ..
-     4), failing if one is missing or takes local memory;
+     ptxas's registers and spills of each instantiation of B1's, B2's,
+     B4's, B6's and B10's register-radix phase kernels (one for each axis
+     length 2^1 .. 2^10, B4's 2^1 .. 2^8) and of B3's and B17's tensor-core
+     kernels (`bconv_kernel`, `planes_mm`: one for each count of k32
+     steps, 1 .. 4), failing if one is missing or takes local memory;
   3. each CUDA kernel against its plain PyTorch version on the card, at the
      shapes parameter set B gives it, bit for bit (tolerance 0), with the
      device time of each (CUDA graph replay between CUDA events, so host
@@ -37,7 +37,9 @@ failure and the script then exits non-zero:
      the last rank's [G, n, 128] lane groups at 8, 16 and 32 shards (c =
      32, 16, 8; k = 4, 8, 16; the main rows M = 35), and at 8 shards also
      the specials (M = 15) and the tail's last limb (M = 1) at rep = 2,
-     each copy's rows padded to a multiple of k; the graph route's
+     each copy's rows padded to a multiple of k (`phase_cases`), and B6
+     and B10 at their main shapes in the worst case (every input q - 1);
+     the graph route's
      base-conversion step 2 (B5) at ModUp digits 0 (16 -> 35 rows, the
      count row included) and 2 (6 -> 45) and ModDown (16 -> 35), and the
      whole graph-route conversion (torch step 1 and count row, then B5)
@@ -128,10 +130,10 @@ counted from the shapes with a fixed cost per primitive (`benchlib.OPS`):
 a Shoup product 5 (three multiplies, a subtract, an unsigned min; the
 measured Shoup chain leaves room for no more), a modular add or subtract
 3, a butterfly 11, a lazy Shoup product-accumulate 6, a final reduction
-6; B5 sums lazy products and reduces each output once. B1, B2 and B4
-count their Harvey butterflies (9) and lazy products as they compute
-them (`benchlib.radix_ntt_ops`, `benchlib.hpip_ops`: B4's lazy
-Montgomery product-accumulate 7). B3 counts as it computes
+6; B5 sums lazy products and reduces each output once. B1, B2, B4, B6
+and B10 count their Harvey butterflies (9) and lazy products as they
+compute them (`benchlib.radix_ntt_ops`, `benchlib.hpip_ops`: B4's lazy
+Montgomery product-accumulate 7; `benchlib.radix_phase1_ops`). B3 counts as it computes
 (`bconv_bound`): step 1, the centering count, its epilogue and the u8
 products of all four planes; B17 its u8 products alone. A link of a peak
 chain is counted as `PEAK_LINK_OPS` says.
@@ -145,7 +147,7 @@ import time
 from homulator_tpu_torch import benchlib
 from homulator_tpu_torch.benchlib import (
     OPS, bound, device_ms, hpip_ops, latency_ms, peak_inputs, radix_ntt_ops,
-    residues,
+    radix_phase1_ops, residues,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -251,18 +253,92 @@ def ntt_bound(nb, rep, fwd):
     return bound(nbytes, radix_ntt_ops(rep * M, n, fwd))
 
 
-def phase_bound(nb, rows, n, c, mid):
+def phase_bound(nb, rows, n, c, mid, radix=False):
     """B6-B13 on `rows` limb slices [n, c] over basis nb (rep*M, or rep*G*k
     with the padding rows of the lane-packed kernels): x and out, the
     [M, n, c] mid slice and its Shoup table (B6, B9, B10, B13), the flat
-    stage tables and q; n/2 * log2(n) butterflies on each of c columns, and
-    n*c mid products (B6, B9, B10, B13), a row."""
+    stage tables and q. Operations, a row: B6 and B10 (`radix`) as
+    ntt_reg.cuh's radix_phase1 computes them (benchlib.radix_phase1_ops:
+    Harvey butterflies, a lazy mid product and a conditional subtract an
+    element); the others n/2 * log2(n) butterflies on each of c columns,
+    and n*c mid products (B9, B13)."""
     M = nb.q.shape[0]
     nbytes = 4 * (2 * rows * n * c + int(mid) * 2 * M * n * c
                   + 2 * M * n + M)
-    ops = rows * (n // 2 * (n.bit_length() - 1) * c * OPS["butterfly"]
-                  + int(mid) * n * c * OPS["shoup"])
+    ops = (radix_phase1_ops(rows, n, c) if radix else
+           rows * (n // 2 * (n.bit_length() - 1) * c * OPS["butterfly"]
+                   + int(mid) * n * c * OPS["shoup"]))
     return bound(nbytes, ops)
+
+
+def phase_cases(dc):
+    """The shapes chip_smoke checks the phase kernels at (set B, level
+    35): {kernel: {label: (basis, rep, worst)}}. B6-B9 on rank 1's column
+    slices at 4 shards (c = 64: the main rows M = 35, the partial digit's
+    other rows M = 45, the specials M = 15 twice, and the tail's shapes)
+    and at 2, 8, 16 and 32 shards (c = 128, 32, 16 and 8; M = 35: the
+    per-limb kernels beside the packed ones at equal widths); B10-B13 on
+    the last rank's lane groups at 8, 16 and 32 shards (c = 32, 16, 8; k =
+    4, 8, 16; M = 35), and at 8 shards also the specials (M = 15) and the
+    tail's last limb (M = 1) at rep = 2, each copy's rows padded to a
+    multiple of k. `worst`: every input q - 1, B6 and B10 at their main
+    shapes."""
+    k4 = dc.keyswitch_tables(LEVEL_B, shard=(1, NS))
+
+    def main_nt(ns):
+        return dc.keyswitch_tables(LEVEL_B, shard=(1, ns)).main_nt
+
+    common = {  # label -> (basis, rep, worst)
+        "ns=4 c=64 main M=35 rep=1": (k4.main_nt, 1, False),
+        "ns=4 c=64 digit2 other M=45 rep=1": (k4.digits[2].other_nt, 1,
+                                              False),
+        "ns=4 c=64 special M=15 rep=2": (k4.special_nt, 2, False),
+        "ns=2 c=128 main M=35 rep=1": (main_nt(2), 1, False),
+        # narrower than a 16-column tile (B6) or a 32-column one (B7-B9)
+        "ns=8 c=32 main M=35 rep=1": (main_nt(8), 1, False),
+        "ns=16 c=16 main M=35 rep=1": (main_nt(16), 1, False),
+        "ns=32 c=8 main M=35 rep=1": (main_nt(32), 1, False),
+    }
+    fwd = dict(common, **{
+        "ns=4 c=64 tail out M=34 rep=2": (k4.tail.out_nt, 2, False)})
+    inv = dict(common, **{
+        "ns=4 c=64 tail last M=1 rep=2": (k4.tail.last_nt, 2, False)})
+    packed = {}
+    for ns in NS_PACKED:
+        kt = dc.keyswitch_tables(LEVEL_B, shard=(ns - 1, ns), packed=True)
+        tag = f"ns={ns} c={kt.main_nt.n2 // ns} k={kt.main_nt.pack}"
+        packed[f"{tag} main M=35 rep=1"] = (kt.main_nt, 1, False)
+        if ns == NS_PACKED[0]:
+            packed[f"{tag} special M=15 rep=2"] = (kt.special_nt, 2, False)
+            packed[f"{tag} tail last M=1 rep=2"] = (kt.tail.last_nt, 2,
+                                                    False)
+            worst_packed = (f"{tag} main M=35 rep=1 worst (all q-1)",
+                            (kt.main_nt, 1, True))
+    cases = {"ntt_phase1": dict(fwd, **{
+                 "ns=4 c=64 main M=35 rep=1 worst (all q-1)": (k4.main_nt, 1,
+                                                               True)}),
+             "ntt_phase2": fwd, "intt_phase2": inv, "intt_phase1": inv,
+             "ntt_phase1_packed": dict(packed, **dict([worst_packed]))}
+    cases.update({k: packed for k in PACKED_KERNELS[1:]})
+    return cases
+
+
+def phase_input(np, torch, name, nb, rep, worst, rng):
+    """The input of phase kernel `name` on rep copies of basis nb, sharded
+    (nb.shard = (rank, ns)): [rep*M, n, c] residues (n1 rows for B6, B9,
+    B10, B13, else n2; c = the other axis / ns), all q - 1 if `worst`;
+    for the packed kernels lane-packed into [rep*G, n, k*c], each copy's
+    rows padded (ops/ntt.py::_pack_pad)."""
+    from homulator_tpu_torch.ops import ntt as ntt_mod
+
+    along_n1 = name.startswith(("ntt_phase1", "intt_phase1"))
+    n, other = (nb.n1, nb.n2) if along_n1 else (nb.n2, nb.n1)
+    q = np.tile(nb.q.cpu().numpy(), rep)
+    shape = (len(q), n, other // nb.shard[1])
+    x = (torch.from_numpy(np.broadcast_to(q[:, None, None] - 1, shape)
+                          .astype(np.int32)).cuda()
+         if worst else residues(q, shape, rng))
+    return ntt_mod._pack_pad(x, nb.pack, rep) if nb.pack else x
 
 
 def bconv_bound(nd, m_out, center, n):
@@ -350,11 +426,12 @@ def compare(torch, name, label, kernel, plain, bnd, results, library=None,
 
 
 # kernel templates whose every instantiation chip_smoke holds to no local
-# memory: name -> instantiations (B1/B2: axis length 2^L, L = 1..10; B4's
-# two phases: L = 1..8; B3/B17: k32 steps 1..4)
+# memory: name -> instantiations (B1/B2, B6 and B10: axis length 2^L, L =
+# 1..10; B4's two phases: L = 1..8; B3/B17: k32 steps 1..4)
 CHECKED_INSTANTIATIONS = {"ntt_fwd_radix_a": 10, "ntt_fwd_radix_b": 10,
                           "ntt_inv_radix_a": 10, "ntt_inv_radix_b": 10,
                           "hpip_radix_a": 8, "hpip_radix_b": 8,
+                          "ntt_phase1_radix": 10, "packed_phase1_radix": 10,
                           "bconv_kernel": 4, "planes_mm": 4}
 
 
@@ -586,87 +663,31 @@ def check_step2_kernel(np, torch, dc, rng, results):
 
 
 def check_phase_kernels(np, torch, dc, rng, results):
-    """Phase 3, sharded: B6-B9 vs their plain versions on rank 1's column
-    slices at set B's 4-shard shapes (and one 2-shard shape), and B3 on a
-    4-shard slice."""
+    """Phase 3, sharded: B6-B13 vs their plain versions at phase_cases'
+    shapes, and B3 on a 4-shard slice."""
     from homulator_tpu_torch.ops import ntt as ntt_mod
     from homulator_tpu_torch.ops import ntt_kernels
 
-    n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
-    k4 = dc.keyswitch_tables(LEVEL_B, shard=(1, NS))
-
-    def main_nt(ns):
-        return dc.keyswitch_tables(LEVEL_B, shard=(1, ns)).main_nt
-
-    common = {  # label -> (basis, rep, shards)
-        "ns=4 c=64 main M=35 rep=1": (k4.main_nt, 1, NS),
-        "ns=4 c=64 digit2 other M=45 rep=1": (k4.digits[2].other_nt, 1, NS),
-        "ns=4 c=64 special M=15 rep=2": (k4.special_nt, 2, NS),
-        "ns=2 c=128 main M=35 rep=1": (main_nt(2), 1, 2),
-        # narrower than one 32-column tile: TC = c, row stride c + 1
-        "ns=8 c=32 main M=35 rep=1": (main_nt(8), 1, 8),
-        "ns=16 c=16 main M=35 rep=1": (main_nt(16), 1, 16),
-        "ns=32 c=8 main M=35 rep=1": (main_nt(32), 1, 32),
-    }
-    fwd = dict(common, **{
-        "ns=4 c=64 tail out M=34 rep=2": (k4.tail.out_nt, 2, NS)})
-    inv = dict(common, **{
-        "ns=4 c=64 tail last M=1 rep=2": (k4.tail.last_nt, 2, NS)})
-    # (kernel, rows n of its input, columns before sharding, mid table?)
-    for name, n, cols, mid, cases in (("ntt_phase1", n1, n2, True, fwd),
-                                      ("ntt_phase2", n2, n1, False, fwd),
-                                      ("intt_phase2", n2, n1, False, inv),
-                                      ("intt_phase1", n1, n2, True, inv)):
+    for name, cases in phase_cases(dc).items():
         kernel = getattr(ntt_kernels, name)
         plain = getattr(ntt_mod, name + "_plain")
-        for label, (nb, rep, ns) in cases.items():
-            c = cols // ns
-            q = np.tile(nb.q.cpu().numpy(), rep)
-            x = residues(q, (len(q), n, c), rng)
+        mid = name.startswith(("ntt_phase1", "intt_phase1"))
+        for label, (nb, rep, worst) in cases.items():
+            x = phase_input(np, torch, name, nb, rep, worst, rng)
+            c = x.shape[2] // (nb.pack or 1)
+            rows = x.shape[0] * (nb.pack or 1)
             compare(torch, name, label,
                     lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
-                    phase_bound(nb, rep * nb.q.shape[0], n, c, mid), results)
+                    phase_bound(nb, rows, x.shape[1], c, mid,
+                                radix=name.startswith("ntt_phase1")),
+                    results)
+    n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
+    k4 = dc.keyswitch_tables(LEVEL_B, shard=(1, NS))
     label, (in_q, tabs, center) = next(iter(bconv_cases(k4, "ns=4 c=64 ")
                                             .items()))
     check_bconv(torch, label,
                 residues(in_q, (in_q.shape[0], n1, n2 // NS), rng), tabs,
                 center, results)
-
-
-def check_packed_kernels(np, torch, dc, rng, results):
-    """Phase 3, lane-packed: B10-B13 vs their plain versions on the last
-    rank's lane groups at 8, 16 and 32 shards (M = 35), and at 8 shards
-    the specials and the tail's last limb at rep = 2 (padded rows)."""
-    from homulator_tpu_torch.ops import ntt as ntt_mod
-    from homulator_tpu_torch.ops import ntt_kernels
-
-    n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
-    cases = {}  # label -> (basis, rep)
-    for ns in NS_PACKED:
-        kt = dc.keyswitch_tables(LEVEL_B, shard=(ns - 1, ns), packed=True)
-        k = kt.main_nt.pack
-        cases[f"ns={ns} c={n2 // ns} k={k} main M=35 rep=1"] = (kt.main_nt,
-                                                                1)
-        if ns == NS_PACKED[0]:
-            cases[f"ns={ns} c={n2 // ns} k={k} special M=15 rep=2"] = (
-                kt.special_nt, 2)
-            cases[f"ns={ns} c={n2 // ns} k={k} tail last M=1 rep=2"] = (
-                kt.tail.last_nt, 2)
-    for name, n, mid in (("ntt_phase1_packed", n1, True),
-                         ("ntt_phase2_packed", n2, False),
-                         ("intt_phase2_packed", n2, False),
-                         ("intt_phase1_packed", n1, True)):
-        kernel = getattr(ntt_kernels, name)
-        plain = getattr(ntt_mod, name + "_plain")
-        for label, (nb, rep) in cases.items():
-            M, k, ns = nb.q.shape[0], nb.pack, nb.shard[1]
-            c = n // ns
-            q = np.tile(nb.q.cpu().numpy(), rep)
-            x = ntt_mod._pack_pad(residues(q, (len(q), n, c), rng), k, rep)
-            rows = x.shape[0] * k
-            compare(torch, name, label,
-                    lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
-                    phase_bound(nb, rows, n, c, mid), results)
 
 
 def check_anatomy_kernels(np, torch, dc, rng, results):
@@ -877,13 +898,13 @@ def main() -> int:
               + ", ".join(f"{a}: {r} / {sp}" for a, (r, sp)
                           in sorted(by_arg.items())))
     if {k: len(v) for k, v in regs.items()} != CHECKED_INSTANTIATIONS:
-        raise AssertionError("nvcc's log lacks B1/B2/B3/B4/B17 "
+        raise AssertionError("nvcc's log lacks B1/B2/B3/B4/B6/B10/B17 "
                              f"instantiations: {regs}")
     spilled = {f"{name}<{a}>": sp for name, by_arg in regs.items()
                for a, (_, sp) in by_arg.items() if sp}
     if spilled:
-        raise AssertionError("B1/B2/B3/B4/B17 instantiations use local memory "
-                             f"(stack or spill bytes): {spilled}")
+        raise AssertionError("B1/B2/B3/B4/B6/B10/B17 instantiations use "
+                             f"local memory (stack or spill bytes): {spilled}")
 
     # 3. kernels vs plain versions at the set-B shapes
     t0 = time.perf_counter()
@@ -896,7 +917,6 @@ def main() -> int:
                   get_params)
     check_radix_sweep(np, torch, get_params)
     check_phase_kernels(np, torch, eng.dc, np.random.default_rng(3), results)
-    check_packed_kernels(np, torch, eng.dc, np.random.default_rng(5), results)
     check_step2_kernel(np, torch, eng.dc, np.random.default_rng(6), results)
     print(f"# kernel checks: {time.perf_counter() - t0:.1f} s")
 

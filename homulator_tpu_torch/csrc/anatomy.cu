@@ -23,8 +23,8 @@
 // twice", 16 stages at n1 = 256), kMid the Shoup product by the mid table
 // after them, kT a transposed store ([n1, n2] -> [n2, n1]), Mul the
 // twiddle product of the butterflies.
-// A block owns the [n1, 32] column tile of one limb that B1's phase A
-// (ntt_fwd_a) owns, with the same helpers of ntt_tile.cuh: coalesced row
+// A block owns an [n1, 32] column tile of one limb, as B1's first kernel
+// did, with the helpers of ntt_tile.cuh: coalesced row
 // loads into shared memory (row stride 33), the stage loop, and a store
 // that is either row-major or transposed. The odd stride makes the
 // transposed read conflict-free: the tile is eight padded 32 x 32

@@ -44,34 +44,47 @@
 //   phase B  ntt_inv_radix_b<log n1>, grid (rows, n2/TC): reads scratch
 //            transposed, times mid_inv (carries 1/N), GS along n1
 //
-// The sharded phase kernels keep the column-tile helpers of ntt_tile.cuh
-// (a block owns an [n, TC] tile in shared memory and synchronises after
-// each stage). Every one takes its limbs as rows of pitch 2^logc and tiles
-// of TC = min(32, 2^logc) columns. On a coefficient shard the transpose is
-// the all_to_all between the two halves (ops/ntt.py), so each half is its
-// own entry point on a column slice of c = n/ns columns, output in its
-// input's layout:
-//   B6 ntt_fwd_a  [rows, n1, c] -> [rows, n1, c]
-//   B7 ntt_fwd_b  [rows, n2, c] -> [rows, n2, c]
-//   B8 ntt_inv_a  [rows, n2, c] -> [rows, n2, c]
-//   B9 ntt_inv_b  [rows, n1, c] -> [rows, n1, c]
+// On a coefficient shard the transpose is the all_to_all between the two
+// halves (ops/ntt.py), so each half is its own entry point on a column
+// slice of c = n/ns columns, output in its input's layout:
+//   B6 ntt_phase1_radix  [rows, n1, c] -> [rows, n1, c]
+//   B7 ntt_fwd_b         [rows, n2, c] -> [rows, n2, c]
+//   B8 ntt_inv_a         [rows, n2, c] -> [rows, n2, c]
+//   B9 ntt_inv_b         [rows, n1, c] -> [rows, n1, c]
 // B6 and B9 take the shard's mid / mid_inv tables as their own contiguous
 // [M, n1, c] column slice (DeviceContext builds one per rank), indexed like
-// the data. A grid is (rows, c/TC): at N = 2^16 and 4 shards, B6 on 35 limbs
-// is 70 blocks, about half the card's 132 SMs.
-// Table rows are limb % M, so rep stacked copies share one basis's tables.
+// the data. Table rows are limb % M, so rep stacked copies share one
+// basis's tables.
 //
 // B10-B13 are B6-B9 on the JAX package's lane-packed layout [rows, n, k*c]
 // (k = 128/c limbs side by side, rows padded to a multiple of k a copy),
 // which it takes at c <= 32 to fill the TPU's 128-lane registers; the
 // packed layout also fixes which rows cross the exchange, so the port keeps
-// it. On this card packing buys whole 32-column tiles (c = 8 and 16 are
-// one limb's tile of 8 or 16 columns in B6-B9), at the price of fewer
-// blocks: a grid is (rows, k*c/32), 12 blocks for 35 limbs at c = 8
-// against B9's 35, so a packed block runs 1024 threads. The kernels read
-// the per-limb tables (the flat stage rows, the shard's [M, n1, c] mid
-// slices) at each lane's limb, so no pre-broadcast lane table exists on
-// the card.
+// it. The kernels read the per-limb tables (the flat stage rows, the
+// shard's [M, n1, c] mid slices) at each lane's limb, so no pre-broadcast
+// lane table exists on the card.
+//
+// What bounds B6 and B10 on the card: a shard's slice is small (35 limbs
+// [256, 64] at 4 shards: 2.3 MB in and out, 4.6 MB of mid tables), so
+// their bound is a few µs of bytes, and the column-tile design (one
+// block's serial loop of 8 shared-memory stages, 70 blocks) took ten
+// times that. They run on ntt_reg.cuh's register passes (radix_phase1),
+// as B1 does: a block holds an [n1, TC] tile of ONE limb, TC of 16 or 8
+// columns within the limb's c chosen on the host
+// (ops/ntt_kernels.py::phase1_tile_cols: B6 at 4 shards, 140 blocks of
+// 256 threads; 4-column tiles, with 16-byte row segments, were slower
+// everywhere); two register passes with one exchange, the twiddle pair
+// loaded once a block, Harvey's lazy ranges. B6 is B10 with k = 1 (G = M groups
+// of one limb): the block's limb is min((g mod G)*k + lane0 / c, M - 1)
+// for its first lane lane0, the padding lanes of a copy's last group
+// computing limb M - 1's copy, as their data is. One template serves
+// both, under two names so that a profile tells them apart.
+//
+// B7-B9 and B11-B13 keep the column-tile helpers of ntt_tile.cuh (a block
+// owns an [n, TC] tile in shared memory and synchronises after each
+// stage): limbs as rows of pitch 2^logc, tiles of TC = min(32, 2^logc)
+// columns, a grid (rows, c/TC); the packed ones a 1024-thread block on an
+// [n, 32] lane tile, grid (rows, k*c/32).
 // Stage twiddles are flat [M, n] tables: stage s, block b at column 2^s + b.
 // Multiplies use Shoup pairs (w, floor(w * 2^32 / q)) and __umulhi.
 
@@ -95,24 +108,6 @@ using hk::mul_cols;
 using hk::store_tile;
 using hk::tile_smem;
 using hk::with_log;
-
-// Forward stage 1 (B6): x[limb] is [n1, 2^logc]; tile [n1, TC] at column
-// c0, written back in x's layout.
-__global__ void __launch_bounds__(kThreads)
-ntt_fwd_a(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-          const uint32_t* __restrict__ q, const uint32_t* __restrict__ tw1,
-          const uint32_t* __restrict__ tw1_sh,
-          const uint32_t* __restrict__ mid,
-          const uint32_t* __restrict__ mid_sh, int M, int log1, int logc,
-          int logtc) {
-  extern __shared__ uint32_t s[];
-  const int limb = blockIdx.x, m = limb % M;
-  const size_t len = (size_t)1 << (log1 + logc);
-  hk::fwd_a_tile(
-      s, x + limb * len, y + limb * len, q[m], tw1 + ((size_t)m << log1),
-      tw1_sh + ((size_t)m << log1), mid + m * len, mid_sh + m * len, log1,
-      logc, logtc, blockIdx.y << logtc);
-}
 
 // Forward stage 2 (B7): y[limb] is [n2, 2^logc]; tile [n2, TC]
 // at column c0.
@@ -174,7 +169,7 @@ ntt_inv_b(const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
   store_tile(s, out + limb * len, log1, logtc, ld, 1 << logc, c0);
 }
 
-// The lane-packed phase kernels B10-B13 on [rows, n, m] lane groups, m =
+// The lane-packed phase kernels B11-B13 on [rows, n, m] lane groups, m =
 // k*c lanes: lane block j of group g is limb (g mod G)*k + j of its rep
 // copy (G groups a copy), or the copy's last limb M - 1 for the padding
 // lanes of its last group, whose data _pack_pad made copies of that limb.
@@ -182,7 +177,7 @@ ntt_inv_b(const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
 // blockIdx.x: 32/c limbs side by side. A thread works one lane for the
 // whole kernel (ntt_tile.cuh), so it loads its limb's q and twiddle rows
 // once and hands them to the shared stage loops; the mid tables are the
-// per-limb [M, n, c] slices of B6/B9, read at the thread's limb and column.
+// per-limb [M, n, c] slices of B9, read at the thread's limb and column.
 template <bool kFwd, bool kMid>
 __device__ inline void packed_tile(const uint32_t* __restrict__ x,
                                    uint32_t* __restrict__ out,
@@ -218,7 +213,7 @@ __device__ inline void packed_tile(const uint32_t* __restrict__ x,
 }
 
 // 1024 threads a block: 4 butterflies a thread a stage on the 32-column
-// tile, against 16 with kThreads = 256, which halves B10-B13's time on an
+// tile, against 16 with kThreads = 256, which halved B10-B13's time on an
 // H100 (PERF.md). A thread still keeps one column: 1024 % 32 == 0.
 constexpr int kPackedThreads = 1024;
 #define HK_PACKED_KERNEL(name, fwd, with_mid)                               \
@@ -232,7 +227,6 @@ constexpr int kPackedThreads = 1024;
     packed_tile<fwd, with_mid>(x, out, q, tw, tw_sh, mid, mid_sh, G, M,     \
                                logk, logn, logc);                           \
   }
-HK_PACKED_KERNEL(packed_fwd1, true, true)     // B10: stage 1, mid slice
 HK_PACKED_KERNEL(packed_fwd2, true, false)    // B11: stage 2
 HK_PACKED_KERNEL(packed_inv2, false, false)   // B12: inverse stage 2
 HK_PACKED_KERNEL(packed_inv1, false, true)    // B13: mid_inv, inverse stage 1
@@ -265,6 +259,47 @@ HK_RADIX_KERNEL(ntt_fwd_radix_b, true, false)   // B1: CT n2
 HK_RADIX_KERNEL(ntt_inv_radix_a, false, false)  // B2: GS n2
 HK_RADIX_KERNEL(ntt_inv_radix_b, false, true)   // B2: transpose, mid_inv, GS n1
 #undef HK_RADIX_KERNEL
+
+// B6 and B10 (radix_phase1): the [2^L, TC] tile at lane lane0 =
+// TC*blockIdx.y of group g = blockIdx.x of x [rows, 2^L, k*c] (rows = rep*G
+// groups, G = ceil(M/k) a copy; B6: k = 1, G = M), TC <= c so that the
+// tile lies in one limb's c lanes; that limb's q, flat stage pair rows
+// (tw, tw_sh [M, 2^L]) and mid slice (mid, mid_sh [M, 2^L, c]), read at
+// column lane0 mod c.
+template <int L>
+__device__ __forceinline__ void phase1_tile(
+    const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+    const uint32_t* __restrict__ q, const uint32_t* __restrict__ tw,
+    const uint32_t* __restrict__ tw_sh, const uint32_t* __restrict__ mid,
+    const uint32_t* __restrict__ mid_sh, int G, int M, int logk, int logc,
+    int logtc) {
+  const int g = blockIdx.x, lane0 = blockIdx.y << logtc;
+  const int limb = min(((g % G) << logk) + (lane0 >> logc), M - 1);
+  const int logm = logk + logc;
+  const size_t len = (size_t)1 << (L + logm);
+  const size_t mlen = (size_t)limb << (L + logc);
+  hk::radix_phase1<L>(x + g * len, y + g * len, q[limb],
+                      tw + ((size_t)limb << L), tw_sh + ((size_t)limb << L),
+                      mid + mlen, mid_sh + mlen, 1 << logm, 1 << logc, logtc,
+                      lane0, lane0 & ((1 << logc) - 1));
+}
+
+#define HK_PHASE1_KERNEL(name)                                              \
+  template <int L>                                                          \
+  __global__ void __launch_bounds__(hk::RadixSplit<L>::kMaxThreads,         \
+                                    hk::RadixSplit<L>::kMinBlocks)          \
+      name(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,        \
+           const uint32_t* __restrict__ q, const uint32_t* __restrict__ tw, \
+           const uint32_t* __restrict__ tw_sh,                              \
+           const uint32_t* __restrict__ mid,                                \
+           const uint32_t* __restrict__ mid_sh, int G, int M, int logk,     \
+           int logc, int logtc) {                                           \
+    phase1_tile<L>(x, y, q, tw, tw_sh, mid, mid_sh, G, M, logk, logc,       \
+                   logtc);                                                  \
+  }
+HK_PHASE1_KERNEL(ntt_phase1_radix)     // B6
+HK_PHASE1_KERNEL(packed_phase1_radix)  // B10
+#undef HK_PHASE1_KERNEL
 
 using RadixKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
                              const uint32_t*, const uint32_t*,
@@ -303,13 +338,43 @@ bool bad_phase(int rows, int M, int logn, int logc) {
          logc < 0 || logc > logn;
 }
 
+// B6 (packed false: k = 1, G = M) or B10 on rows = rep*G groups [2^logn,
+// 2^(logk + logc)], tiles of TC = 2^logtc <= c lanes: grid (rows,
+// k*c/TC), TC * 2^floor(logn/2) threads (radix_block).
+int launch_phase1(bool packed, const void* x, void* out, const void* q,
+                  const void* tw, const void* tw_sh, const void* mid,
+                  const void* mid_sh, int rows, int G, int M, int logk,
+                  int logn, int logc, int logtc, cudaStream_t st) {
+  if (rows <= 0 || G <= 0 || M <= 0 || rows % G != 0 || logk < 0 ||
+      logc < 0 || logtc > logc || logn < 1 || logn > 10 ||
+      (G << logk) < M || ((G - 1) << logk) >= M)
+    return cudaErrorInvalidValue;
+  return with_log(logn, [&](auto l) {
+    constexpr int L = decltype(l)::value;
+    auto* const kernel =
+        packed ? &packed_phase1_radix<L> : &ntt_phase1_radix<L>;
+    int threads;
+    size_t smem;
+    const cudaError_t err =
+        hk::radix_block<L>(kernel, logk + logc, logtc, &threads, &smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3(rows, 1 << (logk + logc - logtc)), threads, smem, st>>>(
+        static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
+        static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(tw),
+        static_cast<const uint32_t*>(tw_sh),
+        static_cast<const uint32_t*>(mid),
+        static_cast<const uint32_t*>(mid_sh), G, M, logk, logc, logtc);
+    return (int)cudaGetLastError();
+  });
+}
+
 using PackedKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
                               const uint32_t*, const uint32_t*,
                               const uint32_t*, const uint32_t*, int, int, int,
                               int, int);
 
-// A packed phase kernel on [rows, n, k*c], rows = rep*G with G =
-// ceil(M/k); k, n, c powers of two, c <= 32 <= k*c, n in [2, 1024]. Grid
+// A packed phase kernel of B11-B13 on [rows, n, k*c], rows = rep*G with G
+// = ceil(M/k); k, n, c powers of two, c <= 32 <= k*c, n in [2, 1024]. Grid
 // (rows, k*c/32).
 int launch_packed(PackedKernel kernel, const void* x, void* out,
                   const void* q, const void* tw, const void* tw_sh,
@@ -390,24 +455,16 @@ int hk_ntt_inv(const void* x, void* scratch, void* out, const void* q,
   });
 }
 
-// B6: x [rows, n1, c] -> out [rows, n1, c]; mid, mid_sh [M, n1, c].
+// B6: x [rows, n1, c] -> out [rows, n1, c]; mid, mid_sh [M, n1, c]; tiles
+// of 2^logtc columns (ops/ntt_kernels.py::phase1_tile_cols).
 int hk_ntt_phase1(const void* x, void* out, const void* q, const void* tw1,
                   const void* tw1_sh, const void* mid, const void* mid_sh,
-                  int rows, int M, int n1, int c, void* stream) {
+                  int rows, int M, int n1, int c, int logtc, void* stream) {
   const int log1 = ilog2(n1), logc = ilog2(c);
   if (bad_phase(rows, M, log1, logc)) return cudaErrorInvalidValue;
-  const int lt = min_int(kLogTileCols, logc);
-  size_t smem;
-  cudaError_t err;
-  if ((err = tile_smem(ntt_fwd_a, log1, lt, &smem)) != cudaSuccess)
-    return err;
-  ntt_fwd_a<<<dim3(rows, c >> lt), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(tw1),
-      static_cast<const uint32_t*>(tw1_sh), static_cast<const uint32_t*>(mid),
-      static_cast<const uint32_t*>(mid_sh), M, log1, logc, lt);
-  return cudaGetLastError();
+  return launch_phase1(false, x, out, q, tw1, tw1_sh, mid, mid_sh, rows, M,
+                       M, 0, log1, logc, logtc,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // B7: x [rows, n2, c] -> out [rows, n2, c].
@@ -470,13 +527,16 @@ int hk_intt_phase1(const void* x, void* out, const void* q,
   return cudaGetLastError();
 }
 
-// B10: x [rows, n1, k*c] -> out, same layout; mid, mid_sh [M, n1, c].
+// B10: x [rows, n1, k*c] -> out, same layout; mid, mid_sh [M, n1, c];
+// tiles of 2^logtc <= c lanes (ops/ntt_kernels.py::phase1_tile_cols).
 int hk_ntt_phase1_packed(const void* x, void* out, const void* q,
                          const void* tw1, const void* tw1_sh, const void* mid,
                          const void* mid_sh, int rows, int G, int M, int k,
-                         int n1, int c, void* stream) {
-  return launch_packed(packed_fwd1, x, out, q, tw1, tw1_sh, mid, mid_sh, rows,
-                       G, M, k, n1, c, stream);
+                         int n1, int c, int logtc, void* stream) {
+  const int logk = ilog2(k), logn = ilog2(n1), logc = ilog2(c);
+  return launch_phase1(true, x, out, q, tw1, tw1_sh, mid, mid_sh, rows, G, M,
+                       logk, logn, logc, logtc,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // B11: x [rows, n2, k*c] -> out, same layout.

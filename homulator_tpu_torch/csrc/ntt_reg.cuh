@@ -1,5 +1,7 @@
 // Register-resident radix passes of the NTT kernels B1 and B2 (ntt.cu),
-// written as helpers so that other NTT phases can be moved onto them.
+// written as helpers so that other NTT phases run on them: B4's two
+// launches (hpip.cu) and the forward phase 1 of the coefficient-sharded
+// NTT, B6 and B10 (ntt.cu, radix_phase1).
 //
 // One phase transforms an [n, ncols] limb along its n = 2^L rows, one
 // column at a time; a block holds TC columns. Each transform splits its
@@ -175,7 +177,8 @@ __device__ __forceinline__ void store_run(uint32_t* __restrict__ p,
 // tile_at layout) and takes one barrier; tws is the stage row and its
 // Shoup row in shared memory. The tile may be written again once every
 // thread of the block has passed another barrier. B1's phase B stores the
-// values; B4's phase B (hpip.cu) multiplies them by its keys.
+// values; B4's phase B (hpip.cu) multiplies them by its keys, B6 and B10
+// (radix_phase1) by the mid table.
 template <int L>
 __device__ __forceinline__ void radix_ct_rows(
     uint32_t (&v)[RadixSplit<L>::kR], uint32_t* tile, const uint32_t* tws,
@@ -191,6 +194,20 @@ __device__ __forceinline__ void radix_ct_rows(
 #pragma unroll
   for (int k = 0; k < S::kSub; ++k)
     ct_pass<LB>(v, k << LB, tws, n, LA, u * S::kSub + k, q);
+}
+
+// The limb's stage row and its Shoup row (n = 2^L words each) into shared
+// memory, then the block's first barrier.
+template <int L>
+__device__ __forceinline__ void load_twiddles(
+    uint32_t* tws, const uint32_t* __restrict__ tw,
+    const uint32_t* __restrict__ tw_sh) {
+  constexpr int n = 1 << L;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    tws[k] = tw[k];
+    tws[n + k] = tw_sh[k];
+  }
+  __syncthreads();
 }
 
 // One phase of B1 or B2 on the [n, TC] tile at column c0 of one limb x
@@ -235,11 +252,7 @@ __device__ __forceinline__ void radix_phase(
       v[t] = shoup_mul_lazy(v[t], mid[g], mid_sh[g], q);
     }
   }
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    tws[k] = tw[k];
-    tws[n + k] = tw_sh[k];
-  }
-  __syncthreads();
+  load_twiddles<L>(tws, tw, tw_sh);
 
   if constexpr (kFwd) {
     radix_ct_rows<L>(v, tile, tws, q, u, c, logtc);  // [0, 4q)
@@ -268,6 +281,43 @@ __device__ __forceinline__ void radix_phase(
 #pragma unroll
     for (int t = 0; t < R; ++t)
       y[(size_t)(u + U * t) * ncols + col] = csub(v[t], q);
+  }
+}
+
+// Forward phase 1 of the coefficient-sharded NTT (B6, B10) on the [n, TC]
+// tile at column c0 of one limb x (n = 2^L rows, `pitch` words apart): CT
+// along the rows (radix_ct_rows), then, at the contiguous rows each thread
+// holds, times the limb's mid table, reduced to [0, q) (B1 phase A's
+// epilogue); y is stored in x's layout, since on a shard the exchange
+// does the transpose. The mid table's rows are `mpitch` words apart, and
+// tile column c reads its column mc0 + c: on the lane-packed layout x
+// holds k limbs side by side (pitch k*c) while each limb's mid slice is
+// [n, c] (pitch c). Two barriers, as radix_phase's.
+template <int L>
+__device__ __forceinline__ void radix_phase1(
+    const uint32_t* __restrict__ x, uint32_t* __restrict__ y, uint32_t q,
+    const uint32_t* __restrict__ tw, const uint32_t* __restrict__ tw_sh,
+    const uint32_t* __restrict__ mid, const uint32_t* __restrict__ mid_sh,
+    int pitch, int mpitch, int logtc, int c0, int mc0) {
+  using S = RadixSplit<L>;
+  constexpr int n = 1 << L, R = S::kR, U = S::kU;
+  extern __shared__ uint32_t sm[];
+  uint32_t* const tws = sm;  // stage row [n], then its Shoup row [n]
+  uint32_t* const tile = sm + 2 * n;
+  const int c = threadIdx.x & ((1 << logtc) - 1);
+  const int u = threadIdx.x >> logtc;
+  uint32_t v[R];
+#pragma unroll
+  for (int t = 0; t < R; ++t)  // strided rows, values < q
+    v[t] = x[(size_t)(u + U * t) * pitch + c0 + c];
+  load_twiddles<L>(tws, tw, tw_sh);
+  radix_ct_rows<L>(v, tile, tws, q, u, c, logtc);  // [0, 4q)
+#pragma unroll
+  for (int t = 0; t < R; ++t) {  // any uint32 times mid: [0, 2q)
+    const int i = u * R + t;
+    const size_t g = (size_t)i * mpitch + mc0 + c;
+    y[(size_t)i * pitch + c0 + c] =
+        csub(shoup_mul_lazy(v[t], mid[g], mid_sh[g], q), q);
   }
 }
 

@@ -1,6 +1,7 @@
 // Column-tile NTT building blocks shared by the phase kernels of the
-// coefficient-sharded NTT (ntt.cu: B6-B9 and their lane-packed forms
-// B10-B13) and the NTT anatomy kernels (anatomy.cu: B14-B16).
+// coefficient-sharded NTT (ntt.cu: B7-B9 and their lane-packed forms
+// B11-B13; B6 and B10 run on ntt_reg.cuh) and the NTT anatomy kernels
+// (anatomy.cu: B14-B16).
 //
 // A block owns an [n, TC] column tile of one limb in shared memory (row
 // stride ld = TC + 1: no bank conflicts in the transposed write; TC =
@@ -151,25 +152,6 @@ __device__ inline void mul_tile(uint32_t* s, const uint32_t* __restrict__ w,
                                 uint32_t q) {
   const int c = c0 + (threadIdx.x & ((1 << logtc) - 1));
   mul_cols(s, w + c, w_sh + c, logn, logtc, ld, stride, q);
-}
-
-// Forward stage 1 on one limb (B6): the [n1, TC] tile at column c0 of x
-// [n1, 2^logc] (coeff rows of pitch c, the column slice width on a
-// coefficient shard), CT stages along n1 with this limb's tw1 row, times
-// its mid table (same layout as x), written back in x's layout: on a shard
-// the exchange does the transpose.
-__device__ inline void fwd_a_tile(uint32_t* s, const uint32_t* __restrict__ x,
-                                  uint32_t* __restrict__ y, uint32_t q,
-                                  const uint32_t* __restrict__ tw1,
-                                  const uint32_t* __restrict__ tw1_sh,
-                                  const uint32_t* __restrict__ mid,
-                                  const uint32_t* __restrict__ mid_sh,
-                                  int log1, int logc, int logtc, int c0) {
-  const int ld = (1 << logtc) + 1;
-  load_tile(s, x, log1, logtc, ld, 1 << logc, c0, nullptr, nullptr, q);
-  ct_rows(s, log1, logtc, ld, tw1, tw1_sh, q);
-  mul_tile(s, mid, mid_sh, log1, logtc, ld, 1 << logc, c0, q);
-  store_tile(s, y, log1, logtc, ld, 1 << logc, c0);
 }
 
 inline int min_int(int a, int b) { return a < b ? a : b; }

@@ -12,13 +12,14 @@ B10-B13 replace their lane-packed forms `::ntt_phase1_packed_pallas`,
 `::ntt_phase2_packed_pallas`, `::intt_phase2_packed_pallas` and
 `::intt_phase1_packed_pallas`: one launch each on [rep*G, n, k*c] lane
 groups, reading the per-limb tables of the basis (csrc/ntt.cu has the
-design note). The plain versions are in ops/ntt.py: callers dispatch CPU
-tensors there, never here.
+design note). B6 and B10 run on B1's register passes, with the tile width
+of `phase1_tile_cols` (at most one limb's c columns). The plain versions
+are in ops/ntt.py: callers dispatch CPU tensors there, never here.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,24 +28,46 @@ from ..context import NttBasis
 
 _FWD_TABLES = ("tw1", "tw1_sh", "mid", "mid_sh", "tw2", "tw2_sh")
 _INV_TABLES = ("itw2", "itw2_sh", "mid_inv", "mid_inv_sh", "itw1", "itw1_sh")
-_MAX_N = 1024  # per-axis length: B6-B13 hold n * 33 words in shared memory
+_MAX_N = 1024  # per-axis length: the kernels take n = 2 .. 1024
 
-# B1 and B2's launch geometry: a block holds TILE_COLS[i] columns, the
-# widest that still gives MIN_BLOCKS blocks (two for each of an H100's 132
-# SMs), else the narrowest; at most csrc/ntt_reg.cuh's kMaxTileCols = 16.
-# The kernel takes TC and derives the rest: a block per TC columns of a
-# limb, TC * 2^floor(log2(n)/2) threads, radix_smem_words<L>(TC) words of
-# shared memory.
+# The launch geometry of the register-radix phases (B1, B2, B4): a block
+# holds TILE_COLS[i] columns, the widest that still gives MIN_BLOCKS blocks
+# (two for each of an H100's 132 SMs), else the narrowest; at most
+# csrc/ntt_reg.cuh's kMaxTileCols = 16. The kernel takes TC and derives
+# the rest: a block per TC columns of a limb, TC * 2^floor(log2(n)/2)
+# threads, radix_smem_words<L>(TC) words of shared memory.
 TILE_COLS = (16, 8, 4)
 MIN_BLOCKS = 2 * 132
+# B6 and B10 (the forward phase 1 on a shard's few columns): the widest of
+# PHASE1_TILE_COLS that gives PHASE1_MIN_BLOCKS blocks (half the SMs),
+# else the narrowest. On an H100 a 4-column tile (16-byte row segments a
+# warp: half of each 32-byte sector of its strided loads, mid reads and
+# stores) lost to 8 and 16 columns at every set-B shape (up to 1.75 times
+# their time) even where the MIN_BLOCKS rule gave it twice the blocks
+# (PERF.md §6).
+PHASE1_TILE_COLS = (16, 8)
+PHASE1_MIN_BLOCKS = 64
 
 
-def radix_tile_cols(rows: int, n: int, ncols: int) -> int:
-    """Columns a block holds (TC) in a B1/B2 phase that transforms each of
-    ncols columns of rows limbs [n, ncols] along its n points."""
-    fits = [tc for tc in TILE_COLS if tc <= ncols] or [ncols]
-    return next((t for t in fits if rows * (ncols // t) >= MIN_BLOCKS),
+def radix_tile_cols(rows: int, n: int, ncols: int,
+                    limb_cols: Optional[int] = None, tiles=TILE_COLS,
+                    min_blocks: int = MIN_BLOCKS) -> int:
+    """Columns a block holds (TC) in a register-radix phase that transforms
+    each of ncols columns of rows [n, ncols] along its n points, chosen
+    from `tiles` (default TILE_COLS); with limb_cols (B10: rows lane
+    groups of ncols = k*c lanes, limb_cols = c), TC stays within one
+    limb's columns."""
+    widest = ncols if limb_cols is None else limb_cols
+    fits = [tc for tc in tiles if tc <= widest] or [widest]
+    return next((t for t in fits if rows * (ncols // t) >= min_blocks),
                 fits[-1])
+
+
+def phase1_tile_cols(groups: int, c: int, lanes: int) -> int:
+    """TC of B6 (groups limbs [n1, c], lanes = c) or B10 (groups lane
+    groups of lanes = k*c, k limbs of c lanes each)."""
+    return radix_tile_cols(groups, 0, lanes, c, PHASE1_TILE_COLS,
+                           PHASE1_MIN_BLOCKS)
 
 
 def radix_phases(rows: int, n1: int, n2: int,
@@ -89,11 +112,12 @@ def _launch(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
 
 
 def _launch_phase(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
-                  tables, n: int, sliced=()) -> torch.Tensor:
+                  tables, n: int, sliced=(), radix=False) -> torch.Tensor:
     """One phase kernel on x [rep*M, n, c] (c a power of two up to n)
     -> a new [rep*M, n, c]. The tables named in `sliced` are per-element
     [M, n, c] (the shard's mid slice that B6 and B9 read); the others are
-    flat stage tables [M, n]."""
+    flat stage tables [M, n]. A `radix` kernel (B6) also takes log2 of its
+    tile width, phase1_tile_cols'."""
     if not x.is_cuda:
         raise ValueError(f"{name}: CUDA kernel called on {x.device}")
     M = nb.q.shape[0]
@@ -110,13 +134,15 @@ def _launch_phase(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
         kernels.require_cuda_int32(
             k, getattr(nb, k), x.device,
             (M, n, c) if k in sliced else (M, n))
+    tile = (phase1_tile_cols(rep * M, c, c),) if radix else ()
     lib = kernels.load()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = getattr(lib, "hk_" + name)(
             kernels.ptr(x), kernels.ptr(out), kernels.ptr(nb.q),
             *(kernels.ptr(getattr(nb, k)) for k in tables),
-            rep * M, M, n, c, kernels.stream(x))
+            rep * M, M, n, c, *(t.bit_length() - 1 for t in tile),
+            kernels.stream(x))
     kernels.check(rc, name)
     kernels.count(name)
     return out
@@ -128,7 +154,7 @@ def ntt_phase1(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
     n1, c] in [0, q), not transposed (the exchange transposes)."""
     return _launch_phase("ntt_phase1", x, nb, rep,
                          ("tw1", "tw1_sh", "mid", "mid_sh"), nb.n1,
-                         ("mid", "mid_sh"))
+                         ("mid", "mid_sh"), radix=True)
 
 
 def ntt_phase2(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
@@ -153,13 +179,14 @@ def intt_phase1(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
 
 
 def _launch_packed(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
-                   tables, n: int, mid=()) -> torch.Tensor:
+                   tables, n: int, mid=(), radix=False) -> torch.Tensor:
     """One lane-packed phase kernel on x [rep*G, n, k*c] (k = nb.pack, G
     = ceil(M/k) groups a copy, c a power of two up to 32 with k*c a
     multiple of 32) -> a new [rep*G, n, k*c]. The tables named in `mid`
     are the shard's per-limb [M, n, c] mid slice; the others flat [M, n]
     stage tables. Lane j of group g reads limb min((g mod G)*k + j div c,
-    M - 1)."""
+    M - 1). A `radix` kernel (B10) also takes log2 of its tile width,
+    phase1_tile_cols'."""
     if not x.is_cuda:
         raise ValueError(f"{name}: CUDA kernel called on {x.device}")
     M, k = nb.q.shape[0], nb.pack
@@ -178,13 +205,15 @@ def _launch_packed(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
     for t in tables:
         kernels.require_cuda_int32(t, getattr(nb, t), x.device,
                                    (M, n, c) if t in mid else (M, n))
+    tile = (phase1_tile_cols(rep * G, c, k * c),) if radix else ()
     lib = kernels.load()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = getattr(lib, "hk_" + name)(
             kernels.ptr(x), kernels.ptr(out), kernels.ptr(nb.q),
             *(kernels.ptr(getattr(nb, t)) for t in tables),
-            rep * G, G, M, k, n, c, kernels.stream(x))
+            rep * G, G, M, k, n, c, *(t.bit_length() - 1 for t in tile),
+            kernels.stream(x))
     kernels.check(rc, name)
     kernels.count(name)
     return out
@@ -196,7 +225,7 @@ def ntt_phase1_packed(x: torch.Tensor, nb: NttBasis,
     the same layout in [0, q) per lane."""
     return _launch_packed("ntt_phase1_packed", x, nb, rep,
                           ("tw1", "tw1_sh", "mid", "mid_sh"), nb.n1,
-                          ("mid", "mid_sh"))
+                          ("mid", "mid_sh"), radix=True)
 
 
 def ntt_phase2_packed(x: torch.Tensor, nb: NttBasis,

@@ -176,7 +176,7 @@ def test_port_imports_no_jax():
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "for name in ('roofline_torch', 'microbench_ntt_torch',"
         " 'microbench_ntt2_torch', 'bench_ntt_variants_torch',"
-        " 'bench_hpip_torch'):\n"
+        " 'bench_hpip_torch', 'bench_phase_torch'):\n"
         "    assert f'scripts/{name}.py' in scripts, name\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'homulator_tpu'))\n"
