@@ -26,7 +26,7 @@ its int32 operations over INT32_OPS_PER_S (the float32 peak of 67 TFLOP/s,
 64 int32 lanes) and its tensor-core u8 operations over INT8_OPS_PER_S.
 OPS is the one count of int32 operations a primitive costs;
 radix_ntt_ops counts a transform of B1 or B2 with it, hpip_ops a call of
-B4, radix_phase1_ops one of B6 or B10.
+B4, radix_phase1_ops one of B6 or B10, radix_phase2_ops one of B7 or B11.
 """
 
 from __future__ import annotations
@@ -93,6 +93,15 @@ def radix_phase1_ops(rows, n, c):
     product and a conditional subtract)."""
     return rows * c * (n // 2 * (n.bit_length() - 1) * OPS["lazy_butterfly"]
                        + n * (OPS["lazy_shoup"] + OPS["csub"]))
+
+
+def radix_phase2_ops(rows, n, c):
+    """int32 operations of B7 or B11 (csrc/ntt_reg.cuh::radix_phase, B1's
+    phase B) on `rows` limb slices [n, c]: n/2 * log2(n) Harvey
+    butterflies on each of c columns and, an element, two conditional
+    subtracts from [0, 4q) to [0, q) before the store."""
+    return rows * c * (n // 2 * (n.bit_length() - 1) * OPS["lazy_butterfly"]
+                       + n * 2 * OPS["csub"])
 
 
 def hpip_ops(conv_rows, K, beta, n):

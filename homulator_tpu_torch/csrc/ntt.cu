@@ -48,7 +48,7 @@
 // halves (ops/ntt.py), so each half is its own entry point on a column
 // slice of c = n/ns columns, output in its input's layout:
 //   B6 ntt_phase1_radix  [rows, n1, c] -> [rows, n1, c]
-//   B7 ntt_fwd_b         [rows, n2, c] -> [rows, n2, c]
+//   B7 ntt_phase2_radix  [rows, n2, c] -> [rows, n2, c]
 //   B8 ntt_inv_a         [rows, n2, c] -> [rows, n2, c]
 //   B9 ntt_inv_b         [rows, n1, c] -> [rows, n1, c]
 // B6 and B9 take the shard's mid / mid_inv tables as their own contiguous
@@ -64,24 +64,29 @@
 // shard's [M, n1, c] mid slices) at each lane's limb, so no pre-broadcast
 // lane table exists on the card.
 //
-// What bounds B6 and B10 on the card: a shard's slice is small (35 limbs
-// [256, 64] at 4 shards: 2.3 MB in and out, 4.6 MB of mid tables), so
-// their bound is a few µs of bytes, and the column-tile design (one
-// block's serial loop of 8 shared-memory stages, 70 blocks) took ten
-// times that. They run on ntt_reg.cuh's register passes (radix_phase1),
-// as B1 does: a block holds an [n1, TC] tile of ONE limb, TC of 16 or 8
+// What bounds the forward phases B6, B7, B10 and B11 on the card: a
+// shard's slice is small (35 limbs [256, 64] at 4 shards: 2.3 MB in and
+// out, plus 4.6 MB of mid tables for phase 1), so their bound is a few µs
+// of bytes, and the column-tile design (one block's serial loop of 8
+// shared-memory stages, a barrier each, every butterfly fully reduced)
+// took ten to twenty times that. They run on ntt_reg.cuh's register passes,
+// as B1 does: a block holds an [n, TC] tile of ONE limb, TC of 16 or 8
 // columns within the limb's c chosen on the host
-// (ops/ntt_kernels.py::phase1_tile_cols: B6 at 4 shards, 140 blocks of
-// 256 threads; 4-column tiles, with 16-byte row segments, were slower
+// (ops/ntt_kernels.py::phase_tile_cols: at 4 shards, 140 blocks of 256
+// threads; 4-column tiles, with 16-byte row segments, were slower
 // everywhere); two register passes with one exchange, the twiddle pair
-// loaded once a block, Harvey's lazy ranges. B6 is B10 with k = 1 (G = M groups
-// of one limb): the block's limb is min((g mod G)*k + lane0 / c, M - 1)
-// for its first lane lane0, the padding lanes of a copy's last group
-// computing limb M - 1's copy, as their data is. One template serves
-// both, under two names so that a profile tells them apart.
+// loaded once a block, Harvey's lazy ranges. Phase 1 (B6, B10) is
+// radix_phase1: CT along n1, then the mid product in registers. Phase 2
+// (B7, B11) is B1's phase B, radix_phase<L, fwd, !transposed>: CT along
+// n2, reduced from [0, 4q) to [0, q) by two conditional subtracts before
+// the store. The per-limb kernel is the packed one with k = 1 (G = M
+// groups of one limb): the block's limb is min((g mod G)*k + lane0 / c,
+// M - 1) for its first lane lane0, the padding lanes of a copy's last group
+// computing limb M - 1's copy, as their data is. One template serves all
+// four, under four names so that a profile tells them apart.
 //
-// B7-B9 and B11-B13 keep the column-tile helpers of ntt_tile.cuh (a block
-// owns an [n, TC] tile in shared memory and synchronises after each
+// B8, B9, B12 and B13 keep the column-tile helpers of ntt_tile.cuh (a
+// block owns an [n, TC] tile in shared memory and synchronises after each
 // stage): limbs as rows of pitch 2^logc, tiles of TC = min(32, 2^logc)
 // columns, a grid (rows, c/TC); the packed ones a 1024-thread block on an
 // [n, 32] lane tile, grid (rows, k*c/32).
@@ -97,7 +102,6 @@
 
 namespace {
 
-using hk::ct_rows;
 using hk::gs_rows;
 using hk::ilog2;
 using hk::kLogTileCols;
@@ -108,25 +112,6 @@ using hk::mul_cols;
 using hk::store_tile;
 using hk::tile_smem;
 using hk::with_log;
-
-// Forward stage 2 (B7): y[limb] is [n2, 2^logc]; tile [n2, TC]
-// at column c0.
-__global__ void __launch_bounds__(kThreads)
-ntt_fwd_b(const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
-          const uint32_t* __restrict__ q, const uint32_t* __restrict__ tw2,
-          const uint32_t* __restrict__ tw2_sh, int M, int log2, int logc,
-          int logtc) {
-  extern __shared__ uint32_t s[];
-  const int ld = (1 << logtc) + 1;
-  const int limb = blockIdx.x, m = limb % M, c0 = blockIdx.y << logtc;
-  const size_t len = (size_t)1 << (log2 + logc);
-  const uint32_t qq = q[m];
-  load_tile(s, y + limb * len, log2, logtc, ld, 1 << logc, c0, nullptr,
-            nullptr, qq);
-  ct_rows(s, log2, logtc, ld, tw2 + ((size_t)m << log2),
-          tw2_sh + ((size_t)m << log2), qq);
-  store_tile(s, out + limb * len, log2, logtc, ld, 1 << logc, c0);
-}
 
 // Inverse stage 2 (B8): x[limb] is [n2, 2^logc]; tile [n2, TC] at column
 // c0, written back in x's layout.
@@ -169,24 +154,25 @@ ntt_inv_b(const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
   store_tile(s, out + limb * len, log1, logtc, ld, 1 << logc, c0);
 }
 
-// The lane-packed phase kernels B11-B13 on [rows, n, m] lane groups, m =
-// k*c lanes: lane block j of group g is limb (g mod G)*k + j of its rep
-// copy (G groups a copy), or the copy's last limb M - 1 for the padding
-// lanes of its last group, whose data _pack_pad made copies of that limb.
-// A block owns the [n, 32] lane tile at lane 32*blockIdx.y of group
-// blockIdx.x: 32/c limbs side by side. A thread works one lane for the
-// whole kernel (ntt_tile.cuh), so it loads its limb's q and twiddle rows
-// once and hands them to the shared stage loops; the mid tables are the
-// per-limb [M, n, c] slices of B9, read at the thread's limb and column.
-template <bool kFwd, bool kMid>
-__device__ inline void packed_tile(const uint32_t* __restrict__ x,
-                                   uint32_t* __restrict__ out,
-                                   const uint32_t* __restrict__ q,
-                                   const uint32_t* __restrict__ tw,
-                                   const uint32_t* __restrict__ tw_sh,
-                                   const uint32_t* __restrict__ mid,
-                                   const uint32_t* __restrict__ mid_sh, int G,
-                                   int M, int logk, int logn, int logc) {
+// The lane-packed inverse phase kernels B12 and B13 on [rows, n, m] lane
+// groups, m = k*c lanes: lane block j of group g is limb (g mod G)*k + j
+// of its rep copy (G groups a copy), or the copy's last limb M - 1 for the
+// padding lanes of its last group, whose data _pack_pad made copies of
+// that limb. A block owns the [n, 32] lane tile at lane 32*blockIdx.y of
+// group blockIdx.x: 32/c limbs side by side. A thread works one lane for
+// the whole kernel (ntt_tile.cuh), so it loads its limb's q and twiddle
+// rows once and hands them to the shared stage loops; the mid_inv table is
+// the per-limb [M, n, c] slice of B9, read at the thread's limb and column.
+template <bool kMid>
+__device__ inline void packed_inv_tile(const uint32_t* __restrict__ x,
+                                       uint32_t* __restrict__ out,
+                                       const uint32_t* __restrict__ q,
+                                       const uint32_t* __restrict__ tw,
+                                       const uint32_t* __restrict__ tw_sh,
+                                       const uint32_t* __restrict__ mid,
+                                       const uint32_t* __restrict__ mid_sh,
+                                       int G, int M, int logk, int logn,
+                                       int logc) {
   extern __shared__ uint32_t s[];
   constexpr int lt = kLogTileCols, ld = (1 << lt) + 1;
   const int logm = logk + logc;
@@ -200,15 +186,9 @@ __device__ inline void packed_tile(const uint32_t* __restrict__ x,
       ((size_t)limb << (logn + logc)) + (lane & ((1 << logc) - 1));
   load_tile(s, x + g * len, logn, lt, ld, 1 << logm, lane0, nullptr, nullptr,
             qq);
-  if constexpr (kFwd) {
-    ct_rows(s, logn, lt, ld, tw + trow, tw_sh + trow, qq);
-    if constexpr (kMid)
-      mul_cols(s, mid + mcol, mid_sh + mcol, logn, lt, ld, 1 << logc, qq);
-  } else {
-    if constexpr (kMid)
-      mul_cols(s, mid + mcol, mid_sh + mcol, logn, lt, ld, 1 << logc, qq);
-    gs_rows(s, logn, lt, ld, tw + trow, tw_sh + trow, qq);
-  }
+  if constexpr (kMid)
+    mul_cols(s, mid + mcol, mid_sh + mcol, logn, lt, ld, 1 << logc, qq);
+  gs_rows(s, logn, lt, ld, tw + trow, tw_sh + trow, qq);
   store_tile(s, out + g * len, logn, lt, ld, 1 << logm, lane0);
 }
 
@@ -216,7 +196,7 @@ __device__ inline void packed_tile(const uint32_t* __restrict__ x,
 // tile, against 16 with kThreads = 256, which halved B10-B13's time on an
 // H100 (PERF.md). A thread still keeps one column: 1024 % 32 == 0.
 constexpr int kPackedThreads = 1024;
-#define HK_PACKED_KERNEL(name, fwd, with_mid)                               \
+#define HK_PACKED_KERNEL(name, with_mid)                                    \
   __global__ void __launch_bounds__(kPackedThreads)                         \
       name(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,      \
            const uint32_t* __restrict__ q, const uint32_t* __restrict__ tw, \
@@ -224,12 +204,11 @@ constexpr int kPackedThreads = 1024;
            const uint32_t* __restrict__ mid,                                \
            const uint32_t* __restrict__ mid_sh, int G, int M, int logk,     \
            int logn, int logc) {                                            \
-    packed_tile<fwd, with_mid>(x, out, q, tw, tw_sh, mid, mid_sh, G, M,     \
-                               logk, logn, logc);                           \
+    packed_inv_tile<with_mid>(x, out, q, tw, tw_sh, mid, mid_sh, G, M,      \
+                              logk, logn, logc);                            \
   }
-HK_PACKED_KERNEL(packed_fwd2, true, false)    // B11: stage 2
-HK_PACKED_KERNEL(packed_inv2, false, false)   // B12: inverse stage 2
-HK_PACKED_KERNEL(packed_inv1, false, true)    // B13: mid_inv, inverse stage 1
+HK_PACKED_KERNEL(packed_inv2, false)  // B12: inverse stage 2
+HK_PACKED_KERNEL(packed_inv1, true)   // B13: mid_inv, inverse stage 1
 #undef HK_PACKED_KERNEL
 
 // B1 and B2: one phase each on the [2^L, TC] tile at column TC*blockIdx.y
@@ -260,14 +239,17 @@ HK_RADIX_KERNEL(ntt_inv_radix_a, false, false)  // B2: GS n2
 HK_RADIX_KERNEL(ntt_inv_radix_b, false, true)   // B2: transpose, mid_inv, GS n1
 #undef HK_RADIX_KERNEL
 
-// B6 and B10 (radix_phase1): the [2^L, TC] tile at lane lane0 =
-// TC*blockIdx.y of group g = blockIdx.x of x [rows, 2^L, k*c] (rows = rep*G
-// groups, G = ceil(M/k) a copy; B6: k = 1, G = M), TC <= c so that the
-// tile lies in one limb's c lanes; that limb's q, flat stage pair rows
-// (tw, tw_sh [M, 2^L]) and mid slice (mid, mid_sh [M, 2^L, c]), read at
-// column lane0 mod c.
-template <int L>
-__device__ __forceinline__ void phase1_tile(
+// The forward phases B6, B7, B10 and B11 on the [2^L, TC] tile at lane
+// lane0 = TC*blockIdx.y of group g = blockIdx.x of x [rows, 2^L, k*c] (rows
+// = rep*G groups, G = ceil(M/k) a copy; B6, B7: k = 1, G = M), TC <= c so
+// that the tile lies in one limb's c lanes; that limb's q and flat stage
+// pair rows (tw, tw_sh [M, 2^L]). kMid (phase 1, B6 and B10):
+// radix_phase1 with the limb's mid slice (mid, mid_sh [M, 2^L, c]), read
+// at column lane0 mod c. !kMid (phase 2, B7 and B11): B1's phase B,
+// radix_phase<L, true, false>, whose !kT form reads and writes the tile at
+// the data's own pitch and reads no per-column table.
+template <int L, bool kMid>
+__device__ __forceinline__ void phase_tile(
     const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
     const uint32_t* __restrict__ q, const uint32_t* __restrict__ tw,
     const uint32_t* __restrict__ tw_sh, const uint32_t* __restrict__ mid,
@@ -277,14 +259,20 @@ __device__ __forceinline__ void phase1_tile(
   const int limb = min(((g % G) << logk) + (lane0 >> logc), M - 1);
   const int logm = logk + logc;
   const size_t len = (size_t)1 << (L + logm);
-  const size_t mlen = (size_t)limb << (L + logc);
-  hk::radix_phase1<L>(x + g * len, y + g * len, q[limb],
-                      tw + ((size_t)limb << L), tw_sh + ((size_t)limb << L),
-                      mid + mlen, mid_sh + mlen, 1 << logm, 1 << logc, logtc,
-                      lane0, lane0 & ((1 << logc) - 1));
+  const size_t trow = (size_t)limb << L;
+  if constexpr (kMid) {
+    const size_t mlen = (size_t)limb << (L + logc);
+    hk::radix_phase1<L>(x + g * len, y + g * len, q[limb], tw + trow,
+                        tw_sh + trow, mid + mlen, mid_sh + mlen, 1 << logm,
+                        1 << logc, logtc, lane0, lane0 & ((1 << logc) - 1));
+  } else {
+    hk::radix_phase<L, true, false>(x + g * len, y + g * len, q[limb],
+                                    tw + trow, tw_sh + trow, nullptr,
+                                    nullptr, 1 << logm, logtc, lane0);
+  }
 }
 
-#define HK_PHASE1_KERNEL(name)                                              \
+#define HK_PHASE_KERNEL(name, with_mid)                                     \
   template <int L>                                                          \
   __global__ void __launch_bounds__(hk::RadixSplit<L>::kMaxThreads,         \
                                     hk::RadixSplit<L>::kMinBlocks)          \
@@ -294,12 +282,14 @@ __device__ __forceinline__ void phase1_tile(
            const uint32_t* __restrict__ mid,                                \
            const uint32_t* __restrict__ mid_sh, int G, int M, int logk,     \
            int logc, int logtc) {                                           \
-    phase1_tile<L>(x, y, q, tw, tw_sh, mid, mid_sh, G, M, logk, logc,       \
-                   logtc);                                                  \
+    phase_tile<L, with_mid>(x, y, q, tw, tw_sh, mid, mid_sh, G, M, logk,    \
+                            logc, logtc);                                   \
   }
-HK_PHASE1_KERNEL(ntt_phase1_radix)     // B6
-HK_PHASE1_KERNEL(packed_phase1_radix)  // B10
-#undef HK_PHASE1_KERNEL
+HK_PHASE_KERNEL(ntt_phase1_radix, true)      // B6
+HK_PHASE_KERNEL(packed_phase1_radix, true)   // B10
+HK_PHASE_KERNEL(ntt_phase2_radix, false)     // B7
+HK_PHASE_KERNEL(packed_phase2_radix, false)  // B11
+#undef HK_PHASE_KERNEL
 
 using RadixKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
                              const uint32_t*, const uint32_t*,
@@ -338,13 +328,15 @@ bool bad_phase(int rows, int M, int logn, int logc) {
          logc < 0 || logc > logn;
 }
 
-// B6 (packed false: k = 1, G = M) or B10 on rows = rep*G groups [2^logn,
-// 2^(logk + logc)], tiles of TC = 2^logtc <= c lanes: grid (rows,
+// A forward phase on rows = rep*G groups [2^logn, 2^(logk + logc)]: phase
+// 1 (B6, B10) if `phase1`, else phase 2 (B7, B11); per limb (B6, B7: k =
+// 1, G = M) unless `packed`. Tiles of TC = 2^logtc <= c lanes: grid (rows,
 // k*c/TC), TC * 2^floor(logn/2) threads (radix_block).
-int launch_phase1(bool packed, const void* x, void* out, const void* q,
-                  const void* tw, const void* tw_sh, const void* mid,
-                  const void* mid_sh, int rows, int G, int M, int logk,
-                  int logn, int logc, int logtc, cudaStream_t st) {
+int launch_phase(bool phase1, bool packed, const void* x, void* out,
+                 const void* q, const void* tw, const void* tw_sh,
+                 const void* mid, const void* mid_sh, int rows, int G,
+                 int M, int logk, int logn, int logc, int logtc,
+                 cudaStream_t st) {
   if (rows <= 0 || G <= 0 || M <= 0 || rows % G != 0 || logk < 0 ||
       logc < 0 || logtc > logc || logn < 1 || logn > 10 ||
       (G << logk) < M || ((G - 1) << logk) >= M)
@@ -352,7 +344,8 @@ int launch_phase1(bool packed, const void* x, void* out, const void* q,
   return with_log(logn, [&](auto l) {
     constexpr int L = decltype(l)::value;
     auto* const kernel =
-        packed ? &packed_phase1_radix<L> : &ntt_phase1_radix<L>;
+        phase1 ? (packed ? &packed_phase1_radix<L> : &ntt_phase1_radix<L>)
+               : (packed ? &packed_phase2_radix<L> : &ntt_phase2_radix<L>);
     int threads;
     size_t smem;
     const cudaError_t err =
@@ -373,7 +366,7 @@ using PackedKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
                               const uint32_t*, const uint32_t*, int, int, int,
                               int, int);
 
-// A packed phase kernel of B11-B13 on [rows, n, k*c], rows = rep*G with G
+// A packed phase kernel of B12 or B13 on [rows, n, k*c], rows = rep*G with G
 // = ceil(M/k); k, n, c powers of two, c <= 32 <= k*c, n in [2, 1024]. Grid
 // (rows, k*c/32).
 int launch_packed(PackedKernel kernel, const void* x, void* out,
@@ -456,34 +449,27 @@ int hk_ntt_inv(const void* x, void* scratch, void* out, const void* q,
 }
 
 // B6: x [rows, n1, c] -> out [rows, n1, c]; mid, mid_sh [M, n1, c]; tiles
-// of 2^logtc columns (ops/ntt_kernels.py::phase1_tile_cols).
+// of 2^logtc columns (ops/ntt_kernels.py::phase_tile_cols).
 int hk_ntt_phase1(const void* x, void* out, const void* q, const void* tw1,
                   const void* tw1_sh, const void* mid, const void* mid_sh,
                   int rows, int M, int n1, int c, int logtc, void* stream) {
   const int log1 = ilog2(n1), logc = ilog2(c);
   if (bad_phase(rows, M, log1, logc)) return cudaErrorInvalidValue;
-  return launch_phase1(false, x, out, q, tw1, tw1_sh, mid, mid_sh, rows, M,
-                       M, 0, log1, logc, logtc,
-                       static_cast<cudaStream_t>(stream));
+  return launch_phase(true, false, x, out, q, tw1, tw1_sh, mid, mid_sh, rows,
+                      M, M, 0, log1, logc, logtc,
+                      static_cast<cudaStream_t>(stream));
 }
 
-// B7: x [rows, n2, c] -> out [rows, n2, c].
+// B7: x [rows, n2, c] -> out [rows, n2, c]; tiles of 2^logtc columns
+// (ops/ntt_kernels.py::phase_tile_cols).
 int hk_ntt_phase2(const void* x, void* out, const void* q, const void* tw2,
                   const void* tw2_sh, int rows, int M, int n2, int c,
-                  void* stream) {
+                  int logtc, void* stream) {
   const int log2 = ilog2(n2), logc = ilog2(c);
   if (bad_phase(rows, M, log2, logc)) return cudaErrorInvalidValue;
-  const int lt = min_int(kLogTileCols, logc);
-  size_t smem;
-  cudaError_t err;
-  if ((err = tile_smem(ntt_fwd_b, log2, lt, &smem)) != cudaSuccess)
-    return err;
-  ntt_fwd_b<<<dim3(rows, c >> lt), kThreads, smem,
-              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(tw2),
-      static_cast<const uint32_t*>(tw2_sh), M, log2, logc, lt);
-  return cudaGetLastError();
+  return launch_phase(false, false, x, out, q, tw2, tw2_sh, nullptr, nullptr,
+                      rows, M, M, 0, log2, logc, logtc,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // B8: x [rows, n2, c] -> out [rows, n2, c].
@@ -528,23 +514,26 @@ int hk_intt_phase1(const void* x, void* out, const void* q,
 }
 
 // B10: x [rows, n1, k*c] -> out, same layout; mid, mid_sh [M, n1, c];
-// tiles of 2^logtc <= c lanes (ops/ntt_kernels.py::phase1_tile_cols).
+// tiles of 2^logtc <= c lanes (ops/ntt_kernels.py::phase_tile_cols).
 int hk_ntt_phase1_packed(const void* x, void* out, const void* q,
                          const void* tw1, const void* tw1_sh, const void* mid,
                          const void* mid_sh, int rows, int G, int M, int k,
                          int n1, int c, int logtc, void* stream) {
   const int logk = ilog2(k), logn = ilog2(n1), logc = ilog2(c);
-  return launch_phase1(true, x, out, q, tw1, tw1_sh, mid, mid_sh, rows, G, M,
-                       logk, logn, logc, logtc,
-                       static_cast<cudaStream_t>(stream));
+  return launch_phase(true, true, x, out, q, tw1, tw1_sh, mid, mid_sh, rows,
+                      G, M, logk, logn, logc, logtc,
+                      static_cast<cudaStream_t>(stream));
 }
 
-// B11: x [rows, n2, k*c] -> out, same layout.
+// B11: x [rows, n2, k*c] -> out, same layout; tiles of 2^logtc <= c lanes.
 int hk_ntt_phase2_packed(const void* x, void* out, const void* q,
                          const void* tw2, const void* tw2_sh, int rows, int G,
-                         int M, int k, int n2, int c, void* stream) {
-  return launch_packed(packed_fwd2, x, out, q, tw2, tw2_sh, nullptr, nullptr,
-                       rows, G, M, k, n2, c, stream);
+                         int M, int k, int n2, int c, int logtc,
+                         void* stream) {
+  const int logk = ilog2(k), logn = ilog2(n2), logc = ilog2(c);
+  return launch_phase(false, true, x, out, q, tw2, tw2_sh, nullptr, nullptr,
+                      rows, G, M, logk, logn, logc, logtc,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // B12: x [rows, n2, k*c] -> out, same layout.

@@ -1,7 +1,8 @@
 // Register-resident radix passes of the NTT kernels B1 and B2 (ntt.cu),
 // written as helpers so that other NTT phases run on them: B4's two
-// launches (hpip.cu) and the forward phase 1 of the coefficient-sharded
-// NTT, B6 and B10 (ntt.cu, radix_phase1).
+// launches (hpip.cu) and the forward phases of the coefficient-sharded
+// NTT, phase 1 (B6, B10: radix_phase1) and phase 2 (B7, B11: B1's phase B,
+// radix_phase<L, true, false>) in ntt.cu.
 //
 // One phase transforms an [n, ncols] limb along its n = 2^L rows, one
 // column at a time; a block holds TC columns. Each transform splits its
@@ -213,7 +214,8 @@ __device__ __forceinline__ void load_twiddles(
 // One phase of B1 or B2 on the [n, TC] tile at column c0 of one limb x
 // [n, ncols] (n = 2^L), with the limb's q, stage twiddle pair (tw, tw_sh
 // rows of n) and, for kT, mid pair (rows of the limb's [n, ncols] table).
-//   kFwd, !kT  CT along the rows; y [n, ncols] like x          (B1 phase B)
+//   kFwd, !kT  CT along the rows; y [n, ncols] like x          (B1 phase B;
+//              B7, B11: the tile at lane c0 of a shard's group)
 //   kFwd, kT   CT, times mid, y transposed [ncols, n]          (B1 phase A)
 //   !kFwd, !kT GS along the rows; y [n, ncols] like x          (B2 phase A)
 //   !kFwd, kT  x transposed [ncols, n]: times mid, GS; y

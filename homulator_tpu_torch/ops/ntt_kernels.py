@@ -12,9 +12,10 @@ B10-B13 replace their lane-packed forms `::ntt_phase1_packed_pallas`,
 `::ntt_phase2_packed_pallas`, `::intt_phase2_packed_pallas` and
 `::intt_phase1_packed_pallas`: one launch each on [rep*G, n, k*c] lane
 groups, reading the per-limb tables of the basis (csrc/ntt.cu has the
-design note). B6 and B10 run on B1's register passes, with the tile width
-of `phase1_tile_cols` (at most one limb's c columns). The plain versions
-are in ops/ntt.py: callers dispatch CPU tensors there, never here.
+design note). The forward phases B6, B7, B10 and B11 run on B1's register
+passes, with the tile width of `phase_tile_cols` (at most one limb's c
+columns); B8, B9, B12 and B13 on column tiles. The plain versions are in
+ops/ntt.py: callers dispatch CPU tensors there, never here.
 """
 
 from __future__ import annotations
@@ -38,15 +39,16 @@ _MAX_N = 1024  # per-axis length: the kernels take n = 2 .. 1024
 # threads, radix_smem_words<L>(TC) words of shared memory.
 TILE_COLS = (16, 8, 4)
 MIN_BLOCKS = 2 * 132
-# B6 and B10 (the forward phase 1 on a shard's few columns): the widest of
-# PHASE1_TILE_COLS that gives PHASE1_MIN_BLOCKS blocks (half the SMs),
-# else the narrowest. On an H100 a 4-column tile (16-byte row segments a
-# warp: half of each 32-byte sector of its strided loads, mid reads and
-# stores) lost to 8 and 16 columns at every set-B shape (up to 1.75 times
-# their time) even where the MIN_BLOCKS rule gave it twice the blocks
-# (PERF.md §6).
-PHASE1_TILE_COLS = (16, 8)
-PHASE1_MIN_BLOCKS = 64
+# B6, B7, B10 and B11 (the forward phases on a shard's few columns): the
+# widest of PHASE_TILE_COLS that gives PHASE_MIN_BLOCKS blocks (half the
+# SMs), else the narrowest. On an H100 a 4-column tile (16-byte row
+# segments a warp: half of each 32-byte sector of its strided loads, mid
+# reads and stores) lost to 8 and 16 columns at every set-B shape of B6
+# and B10 (up to 1.75 times their time) even where the MIN_BLOCKS rule
+# gave it twice the blocks; for B7 and B11 neither 8 nor 16 columns led at
+# every shape, each within 10% of the other (PERF.md §6).
+PHASE_TILE_COLS = (16, 8)
+PHASE_MIN_BLOCKS = 64
 
 
 def radix_tile_cols(rows: int, n: int, ncols: int,
@@ -63,11 +65,11 @@ def radix_tile_cols(rows: int, n: int, ncols: int,
                 fits[-1])
 
 
-def phase1_tile_cols(groups: int, c: int, lanes: int) -> int:
-    """TC of B6 (groups limbs [n1, c], lanes = c) or B10 (groups lane
-    groups of lanes = k*c, k limbs of c lanes each)."""
-    return radix_tile_cols(groups, 0, lanes, c, PHASE1_TILE_COLS,
-                           PHASE1_MIN_BLOCKS)
+def phase_tile_cols(groups: int, c: int, lanes: int) -> int:
+    """TC of B6 or B7 (groups limbs [n, c], lanes = c) or B10 or B11
+    (groups lane groups of lanes = k*c, k limbs of c lanes each)."""
+    return radix_tile_cols(groups, 0, lanes, c, PHASE_TILE_COLS,
+                           PHASE_MIN_BLOCKS)
 
 
 def radix_phases(rows: int, n1: int, n2: int,
@@ -116,8 +118,8 @@ def _launch_phase(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
     """One phase kernel on x [rep*M, n, c] (c a power of two up to n)
     -> a new [rep*M, n, c]. The tables named in `sliced` are per-element
     [M, n, c] (the shard's mid slice that B6 and B9 read); the others are
-    flat stage tables [M, n]. A `radix` kernel (B6) also takes log2 of its
-    tile width, phase1_tile_cols'."""
+    flat stage tables [M, n]. A `radix` kernel (B6, B7) also takes log2 of
+    its tile width, phase_tile_cols'."""
     if not x.is_cuda:
         raise ValueError(f"{name}: CUDA kernel called on {x.device}")
     M = nb.q.shape[0]
@@ -134,7 +136,7 @@ def _launch_phase(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
         kernels.require_cuda_int32(
             k, getattr(nb, k), x.device,
             (M, n, c) if k in sliced else (M, n))
-    tile = (phase1_tile_cols(rep * M, c, c),) if radix else ()
+    tile = (phase_tile_cols(rep * M, c, c),) if radix else ()
     lib = kernels.load()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -160,7 +162,8 @@ def ntt_phase1(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
 def ntt_phase2(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
     """Kernel B7: int32 [rep*M, n2, c] -> stage-2 CT butterflies, eval
     columns in [0, q)."""
-    return _launch_phase("ntt_phase2", x, nb, rep, ("tw2", "tw2_sh"), nb.n2)
+    return _launch_phase("ntt_phase2", x, nb, rep, ("tw2", "tw2_sh"), nb.n2,
+                         radix=True)
 
 
 def intt_phase2(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
@@ -185,8 +188,8 @@ def _launch_packed(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
     multiple of 32) -> a new [rep*G, n, k*c]. The tables named in `mid`
     are the shard's per-limb [M, n, c] mid slice; the others flat [M, n]
     stage tables. Lane j of group g reads limb min((g mod G)*k + j div c,
-    M - 1). A `radix` kernel (B10) also takes log2 of its tile width,
-    phase1_tile_cols'."""
+    M - 1). A `radix` kernel (B10, B11) also takes log2 of its tile width,
+    phase_tile_cols'."""
     if not x.is_cuda:
         raise ValueError(f"{name}: CUDA kernel called on {x.device}")
     M, k = nb.q.shape[0], nb.pack
@@ -205,7 +208,7 @@ def _launch_packed(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
     for t in tables:
         kernels.require_cuda_int32(t, getattr(nb, t), x.device,
                                    (M, n, c) if t in mid else (M, n))
-    tile = (phase1_tile_cols(rep * G, c, k * c),) if radix else ()
+    tile = (phase_tile_cols(rep * G, c, k * c),) if radix else ()
     lib = kernels.load()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -232,7 +235,7 @@ def ntt_phase2_packed(x: torch.Tensor, nb: NttBasis,
                       rep: int = 1) -> torch.Tensor:
     """Kernel B11: B7 on lane-packed groups [rep*G, n2, k*c]."""
     return _launch_packed("ntt_phase2_packed", x, nb, rep,
-                          ("tw2", "tw2_sh"), nb.n2)
+                          ("tw2", "tw2_sh"), nb.n2, radix=True)
 
 
 def intt_phase2_packed(x: torch.Tensor, nb: NttBasis,

@@ -1,26 +1,28 @@
 #!/usr/bin/env python3
-"""Device time of kernels B6 (ntt_phase1) and B10 (ntt_phase1_packed), the
-forward phase 1 of the coefficient-sharded NTT, at the shapes chip_smoke.py
-checks them at, for one checkout of the port.
+"""Device time of the forward phases of the coefficient-sharded NTT, B6
+(ntt_phase1), B7 (ntt_phase2), B10 (ntt_phase1_packed) and B11
+(ntt_phase2_packed), at the shapes chip_smoke.py checks them at, for one
+checkout of the port.
 
     python3 scripts/bench_phase_torch.py [--root DIR] [--tile-cols 4 8 16]
                                          [--out FILE]
 
-Takes the shapes from this checkout's chip_smoke.py (`phase_cases`: B6 on
-column slices at 2-32 shards, B10 on lane groups at 8-32 shards, set B,
-level 35) and times the `homulator_tpu_torch` of DIR (default: this
-checkout; another one, such as an earlier commit unpacked with `git
-archive`, builds its own kernels under its own build/): at each shape the
-kernel against its plain version bit for bit, then the device time of one
-call (CUDA-graph replay, the median of 20 replays of 10 calls;
+Takes the shapes from this checkout's chip_smoke.py (`phase_cases`: B6 and
+B7 on column slices at 2-32 shards, B10 and B11 on lane groups at 8-32
+shards, set B, level 35) and times the `homulator_tpu_torch` of DIR
+(default: this checkout; another one, such as an earlier commit unpacked
+with `git archive`, builds its own kernels under its own build/): at each
+shape the kernel against its plain version bit for bit, then the device
+time of one call (CUDA-graph replay, the median of 20 replays of 10 calls;
 benchlib.device_ms), beside the bound this checkout's chip_smoke counts
 (`phase_bound`) and the kernel's share of it. With --tile-cols, each width
-in turn is made the only entry of DIR's `ntt_kernels.PHASE1_TILE_COLS`, so
-that `phase1_tile_cols` takes it wherever it fits in one limb's c columns
-(a sweep of B6's and B10's tile width). Prints the card's name and power
-limit and one JSON line, also written to FILE. To compare two commits,
-run both in one call on one card, in turns: parent, change, change,
-parent. Imports no JAX and nothing of the JAX package.
+in turn is made the only entry of DIR's `ntt_kernels.PHASE_TILE_COLS`, so
+that `phase_tile_cols` takes it wherever it fits in one limb's c columns (a
+sweep of the four kernels' tile width; a checkout that names the constant
+otherwise runs its own widths). Prints the card's name and power limit and
+one JSON line, also written to FILE. To compare two commits, run both in
+one call on one card, in turns: parent, change, change, parent. Imports no
+JAX and nothing of the JAX package.
 """
 
 import argparse
@@ -29,7 +31,8 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("ntt_phase1", "ntt_phase1_packed")
+KERNELS = ("ntt_phase1", "ntt_phase2", "ntt_phase1_packed",
+           "ntt_phase2_packed")
 
 
 def main() -> int:
@@ -37,7 +40,7 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose homulator_tpu_torch is timed")
     ap.add_argument("--tile-cols", type=int, nargs="+",
-                    help="sweep B6's and B10's tile width over these")
+                    help="sweep the kernels' tile width over these")
     ap.add_argument("--out", help="also write the JSON line here")
     args = ap.parse_args()
 
@@ -68,7 +71,7 @@ def main() -> int:
     print(card)
     dc = DeviceContext(get_params(**chip_smoke.SET_B), "cuda")
     cases = chip_smoke.phase_cases(dc)
-    widths = {"default": getattr(ntt_kernels, "PHASE1_TILE_COLS", None)}
+    widths = {"default": getattr(ntt_kernels, "PHASE_TILE_COLS", None)}
     for tc in args.tile_cols or ():
         widths[f"TC={tc}"] = (tc,)
     out = {"card": card, "root": root, "kernels": {}}
@@ -77,24 +80,25 @@ def main() -> int:
         kernel = getattr(ntt_kernels, name)
         plain = getattr(ntt_mod, name + "_plain")
         rows = out["kernels"][name] = {}
+        mid = name.startswith("ntt_phase1")
         for label, (nb, rep, worst) in cases[name].items():
             if worst:
                 continue
             x = chip_smoke.phase_input(np, torch, name, nb, rep, False, rng)
             k = nb.pack or 1
             bound_ms = chip_smoke.phase_bound(
-                nb, x.shape[0] * k, x.shape[1], x.shape[2] // k, True,
+                nb, x.shape[0] * k, x.shape[1], x.shape[2] // k, mid,
                 radix=True)[0]
             want = plain(x, nb, rep)
             for tag, tile_cols in widths.items():
-                ntt_kernels.PHASE1_TILE_COLS = tile_cols
+                ntt_kernels.PHASE_TILE_COLS = tile_cols
                 try:
                     if not torch.equal(kernel(x, nb, rep), want):
                         raise AssertionError(f"{name} {label} {tag}: != its "
                                              "plain version")
                     ms = benchlib.device_ms(lambda: kernel(x, nb, rep))
                 finally:
-                    ntt_kernels.PHASE1_TILE_COLS = widths["default"]
+                    ntt_kernels.PHASE_TILE_COLS = widths["default"]
                 key = label if tag == "default" else f"{label} {tag}"
                 rows[key] = {"ms": ms, "bound_ms": bound_ms,
                              "share": bound_ms / ms}

@@ -40,14 +40,14 @@ CALLS = 5
 
 GROUPS = (  # (group, substrings of the kernel name); the first match wins
     ("B10 ntt_phase1_packed", ("packed_phase1_radix",)),
-    ("B11 ntt_phase2_packed", ("packed_fwd2",)),
+    ("B11 ntt_phase2_packed", ("packed_phase2_radix",)),
     ("B12 intt_phase2_packed", ("packed_inv2",)),
     ("B13 intt_phase1_packed", ("packed_inv1",)),
     ("B1 ntt_fwd", ("ntt_fwd_radix",)),
     ("B2 ntt_inv", ("ntt_inv_radix",)),
     ("B6 ntt_phase1", ("ntt_phase1_radix",)),
     ("B8 intt_phase2", ("ntt_inv_a",)),
-    ("B7 ntt_phase2", ("ntt_fwd_b",)),
+    ("B7 ntt_phase2", ("ntt_phase2_radix",)),
     ("B9 intt_phase1", ("ntt_inv_b",)),
     ("B3 bconv", ("bconv",)),
     ("B4 hpip", ("hpip",)),

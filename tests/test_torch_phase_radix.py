@@ -18,8 +18,10 @@ rep 2, the primes of the parameters just below numtheory.PRIME_CAP
 (2^32/6), random inputs and the worst case (every input q - 1), and an
 odd axis (n1 = 128: two contiguous units a thread). The model does the
 operations that chip_smoke's bound counts (benchlib.radix_phase1_ops),
-and the tile widths the wrappers pick (`phase1_tile_cols`) fit a block at
-every axis length and at every shape chip_smoke checks."""
+and the tile widths the wrappers pick (`phase_tile_cols`) fit a block at
+every axis length and at every shape chip_smoke checks. The block
+geometry (`_blocks`) is shared with B7 and B11, whose model is in
+tests/test_torch_phase2_radix.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,7 +41,7 @@ from homulator_tpu_torch.ops.ntt import (
     _pack_pad, ntt_phase1_packed_plain, ntt_phase1_plain,
 )
 from homulator_tpu_torch.ops.ntt_kernels import (
-    PHASE1_MIN_BLOCKS, TILE_COLS, phase1_tile_cols,
+    PHASE_MIN_BLOCKS, TILE_COLS, phase_tile_cols,
 )
 
 from .test_torch_ntt_radix import (
@@ -51,16 +53,16 @@ ROWS = (9, 0, 2, 3, 4)  # a special prime first; 5 rows pad at k = 4 .. 128
 SHARD_COLS = (1, 8, 16, 32)  # c at n2 = 64: 64, 8, 4 and 2 shards
 
 
-def phase1_model(x, nb, rep, tc, k):
-    """csrc/ntt.cu's B6 (k = 1) or B10 on x int32 [rep*G, n1, k*c] with
-    tiles of tc lanes: every block at once, each a row of the model's
-    batch. Same result as the plain version."""
+def _blocks(x, nb, rep, tc, k):
+    """csrc/ntt.cu's launch of a forward phase (B6, B7: k = 1; B10, B11) on
+    x [rep*G, n, k*c] with tiles of tc lanes, a block a row of the model's
+    batch: each block's group, first lane, [B, 1, tc] lanes, limb (min((g
+    mod G)*k + lane0 / c, M - 1)) and q [B, 1, 1]."""
     M = nb.q.shape[0]
     G = -(-M // k)
-    groups, n, m = x.shape
+    groups, _, m = x.shape
     c = m // k
     assert groups == rep * G and m % tc == 0 and c % tc == 0
-    L = n.bit_length() - 1
     g = torch.arange(groups)[:, None]
     lane0 = (torch.arange(m // tc) * tc)[None, :]
     # a tile lies in one limb's c lanes
@@ -68,10 +70,19 @@ def phase1_model(x, nb, rep, tc, k):
     limb = ((g % G) * k + lane0 // c).clamp(max=M - 1).reshape(-1)
     blk = g.expand(-1, lane0.shape[1]).reshape(-1)
     l0 = lane0.expand(groups, -1).reshape(-1)
-    cols = l0[:, None, None] + torch.arange(tc)  # [B, 1, tc] lanes
+    cols = l0[:, None, None] + torch.arange(tc)
+    return blk, l0, cols, limb, nb.q.long()[limb][:, None, None]
+
+
+def phase1_model(x, nb, rep, tc, k):
+    """csrc/ntt.cu's B6 (k = 1) or B10 on x int32 [rep*G, n1, k*c] with
+    tiles of tc lanes: every block at once, each a row of the model's
+    batch. Same result as the plain version."""
+    blk, l0, cols, limb, q = _blocks(x, nb, rep, tc, k)
+    c = x.shape[2] // k
+    L = x.shape[1].bit_length() - 1
     mcols = (l0 % c)[:, None, None] + torch.arange(tc)
     b = torch.arange(limb.numel())[:, None, None]
-    q = nb.q.long()[limb][:, None, None]
     tw = tuple(getattr(nb, t).long()[limb] & MASK32
                for t in ("tw1", "tw1_sh"))
     mid, mid_sh = (getattr(nb, t).long()[limb] & MASK32
@@ -113,7 +124,7 @@ def _tiles(groups, c, lanes):
     """Every tile width the kernel takes here (powers of two up to min(16,
     c)), the wrapper's choice among them."""
     tcs = [t for t in (1, 2, 4, 8, 16) if t <= c]
-    assert phase1_tile_cols(groups, c, lanes) in tcs
+    assert phase_tile_cols(groups, c, lanes) in tcs
     return tcs
 
 
@@ -244,8 +255,8 @@ def test_geometry_at_chip_smokes_shapes(label):
     fits, and at 4 shards (B6) and 8 shards (B10) on the main rows a
     block for half the SMs or more."""
     for groups, c, k in (B6_SHAPES | B10_SHAPES)[label]:
-        tc = phase1_tile_cols(groups, c, k * c)
+        tc = phase_tile_cols(groups, c, k * c)
         assert tc <= c and c % tc == 0 and tc in (8, 16)
         blocks = _geometry_ok(groups, 256, k * c, tc)
         if (groups, c) in ((35, 64), (9, 32)):
-            assert blocks >= PHASE1_MIN_BLOCKS
+            assert blocks >= PHASE_MIN_BLOCKS
