@@ -26,7 +26,8 @@ its int32 operations over INT32_OPS_PER_S (the float32 peak of 67 TFLOP/s,
 64 int32 lanes) and its tensor-core u8 operations over INT8_OPS_PER_S.
 OPS is the one count of int32 operations a primitive costs;
 radix_ntt_ops counts a transform of B1 or B2 with it, hpip_ops a call of
-B4, radix_phase1_ops one of B6 or B10, radix_phase2_ops one of B7 or B11.
+B4, radix_phase1_ops one of B6, B10 or B13, radix_phase2_ops one of B7,
+B11 or B12.
 """
 
 from __future__ import annotations
@@ -90,18 +91,22 @@ def radix_phase1_ops(rows, n, c):
     """int32 operations of B6 or B10 (csrc/ntt_reg.cuh::radix_phase1) on
     `rows` limb slices [n, c]: n/2 * log2(n) Harvey butterflies on each of
     c columns and, an element, the mid product reduced to [0, q) (a lazy
-    product and a conditional subtract)."""
+    product and a conditional subtract). B13 (radix_iphase1) does as many:
+    its GS butterfly costs what a CT one does (9), and an element takes
+    the lazy mid_inv product before them and a conditional subtract after
+    them."""
     return rows * c * (n // 2 * (n.bit_length() - 1) * OPS["lazy_butterfly"]
                        + n * (OPS["lazy_shoup"] + OPS["csub"]))
 
 
-def radix_phase2_ops(rows, n, c):
-    """int32 operations of B7 or B11 (csrc/ntt_reg.cuh::radix_phase, B1's
-    phase B) on `rows` limb slices [n, c]: n/2 * log2(n) Harvey
-    butterflies on each of c columns and, an element, two conditional
-    subtracts from [0, 4q) to [0, q) before the store."""
+def radix_phase2_ops(rows, n, c, fwd=True):
+    """int32 operations of B7 or B11 (fwd: csrc/ntt_reg.cuh::radix_phase,
+    B1's phase B) or B12 (B2's phase A) on `rows` limb slices [n, c]: n/2
+    * log2(n) Harvey butterflies on each of c columns and, an element, the
+    conditional subtracts before the store: two from [0, 4q) forward, one
+    from [0, 2q) inverse."""
     return rows * c * (n // 2 * (n.bit_length() - 1) * OPS["lazy_butterfly"]
-                       + n * 2 * OPS["csub"])
+                       + n * (2 if fwd else 1) * OPS["csub"])
 
 
 def hpip_ops(conv_rows, K, beta, n):

@@ -64,32 +64,34 @@
 // shard's [M, n1, c] mid slices) at each lane's limb, so no pre-broadcast
 // lane table exists on the card.
 //
-// What bounds the forward phases B6, B7, B10 and B11 on the card: a
-// shard's slice is small (35 limbs [256, 64] at 4 shards: 2.3 MB in and
-// out, plus 4.6 MB of mid tables for phase 1), so their bound is a few µs
-// of bytes, and the column-tile design (one block's serial loop of 8
-// shared-memory stages, a barrier each, every butterfly fully reduced)
-// took ten to twenty times that. They run on ntt_reg.cuh's register passes,
-// as B1 does: a block holds an [n, TC] tile of ONE limb, TC of 16 or 8
-// columns within the limb's c chosen on the host
-// (ops/ntt_kernels.py::phase_tile_cols: at 4 shards, 140 blocks of 256
-// threads; 4-column tiles, with 16-byte row segments, were slower
-// everywhere); two register passes with one exchange, the twiddle pair
-// loaded once a block, Harvey's lazy ranges. Phase 1 (B6, B10) is
-// radix_phase1: CT along n1, then the mid product in registers. Phase 2
-// (B7, B11) is B1's phase B, radix_phase<L, fwd, !transposed>: CT along
-// n2, reduced from [0, 4q) to [0, q) by two conditional subtracts before
-// the store. The per-limb kernel is the packed one with k = 1 (G = M
-// groups of one limb): the block's limb is min((g mod G)*k + lane0 / c,
-// M - 1) for its first lane lane0, the padding lanes of a copy's last group
-// computing limb M - 1's copy, as their data is. One template serves all
-// four, under four names so that a profile tells them apart.
+// What bounds the phase kernels on the card: a shard's slice is small (35 limbs
+// [256, 64] at 4 shards: 2.3 MB in and out, plus 4.6 MB of mid tables for phase
+// 1), so their bound is a few µs of bytes, and the column-tile design (one
+// block's serial loop of 8 shared-memory stages, a barrier each, every
+// butterfly fully reduced) took ten to twenty times that. B6, B7 and B10-B13
+// run on ntt_reg.cuh's register passes, as B1 does: a block holds an [n, TC]
+// tile of ONE limb, TC of 16 or 8 columns within the limb's c chosen on the
+// host (ops/ntt_kernels.py::phase_tile_cols: at 4 shards, 140 blocks of 256
+// threads; 4-column tiles, with 16-byte row segments, were slower everywhere);
+// two register passes with one exchange, the twiddle pair loaded once a block,
+// Harvey's lazy ranges. Phase 1 (B6, B10) is radix_phase1: CT along n1, then
+// the mid product in registers. Phase 2 (B7, B11) is B1's phase B,
+// radix_phase<L, fwd, !transposed>: CT along n2, reduced from [0, 4q) to [0, q)
+// by two conditional subtracts before the store. The inverse phases mirror
+// them: phase 2 (B12) is B2's phase A, radix_phase<L, !fwd, !transposed>, GS
+// along n2 in [0, 2q) and one conditional subtract before the store; phase 1
+// (B13) is radix_iphase1, the mid_inv product in registers, then GS along n1
+// (radix_gs_rows, the passes of B2's phases). The per-limb kernel is the packed
+// one with k = 1 (G = M groups of one limb): the block's limb is min((g mod
+// G)*k + lane0 / c, M - 1) for its first lane lane0, the padding lanes of a
+// copy's last group computing limb M - 1's copy, as their data is. One template
+// serves all six, under six names so that a profile tells them apart.
 //
-// B8, B9, B12 and B13 keep the column-tile helpers of ntt_tile.cuh (a
-// block owns an [n, TC] tile in shared memory and synchronises after each
-// stage): limbs as rows of pitch 2^logc, tiles of TC = min(32, 2^logc)
-// columns, a grid (rows, c/TC); the packed ones a 1024-thread block on an
-// [n, 32] lane tile, grid (rows, k*c/32).
+// B8 and B9 keep the column-tile helpers of ntt_tile.cuh (a block owns an
+// [n, TC] tile in shared memory and synchronises after each stage): limbs
+// as rows of pitch 2^logc, tiles of TC = min(32, 2^logc) columns, a grid
+// (rows, c/TC). They are B12 and B13 with k = 1: two more names of
+// phase_tile and a branch of phase_kernel away.
 // Stage twiddles are flat [M, n] tables: stage s, block b at column 2^s + b.
 // Multiplies use Shoup pairs (w, floor(w * 2^32 / q)) and __umulhi.
 
@@ -108,7 +110,6 @@ using hk::kLogTileCols;
 using hk::kThreads;
 using hk::load_tile;
 using hk::min_int;
-using hk::mul_cols;
 using hk::store_tile;
 using hk::tile_smem;
 using hk::with_log;
@@ -154,63 +155,6 @@ ntt_inv_b(const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
   store_tile(s, out + limb * len, log1, logtc, ld, 1 << logc, c0);
 }
 
-// The lane-packed inverse phase kernels B12 and B13 on [rows, n, m] lane
-// groups, m = k*c lanes: lane block j of group g is limb (g mod G)*k + j
-// of its rep copy (G groups a copy), or the copy's last limb M - 1 for the
-// padding lanes of its last group, whose data _pack_pad made copies of
-// that limb. A block owns the [n, 32] lane tile at lane 32*blockIdx.y of
-// group blockIdx.x: 32/c limbs side by side. A thread works one lane for
-// the whole kernel (ntt_tile.cuh), so it loads its limb's q and twiddle
-// rows once and hands them to the shared stage loops; the mid_inv table is
-// the per-limb [M, n, c] slice of B9, read at the thread's limb and column.
-template <bool kMid>
-__device__ inline void packed_inv_tile(const uint32_t* __restrict__ x,
-                                       uint32_t* __restrict__ out,
-                                       const uint32_t* __restrict__ q,
-                                       const uint32_t* __restrict__ tw,
-                                       const uint32_t* __restrict__ tw_sh,
-                                       const uint32_t* __restrict__ mid,
-                                       const uint32_t* __restrict__ mid_sh,
-                                       int G, int M, int logk, int logn,
-                                       int logc) {
-  extern __shared__ uint32_t s[];
-  constexpr int lt = kLogTileCols, ld = (1 << lt) + 1;
-  const int logm = logk + logc;
-  const int g = blockIdx.x, lane0 = blockIdx.y << lt;
-  const int lane = lane0 + (threadIdx.x & ((1 << lt) - 1));
-  const int limb = min(((g % G) << logk) + (lane >> logc), M - 1);
-  const uint32_t qq = q[limb];
-  const size_t len = (size_t)1 << (logn + logm);
-  const size_t trow = (size_t)limb << logn;
-  const size_t mcol =
-      ((size_t)limb << (logn + logc)) + (lane & ((1 << logc) - 1));
-  load_tile(s, x + g * len, logn, lt, ld, 1 << logm, lane0, nullptr, nullptr,
-            qq);
-  if constexpr (kMid)
-    mul_cols(s, mid + mcol, mid_sh + mcol, logn, lt, ld, 1 << logc, qq);
-  gs_rows(s, logn, lt, ld, tw + trow, tw_sh + trow, qq);
-  store_tile(s, out + g * len, logn, lt, ld, 1 << logm, lane0);
-}
-
-// 1024 threads a block: 4 butterflies a thread a stage on the 32-column
-// tile, against 16 with kThreads = 256, which halved B10-B13's time on an
-// H100 (PERF.md). A thread still keeps one column: 1024 % 32 == 0.
-constexpr int kPackedThreads = 1024;
-#define HK_PACKED_KERNEL(name, with_mid)                                    \
-  __global__ void __launch_bounds__(kPackedThreads)                         \
-      name(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,      \
-           const uint32_t* __restrict__ q, const uint32_t* __restrict__ tw, \
-           const uint32_t* __restrict__ tw_sh,                              \
-           const uint32_t* __restrict__ mid,                                \
-           const uint32_t* __restrict__ mid_sh, int G, int M, int logk,     \
-           int logn, int logc) {                                            \
-    packed_inv_tile<with_mid>(x, out, q, tw, tw_sh, mid, mid_sh, G, M,      \
-                              logk, logn, logc);                            \
-  }
-HK_PACKED_KERNEL(packed_inv2, false)  // B12: inverse stage 2
-HK_PACKED_KERNEL(packed_inv1, true)   // B13: mid_inv, inverse stage 1
-#undef HK_PACKED_KERNEL
-
 // B1 and B2: one phase each on the [2^L, TC] tile at column TC*blockIdx.y
 // of limb blockIdx.x, x and y [rows, 2^L * ncols] (ntt_reg.cuh's
 // radix_phase says which side is transposed). mid, mid_sh: [M, 2^L * ncols]
@@ -239,16 +183,17 @@ HK_RADIX_KERNEL(ntt_inv_radix_a, false, false)  // B2: GS n2
 HK_RADIX_KERNEL(ntt_inv_radix_b, false, true)   // B2: transpose, mid_inv, GS n1
 #undef HK_RADIX_KERNEL
 
-// The forward phases B6, B7, B10 and B11 on the [2^L, TC] tile at lane
-// lane0 = TC*blockIdx.y of group g = blockIdx.x of x [rows, 2^L, k*c] (rows
-// = rep*G groups, G = ceil(M/k) a copy; B6, B7: k = 1, G = M), TC <= c so
+// The phases B6, B7 and B10-B13 on the [2^L, TC] tile at lane lane0 =
+// TC*blockIdx.y of group g = blockIdx.x of x [rows, 2^L, k*c] (rows =
+// rep*G groups, G = ceil(M/k) a copy; B6, B7: k = 1, G = M), TC <= c so
 // that the tile lies in one limb's c lanes; that limb's q and flat stage
-// pair rows (tw, tw_sh [M, 2^L]). kMid (phase 1, B6 and B10):
-// radix_phase1 with the limb's mid slice (mid, mid_sh [M, 2^L, c]), read
-// at column lane0 mod c. !kMid (phase 2, B7 and B11): B1's phase B,
-// radix_phase<L, true, false>, whose !kT form reads and writes the tile at
-// the data's own pitch and reads no per-column table.
-template <int L, bool kMid>
+// pair rows (tw, tw_sh [M, 2^L]). kMid (phase 1): the limb's mid or
+// mid_inv slice (mid, mid_sh [M, 2^L, c]), read at column lane0 mod c, in
+// radix_phase1 (kFwd: B6, B10) or radix_iphase1 (B13). !kMid (phase 2):
+// B1's phase B (kFwd: B7, B11) or B2's phase A (B12), radix_phase<L, kFwd,
+// false>, whose !kT form reads and writes the tile at the data's own pitch
+// and reads no per-column table.
+template <int L, bool kFwd, bool kMid>
 __device__ __forceinline__ void phase_tile(
     const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
     const uint32_t* __restrict__ q, const uint32_t* __restrict__ tw,
@@ -262,17 +207,23 @@ __device__ __forceinline__ void phase_tile(
   const size_t trow = (size_t)limb << L;
   if constexpr (kMid) {
     const size_t mlen = (size_t)limb << (L + logc);
-    hk::radix_phase1<L>(x + g * len, y + g * len, q[limb], tw + trow,
-                        tw_sh + trow, mid + mlen, mid_sh + mlen, 1 << logm,
-                        1 << logc, logtc, lane0, lane0 & ((1 << logc) - 1));
+    const int mc0 = lane0 & ((1 << logc) - 1);
+    if constexpr (kFwd)
+      hk::radix_phase1<L>(x + g * len, y + g * len, q[limb], tw + trow,
+                          tw_sh + trow, mid + mlen, mid_sh + mlen, 1 << logm,
+                          1 << logc, logtc, lane0, mc0);
+    else
+      hk::radix_iphase1<L>(x + g * len, y + g * len, q[limb], tw + trow,
+                           tw_sh + trow, mid + mlen, mid_sh + mlen,
+                           1 << logm, 1 << logc, logtc, lane0, mc0);
   } else {
-    hk::radix_phase<L, true, false>(x + g * len, y + g * len, q[limb],
+    hk::radix_phase<L, kFwd, false>(x + g * len, y + g * len, q[limb],
                                     tw + trow, tw_sh + trow, nullptr,
                                     nullptr, 1 << logm, logtc, lane0);
   }
 }
 
-#define HK_PHASE_KERNEL(name, with_mid)                                     \
+#define HK_PHASE_KERNEL(name, fwd, with_mid)                                \
   template <int L>                                                          \
   __global__ void __launch_bounds__(hk::RadixSplit<L>::kMaxThreads,         \
                                     hk::RadixSplit<L>::kMinBlocks)          \
@@ -282,14 +233,33 @@ __device__ __forceinline__ void phase_tile(
            const uint32_t* __restrict__ mid,                                \
            const uint32_t* __restrict__ mid_sh, int G, int M, int logk,     \
            int logc, int logtc) {                                           \
-    phase_tile<L, with_mid>(x, y, q, tw, tw_sh, mid, mid_sh, G, M, logk,    \
-                            logc, logtc);                                   \
+    phase_tile<L, fwd, with_mid>(x, y, q, tw, tw_sh, mid, mid_sh, G, M,     \
+                                 logk, logc, logtc);                        \
   }
-HK_PHASE_KERNEL(ntt_phase1_radix, true)      // B6
-HK_PHASE_KERNEL(packed_phase1_radix, true)   // B10
-HK_PHASE_KERNEL(ntt_phase2_radix, false)     // B7
-HK_PHASE_KERNEL(packed_phase2_radix, false)  // B11
+HK_PHASE_KERNEL(ntt_phase1_radix, true, true)        // B6
+HK_PHASE_KERNEL(packed_phase1_radix, true, true)     // B10
+HK_PHASE_KERNEL(ntt_phase2_radix, true, false)       // B7
+HK_PHASE_KERNEL(packed_phase2_radix, true, false)    // B11
+HK_PHASE_KERNEL(packed_iphase2_radix, false, false)  // B12
+HK_PHASE_KERNEL(packed_iphase1_radix, false, true)   // B13
 #undef HK_PHASE_KERNEL
+
+using PhaseKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
+                             const uint32_t*, const uint32_t*,
+                             const uint32_t*, const uint32_t*, int, int, int,
+                             int, int);
+
+// The phase kernel at axis 2^L: forward or inverse (fwd), phase 1 or 2,
+// per limb or lane-packed; nullptr for the per-limb inverse phases, which
+// run on ntt_tile.cuh (B8, B9).
+template <int L>
+PhaseKernel phase_kernel(bool fwd, bool phase1, bool packed) {
+  if (fwd)
+    return phase1 ? (packed ? &packed_phase1_radix<L> : &ntt_phase1_radix<L>)
+                  : (packed ? &packed_phase2_radix<L> : &ntt_phase2_radix<L>);
+  if (!packed) return nullptr;
+  return phase1 ? &packed_iphase1_radix<L> : &packed_iphase2_radix<L>;
+}
 
 using RadixKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
                              const uint32_t*, const uint32_t*,
@@ -328,30 +298,30 @@ bool bad_phase(int rows, int M, int logn, int logc) {
          logc < 0 || logc > logn;
 }
 
-// A forward phase on rows = rep*G groups [2^logn, 2^(logk + logc)]: phase
-// 1 (B6, B10) if `phase1`, else phase 2 (B7, B11); per limb (B6, B7: k =
-// 1, G = M) unless `packed`. Tiles of TC = 2^logtc <= c lanes: grid (rows,
-// k*c/TC), TC * 2^floor(logn/2) threads (radix_block).
-int launch_phase(bool phase1, bool packed, const void* x, void* out,
-                 const void* q, const void* tw, const void* tw_sh,
-                 const void* mid, const void* mid_sh, int rows, int G,
-                 int M, int logk, int logn, int logc, int logtc,
-                 cudaStream_t st) {
+// A phase on rows = rep*G groups [2^logn, 2^(logk + logc)]: forward
+// (`fwd`: B6, B7, B10, B11) or inverse (B12, B13), phase 1 if `phase1`,
+// else phase 2; per limb (B6, B7: k = 1, G = M) unless `packed`. Tiles of
+// TC = 2^logtc <= c lanes: grid (rows, k*c/TC), TC * 2^floor(logn/2)
+// threads (radix_block).
+int launch_phase(bool fwd, bool phase1, bool packed, const void* x,
+                 void* out, const void* q, const void* tw, const void* tw_sh,
+                 const void* mid, const void* mid_sh, int rows, int G, int M,
+                 int logk, int logn, int logc, int logtc, void* stream) {
   if (rows <= 0 || G <= 0 || M <= 0 || rows % G != 0 || logk < 0 ||
       logc < 0 || logtc > logc || logn < 1 || logn > 10 ||
       (G << logk) < M || ((G - 1) << logk) >= M)
     return cudaErrorInvalidValue;
   return with_log(logn, [&](auto l) {
     constexpr int L = decltype(l)::value;
-    auto* const kernel =
-        phase1 ? (packed ? &packed_phase1_radix<L> : &ntt_phase1_radix<L>)
-               : (packed ? &packed_phase2_radix<L> : &ntt_phase2_radix<L>);
+    const PhaseKernel kernel = phase_kernel<L>(fwd, phase1, packed);
+    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
     int threads;
     size_t smem;
     const cudaError_t err =
         hk::radix_block<L>(kernel, logk + logc, logtc, &threads, &smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3(rows, 1 << (logk + logc - logtc)), threads, smem, st>>>(
+    kernel<<<dim3(rows, 1 << (logk + logc - logtc)), threads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
         static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(tw),
         static_cast<const uint32_t*>(tw_sh),
@@ -359,36 +329,6 @@ int launch_phase(bool phase1, bool packed, const void* x, void* out,
         static_cast<const uint32_t*>(mid_sh), G, M, logk, logc, logtc);
     return (int)cudaGetLastError();
   });
-}
-
-using PackedKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
-                              const uint32_t*, const uint32_t*,
-                              const uint32_t*, const uint32_t*, int, int, int,
-                              int, int);
-
-// A packed phase kernel of B12 or B13 on [rows, n, k*c], rows = rep*G with G
-// = ceil(M/k); k, n, c powers of two, c <= 32 <= k*c, n in [2, 1024]. Grid
-// (rows, k*c/32).
-int launch_packed(PackedKernel kernel, const void* x, void* out,
-                  const void* q, const void* tw, const void* tw_sh,
-                  const void* mid, const void* mid_sh, int rows, int G, int M,
-                  int k, int n, int c, void* stream) {
-  const int logk = ilog2(k), logn = ilog2(n), logc = ilog2(c);
-  if (rows <= 0 || G <= 0 || M <= 0 || rows % G != 0 || logk < 0 ||
-      logc < 0 || logc > kLogTileCols || logk + logc < kLogTileCols ||
-      logn < 1 || logn > 10 || (G << logk) < M || ((G - 1) << logk) >= M)
-    return cudaErrorInvalidValue;
-  size_t smem;
-  cudaError_t err;
-  if ((err = tile_smem(kernel, logn, kLogTileCols, &smem)) != cudaSuccess)
-    return err;
-  kernel<<<dim3(rows, 1 << (logk + logc - kLogTileCols)), kPackedThreads,
-           smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(tw),
-      static_cast<const uint32_t*>(tw_sh), static_cast<const uint32_t*>(mid),
-      static_cast<const uint32_t*>(mid_sh), G, M, logk, logn, logc);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -455,9 +395,8 @@ int hk_ntt_phase1(const void* x, void* out, const void* q, const void* tw1,
                   int rows, int M, int n1, int c, int logtc, void* stream) {
   const int log1 = ilog2(n1), logc = ilog2(c);
   if (bad_phase(rows, M, log1, logc)) return cudaErrorInvalidValue;
-  return launch_phase(true, false, x, out, q, tw1, tw1_sh, mid, mid_sh, rows,
-                      M, M, 0, log1, logc, logtc,
-                      static_cast<cudaStream_t>(stream));
+  return launch_phase(true, true, false, x, out, q, tw1, tw1_sh, mid, mid_sh,
+                      rows, M, M, 0, log1, logc, logtc, stream);
 }
 
 // B7: x [rows, n2, c] -> out [rows, n2, c]; tiles of 2^logtc columns
@@ -467,9 +406,8 @@ int hk_ntt_phase2(const void* x, void* out, const void* q, const void* tw2,
                   int logtc, void* stream) {
   const int log2 = ilog2(n2), logc = ilog2(c);
   if (bad_phase(rows, M, log2, logc)) return cudaErrorInvalidValue;
-  return launch_phase(false, false, x, out, q, tw2, tw2_sh, nullptr, nullptr,
-                      rows, M, M, 0, log2, logc, logtc,
-                      static_cast<cudaStream_t>(stream));
+  return launch_phase(true, false, false, x, out, q, tw2, tw2_sh, nullptr,
+                      nullptr, rows, M, M, 0, log2, logc, logtc, stream);
 }
 
 // B8: x [rows, n2, c] -> out [rows, n2, c].
@@ -519,10 +457,9 @@ int hk_ntt_phase1_packed(const void* x, void* out, const void* q,
                          const void* tw1, const void* tw1_sh, const void* mid,
                          const void* mid_sh, int rows, int G, int M, int k,
                          int n1, int c, int logtc, void* stream) {
-  const int logk = ilog2(k), logn = ilog2(n1), logc = ilog2(c);
-  return launch_phase(true, true, x, out, q, tw1, tw1_sh, mid, mid_sh, rows,
-                      G, M, logk, logn, logc, logtc,
-                      static_cast<cudaStream_t>(stream));
+  return launch_phase(true, true, true, x, out, q, tw1, tw1_sh, mid, mid_sh,
+                      rows, G, M, ilog2(k), ilog2(n1), ilog2(c), logtc,
+                      stream);
 }
 
 // B11: x [rows, n2, k*c] -> out, same layout; tiles of 2^logtc <= c lanes.
@@ -530,28 +467,31 @@ int hk_ntt_phase2_packed(const void* x, void* out, const void* q,
                          const void* tw2, const void* tw2_sh, int rows, int G,
                          int M, int k, int n2, int c, int logtc,
                          void* stream) {
-  const int logk = ilog2(k), logn = ilog2(n2), logc = ilog2(c);
-  return launch_phase(false, true, x, out, q, tw2, tw2_sh, nullptr, nullptr,
-                      rows, G, M, logk, logn, logc, logtc,
-                      static_cast<cudaStream_t>(stream));
+  return launch_phase(true, false, true, x, out, q, tw2, tw2_sh, nullptr,
+                      nullptr, rows, G, M, ilog2(k), ilog2(n2), ilog2(c),
+                      logtc, stream);
 }
 
-// B12: x [rows, n2, k*c] -> out, same layout.
+// B12: x [rows, n2, k*c] -> out, same layout; tiles of 2^logtc <= c lanes.
 int hk_intt_phase2_packed(const void* x, void* out, const void* q,
                           const void* itw2, const void* itw2_sh, int rows,
-                          int G, int M, int k, int n2, int c, void* stream) {
-  return launch_packed(packed_inv2, x, out, q, itw2, itw2_sh, nullptr,
-                       nullptr, rows, G, M, k, n2, c, stream);
+                          int G, int M, int k, int n2, int c, int logtc,
+                          void* stream) {
+  return launch_phase(false, false, true, x, out, q, itw2, itw2_sh, nullptr,
+                      nullptr, rows, G, M, ilog2(k), ilog2(n2), ilog2(c),
+                      logtc, stream);
 }
 
 // B13: x [rows, n1, k*c] -> out, same layout; mid_inv, mid_inv_sh
-// [M, n1, c].
+// [M, n1, c]; tiles of 2^logtc <= c lanes.
 int hk_intt_phase1_packed(const void* x, void* out, const void* q,
                           const void* mid_inv, const void* mid_inv_sh,
                           const void* itw1, const void* itw1_sh, int rows,
-                          int G, int M, int k, int n1, int c, void* stream) {
-  return launch_packed(packed_inv1, x, out, q, itw1, itw1_sh, mid_inv,
-                       mid_inv_sh, rows, G, M, k, n1, c, stream);
+                          int G, int M, int k, int n1, int c, int logtc,
+                          void* stream) {
+  return launch_phase(false, true, true, x, out, q, itw1, itw1_sh, mid_inv,
+                      mid_inv_sh, rows, G, M, ilog2(k), ilog2(n1), ilog2(c),
+                      logtc, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 // Register-resident radix passes of the NTT kernels B1 and B2 (ntt.cu),
 // written as helpers so that other NTT phases run on them: B4's two
-// launches (hpip.cu) and the forward phases of the coefficient-sharded
-// NTT, phase 1 (B6, B10: radix_phase1) and phase 2 (B7, B11: B1's phase B,
-// radix_phase<L, true, false>) in ntt.cu.
+// launches (hpip.cu) and the phases of the coefficient-sharded NTT in
+// ntt.cu: forward phase 1 (B6, B10: radix_phase1) and phase 2 (B7, B11:
+// B1's phase B, radix_phase<L, true, false>), and the lane-packed inverse
+// phase 2 (B12: B2's phase A, radix_phase<L, false, false>) and phase 1
+// (B13: radix_iphase1).
 //
 // One phase transforms an [n, ncols] limb along its n = 2^L rows, one
 // column at a time; a block holds TC columns. Each transform splits its
@@ -197,6 +199,29 @@ __device__ __forceinline__ void radix_ct_rows(
     ct_pass<LB>(v, k << LB, tws, n, LA, u * S::kSub + k, q);
 }
 
+// The GS stages of one 2^L-point column c of a tile, radix_ct_rows's
+// mirror image: v holds the contiguous rows u*R + t (t < R) of the column,
+// each in [0, 2q), and leaves holding its strided rows u + U*t after all L
+// stages, in [0, 2q): the contiguous pass(es), the exchange through tile
+// (one barrier), then the strided pass. B2's phases (radix_phase) and B12
+// store the values; B13 (radix_iphase1) multiplies them by mid_inv first.
+template <int L>
+__device__ __forceinline__ void radix_gs_rows(
+    uint32_t (&v)[RadixSplit<L>::kR], uint32_t* tile, const uint32_t* tws,
+    uint32_t q, int u, int c, int logtc) {
+  using S = RadixSplit<L>;
+  constexpr int n = 1 << L, R = S::kR, U = S::kU, LA = S::kLA, LB = S::kLB;
+#pragma unroll
+  for (int k = 0; k < S::kSub; ++k)
+    gs_pass<LB>(v, k << LB, tws, n, LA, u * S::kSub + k, q);  // [0, 2q)
+#pragma unroll
+  for (int t = 0; t < R; ++t) tile[tile_at<L>(u * R + t, c, logtc)] = v[t];
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < R; ++t) v[t] = tile[tile_at<L>(u + U * t, c, logtc)];
+  gs_pass<LA>(v, 0, tws, n, 0, 0, q);  // [0, 2q)
+}
+
 // The limb's stage row and its Shoup row (n = 2^L words each) into shared
 // memory, then the block's first barrier.
 template <int L>
@@ -217,7 +242,8 @@ __device__ __forceinline__ void load_twiddles(
 //   kFwd, !kT  CT along the rows; y [n, ncols] like x          (B1 phase B;
 //              B7, B11: the tile at lane c0 of a shard's group)
 //   kFwd, kT   CT, times mid, y transposed [ncols, n]          (B1 phase A)
-//   !kFwd, !kT GS along the rows; y [n, ncols] like x          (B2 phase A)
+//   !kFwd, !kT GS along the rows; y [n, ncols] like x          (B2 phase A;
+//              B12: the tile at lane c0 of a shard's group)
 //   !kFwd, kT  x transposed [ncols, n]: times mid, GS; y
 //              [n, ncols]                                      (B2 phase B)
 // CT runs the strided pass, then the contiguous one; GS the other way
@@ -230,7 +256,7 @@ __device__ __forceinline__ void radix_phase(
     const uint32_t* __restrict__ mid, const uint32_t* __restrict__ mid_sh,
     int ncols, int logtc, int c0) {
   using S = RadixSplit<L>;
-  constexpr int n = 1 << L, R = S::kR, U = S::kU, LA = S::kLA, LB = S::kLB;
+  constexpr int n = 1 << L, R = S::kR, U = S::kU;
   extern __shared__ uint32_t sm[];
   uint32_t* const tws = sm;  // stage row [n], then its Shoup row [n]
   uint32_t* const tile = sm + 2 * n;
@@ -271,15 +297,7 @@ __device__ __forceinline__ void radix_phase(
         y[(size_t)(u * R + t) * ncols + col] = csub(csub(v[t], 2 * q), q);
     }
   } else {
-#pragma unroll
-    for (int k = 0; k < S::kSub; ++k)
-      gs_pass<LB>(v, k << LB, tws, n, LA, u * S::kSub + k, q);  // [0, 2q)
-#pragma unroll
-    for (int t = 0; t < R; ++t) tile[tile_at<L>(u * R + t, c, logtc)] = v[t];
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < R; ++t) v[t] = tile[tile_at<L>(u + U * t, c, logtc)];
-    gs_pass<LA>(v, 0, tws, n, 0, 0, q);  // [0, 2q)
+    radix_gs_rows<L>(v, tile, tws, q, u, c, logtc);  // [0, 2q)
 #pragma unroll
     for (int t = 0; t < R; ++t)
       y[(size_t)(u + U * t) * ncols + col] = csub(v[t], q);
@@ -321,6 +339,41 @@ __device__ __forceinline__ void radix_phase1(
     y[(size_t)i * pitch + c0 + c] =
         csub(shoup_mul_lazy(v[t], mid[g], mid_sh[g], q), q);
   }
+}
+
+// Inverse phase 1 of the coefficient-sharded NTT (B13) on the [n, TC] tile
+// at column c0 of one limb x (n = 2^L rows, `pitch` words apart),
+// radix_phase1's mirror image: at the contiguous rows each thread holds,
+// times the limb's mid_inv table (rows `mpitch` words apart, tile column c
+// at column mc0 + c, as radix_phase1 reads mid), then GS along the rows
+// (radix_gs_rows), reduced to [0, q) and stored in x's layout at the
+// strided rows. Two barriers, as radix_phase's.
+template <int L>
+__device__ __forceinline__ void radix_iphase1(
+    const uint32_t* __restrict__ x, uint32_t* __restrict__ y, uint32_t q,
+    const uint32_t* __restrict__ tw, const uint32_t* __restrict__ tw_sh,
+    const uint32_t* __restrict__ mid, const uint32_t* __restrict__ mid_sh,
+    int pitch, int mpitch, int logtc, int c0, int mc0) {
+  using S = RadixSplit<L>;
+  constexpr int n = 1 << L, R = S::kR, U = S::kU;
+  extern __shared__ uint32_t sm[];
+  uint32_t* const tws = sm;  // stage row [n], then its Shoup row [n]
+  uint32_t* const tile = sm + 2 * n;
+  const int c = threadIdx.x & ((1 << logtc) - 1);
+  const int u = threadIdx.x >> logtc;
+  uint32_t v[R];
+#pragma unroll
+  for (int t = 0; t < R; ++t) {  // values < q times mid_inv: [0, 2q)
+    const int i = u * R + t;
+    const size_t g = (size_t)i * mpitch + mc0 + c;
+    v[t] = shoup_mul_lazy(x[(size_t)i * pitch + c0 + c], mid[g], mid_sh[g],
+                          q);
+  }
+  load_twiddles<L>(tws, tw, tw_sh);
+  radix_gs_rows<L>(v, tile, tws, q, u, c, logtc);  // [0, 2q)
+#pragma unroll
+  for (int t = 0; t < R; ++t)
+    y[(size_t)(u + U * t) * pitch + c0 + c] = csub(v[t], q);
 }
 
 // The block of a radix phase kernel at axis 2^L and TC = 2^logtc of

@@ -1,8 +1,7 @@
-// Column-tile NTT building blocks shared by the inverse phase kernels of
-// the coefficient-sharded NTT (ntt.cu: B8, B9 and their lane-packed forms
-// B12, B13; the forward ones, B6, B7, B10 and B11, run on ntt_reg.cuh) and
-// the NTT anatomy kernels (anatomy.cu: B14-B16, the only users of
-// ct_rows).
+// Column-tile NTT building blocks shared by the per-limb inverse phase
+// kernels of the coefficient-sharded NTT (ntt.cu: B8, B9; the other phase
+// kernels, B6, B7 and B10-B13, run on ntt_reg.cuh) and the NTT anatomy
+// kernels (anatomy.cu: B14-B16, the only users of ct_rows).
 //
 // A block owns an [n, TC] column tile of one limb in shared memory (row
 // stride ld = TC + 1: no bank conflicts in the transposed write; TC =
@@ -12,9 +11,8 @@
 // [0, q) after every butterfly.
 //
 // Every loop below gives thread t the tile column t % TC, and blockDim is a
-// multiple of TC, so a thread keeps one column for the whole kernel. That
-// makes the per-lane forms of the lane-packed kernels free: a thread may
-// pass gs_rows its own q and twiddle row (those of its column's
+// multiple of TC, so a thread keeps one column for the whole kernel: a
+// thread may pass gs_rows its own q and twiddle row (those of its column's
 // limb), and mul_cols its own column of a per-element table.
 #pragma once
 

@@ -64,11 +64,11 @@ _SIGNATURES = {
     "hk_intt_phase2": [_P] * 5 + [_I] * 4 + [_P],
     "hk_intt_phase1": [_P] * 7 + [_I] * 4 + [_P],
     # the lane-packed B10-B13: x, out, q, the same tables, rows (rep*G),
-    # G, M, k, n, c, (B10, B11: log2 of the tile lanes,) stream
+    # G, M, k, n, c, log2 of the tile lanes, stream
     "hk_ntt_phase1_packed": [_P] * 7 + [_I] * 7 + [_P],
     "hk_ntt_phase2_packed": [_P] * 5 + [_I] * 7 + [_P],
-    "hk_intt_phase2_packed": [_P] * 5 + [_I] * 6 + [_P],
-    "hk_intt_phase1_packed": [_P] * 7 + [_I] * 6 + [_P],
+    "hk_intt_phase2_packed": [_P] * 5 + [_I] * 7 + [_P],
+    "hk_intt_phase1_packed": [_P] * 7 + [_I] * 7 + [_P],
     # x, out, s, s_sh, in_q, the table's device layout, horner_sh, out_q,
     # nd, center, m_out, ncoef, stream
     "hk_bconv": [_P] * 8 + [_I] * 3 + [ctypes.c_longlong, _P],

@@ -12,10 +12,10 @@ B10-B13 replace their lane-packed forms `::ntt_phase1_packed_pallas`,
 `::ntt_phase2_packed_pallas`, `::intt_phase2_packed_pallas` and
 `::intt_phase1_packed_pallas`: one launch each on [rep*G, n, k*c] lane
 groups, reading the per-limb tables of the basis (csrc/ntt.cu has the
-design note). The forward phases B6, B7, B10 and B11 run on B1's register
-passes, with the tile width of `phase_tile_cols` (at most one limb's c
-columns); B8, B9, B12 and B13 on column tiles. The plain versions are in
-ops/ntt.py: callers dispatch CPU tensors there, never here.
+design note). B6, B7 and B10-B13 run on the register passes of B1 and B2,
+with the tile width of `phase_tile_cols` (at most one limb's c columns);
+B8 and B9 on column tiles. The plain versions are in ops/ntt.py: callers
+dispatch CPU tensors there, never here.
 """
 
 from __future__ import annotations
@@ -39,11 +39,11 @@ _MAX_N = 1024  # per-axis length: the kernels take n = 2 .. 1024
 # threads, radix_smem_words<L>(TC) words of shared memory.
 TILE_COLS = (16, 8, 4)
 MIN_BLOCKS = 2 * 132
-# B6, B7, B10 and B11 (the forward phases on a shard's few columns): the
-# widest of PHASE_TILE_COLS that gives PHASE_MIN_BLOCKS blocks (half the
-# SMs), else the narrowest. On an H100 a 4-column tile (16-byte row
-# segments a warp: half of each 32-byte sector of its strided loads, mid
-# reads and stores) lost to 8 and 16 columns at every set-B shape of B6
+# B6, B7 and B10-B13 (the phases on a shard's few columns, all but B8
+# and B9): the widest of PHASE_TILE_COLS that gives PHASE_MIN_BLOCKS blocks
+# (half the SMs), else the narrowest. On an H100 a 4-column tile (16-byte
+# row segments a warp: half of each 32-byte sector of its strided loads,
+# mid reads and stores) lost to 8 and 16 columns at every set-B shape of B6
 # and B10 (up to 1.75 times their time) even where the MIN_BLOCKS rule
 # gave it twice the blocks; for B7 and B11 neither 8 nor 16 columns led at
 # every shape, each within 10% of the other (PERF.md §6).
@@ -66,8 +66,8 @@ def radix_tile_cols(rows: int, n: int, ncols: int,
 
 
 def phase_tile_cols(groups: int, c: int, lanes: int) -> int:
-    """TC of B6 or B7 (groups limbs [n, c], lanes = c) or B10 or B11
-    (groups lane groups of lanes = k*c, k limbs of c lanes each)."""
+    """TC of B6 or B7 (groups limbs [n, c], lanes = c) or B10-B13 (groups
+    lane groups of lanes = k*c, k limbs of c lanes each)."""
     return radix_tile_cols(groups, 0, lanes, c, PHASE_TILE_COLS,
                            PHASE_MIN_BLOCKS)
 
@@ -182,13 +182,13 @@ def intt_phase1(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
 
 
 def _launch_packed(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
-                   tables, n: int, mid=(), radix=False) -> torch.Tensor:
+                   tables, n: int, mid=()) -> torch.Tensor:
     """One lane-packed phase kernel on x [rep*G, n, k*c] (k = nb.pack, G
     = ceil(M/k) groups a copy, c a power of two up to 32 with k*c a
     multiple of 32) -> a new [rep*G, n, k*c]. The tables named in `mid`
     are the shard's per-limb [M, n, c] mid slice; the others flat [M, n]
     stage tables. Lane j of group g reads limb min((g mod G)*k + j div c,
-    M - 1). A `radix` kernel (B10, B11) also takes log2 of its tile width,
+    M - 1). The kernel also takes log2 of its tile width,
     phase_tile_cols'."""
     if not x.is_cuda:
         raise ValueError(f"{name}: CUDA kernel called on {x.device}")
@@ -208,15 +208,14 @@ def _launch_packed(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
     for t in tables:
         kernels.require_cuda_int32(t, getattr(nb, t), x.device,
                                    (M, n, c) if t in mid else (M, n))
-    tile = (phase_tile_cols(rep * G, c, k * c),) if radix else ()
+    tile = phase_tile_cols(rep * G, c, k * c)
     lib = kernels.load()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = getattr(lib, "hk_" + name)(
             kernels.ptr(x), kernels.ptr(out), kernels.ptr(nb.q),
             *(kernels.ptr(getattr(nb, t)) for t in tables),
-            rep * G, G, M, k, n, c, *(t.bit_length() - 1 for t in tile),
-            kernels.stream(x))
+            rep * G, G, M, k, n, c, tile.bit_length() - 1, kernels.stream(x))
     kernels.check(rc, name)
     kernels.count(name)
     return out
@@ -228,26 +227,28 @@ def ntt_phase1_packed(x: torch.Tensor, nb: NttBasis,
     the same layout in [0, q) per lane."""
     return _launch_packed("ntt_phase1_packed", x, nb, rep,
                           ("tw1", "tw1_sh", "mid", "mid_sh"), nb.n1,
-                          ("mid", "mid_sh"), radix=True)
+                          ("mid", "mid_sh"))
 
 
 def ntt_phase2_packed(x: torch.Tensor, nb: NttBasis,
                       rep: int = 1) -> torch.Tensor:
     """Kernel B11: B7 on lane-packed groups [rep*G, n2, k*c]."""
     return _launch_packed("ntt_phase2_packed", x, nb, rep,
-                          ("tw2", "tw2_sh"), nb.n2, radix=True)
+                          ("tw2", "tw2_sh"), nb.n2)
 
 
 def intt_phase2_packed(x: torch.Tensor, nb: NttBasis,
                        rep: int = 1) -> torch.Tensor:
-    """Kernel B12: B8 on lane-packed groups [rep*G, n2, k*c]."""
+    """Kernel B12: B8 on lane-packed groups [rep*G, n2, k*c], on B2's
+    phase A."""
     return _launch_packed("intt_phase2_packed", x, nb, rep,
                           ("itw2", "itw2_sh"), nb.n2)
 
 
 def intt_phase1_packed(x: torch.Tensor, nb: NttBasis,
                        rep: int = 1) -> torch.Tensor:
-    """Kernel B13: B9 on lane-packed groups [rep*G, n1, k*c]."""
+    """Kernel B13: B9 on lane-packed groups [rep*G, n1, k*c], the mid_inv
+    product in registers before B2's GS passes."""
     return _launch_packed("intt_phase1_packed", x, nb, rep,
                           ("mid_inv", "mid_inv_sh", "itw1", "itw1_sh"), nb.n1,
                           ("mid_inv", "mid_inv_sh"))

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Device time of the forward phases of the coefficient-sharded NTT, B6
-(ntt_phase1), B7 (ntt_phase2), B10 (ntt_phase1_packed) and B11
-(ntt_phase2_packed), at the shapes chip_smoke.py checks them at, for one
-checkout of the port.
+"""Device time of the phase kernels of the coefficient-sharded NTT, B6
+(ntt_phase1), B7 (ntt_phase2), B8 (intt_phase2), B9 (intt_phase1) and
+their lane-packed forms B10-B13 (ntt_phase1_packed, ntt_phase2_packed,
+intt_phase2_packed, intt_phase1_packed), at the shapes chip_smoke.py
+checks them at, for one checkout of the port.
 
     python3 scripts/bench_phase_torch.py [--root DIR] [--tile-cols 4 8 16]
-                                         [--out FILE]
+                                         [--kernels NAME ...] [--out FILE]
 
-Takes the shapes from this checkout's chip_smoke.py (`phase_cases`: B6 and
-B7 on column slices at 2-32 shards, B10 and B11 on lane groups at 8-32
-shards, set B, level 35) and times the `homulator_tpu_torch` of DIR
+Takes the shapes from this checkout's chip_smoke.py (`phase_cases`: B6-B9
+on column slices at 2-32 shards, B10-B13 on lane groups at 8-32 shards,
+set B, level 35) and times the `homulator_tpu_torch` of DIR
 (default: this checkout; another one, such as an earlier commit unpacked
 with `git archive`, builds its own kernels under its own build/): at each
 shape the kernel against its plain version bit for bit, then the device
@@ -18,8 +19,11 @@ benchlib.device_ms), beside the bound this checkout's chip_smoke counts
 (`phase_bound`) and the kernel's share of it. With --tile-cols, each width
 in turn is made the only entry of DIR's `ntt_kernels.PHASE_TILE_COLS`, so
 that `phase_tile_cols` takes it wherever it fits in one limb's c columns (a
-sweep of the four kernels' tile width; a checkout that names the constant
-otherwise runs its own widths). Prints the card's name and power limit and
+sweep of the tile width of the kernels that this checkout runs on the
+register passes, all but B8 and B9; a checkout that names the constant
+otherwise, or runs a kernel on column tiles, runs its own widths, timed
+again at each). --kernels times only the kernels named (default: all
+eight). Prints the card's name and power limit and
 one JSON line, also written to FILE. To compare two commits, run both in
 one call on one card, in turns: parent, change, change, parent. Imports no
 JAX and nothing of the JAX package.
@@ -31,8 +35,9 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("ntt_phase1", "ntt_phase2", "ntt_phase1_packed",
-           "ntt_phase2_packed")
+KERNELS = ("ntt_phase1", "ntt_phase2", "intt_phase2", "intt_phase1",
+           "ntt_phase1_packed", "ntt_phase2_packed", "intt_phase2_packed",
+           "intt_phase1_packed")
 
 
 def main() -> int:
@@ -41,6 +46,8 @@ def main() -> int:
                     help="checkout whose homulator_tpu_torch is timed")
     ap.add_argument("--tile-cols", type=int, nargs="+",
                     help="sweep the kernels' tile width over these")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=KERNELS,
+                    help="time only these kernels")
     ap.add_argument("--out", help="also write the JSON line here")
     args = ap.parse_args()
 
@@ -76,21 +83,24 @@ def main() -> int:
         widths[f"TC={tc}"] = (tc,)
     out = {"card": card, "root": root, "kernels": {}}
     rng = np.random.default_rng(3)
-    for name in KERNELS:
+    for name in args.kernels:
         kernel = getattr(ntt_kernels, name)
         plain = getattr(ntt_mod, name + "_plain")
         rows = out["kernels"][name] = {}
-        mid = name.startswith("ntt_phase1")
+        mid = name.startswith(("ntt_phase1", "intt_phase1"))
+        radix, fwd = chip_smoke.phase_radix(name)
         for label, (nb, rep, worst) in cases[name].items():
             if worst:
                 continue
             x = chip_smoke.phase_input(np, torch, name, nb, rep, False, rng)
             k = nb.pack or 1
             bound_ms = chip_smoke.phase_bound(
-                nb, x.shape[0] * k, x.shape[1], x.shape[2] // k, mid,
-                radix=True)[0]
+                nb, x.shape[0] * k, x.shape[1], x.shape[2] // k, mid, radix,
+                fwd)[0]
             want = plain(x, nb, rep)
             for tag, tile_cols in widths.items():
+                if tag != "default" and not radix:
+                    continue
                 ntt_kernels.PHASE_TILE_COLS = tile_cols
                 try:
                     if not torch.equal(kernel(x, nb, rep), want):

@@ -41,8 +41,8 @@ CALLS = 5
 GROUPS = (  # (group, substrings of the kernel name); the first match wins
     ("B10 ntt_phase1_packed", ("packed_phase1_radix",)),
     ("B11 ntt_phase2_packed", ("packed_phase2_radix",)),
-    ("B12 intt_phase2_packed", ("packed_inv2",)),
-    ("B13 intt_phase1_packed", ("packed_inv1",)),
+    ("B12 intt_phase2_packed", ("packed_iphase2_radix",)),
+    ("B13 intt_phase1_packed", ("packed_iphase1_radix",)),
     ("B1 ntt_fwd", ("ntt_fwd_radix",)),
     ("B2 ntt_inv", ("ntt_inv_radix",)),
     ("B6 ntt_phase1", ("ntt_phase1_radix",)),

@@ -180,7 +180,9 @@ def _gs(x, y, w, w_sh, q):
     _bound(x, 2 * q)
     _bound(y, 2 * q)
     _count("lazy_butterfly", x)
-    return _csub(x + y, 2 * q), _lazy(x - y + 2 * q, w, w_sh, q)
+    x, y = _csub(x + y, 2 * q), _lazy(x - y + 2 * q, w, w_sh, q)
+    _bound(x, 2 * q)
+    return x, y
 
 
 def _pass(v, off, lr, s0, g, tw, q, fwd):
@@ -225,12 +227,28 @@ def _ct_rows(v, L, ncols, tw, q):
     return v
 
 
-def _phase(x, L, ncols, q, tw, mid, fwd, transposed):
-    """radix_phase<L, fwd, transposed> on every column tile at once: x
-    int64 [rows, 2^L * ncols] -> y, the same size, in [0, q)."""
+def _gs_rows(v, L, ncols, tw, q):
+    """csrc/ntt_reg.cuh::radix_gs_rows<L> on every column at once: v, the
+    values of the contiguous rows (each [rows, U, ncols], below 2q) -> the
+    values of the strided rows after all L GS stages, in [0, 2q)."""
     la, lb, R, U = _split(L)
     n, sub = 1 << L, R >> lb
     u = torch.arange(U)[:, None]
+    strided, contig = _rows(L)
+    for k in range(sub):
+        _pass(v, k << lb, lb, la, u * sub + k, tw, q, False)
+    tile = torch.empty((v[0].shape[0], n, ncols), dtype=torch.int64)
+    for t, i in enumerate(contig):
+        tile[:, i[:, 0]] = v[t]
+    v = [tile[:, i[:, 0]] for i in strided]
+    _pass(v, 0, la, 0, torch.zeros_like(u), tw, q, False)
+    return v
+
+
+def _phase(x, L, ncols, q, tw, mid, fwd, transposed):
+    """radix_phase<L, fwd, transposed> on every column tile at once: x
+    int64 [rows, 2^L * ncols] -> y, the same size, in [0, q)."""
+    n = 1 << L
     col = torch.arange(ncols)[None, :]
     q = q[:, None, None]
     strided, contig = _rows(L)
@@ -247,13 +265,7 @@ def _phase(x, L, ncols, q, tw, mid, fwd, transposed):
             v = [_lazy(x[:, col * n + i], mid[0][:, at(i)],
                        mid[1][:, at(i)], q) for i in contig]
             _count("lazy_shoup", x)
-        for k in range(sub):
-            _pass(v, k << lb, lb, la, u * sub + k, tw, q, False)
-        tile = torch.empty((x.shape[0], n, ncols), dtype=torch.int64)
-        for t, i in enumerate(contig):
-            tile[:, i[:, 0]] = v[t]
-        v = [tile[:, i[:, 0]] for i in strided]
-        _pass(v, 0, la, 0, torch.zeros_like(u), tw, q, False)
+        v = _gs_rows(v, L, ncols, tw, q)
     second = contig if fwd else strided
     y = torch.empty_like(x)
     if fwd and transposed:
