@@ -10,8 +10,8 @@ failure and the script then exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build (nvcc, one process per source) and its time, with
      ptxas's registers and spills of each instantiation of B1's, B2's,
-     B4's, B6's, B7's and B10-B13's register-radix phase kernels (one
-     for each axis length 2^1 .. 2^10, B4's 2^1 .. 2^8) and of B3's and
+     B4's and B6-B13's register-radix phase kernels (one for each axis
+     length 2^1 .. 2^10, B4's 2^1 .. 2^8) and of B3's and
      B17's tensor-core kernels (`bconv_kernel`, `planes_mm`: one for each
      count of k32 steps, 1 .. 4), failing if one is missing or takes local
      memory;
@@ -38,9 +38,8 @@ failure and the script then exits non-zero:
      the last rank's [G, n, 128] lane groups at 8, 16 and 32 shards (c =
      32, 16, 8; k = 4, 8, 16; the main rows M = 35), and at 8 shards also
      the specials (M = 15) and the tail's last limb (M = 1) at rep = 2,
-     each copy's rows padded to a multiple of k (`phase_cases`), and B6,
-     B7 and B10-B13 at their main shapes in the worst case (every input
-     q - 1);
+     each copy's rows padded to a multiple of k (`phase_cases`), and
+     B6-B13 at their main shapes in the worst case (every input q - 1);
      the graph route's
      base-conversion step 2 (B5) at ModUp digits 0 (16 -> 35 rows, the
      count row included) and 2 (6 -> 45) and ModDown (16 -> 35), and the
@@ -132,11 +131,11 @@ counted from the shapes with a fixed cost per primitive (`benchlib.OPS`):
 a Shoup product 5 (three multiplies, a subtract, an unsigned min; the
 measured Shoup chain leaves room for no more), a modular add or subtract
 3, a butterfly 11, a lazy Shoup product-accumulate 6, a final reduction
-6; B5 sums lazy products and reduces each output once. B1, B2, B4, B6,
-B7 and B10-B13 count their Harvey butterflies (9) and lazy products as
-they compute them (`benchlib.radix_ntt_ops`, `benchlib.hpip_ops`: B4's
-lazy Montgomery product-accumulate 7; `benchlib.radix_phase1_ops` for
-B6, B10 and B13, `benchlib.radix_phase2_ops` for B7, B11 and B12). B3
+6; B5 sums lazy products and reduces each output once. B1, B2, B4 and
+B6-B13 count their Harvey butterflies (9) and lazy products as they
+compute them (`benchlib.radix_ntt_ops`, `benchlib.hpip_ops`: B4's lazy
+Montgomery product-accumulate 7; `benchlib.radix_phase1_ops` for B6,
+B9, B10 and B13, `benchlib.radix_phase2_ops` for B7, B8, B11 and B12). B3
 counts as it computes
 (`bconv_bound`): step 1, the centering count, its epilogue and the u8
 products of all four planes; B17 its u8 products alone. A link of a peak
@@ -257,32 +256,23 @@ def ntt_bound(nb, rep, fwd):
     return bound(nbytes, radix_ntt_ops(rep * M, n, fwd))
 
 
-def phase_bound(nb, rows, n, c, mid, radix=False, fwd=True):
-    """B6-B13 on `rows` limb slices [n, c] over basis nb (rep*M, or rep*G*k
-    with the padding rows of the lane-packed kernels): x and out, the
-    [M, n, c] mid slice and its Shoup table (B6, B9, B10, B13), the flat
-    stage tables and q. Operations, a row: the phases on ntt_reg.cuh's
-    register passes (`radix`: B6, B7, B10-B13) as they compute them,
-    Harvey butterflies and, an element, the lazy mid (B6, B10) or mid_inv
-    (B13) product and a conditional subtract (benchlib.radix_phase1_ops),
-    or the conditional subtracts of phase 2 (benchlib.radix_phase2_ops:
-    two forward, B7 and B11, one inverse, B12); B8 and B9 n/2 * log2(n)
-    butterflies on each of c columns, and n*c mid_inv products (B9)."""
+def phase_bound(nb, rows, n, c, name):
+    """Phase kernel `name` (B6-B13) on `rows` limb slices [n, c] over basis
+    nb (rep*M, or rep*G*k with the padding rows of the lane-packed
+    kernels): x and out, the [M, n, c] mid slice and its Shoup table (phase
+    1: B6, B9, B10, B13), the flat stage tables and q. Operations, a row,
+    as ntt_reg.cuh's register passes compute them: Harvey butterflies and,
+    an element, the lazy mid (B6, B10) or mid_inv (B9, B13) product and a
+    conditional subtract (benchlib.radix_phase1_ops), or the conditional
+    subtracts of phase 2 (benchlib.radix_phase2_ops: two forward, B7 and
+    B11, one inverse, B8 and B12)."""
     M = nb.q.shape[0]
+    mid = name.startswith(("ntt_phase1", "intt_phase1"))
     nbytes = 4 * (2 * rows * n * c + int(mid) * 2 * M * n * c
                   + 2 * M * n + M)
-    ops = ((radix_phase1_ops(rows, n, c) if mid else
-            radix_phase2_ops(rows, n, c, fwd)) if radix else
-           rows * (n // 2 * (n.bit_length() - 1) * c * OPS["butterfly"]
-                   + int(mid) * n * c * OPS["shoup"]))
+    ops = (radix_phase1_ops(rows, n, c) if mid else
+           radix_phase2_ops(rows, n, c, name.startswith("ntt_phase")))
     return bound(nbytes, ops)
-
-
-def phase_radix(name):
-    """Whether phase kernel `name` runs on ntt_reg.cuh's register passes
-    (all but B8 and B9), and whether it is a forward phase."""
-    fwd = name.startswith("ntt_phase")
-    return fwd or name.endswith("_packed"), fwd
 
 
 def phase_cases(dc):
@@ -295,8 +285,8 @@ def phase_cases(dc):
     the last rank's lane groups at 8, 16 and 32 shards (c = 32, 16, 8; k =
     4, 8, 16; M = 35), and at 8 shards also the specials (M = 15) and the
     tail's last limb (M = 1) at rep = 2, each copy's rows padded to a
-    multiple of k. `worst`: every input q - 1, the phases on the register
-    passes (B6, B7, B10-B13) at their main shapes."""
+    multiple of k. `worst`: every input q - 1, each phase at its main
+    shape (ns=4 for B6-B9, ns=8 for B10-B13)."""
     k4 = dc.keyswitch_tables(LEVEL_B, shard=(1, NS))
 
     def main_nt(ns):
@@ -308,8 +298,7 @@ def phase_cases(dc):
                                               False),
         "ns=4 c=64 special M=15 rep=2": (k4.special_nt, 2, False),
         "ns=2 c=128 main M=35 rep=1": (main_nt(2), 1, False),
-        # narrower than a 16-column tile (B6, B7) or a 32-column one (B8,
-        # B9)
+        # two, one and half a 16-column tile a limb
         "ns=8 c=32 main M=35 rep=1": (main_nt(8), 1, False),
         "ns=16 c=16 main M=35 rep=1": (main_nt(16), 1, False),
         "ns=32 c=8 main M=35 rep=1": (main_nt(32), 1, False),
@@ -329,11 +318,12 @@ def phase_cases(dc):
                                                     False)
             worst_packed = (f"{tag} main M=35 rep=1 worst (all q-1)",
                             (kt.main_nt, 1, True))
-    fwd_worst = dict(fwd, **{
-        "ns=4 c=64 main M=35 rep=1 worst (all q-1)": (k4.main_nt, 1, True)})
+    worst = {"ns=4 c=64 main M=35 rep=1 worst (all q-1)": (k4.main_nt, 1,
+                                                           True)}
+    fwd_worst, inv_worst = dict(fwd, **worst), dict(inv, **worst)
     packed_worst = dict(packed, **dict([worst_packed]))
     return {"ntt_phase1": fwd_worst, "ntt_phase2": fwd_worst,
-            "intt_phase2": inv, "intt_phase1": inv,
+            "intt_phase2": inv_worst, "intt_phase1": inv_worst,
             "ntt_phase1_packed": packed_worst,
             "ntt_phase2_packed": packed_worst,
             "intt_phase2_packed": packed_worst,
@@ -443,14 +433,16 @@ def compare(torch, name, label, kernel, plain, bnd, results, library=None,
 
 
 # kernel templates whose every instantiation chip_smoke holds to no local
-# memory: name -> instantiations (B1/B2, B6, B7 and B10-B13: axis length
-# 2^L, L = 1..10; B4's two phases: L = 1..8; B3/B17: k32 steps 1..4)
+# memory: name -> instantiations (B1/B2 and B6-B13: axis length 2^L, L =
+# 1..10; B4's two phases: L = 1..8; B3/B17: k32 steps 1..4)
 CHECKED_INSTANTIATIONS = {"ntt_fwd_radix_a": 10, "ntt_fwd_radix_b": 10,
                           "ntt_inv_radix_a": 10, "ntt_inv_radix_b": 10,
                           "hpip_radix_a": 8, "hpip_radix_b": 8,
                           "ntt_phase1_radix": 10, "packed_phase1_radix": 10,
                           "ntt_phase2_radix": 10, "packed_phase2_radix": 10,
+                          "ntt_iphase2_radix": 10,
                           "packed_iphase2_radix": 10,
+                          "ntt_iphase1_radix": 10,
                           "packed_iphase1_radix": 10,
                           "bconv_kernel": 4, "planes_mm": 4}
 
@@ -691,16 +683,13 @@ def check_phase_kernels(np, torch, dc, rng, results):
     for name, cases in phase_cases(dc).items():
         kernel = getattr(ntt_kernels, name)
         plain = getattr(ntt_mod, name + "_plain")
-        mid = name.startswith(("ntt_phase1", "intt_phase1"))
-        radix, fwd = phase_radix(name)
         for label, (nb, rep, worst) in cases.items():
             x = phase_input(np, torch, name, nb, rep, worst, rng)
             c = x.shape[2] // (nb.pack or 1)
             rows = x.shape[0] * (nb.pack or 1)
             compare(torch, name, label,
                     lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
-                    phase_bound(nb, rows, x.shape[1], c, mid, radix, fwd),
-                    results)
+                    phase_bound(nb, rows, x.shape[1], c, name), results)
     n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
     k4 = dc.keyswitch_tables(LEVEL_B, shard=(1, NS))
     label, (in_q, tabs, center) = next(iter(bconv_cases(k4, "ns=4 c=64 ")
@@ -918,12 +907,12 @@ def main() -> int:
               + ", ".join(f"{a}: {r} / {sp}" for a, (r, sp)
                           in sorted(by_arg.items())))
     if {k: len(v) for k, v in regs.items()} != CHECKED_INSTANTIATIONS:
-        raise AssertionError("nvcc's log lacks B1/B2/B3/B4/B6/B7/B10-B13/B17 "
+        raise AssertionError("nvcc's log lacks B1/B2/B3/B4/B6-B13/B17 "
                              f"instantiations: {regs}")
     spilled = {f"{name}<{a}>": sp for name, by_arg in regs.items()
                for a, (_, sp) in by_arg.items() if sp}
     if spilled:
-        raise AssertionError("B1/B2/B3/B4/B6/B7/B10-B13/B17 instantiations "
+        raise AssertionError("B1/B2/B3/B4/B6-B13/B17 instantiations "
                              f"use local memory (stack or spill bytes): "
                              f"{spilled}")
 

@@ -91,20 +91,20 @@ def radix_phase1_ops(rows, n, c):
     """int32 operations of B6 or B10 (csrc/ntt_reg.cuh::radix_phase1) on
     `rows` limb slices [n, c]: n/2 * log2(n) Harvey butterflies on each of
     c columns and, an element, the mid product reduced to [0, q) (a lazy
-    product and a conditional subtract). B13 (radix_iphase1) does as many:
-    its GS butterfly costs what a CT one does (9), and an element takes
-    the lazy mid_inv product before them and a conditional subtract after
-    them."""
+    product and a conditional subtract). B9 and B13 (radix_iphase1) do as
+    many: their GS butterfly costs what a CT one does (9), and an element
+    takes the lazy mid_inv product before them and a conditional subtract
+    after them."""
     return rows * c * (n // 2 * (n.bit_length() - 1) * OPS["lazy_butterfly"]
                        + n * (OPS["lazy_shoup"] + OPS["csub"]))
 
 
 def radix_phase2_ops(rows, n, c, fwd=True):
     """int32 operations of B7 or B11 (fwd: csrc/ntt_reg.cuh::radix_phase,
-    B1's phase B) or B12 (B2's phase A) on `rows` limb slices [n, c]: n/2
-    * log2(n) Harvey butterflies on each of c columns and, an element, the
-    conditional subtracts before the store: two from [0, 4q) forward, one
-    from [0, 2q) inverse."""
+    B1's phase B) or B8 or B12 (B2's phase A) on `rows` limb slices [n,
+    c]: n/2 * log2(n) Harvey butterflies on each of c columns and, an
+    element, the conditional subtracts before the store: two from [0, 4q)
+    forward, one from [0, 2q) inverse."""
     return rows * c * (n // 2 * (n.bit_length() - 1) * OPS["lazy_butterfly"]
                        + n * (2 if fwd else 1) * OPS["csub"])
 

@@ -106,8 +106,7 @@ anatomy(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   const int limb = blockIdx.x, m = limb % M, c0 = blockIdx.y << logtc;
   const size_t len = (size_t)1 << (log1 + log2);
   const uint32_t qq = q[m];
-  hk::load_tile(s, x + limb * len, log1, logtc, ld, 1 << log2, c0, nullptr,
-                nullptr, qq);
+  hk::load_tile(s, x + limb * len, log1, logtc, ld, 1 << log2, c0);
   for (int p = 0; p < kPasses; ++p)
     hk::ct_rows<Mul>(s, log1, logtc, ld, tw1 + ((size_t)m << log1),
                      tw1_sh + ((size_t)m << log1), qq);

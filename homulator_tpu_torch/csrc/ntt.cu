@@ -49,8 +49,8 @@
 // slice of c = n/ns columns, output in its input's layout:
 //   B6 ntt_phase1_radix  [rows, n1, c] -> [rows, n1, c]
 //   B7 ntt_phase2_radix  [rows, n2, c] -> [rows, n2, c]
-//   B8 ntt_inv_a         [rows, n2, c] -> [rows, n2, c]
-//   B9 ntt_inv_b         [rows, n1, c] -> [rows, n1, c]
+//   B8 ntt_iphase2_radix [rows, n2, c] -> [rows, n2, c]
+//   B9 ntt_iphase1_radix [rows, n1, c] -> [rows, n1, c]
 // B6 and B9 take the shard's mid / mid_inv tables as their own contiguous
 // [M, n1, c] column slice (DeviceContext builds one per rank), indexed like
 // the data. Table rows are limb % M, so rep stacked copies share one
@@ -66,9 +66,9 @@
 //
 // What bounds the phase kernels on the card: a shard's slice is small (35 limbs
 // [256, 64] at 4 shards: 2.3 MB in and out, plus 4.6 MB of mid tables for phase
-// 1), so their bound is a few µs of bytes, and the column-tile design (one
-// block's serial loop of 8 shared-memory stages, a barrier each, every
-// butterfly fully reduced) took ten to twenty times that. B6, B7 and B10-B13
+// 1), so their bound is a few µs of bytes, and the first design (ntt_tile.cuh's
+// column tiles: one block's serial loop of 8 shared-memory stages, a barrier
+// each, every butterfly fully reduced) took ten to twenty times that. All eight
 // run on ntt_reg.cuh's register passes, as B1 does: a block holds an [n, TC]
 // tile of ONE limb, TC of 16 or 8 columns within the limb's c chosen on the
 // host (ops/ntt_kernels.py::phase_tile_cols: at 4 shards, 140 blocks of 256
@@ -78,20 +78,16 @@
 // the mid product in registers. Phase 2 (B7, B11) is B1's phase B,
 // radix_phase<L, fwd, !transposed>: CT along n2, reduced from [0, 4q) to [0, q)
 // by two conditional subtracts before the store. The inverse phases mirror
-// them: phase 2 (B12) is B2's phase A, radix_phase<L, !fwd, !transposed>, GS
-// along n2 in [0, 2q) and one conditional subtract before the store; phase 1
-// (B13) is radix_iphase1, the mid_inv product in registers, then GS along n1
-// (radix_gs_rows, the passes of B2's phases). The per-limb kernel is the packed
-// one with k = 1 (G = M groups of one limb): the block's limb is min((g mod
-// G)*k + lane0 / c, M - 1) for its first lane lane0, the padding lanes of a
-// copy's last group computing limb M - 1's copy, as their data is. One template
-// serves all six, under six names so that a profile tells them apart.
+// them: phase 2 (B8, B12) is B2's phase A, radix_phase<L, !fwd, !transposed>,
+// GS along n2 in [0, 2q) and one conditional subtract before the store; phase
+// 1 (B9, B13) is radix_iphase1, the mid_inv product in registers, then GS
+// along n1 (radix_gs_rows, the passes of B2's phases). Each per-limb kernel is
+// its packed twin with k = 1 (G = M groups of one limb): the block's limb is
+// min((g mod G)*k + lane0 / c, M - 1) for its first lane lane0, the padding
+// lanes of a copy's last group computing limb M - 1's copy, as their data is.
+// One template serves all eight, under eight names so that a profile tells
+// them apart.
 //
-// B8 and B9 keep the column-tile helpers of ntt_tile.cuh (a block owns an
-// [n, TC] tile in shared memory and synchronises after each stage): limbs
-// as rows of pitch 2^logc, tiles of TC = min(32, 2^logc) columns, a grid
-// (rows, c/TC). They are B12 and B13 with k = 1: two more names of
-// phase_tile and a branch of phase_kernel away.
 // Stage twiddles are flat [M, n] tables: stage s, block b at column 2^s + b.
 // Multiplies use Shoup pairs (w, floor(w * 2^32 / q)) and __umulhi.
 
@@ -100,60 +96,11 @@
 #include <cstdint>
 
 #include "ntt_reg.cuh"
-#include "ntt_tile.cuh"
 
 namespace {
 
-using hk::gs_rows;
 using hk::ilog2;
-using hk::kLogTileCols;
-using hk::kThreads;
-using hk::load_tile;
-using hk::min_int;
-using hk::store_tile;
-using hk::tile_smem;
 using hk::with_log;
-
-// Inverse stage 2 (B8): x[limb] is [n2, 2^logc]; tile [n2, TC] at column
-// c0, written back in x's layout.
-__global__ void __launch_bounds__(kThreads)
-ntt_inv_a(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-          const uint32_t* __restrict__ q, const uint32_t* __restrict__ itw2,
-          const uint32_t* __restrict__ itw2_sh, int M, int log2, int logc,
-          int logtc) {
-  extern __shared__ uint32_t s[];
-  const int ld = (1 << logtc) + 1;
-  const int limb = blockIdx.x, m = limb % M, c0 = blockIdx.y << logtc;
-  const size_t len = (size_t)1 << (log2 + logc);
-  const uint32_t qq = q[m];
-  load_tile(s, x + limb * len, log2, logtc, ld, 1 << logc, c0, nullptr,
-            nullptr, qq);
-  gs_rows(s, log2, logtc, ld, itw2 + ((size_t)m << log2),
-          itw2_sh + ((size_t)m << log2), qq);
-  store_tile(s, y + limb * len, log2, logtc, ld, 1 << logc, c0);
-}
-
-// Inverse stage 1 (B9): y[limb] is [n1, 2^logc] and so is the
-// limb's mid_inv table; tile [n1, TC] at column c0.
-__global__ void __launch_bounds__(kThreads)
-ntt_inv_b(const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
-          const uint32_t* __restrict__ q,
-          const uint32_t* __restrict__ mid_inv,
-          const uint32_t* __restrict__ mid_inv_sh,
-          const uint32_t* __restrict__ itw1,
-          const uint32_t* __restrict__ itw1_sh, int M, int log1, int logc,
-          int logtc) {
-  extern __shared__ uint32_t s[];
-  const int ld = (1 << logtc) + 1;
-  const int limb = blockIdx.x, m = limb % M, c0 = blockIdx.y << logtc;
-  const size_t len = (size_t)1 << (log1 + logc);
-  const uint32_t qq = q[m];
-  load_tile(s, y + limb * len, log1, logtc, ld, 1 << logc, c0,
-            mid_inv + m * len, mid_inv_sh + m * len, qq);
-  gs_rows(s, log1, logtc, ld, itw1 + ((size_t)m << log1),
-          itw1_sh + ((size_t)m << log1), qq);
-  store_tile(s, out + limb * len, log1, logtc, ld, 1 << logc, c0);
-}
 
 // B1 and B2: one phase each on the [2^L, TC] tile at column TC*blockIdx.y
 // of limb blockIdx.x, x and y [rows, 2^L * ncols] (ntt_reg.cuh's
@@ -183,16 +130,16 @@ HK_RADIX_KERNEL(ntt_inv_radix_a, false, false)  // B2: GS n2
 HK_RADIX_KERNEL(ntt_inv_radix_b, false, true)   // B2: transpose, mid_inv, GS n1
 #undef HK_RADIX_KERNEL
 
-// The phases B6, B7 and B10-B13 on the [2^L, TC] tile at lane lane0 =
-// TC*blockIdx.y of group g = blockIdx.x of x [rows, 2^L, k*c] (rows =
-// rep*G groups, G = ceil(M/k) a copy; B6, B7: k = 1, G = M), TC <= c so
-// that the tile lies in one limb's c lanes; that limb's q and flat stage
-// pair rows (tw, tw_sh [M, 2^L]). kMid (phase 1): the limb's mid or
-// mid_inv slice (mid, mid_sh [M, 2^L, c]), read at column lane0 mod c, in
-// radix_phase1 (kFwd: B6, B10) or radix_iphase1 (B13). !kMid (phase 2):
-// B1's phase B (kFwd: B7, B11) or B2's phase A (B12), radix_phase<L, kFwd,
-// false>, whose !kT form reads and writes the tile at the data's own pitch
-// and reads no per-column table.
+// The phases B6-B13 on the [2^L, TC] tile at lane lane0 = TC*blockIdx.y
+// of group g = blockIdx.x of x [rows, 2^L, k*c] (rows = rep*G groups, G =
+// ceil(M/k) a copy; B6-B9: k = 1, G = M), TC <= c so that the tile lies
+// in one limb's c lanes; that limb's q and flat stage pair rows (tw, tw_sh
+// [M, 2^L]). kMid (phase 1): the limb's mid or mid_inv slice (mid, mid_sh
+// [M, 2^L, c]), read at column lane0 mod c, in radix_phase1 (kFwd: B6,
+// B10) or radix_iphase1 (B9, B13). !kMid (phase 2): B1's phase B (kFwd:
+// B7, B11) or B2's phase A (B8, B12), radix_phase<L, kFwd, false>, whose
+// !kT form reads and writes the tile at the data's own pitch and reads no
+// per-column table.
 template <int L, bool kFwd, bool kMid>
 __device__ __forceinline__ void phase_tile(
     const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
@@ -240,7 +187,9 @@ HK_PHASE_KERNEL(ntt_phase1_radix, true, true)        // B6
 HK_PHASE_KERNEL(packed_phase1_radix, true, true)     // B10
 HK_PHASE_KERNEL(ntt_phase2_radix, true, false)       // B7
 HK_PHASE_KERNEL(packed_phase2_radix, true, false)    // B11
+HK_PHASE_KERNEL(ntt_iphase2_radix, false, false)     // B8
 HK_PHASE_KERNEL(packed_iphase2_radix, false, false)  // B12
+HK_PHASE_KERNEL(ntt_iphase1_radix, false, true)      // B9
 HK_PHASE_KERNEL(packed_iphase1_radix, false, true)   // B13
 #undef HK_PHASE_KERNEL
 
@@ -250,15 +199,14 @@ using PhaseKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
                              int, int);
 
 // The phase kernel at axis 2^L: forward or inverse (fwd), phase 1 or 2,
-// per limb or lane-packed; nullptr for the per-limb inverse phases, which
-// run on ntt_tile.cuh (B8, B9).
+// per limb or lane-packed.
 template <int L>
 PhaseKernel phase_kernel(bool fwd, bool phase1, bool packed) {
   if (fwd)
     return phase1 ? (packed ? &packed_phase1_radix<L> : &ntt_phase1_radix<L>)
                   : (packed ? &packed_phase2_radix<L> : &ntt_phase2_radix<L>);
-  if (!packed) return nullptr;
-  return phase1 ? &packed_iphase1_radix<L> : &packed_iphase2_radix<L>;
+  return phase1 ? (packed ? &packed_iphase1_radix<L> : &ntt_iphase1_radix<L>)
+                : (packed ? &packed_iphase2_radix<L> : &ntt_iphase2_radix<L>);
 }
 
 using RadixKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
@@ -299,8 +247,9 @@ bool bad_phase(int rows, int M, int logn, int logc) {
 }
 
 // A phase on rows = rep*G groups [2^logn, 2^(logk + logc)]: forward
-// (`fwd`: B6, B7, B10, B11) or inverse (B12, B13), phase 1 if `phase1`,
-// else phase 2; per limb (B6, B7: k = 1, G = M) unless `packed`. Tiles of
+// (`fwd`: B6, B7, B10, B11) or inverse (B8, B9, B12, B13), phase 1 if
+// `phase1`, else phase 2; per limb (B6-B9: k = 1, G = M) unless `packed`.
+// Tiles of
 // TC = 2^logtc <= c lanes: grid (rows, k*c/TC), TC * 2^floor(logn/2)
 // threads (radix_block).
 int launch_phase(bool fwd, bool phase1, bool packed, const void* x,
@@ -314,7 +263,6 @@ int launch_phase(bool fwd, bool phase1, bool packed, const void* x,
   return with_log(logn, [&](auto l) {
     constexpr int L = decltype(l)::value;
     const PhaseKernel kernel = phase_kernel<L>(fwd, phase1, packed);
-    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
     int threads;
     size_t smem;
     const cudaError_t err =
@@ -410,45 +358,26 @@ int hk_ntt_phase2(const void* x, void* out, const void* q, const void* tw2,
                       nullptr, rows, M, M, 0, log2, logc, logtc, stream);
 }
 
-// B8: x [rows, n2, c] -> out [rows, n2, c].
+// B8: x [rows, n2, c] -> out [rows, n2, c]; tiles of 2^logtc columns.
 int hk_intt_phase2(const void* x, void* out, const void* q, const void* itw2,
                    const void* itw2_sh, int rows, int M, int n2, int c,
-                   void* stream) {
+                   int logtc, void* stream) {
   const int log2 = ilog2(n2), logc = ilog2(c);
   if (bad_phase(rows, M, log2, logc)) return cudaErrorInvalidValue;
-  const int lt = min_int(kLogTileCols, logc);
-  size_t smem;
-  cudaError_t err;
-  if ((err = tile_smem(ntt_inv_a, log2, lt, &smem)) != cudaSuccess)
-    return err;
-  ntt_inv_a<<<dim3(rows, c >> lt), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(itw2),
-      static_cast<const uint32_t*>(itw2_sh), M, log2, logc, lt);
-  return cudaGetLastError();
+  return launch_phase(false, false, false, x, out, q, itw2, itw2_sh, nullptr,
+                      nullptr, rows, M, M, 0, log2, logc, logtc, stream);
 }
 
-// B9: x [rows, n1, c] -> out [rows, n1, c]; mid_inv, mid_inv_sh [M, n1, c].
+// B9: x [rows, n1, c] -> out [rows, n1, c]; mid_inv, mid_inv_sh [M, n1, c];
+// tiles of 2^logtc columns.
 int hk_intt_phase1(const void* x, void* out, const void* q,
                    const void* mid_inv, const void* mid_inv_sh,
                    const void* itw1, const void* itw1_sh, int rows, int M,
-                   int n1, int c, void* stream) {
+                   int n1, int c, int logtc, void* stream) {
   const int log1 = ilog2(n1), logc = ilog2(c);
   if (bad_phase(rows, M, log1, logc)) return cudaErrorInvalidValue;
-  const int lt = min_int(kLogTileCols, logc);
-  size_t smem;
-  cudaError_t err;
-  if ((err = tile_smem(ntt_inv_b, log1, lt, &smem)) != cudaSuccess)
-    return err;
-  ntt_inv_b<<<dim3(rows, c >> lt), kThreads, smem,
-              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(mid_inv),
-      static_cast<const uint32_t*>(mid_inv_sh),
-      static_cast<const uint32_t*>(itw1), static_cast<const uint32_t*>(itw1_sh),
-      M, log1, logc, lt);
-  return cudaGetLastError();
+  return launch_phase(false, true, false, x, out, q, itw1, itw1_sh, mid_inv,
+                      mid_inv_sh, rows, M, M, 0, log1, logc, logtc, stream);
 }
 
 // B10: x [rows, n1, k*c] -> out, same layout; mid, mid_sh [M, n1, c];

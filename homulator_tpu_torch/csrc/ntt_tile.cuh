@@ -1,19 +1,16 @@
-// Column-tile NTT building blocks shared by the per-limb inverse phase
-// kernels of the coefficient-sharded NTT (ntt.cu: B8, B9; the other phase
-// kernels, B6, B7 and B10-B13, run on ntt_reg.cuh) and the NTT anatomy
-// kernels (anatomy.cu: B14-B16, the only users of ct_rows).
+// Column-tile NTT building blocks of the NTT anatomy kernels (anatomy.cu:
+// B14-B16), the first design of B1's forward phase; no op's path runs
+// them (every NTT kernel of an op runs on ntt_reg.cuh).
 //
 // A block owns an [n, TC] column tile of one limb in shared memory (row
 // stride ld = TC + 1: no bank conflicts in the transposed write; TC =
-// min(32, row pitch), so a narrow shard slice keeps one tile) and runs
-// every butterfly stage of one axis on it. Stage twiddles are flat [n]
-// rows: stage s, block b at column 2^s + b. Values stay fully reduced in
-// [0, q) after every butterfly.
+// min(32, row pitch)) and runs every butterfly stage of one axis on it.
+// Stage twiddles are flat [n] rows: stage s, block b at column 2^s + b.
+// Values stay fully reduced in [0, q) after every butterfly.
 //
 // Every loop below gives thread t the tile column t % TC, and blockDim is a
-// multiple of TC, so a thread keeps one column for the whole kernel: a
-// thread may pass gs_rows its own q and twiddle row (those of its column's
-// limb), and mul_cols its own column of a per-element table.
+// multiple of TC, so a thread keeps one column for the whole kernel:
+// mul_tile reads its own column of a per-element table.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,7 +21,6 @@
 
 namespace hk {
 
-constexpr int kThreads = 256;
 constexpr int kLogTileCols = 5;  // TC = 32 columns: 128-byte row segments
 
 // The Shoup product a * w mod q in [0, q) of the stage loops (__umulhi).
@@ -64,42 +60,14 @@ __device__ inline void ct_rows(uint32_t* s, int logn, int logtc, int ld,
   }
 }
 
-// GS butterflies (inverse, no 1/n factor), stages in reverse order.
-__device__ inline void gs_rows(uint32_t* s, int logn, int logtc, int ld,
-                               const uint32_t* __restrict__ tw,
-                               const uint32_t* __restrict__ tw_sh,
-                               uint32_t q) {
-  const int work = 1 << (logn - 1 + logtc);
-  for (int st = logn - 1; st >= 0; --st) {
-    const int logh = logn - 1 - st;
-    for (int t = threadIdx.x; t < work; t += blockDim.x) {
-      const int col = t & ((1 << logtc) - 1);
-      const int j = t >> logtc;
-      const int b = j >> logh;
-      const int r0 = (b << (logh + 1)) + (j & ((1 << logh) - 1));
-      const int r1 = r0 + (1 << logh);
-      const int k = (1 << st) + b;
-      const uint32_t u = s[r0 * ld + col];
-      const uint32_t v = s[r1 * ld + col];
-      s[r0 * ld + col] = mod_add(u, v, q);
-      s[r1 * ld + col] = shoup_mul(mod_sub(u, v, q), tw[k], tw_sh[k], q);
-    }
-    __syncthreads();
-  }
-}
-
-// Load the [n, tc] tile at column c0 of a row-major [n, stride] limb,
-// optionally times a per-element Shoup table of the same layout.
+// Load the [n, tc] tile at column c0 of a row-major [n, stride] limb.
 __device__ inline void load_tile(uint32_t* s, const uint32_t* __restrict__ src,
                                  int logn, int logtc, int ld, int stride,
-                                 int c0, const uint32_t* __restrict__ w,
-                                 const uint32_t* __restrict__ w_sh,
-                                 uint32_t q) {
+                                 int c0) {
   for (int t = threadIdx.x; t < (1 << (logn + logtc)); t += blockDim.x) {
     const int r = t >> logtc;
     const int c = t & ((1 << logtc) - 1);
-    const size_t g = (size_t)r * stride + c0 + c;
-    s[r * ld + c] = w ? shoup_mul(src[g], w[g], w_sh[g], q) : src[g];
+    s[r * ld + c] = src[(size_t)r * stride + c0 + c];
   }
   __syncthreads();
 }
@@ -128,12 +96,17 @@ __device__ inline void store_tile_t(const uint32_t* s,
   }
 }
 
-// Multiply each tile column by a column of a per-element Shoup table: w and
-// w_sh point at row 0 of THIS thread's column (see above), rows `stride`
-// apart; q is this thread's.
-__device__ inline void mul_cols(uint32_t* s, const uint32_t* __restrict__ w,
+// Multiply the tile by a per-element Shoup table laid out like its source
+// (row-major [n, stride], tile at column c0): coalesced table reads. The
+// thread's column is fixed (see above), so w and w_sh are moved to it
+// once and rows are `stride` apart.
+__device__ inline void mul_tile(uint32_t* s, const uint32_t* __restrict__ w,
                                 const uint32_t* __restrict__ w_sh, int logn,
-                                int logtc, int ld, int stride, uint32_t q) {
+                                int logtc, int ld, int stride, int c0,
+                                uint32_t q) {
+  const int col = c0 + (threadIdx.x & ((1 << logtc) - 1));
+  w += col;
+  w_sh += col;
   for (int t = threadIdx.x; t < (1 << (logn + logtc)); t += blockDim.x) {
     const int r = t >> logtc;
     const int c = t & ((1 << logtc) - 1);
@@ -141,16 +114,6 @@ __device__ inline void mul_cols(uint32_t* s, const uint32_t* __restrict__ w,
     s[r * ld + c] = shoup_mul(s[r * ld + c], w[g], w_sh[g], q);
   }
   __syncthreads();
-}
-
-// Multiply the tile by a per-element Shoup table laid out like its source
-// (row-major [n, stride], tile at column c0): coalesced table reads.
-__device__ inline void mul_tile(uint32_t* s, const uint32_t* __restrict__ w,
-                                const uint32_t* __restrict__ w_sh, int logn,
-                                int logtc, int ld, int stride, int c0,
-                                uint32_t q) {
-  const int c = c0 + (threadIdx.x & ((1 << logtc) - 1));
-  mul_cols(s, w + c, w_sh + c, logn, logtc, ld, stride, q);
 }
 
 inline int min_int(int a, int b) { return a < b ? a : b; }

@@ -57,12 +57,12 @@ _SIGNATURES = {
     "hk_ntt_fwd": [_P] * 10 + [_I] * 6 + [_P],
     "hk_ntt_inv": [_P] * 10 + [_I] * 6 + [_P],
     # x, out, q, 4 tables (B6: tw1, tw1_sh, mid, mid_sh; B9: mid_inv,
-    # mid_inv_sh, itw1, itw1_sh) or 2 (B7, B8), rows, M, n, c, (B6, B7:
-    # log2 of the tile columns,) stream
+    # mid_inv_sh, itw1, itw1_sh) or 2 (B7, B8), rows, M, n, c, log2 of the
+    # tile columns, stream
     "hk_ntt_phase1": [_P] * 7 + [_I] * 5 + [_P],
     "hk_ntt_phase2": [_P] * 5 + [_I] * 5 + [_P],
-    "hk_intt_phase2": [_P] * 5 + [_I] * 4 + [_P],
-    "hk_intt_phase1": [_P] * 7 + [_I] * 4 + [_P],
+    "hk_intt_phase2": [_P] * 5 + [_I] * 5 + [_P],
+    "hk_intt_phase1": [_P] * 7 + [_I] * 5 + [_P],
     # the lane-packed B10-B13: x, out, q, the same tables, rows (rep*G),
     # G, M, k, n, c, log2 of the tile lanes, stream
     "hk_ntt_phase1_packed": [_P] * 7 + [_I] * 7 + [_P],

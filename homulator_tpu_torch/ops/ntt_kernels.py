@@ -12,10 +12,10 @@ B10-B13 replace their lane-packed forms `::ntt_phase1_packed_pallas`,
 `::ntt_phase2_packed_pallas`, `::intt_phase2_packed_pallas` and
 `::intt_phase1_packed_pallas`: one launch each on [rep*G, n, k*c] lane
 groups, reading the per-limb tables of the basis (csrc/ntt.cu has the
-design note). B6, B7 and B10-B13 run on the register passes of B1 and B2,
-with the tile width of `phase_tile_cols` (at most one limb's c columns);
-B8 and B9 on column tiles. The plain versions are in ops/ntt.py: callers
-dispatch CPU tensors there, never here.
+design note). B6-B13 run on the register passes of B1 and B2, with the
+tile width of `phase_tile_cols` (at most one limb's c columns). The plain
+versions are in ops/ntt.py: callers dispatch CPU tensors there, never
+here.
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ _MAX_N = 1024  # per-axis length: the kernels take n = 2 .. 1024
 # threads, radix_smem_words<L>(TC) words of shared memory.
 TILE_COLS = (16, 8, 4)
 MIN_BLOCKS = 2 * 132
-# B6, B7 and B10-B13 (the phases on a shard's few columns, all but B8
-# and B9): the widest of PHASE_TILE_COLS that gives PHASE_MIN_BLOCKS blocks
+# B6-B13 (the phases on a shard's few columns): the widest of
+# PHASE_TILE_COLS that gives PHASE_MIN_BLOCKS blocks
 # (half the SMs), else the narrowest. On an H100 a 4-column tile (16-byte
 # row segments a warp: half of each 32-byte sector of its strided loads,
 # mid reads and stores) lost to 8 and 16 columns at every set-B shape of B6
@@ -66,7 +66,7 @@ def radix_tile_cols(rows: int, n: int, ncols: int,
 
 
 def phase_tile_cols(groups: int, c: int, lanes: int) -> int:
-    """TC of B6 or B7 (groups limbs [n, c], lanes = c) or B10-B13 (groups
+    """TC of B6-B9 (groups limbs [n, c], lanes = c) or B10-B13 (groups
     lane groups of lanes = k*c, k limbs of c lanes each)."""
     return radix_tile_cols(groups, 0, lanes, c, PHASE_TILE_COLS,
                            PHASE_MIN_BLOCKS)
@@ -114,12 +114,12 @@ def _launch(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
 
 
 def _launch_phase(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
-                  tables, n: int, sliced=(), radix=False) -> torch.Tensor:
+                  tables, n: int, sliced=()) -> torch.Tensor:
     """One phase kernel on x [rep*M, n, c] (c a power of two up to n)
     -> a new [rep*M, n, c]. The tables named in `sliced` are per-element
     [M, n, c] (the shard's mid slice that B6 and B9 read); the others are
-    flat stage tables [M, n]. A `radix` kernel (B6, B7) also takes log2 of
-    its tile width, phase_tile_cols'."""
+    flat stage tables [M, n]. The kernel also takes log2 of its tile
+    width, phase_tile_cols'."""
     if not x.is_cuda:
         raise ValueError(f"{name}: CUDA kernel called on {x.device}")
     M = nb.q.shape[0]
@@ -136,15 +136,14 @@ def _launch_phase(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
         kernels.require_cuda_int32(
             k, getattr(nb, k), x.device,
             (M, n, c) if k in sliced else (M, n))
-    tile = (phase_tile_cols(rep * M, c, c),) if radix else ()
+    tile = phase_tile_cols(rep * M, c, c)
     lib = kernels.load()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = getattr(lib, "hk_" + name)(
             kernels.ptr(x), kernels.ptr(out), kernels.ptr(nb.q),
             *(kernels.ptr(getattr(nb, k)) for k in tables),
-            rep * M, M, n, c, *(t.bit_length() - 1 for t in tile),
-            kernels.stream(x))
+            rep * M, M, n, c, tile.bit_length() - 1, kernels.stream(x))
     kernels.check(rc, name)
     kernels.count(name)
     return out
@@ -156,26 +155,26 @@ def ntt_phase1(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
     n1, c] in [0, q), not transposed (the exchange transposes)."""
     return _launch_phase("ntt_phase1", x, nb, rep,
                          ("tw1", "tw1_sh", "mid", "mid_sh"), nb.n1,
-                         ("mid", "mid_sh"), radix=True)
+                         ("mid", "mid_sh"))
 
 
 def ntt_phase2(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
     """Kernel B7: int32 [rep*M, n2, c] -> stage-2 CT butterflies, eval
     columns in [0, q)."""
-    return _launch_phase("ntt_phase2", x, nb, rep, ("tw2", "tw2_sh"), nb.n2,
-                         radix=True)
+    return _launch_phase("ntt_phase2", x, nb, rep, ("tw2", "tw2_sh"), nb.n2)
 
 
 def intt_phase2(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
     """Kernel B8: int32 [rep*M, n2, c] eval columns -> inverse stage-2 GS
-    butterflies, in [0, q)."""
+    butterflies, in [0, q), on B2's phase A."""
     return _launch_phase("intt_phase2", x, nb, rep, ("itw2", "itw2_sh"),
                          nb.n2)
 
 
 def intt_phase1(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
-    """Kernel B9: int32 [rep*M, n1, c] -> times nb.mid_inv ([M, n1, c]),
-    then inverse stage-1 GS butterflies: coeff columns in [0, q)."""
+    """Kernel B9: int32 [rep*M, n1, c] -> times nb.mid_inv ([M, n1, c])
+    in registers, then inverse stage-1 GS butterflies (B2's passes): coeff
+    columns in [0, q)."""
     return _launch_phase("intt_phase1", x, nb, rep,
                          ("mid_inv", "mid_inv_sh", "itw1", "itw1_sh"), nb.n1,
                          ("mid_inv", "mid_inv_sh"))

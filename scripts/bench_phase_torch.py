@@ -19,9 +19,9 @@ benchlib.device_ms), beside the bound this checkout's chip_smoke counts
 (`phase_bound`) and the kernel's share of it. With --tile-cols, each width
 in turn is made the only entry of DIR's `ntt_kernels.PHASE_TILE_COLS`, so
 that `phase_tile_cols` takes it wherever it fits in one limb's c columns (a
-sweep of the tile width of the kernels that this checkout runs on the
-register passes, all but B8 and B9; a checkout that names the constant
-otherwise, or runs a kernel on column tiles, runs its own widths, timed
+sweep of the tile width of all eight, which run on the register passes; a
+checkout that names the constant otherwise, or runs a kernel on column
+tiles, as B8 and B9 did before they moved, runs its own widths, timed
 again at each). --kernels times only the kernels named (default: all
 eight). Prints the card's name and power limit and
 one JSON line, also written to FILE. To compare two commits, run both in
@@ -87,20 +87,15 @@ def main() -> int:
         kernel = getattr(ntt_kernels, name)
         plain = getattr(ntt_mod, name + "_plain")
         rows = out["kernels"][name] = {}
-        mid = name.startswith(("ntt_phase1", "intt_phase1"))
-        radix, fwd = chip_smoke.phase_radix(name)
         for label, (nb, rep, worst) in cases[name].items():
             if worst:
                 continue
             x = chip_smoke.phase_input(np, torch, name, nb, rep, False, rng)
             k = nb.pack or 1
             bound_ms = chip_smoke.phase_bound(
-                nb, x.shape[0] * k, x.shape[1], x.shape[2] // k, mid, radix,
-                fwd)[0]
+                nb, x.shape[0] * k, x.shape[1], x.shape[2] // k, name)[0]
             want = plain(x, nb, rep)
             for tag, tile_cols in widths.items():
-                if tag != "default" and not radix:
-                    continue
                 ntt_kernels.PHASE_TILE_COLS = tile_cols
                 try:
                     if not torch.equal(kernel(x, nb, rep), want):

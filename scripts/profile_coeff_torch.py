@@ -46,9 +46,9 @@ GROUPS = (  # (group, substrings of the kernel name); the first match wins
     ("B1 ntt_fwd", ("ntt_fwd_radix",)),
     ("B2 ntt_inv", ("ntt_inv_radix",)),
     ("B6 ntt_phase1", ("ntt_phase1_radix",)),
-    ("B8 intt_phase2", ("ntt_inv_a",)),
+    ("B8 intt_phase2", ("ntt_iphase2_radix",)),
     ("B7 ntt_phase2", ("ntt_phase2_radix",)),
-    ("B9 intt_phase1", ("ntt_inv_b",)),
+    ("B9 intt_phase1", ("ntt_iphase1_radix",)),
     ("B3 bconv", ("bconv",)),
     ("B4 hpip", ("hpip",)),
     ("torch copies, concatenations and gathers",

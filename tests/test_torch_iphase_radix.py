@@ -198,12 +198,10 @@ def test_model_does_the_operations_the_bound_counts(ctx, phase, c):
                    benchlib.radix_phase2_ops(rows, n, c, fwd=False))
     chip_smoke = _load_root_module("chip_smoke")
     name = "intt_phase1_packed" if phase1 else "intt_phase2_packed"
-    assert chip_smoke.phase_radix(name) == (True, False)
     M = len(ROWS)
     nbytes = 4 * (2 * rows * n * c + int(phase1) * 2 * M * n * c
                   + 2 * M * n + M)
-    assert (chip_smoke.phase_bound(nb, rows, n, c, phase1,
-                                   *chip_smoke.phase_radix(name))
+    assert (chip_smoke.phase_bound(nb, rows, n, c, name)
             == benchlib.bound(nbytes, ops))
 
 
