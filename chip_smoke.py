@@ -11,10 +11,11 @@ failure and the script then exits non-zero:
   2. the kernel build (nvcc, one process per source) and its time, with
      ptxas's registers and spills of each instantiation of B1's, B2's,
      B4's and B6-B13's register-radix phase kernels (one for each axis
-     length 2^1 .. 2^10, B4's 2^1 .. 2^8) and of B3's and
-     B17's tensor-core kernels (`bconv_kernel`, `planes_mm`: one for each
-     count of k32 steps, 1 .. 4), failing if one is missing or takes local
-     memory;
+     length 2^1 .. 2^10, B4's 2^1 .. 2^8), of B15's (`shoup_forms_radix`,
+     2^1 .. 2^8 in each of its three Shoup forms) and of B3's, B5's and
+     B17's tensor-core kernels (`bconv_kernel`, `bconv_step2_kernel`,
+     `planes_mm`: one for each count of k32 steps, 1 .. 4), failing if one
+     is missing or takes local memory;
   3. each CUDA kernel against its plain PyTorch version on the card, at the
      shapes parameter set B gives it, bit for bit (tolerance 0), with the
      device time of each (CUDA graph replay between CUDA events, so host
@@ -41,14 +42,17 @@ failure and the script then exits non-zero:
      each copy's rows padded to a multiple of k (`phase_cases`), and
      B6-B13 at their main shapes in the worst case (every input q - 1);
      the graph route's
-     base-conversion step 2 (B5) at ModUp digits 0 (16 -> 35 rows, the
-     count row included) and 2 (6 -> 45) and ModDown (16 -> 35), and the
-     whole graph-route conversion (torch step 1 and count row, then B5)
-     against B3 on the same inputs, equal bits, both timed;
+     base-conversion step 2 (B5, on B3's tensor-core core) at ModUp digits
+     0 (16 -> 35 rows, the count row included) and 2 (6 -> 45) and
+     ModDown (16 -> 35), and at digit 0 in the worst case (every scaled
+     word q - 1, the count row 15), and the whole graph-route conversion
+     (torch step 1 and count row, then B5) against B3 on the same inputs,
+     equal bits, both timed;
  3b. the NTT anatomy and roofline path, on no op's path: the anatomy
      kernels on set B's 35 main limbs [256, 256] (B14: copy^T, midT,
-     stages1, stages2x and full, which is B1; B15: 16 stages with the
-     production, natmul and approx Shoup products; B16: copy, transpose,
+     stages1, stages2x and full, which is B1; B15: 16 stages on B1's
+     register passes with the production, natmul and approx Shoup
+     products, also in the worst case (every input q - 1); B16: copy, transpose,
      mid, stages1), the byte-plane product B17 on ModUp digit 0 (16 rows
      -> 35, all 140 rows computed), each peak chain (squaring, Shoup,
      Montgomery) on the roofline's 8 Mi residues over 8 iterations of 32
@@ -130,15 +134,15 @@ operations) over four: an H100 SM has 64 int32 lanes. Operations are
 counted from the shapes with a fixed cost per primitive (`benchlib.OPS`):
 a Shoup product 5 (three multiplies, a subtract, an unsigned min; the
 measured Shoup chain leaves room for no more), a modular add or subtract
-3, a butterfly 11, a lazy Shoup product-accumulate 6, a final reduction
-6; B5 sums lazy products and reduces each output once. B1, B2, B4 and
-B6-B13 count their Harvey butterflies (9) and lazy products as they
-compute them (`benchlib.radix_ntt_ops`, `benchlib.hpip_ops`: B4's lazy
-Montgomery product-accumulate 7; `benchlib.radix_phase1_ops` for B6,
-B9, B10 and B13, `benchlib.radix_phase2_ops` for B7, B8, B11 and B12). B3
-counts as it computes
-(`bconv_bound`): step 1, the centering count, its epilogue and the u8
-products of all four planes; B17 its u8 products alone. A link of a peak
+3, a butterfly 11. B1, B2, B4, B6-B13 and B15 count their Harvey
+butterflies (9) and lazy products as they compute them
+(`benchlib.radix_ntt_ops`, `benchlib.hpip_ops`: B4's lazy Montgomery
+product-accumulate 7; `benchlib.radix_phase1_ops` for B6, B9, B10 and
+B13, `benchlib.radix_phase2_ops` for B7, B8, B11 and B12,
+`benchlib.shoup_forms_ops` for B15, one count for its three forms). B3
+counts as it computes (`bconv_bound`): step 1, the centering count, its
+epilogue and the u8 products of all four planes; B5 (`step2_bound`) its
+epilogue and u8 products; B17 its u8 products alone. A link of a peak
 chain is counted as `PEAK_LINK_OPS` says.
 """
 
@@ -150,7 +154,7 @@ import time
 from homulator_tpu_torch import benchlib
 from homulator_tpu_torch.benchlib import (
     OPS, bound, device_ms, hpip_ops, latency_ms, peak_inputs, radix_ntt_ops,
-    radix_phase1_ops, radix_phase2_ops, residues,
+    radix_phase1_ops, radix_phase2_ops, residues, shoup_forms_ops,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -173,7 +177,7 @@ REPLACES = {  # kernel -> (source in this repo, TPU kernel it replaces)
               "homulator_tpu/ops/bconv_fused.py:131"),
     "hpip": ("homulator_tpu_torch/csrc/hpip.cu",
              "homulator_tpu/ops/hpip_pallas.py:117"),
-    "bconv_step2": ("homulator_tpu_torch/csrc/bconv_step2.cu",
+    "bconv_step2": ("homulator_tpu_torch/csrc/bconv.cu",
                     "homulator_tpu/ops/bconv_pallas.py:44"),
     "ntt_phase1": ("homulator_tpu_torch/csrc/ntt.cu",
                    "homulator_tpu/ops/ntt_pallas.py:329"),
@@ -365,12 +369,14 @@ def bconv_bound(nd, m_out, center, n):
 
 
 def step2_bound(nd, m_out, n):
-    """B5: nd rows in (the count row included), m_out out, the matrix
-    Shoup pair and the primes; B3's lazy product-accumulate and final
-    reduction (hk::shoup_dot_lazy), without step 1."""
-    nbytes = 4 * (nd * n + m_out * n + 2 * m_out * nd + m_out)
-    return bound(nbytes,
-                 n * m_out * (nd * OPS["lazy_mac"] + OPS["reduce"]))
+    """B5 as csrc/bconv.cu computes it, B3 without step 1 and the count:
+    nd rows in (the count row included), m_out out, the table (a byte an
+    entry), horner_sh and out_q; the epilogue's int32 operations
+    (OPS["planes_reduce"] an output) and the u8 tensor-core products of
+    all 4 m_out plane rows."""
+    nbytes = 4 * (nd * n + m_out * n + 2 * m_out) + (4 * m_out) * (4 * nd)
+    return bound(nbytes, n * m_out * OPS["planes_reduce"],
+                 2 * (4 * m_out) * (4 * nd) * n)
 
 
 def hpip_bound(kt):
@@ -401,6 +407,15 @@ def anatomy_bound(M, n1, n2, passes, mid):
     ops = M * (passes * n2 * (n1 // 2) * (n1.bit_length() - 1)
                * OPS["butterfly"] + int(mid) * n1 * n2 * OPS["shoup"])
     return bound(nbytes, ops)
+
+
+def shoup_forms_bound(M, n1, n2):
+    """B15 on M limbs [n1, n2]: x read and the transposed output written,
+    the stage-1 pair and q; its register passes' operations
+    (benchlib.shoup_forms_ops: two runs of Harvey butterflies and the
+    final reduction), one bound for its three Shoup forms."""
+    return bound(4 * (2 * M * n1 * n2 + 2 * M * n1 + M),
+                 shoup_forms_ops(M, n1, n2))
 
 
 def planes_mm_bound(nd, m_out, n):
@@ -434,7 +449,8 @@ def compare(torch, name, label, kernel, plain, bnd, results, library=None,
 
 # kernel templates whose every instantiation chip_smoke holds to no local
 # memory: name -> instantiations (B1/B2 and B6-B13: axis length 2^L, L =
-# 1..10; B4's two phases: L = 1..8; B3/B17: k32 steps 1..4)
+# 1..10; B4's two phases and B15 (in each of its three Shoup forms): L =
+# 1..8; B3/B5/B17: k32 steps 1..4)
 CHECKED_INSTANTIATIONS = {"ntt_fwd_radix_a": 10, "ntt_fwd_radix_b": 10,
                           "ntt_inv_radix_a": 10, "ntt_inv_radix_b": 10,
                           "hpip_radix_a": 8, "hpip_radix_b": 8,
@@ -444,21 +460,29 @@ CHECKED_INSTANTIATIONS = {"ntt_fwd_radix_a": 10, "ntt_fwd_radix_b": 10,
                           "packed_iphase2_radix": 10,
                           "ntt_iphase1_radix": 10,
                           "packed_iphase1_radix": 10,
-                          "bconv_kernel": 4, "planes_mm": 4}
+                          "shoup_forms_radix": 24, "bconv_kernel": 4,
+                          "bconv_step2_kernel": 4, "planes_mm": 4}
+# B15's Shoup forms in its kernels' mangled names
+SHOUP_FORMS = ("ShoupLazy", "ShoupNatmul", "ShoupApprox")
 
 
 def kernel_registers(log_text):
     """ptxas's registers and local-memory bytes (stack frame, spill stores
     and loads) of each instantiation of CHECKED_INSTANTIATIONS' kernels in
-    nvcc's log: {kernel: {template argument: (registers, local bytes)}}."""
+    nvcc's log: {kernel: {template arguments: (registers, local bytes)}},
+    the arguments L or KS, or (L, Shoup form) for B15."""
     import re
 
     names = "|".join(CHECKED_INSTANTIATIONS)
+    forms = "|".join(SHOUP_FORMS)
     out, entry, spill = {}, None, 0
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(rf"\d({names})ILi(\d+)E", line)
-            entry, spill = (m.group(1), int(m.group(2))) if m else None, 0
+            m = re.search(rf"\d({names})ILi(\d+)E(?:N2hk\d+({forms})E)?",
+                          line)
+            arg = m and (int(m.group(2)) if m.group(3) is None
+                         else (int(m.group(2)), m.group(3)))
+            entry, spill = (m.group(1), arg) if m else None, 0
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -619,11 +643,12 @@ def check_kernels(np, torch, dc, rng, results, get_params):
 
 def check_step2_kernel(np, torch, dc, rng, results):
     """Phase 3, the graph route's conversion: B5 vs its plain version at
-    the set-B shapes it takes (ModUp digits 0 and 2, ModDown), and the
-    whole graph-route conversion (step 1 and the count row as torch ops,
-    then B5) vs B3 on the same inputs: equal bits, both timed (the A/B of
-    the two routes' conversions). Runs after check_kernels, whose B3 rows
-    at these conversions it prints beside B5's."""
+    the set-B shapes it takes (ModUp digits 0 and 2, ModDown) and at digit
+    0 in the worst case (every scaled word q - 1, the count row nd - 1),
+    and the whole graph-route conversion (step 1 and the count row as
+    torch ops, then B5) vs B3 on the same inputs: equal bits, both timed
+    (the A/B of the two routes' conversions). Runs after check_kernels,
+    whose B3 rows at these conversions it prints beside B5's."""
     from homulator_tpu_torch.ops.bconv import (
         bconv_step1_centered, bconv_step2, bconv_step2_plain,
     )
@@ -632,17 +657,16 @@ def check_step2_kernel(np, torch, dc, rng, results):
     kt = dc.keyswitch_tables(LEVEL_B)
     n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
     d0, d2 = kt.digits[0], kt.digits[2]
-    cases = {  # label -> (step-1 pair, input primes, matrix Shoup pair,
-        # bf16 table pair, out q)
+    cases = {  # label -> (step-1 pair, input primes, matrix, table and
+        # horner_sh, out q)
         f"modup digit{d}": ((dt.step1, dt.step1_sh), dt.in_q,
-                            (dt.mat, dt.mat_sh), (dt.mat_mma, dt.horner_sh),
+                            (dt.mat, dt.mat_mma, dt.horner_sh),
                             dt.other_nt.q)
         for d, dt in ((0, d0), (2, d2))}
     cases["moddown"] = ((kt.md_s1, kt.md_s1_sh), kt.special_nt.q,
-                        (kt.md_mat, kt.md_mat_sh),
-                        (kt.md_mma, kt.md_horner_sh), kt.main_nt.q)
-    for label, ((s, s_sh), iq, (mat, mat_sh), (mbig, hsh),
-                out_q) in cases.items():
+                        (kt.md_mat, kt.md_mma, kt.md_horner_sh),
+                        kt.main_nt.q)
+    for label, ((s, s_sh), iq, (mat, tab, hsh), out_q) in cases.items():
         nd, m_out = iq.shape[0], out_q.shape[0]
         x = residues(iq, (nd, n1, n2), rng)
 
@@ -651,27 +675,35 @@ def check_step2_kernel(np, torch, dc, rng, results):
 
         xhat = step1_rows().to(torch.int32)
         full = f"{label} {nd + 1}->{m_out}"
-        compare(torch, "bconv_step2", full,
-                lambda: bconv_step2(xhat, mat, mat_sh, out_q),
-                lambda: bconv_step2_plain(xhat, mat, out_q),
-                step2_bound(nd + 1, m_out, n1 * n2), results)
+        for lab, xh in ((full, xhat), (f"{full} worst case (xhat = q-1, "
+                                       f"count {nd})", None)):
+            if xh is None:
+                if label != "modup digit0":
+                    continue
+                xh = torch.cat([(iq - 1).view(-1, 1, 1).expand(-1, n1, n2),
+                                torch.full_like(xhat[:1], nd)]).contiguous()
+            compare(torch, "bconv_step2", lab,
+                    lambda: bconv_step2(xh, mat, tab, hsh, out_q),
+                    lambda: bconv_step2_plain(xh, mat, out_q),
+                    step2_bound(nd + 1, m_out, n1 * n2), results)
 
         def graph_conv():
-            return bconv_step2(step1_rows(), mat, mat_sh, out_q)
+            return bconv_step2(step1_rows(), mat, tab, hsh, out_q)
 
         def b3():
-            return bconv_fused(x, s, s_sh, iq, mat, mbig, hsh, out_q,
+            return bconv_fused(x, s, s_sh, iq, mat, tab, hsh, out_q,
                                center=True)
 
         if not torch.equal(graph_conv(), b3()):
             raise AssertionError(f"{full}: graph-route conversion != B3")
         b3_row = next(r for r in results["bconv"]
                       if r[0] == f"{label} {nd}+1->{m_out}")
-        print(f"# A/B {full}: B5 {results['bconv_step2'][-1][2]:.4f} ms "
-              f"(step 2 only); graph conversion (torch step 1 + count row + "
-              f"B5) {device_ms(graph_conv):.4f} ms; B3 (steps 1 and "
-              f"2, centering fused) {b3_row[2]:.4f} ms, "
-              f"{device_ms(b3):.4f} ms again; equal bits")
+        b5_row = next(r for r in results["bconv_step2"] if r[0] == full)
+        print(f"# A/B {full}: B5 {b5_row[2]:.4f} ms (step 2 only); graph "
+              f"conversion (torch step 1 + count row + B5) "
+              f"{device_ms(graph_conv):.4f} ms; B3 (steps 1 and 2, "
+              f"centering fused) {b3_row[2]:.4f} ms, {device_ms(b3):.4f} ms "
+              "again; equal bits")
 
 
 def check_phase_kernels(np, torch, dc, rng, results):
@@ -733,11 +765,13 @@ def check_anatomy_kernels(np, torch, dc, rng, results):
                 ntt_bound(nb, 1, True) if spec is None else bnd(spec),
                 results,
                 library=transpose if v == "copy" else None)
-    for form, spec in anatomy.B15_FORMS.items():
-        compare(torch, "ntt_shoup_forms", f"{form} M={M}",
-                lambda: anatomy.ntt_shoup_forms(x, nb, form),
-                lambda: anatomy.ntt_shoup_forms_plain(x, nb, form),
-                bnd(spec), results)
+    worst = (nb.q - 1).view(-1, 1, 1).expand(-1, n1, n2).contiguous()
+    for xf, tag in ((x, ""), (worst, " worst case (all q-1)")):
+        for form in anatomy.B15_FORMS:
+            compare(torch, "ntt_shoup_forms", f"{form} M={M}{tag}",
+                    lambda: anatomy.ntt_shoup_forms(xf, nb, form),
+                    lambda: anatomy.ntt_shoup_forms_plain(xf, nb, form),
+                    shoup_forms_bound(M, n1, n2), results)
     library = {"copy": lambda: copy_out.copy_(x), "transpose": transpose}
     for part, spec in anatomy.B16_PARTS.items():
         compare(torch, "ntt_components", f"{part} M={M}",
@@ -902,17 +936,19 @@ def main() -> int:
             print("#   " + line.strip())
     regs = kernel_registers(log_text)
     for name, by_arg in sorted(regs.items()):
-        arg = "KS" if name in ("bconv_kernel", "planes_mm") else "L"
+        arg = ("KS" if name in ("bconv_kernel", "bconv_step2_kernel",
+                                "planes_mm")
+               else "L, form" if name == "shoup_forms_radix" else "L")
         print(f"# {name} ptxas, {arg}: registers / local bytes: "
               + ", ".join(f"{a}: {r} / {sp}" for a, (r, sp)
                           in sorted(by_arg.items())))
     if {k: len(v) for k, v in regs.items()} != CHECKED_INSTANTIATIONS:
-        raise AssertionError("nvcc's log lacks B1/B2/B3/B4/B6-B13/B17 "
+        raise AssertionError("nvcc's log lacks B1-B13/B15/B17 "
                              f"instantiations: {regs}")
     spilled = {f"{name}<{a}>": sp for name, by_arg in regs.items()
                for a, (_, sp) in by_arg.items() if sp}
     if spilled:
-        raise AssertionError("B1/B2/B3/B4/B6-B13/B17 instantiations "
+        raise AssertionError("B1-B13/B15/B17 instantiations "
                              f"use local memory (stack or spill bytes): "
                              f"{spilled}")
 

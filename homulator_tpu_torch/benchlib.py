@@ -27,7 +27,7 @@ its int32 operations over INT32_OPS_PER_S (the float32 peak of 67 TFLOP/s,
 OPS is the one count of int32 operations a primitive costs;
 radix_ntt_ops counts a transform of B1 or B2 with it, hpip_ops a call of
 B4, radix_phase1_ops one of B6, B10 or B13, radix_phase2_ops one of B7,
-B11 or B12.
+B11 or B12, shoup_forms_ops one of B15.
 """
 
 from __future__ import annotations
@@ -107,6 +107,16 @@ def radix_phase2_ops(rows, n, c, fwd=True):
     forward, one from [0, 2q) inverse."""
     return rows * c * (n // 2 * (n.bit_length() - 1) * OPS["lazy_butterfly"]
                        + n * (2 if fwd else 1) * OPS["csub"])
+
+
+def shoup_forms_ops(rows, n1, n2):
+    """int32 operations of B15 (csrc/anatomy.cu::shoup_forms_radix) on
+    `rows` limbs [n1, n2]: two runs of the register passes along n1 (n1/2
+    * log2(n1) Harvey butterflies a column each) and, an element, two
+    conditional subtracts before the store; one count for every Shoup
+    form, which do the same work."""
+    return rows * n2 * (2 * (n1 // 2) * (n1.bit_length() - 1)
+                        * OPS["lazy_butterfly"] + 2 * n1 * OPS["csub"])
 
 
 def hpip_ops(conv_rows, K, beta, n):

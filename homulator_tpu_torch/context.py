@@ -128,11 +128,12 @@ class ModUpDigitTables:
     """One ModUp digit at a fixed level.
 
     step1/step1_sh: [nd] [(Q_d/q_i)^{-1}]_{q_i} for the digit's primes
-    in_q. mat/mat_sh: [m_other, nd+1] [Q_d/q_i]_{p_j} for every ext row j
+    in_q. mat: [m_other, nd+1] [Q_d/q_i]_{p_j} for every ext row j
     outside the digit, plus the centering column [-Q_d]_{p_j}
-    (params.ks.modup_step2). mat_bf16/horner_sh: build_bf16_tables of
-    mat (the JAX ModUpDigitTables' pair); mat_mma: mat_bf16 in kernel B3's
-    device layout (ops/bconv_fused.py::mma_table). other_nt:
+    (params.ks.modup_step2), read by the plain versions. mat_bf16/horner_sh:
+    build_bf16_tables of mat (the JAX ModUpDigitTables' pair); mat_mma:
+    mat_bf16 in the device layout of kernels B3 and B5
+    (ops/bconv_fused.py::mma_table). other_nt:
     NTT basis of those rows (ext order). lo/hi: the digit's span of main
     rows."""
 
@@ -140,7 +141,6 @@ class ModUpDigitTables:
     step1_sh: torch.Tensor
     in_q: torch.Tensor
     mat: torch.Tensor
-    mat_sh: torch.Tensor
     mat_bf16: torch.Tensor
     horner_sh: torch.Tensor
     mat_mma: torch.Tensor
@@ -201,12 +201,12 @@ class KeySwitchLevelTables:
     ext_nt: NTT basis of the ext rows (specials first, alpha+level rows):
     its primes serve the Montgomery key product and its forward tables
     the fused HPIP kernel's NTTs. ext_qinv: [alpha+level] -q^{-1} mod
-    2^32. md_s1: [alpha] [(P/p_j)^{-1}]_{p_j}; md_mat/md_mat_sh:
-    [level, alpha+1] ModDown conversion [P/p_j]_{q_i} plus the centering
-    column [-P]_{q_i} (params.ks.moddown_step2); md_bf16/md_horner_sh:
-    its build_bf16_tables pair (the JAX tables' moddown_bf16 /
-    moddown_horner_sh), md_mma: md_bf16 in kernel B3's device layout
-    (mma_table); pinv: [level]
+    2^32. md_s1: [alpha] [(P/p_j)^{-1}]_{p_j}; md_mat: [level, alpha+1]
+    ModDown conversion [P/p_j]_{q_i} plus the centering column [-P]_{q_i}
+    (params.ks.moddown_step2), read by the plain versions;
+    md_bf16/md_horner_sh: its build_bf16_tables pair (the JAX tables'
+    moddown_bf16 / moddown_horner_sh), md_mma: md_bf16 in the device
+    layout of kernels B3 and B5 (mma_table); pinv: [level]
     [P^{-1}]_{q_i}. tail: the fused ModDown + rescale tables (None at
     level 1, where there is no limb to drop, and on the graph route).
     graph: the key switch takes the graph route of a context made with
@@ -223,7 +223,6 @@ class KeySwitchLevelTables:
     md_s1: torch.Tensor
     md_s1_sh: torch.Tensor
     md_mat: torch.Tensor
-    md_mat_sh: torch.Tensor
     md_bf16: torch.Tensor
     md_horner_sh: torch.Tensor
     md_mma: torch.Tensor
@@ -416,19 +415,16 @@ class DeviceContext:
                                          qn[lo:hi])
             other = np.array([j for j in ext if not lo <= j < hi])
             mat_pl = p.ks.modup_step2[(level, d)][other]  # [m_other, nd+1]
-            mat, mat_sh = self._pair(mat_pl, qn[other][:, None])
             mat_bf16, horner_sh, mat_mma = self._bf16(mat_pl, qn[other])
             digits.append(ModUpDigitTables(
                 step1=step1, step1_sh=step1_sh, in_q=self.tensor(qn[lo:hi]),
-                mat=mat, mat_sh=mat_sh, mat_bf16=mat_bf16,
+                mat=self.tensor(mat_pl), mat_bf16=mat_bf16,
                 horner_sh=horner_sh, mat_mma=mat_mma,
                 other_nt=self.ntt_basis(tuple(other.tolist())),
                 lo=lo, hi=hi,
             ))
         sp_q = qn[p.max_level:]
         md_s1, md_s1_sh = self._pair(p.ks.moddown_step1, sp_q)
-        md_mat, md_mat_sh = self._pair(p.ks.moddown_step2[:level],
-                                       qn[:level, None])
         md_bf16, md_horner_sh, md_mma = self._bf16(
             p.ks.moddown_step2[:level], qn[:level])
         pinv, pinv_sh = self._pair(p.ks.pinv_modq[:level], qn[:level])
@@ -438,8 +434,9 @@ class DeviceContext:
             special_nt=self.ntt_basis(self.special_rows()),
             ext_nt=self.ntt_basis(ext),
             ext_qinv=self.tensor(p.qinv_neg[np.array(ext)]),
-            md_s1=md_s1, md_s1_sh=md_s1_sh, md_mat=md_mat,
-            md_mat_sh=md_mat_sh, md_bf16=md_bf16, md_horner_sh=md_horner_sh,
+            md_s1=md_s1, md_s1_sh=md_s1_sh,
+            md_mat=self.tensor(p.ks.moddown_step2[:level]), md_bf16=md_bf16,
+            md_horner_sh=md_horner_sh,
             md_mma=md_mma,
             pinv=pinv, pinv_sh=pinv_sh,
             tail=(self._tail_tables(level)

@@ -18,42 +18,61 @@
 // grid-stride loop over 8 or 16 blocks an SM, with 1 to 8 loads in flight
 // a thread, took 2-7% longer (PERF.md §6).
 //
-// Every other variant is one kernel template, its flags fixed at compile
-// time: kPasses stage-1 CT passes along n1 (2 = the TPU's "stage 1
-// twice", 16 stages at n1 = 256), kMid the Shoup product by the mid table
-// after them, kT a transposed store ([n1, n2] -> [n2, n1]), Mul the
-// twiddle product of the butterflies.
-// A block owns an [n1, 32] column tile of one limb, as B1's first kernel
-// did, with the helpers of ntt_tile.cuh: coalesced row
-// loads into shared memory (row stride 33), the stage loop, and a store
-// that is either row-major or transposed. The odd stride makes the
-// transposed read conflict-free: the tile is eight padded 32 x 32
-// transpose tiles stacked. 1024 threads a block, which halved B10-B13.
+// Every other variant of B14 and B16 is one kernel template, its flags
+// fixed at compile time: kPasses stage-1 CT passes along n1 (2 = the
+// TPU's "stage 1 twice", 16 stages at n1 = 256), kMid the Shoup product
+// by the mid table after them, kT a transposed store ([n1, n2] -> [n2,
+// n1]). A block owns an [n1, 32] column tile of one limb, as B1's first
+// kernel did, with the helpers of ntt_tile.cuh: coalesced row loads into
+// shared memory (row stride 33), the stage loop, and a store that is
+// either row-major or transposed. The odd stride makes the transposed read
+// conflict-free: the tile is eight padded 32 x 32 transpose tiles stacked.
+// 1024 threads a block, which halved B10-B13. These variants keep values
+// in [0, q) (canonical inputs, fully reduced butterflies and products), so
+// kernel and plain version agree bit for bit. The TPU variants leave
+// stages1 and stages2x lazy in [0, 3q); they agree with these mod q.
 //
-// Every variant keeps values in [0, q) (canonical inputs, fully reduced
-// butterflies and products), so kernel and plain version agree bit for
-// bit. The TPU variants leave stages1 and stages2x lazy in [0, 3q); they
-// agree with these mod q.
-//
-// B15's forms of a * w mod q (w_sh = floor(w * 2^32 / q)):
-//   production  the exact high word from __umulhi, as every kernel here;
-//   natmul      the exact high word from four 16-bit partial products with
-//               carries, the TPU's form (microbench_ntt2.py:36-51);
-//   approx      the TPU's 3-product high word without the low partial
-//               product (microbench_ntt2.py:54-66): short by at most 1, so
-//               a*w - hi*q lies in [0, 3q), which uint32 holds because q <
-//               2^32/6 (numtheory.py PRIME_CAP); two conditional subtracts.
-// They time what each TPU workaround would cost on Hopper.
+// B15 (shoup_forms_radix<L, Mul>) computes B14's stages2x, 16 CT stages
+// along n1 = 256 (stage 1 twice) with a transposed store, in three forms
+// of the twiddle's lazy Shoup product (modarith.cuh): production
+// (__umulhi's exact high word, every kernel's form), natmul (the exact
+// high word from four 16-bit partial products, the TPU's form,
+// microbench_ntt2.py:36-51) and approx (the TPU's three partial products,
+// short by at most 1, microbench_ntt2.py:54-66). It tells what each TPU
+// workaround would cost in B1 as B1 is now, so it runs on B1's phase A
+// geometry and ntt_reg.cuh's register passes: a block per [n1, TC] tile of
+// one limb (TC from ops/ntt_kernels.py::radix_phases), R = 2^ceil(L/2)
+// values a thread, Harvey's lazy ranges, and
+//   1. the strided rows loaded, the twiddle pair into shared memory
+//      (barrier);
+//   2. radix_ct_rows<L, Mul> (one exchange barrier): the contiguous rows
+//      after all L stages, in [0, 4q);
+//   3. back to the strided rows through the tile. A thread writes the
+//      words of its own contiguous rows, the very words it read at the end
+//      of step 2 and that no other thread reads, so only the barrier after
+//      the writes is needed;
+//   4. radix_ct_rows<L, Mul> again: ct_lazy takes x in [0, 4q) and any
+//      uint32 y, so the two runs chain with no reduction between them;
+//   5. one reduction from [0, 4q) to [0, q), and B1 phase A's transposed
+//      store (R consecutive words a thread), without the mid product.
+// Four barriers, where the column tile takes one after each of 16 stages;
+// three quarters of B1's resident blocks (kFormBlocks below), and n1 up to
+// 2^8 (B4's axes too).
+// Every form's output equals the plain version (stage 1 twice, fully
+// reduced) bit for bit.
 //
 // What bounds them on the card: copy, transpose and mid move bytes (a limb
 // read and written, the mid pair read); the stage variants are bounded by
-// int32 operations, n1 * n2 / 2 * log2(n1) butterflies a limb and pass, as
-// benchlib.OPS counts them. The stage loop synchronises the block after each stage.
+// int32 operations: B14's and B16's n1 * n2 / 2 * log2(n1) butterflies a
+// limb and pass as benchlib.OPS counts them (the column tile synchronises
+// the block after each stage), B15's as benchlib.radix_ntt_ops counts the
+// register passes (a Harvey butterfly 9), one count for all three forms.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "ntt_reg.cuh"
 #include "ntt_tile.cuh"
 
 namespace {
@@ -64,37 +83,9 @@ using hk::min_int;
 
 constexpr int kAnatomyThreads = 1024;
 
-struct ShoupNatmul {
-  __device__ __forceinline__ static uint32_t mul(uint32_t a, uint32_t w,
-                                                 uint32_t w_sh, uint32_t q) {
-    const uint32_t a0 = a & 0xFFFFu, a1 = a >> 16;
-    const uint32_t b0 = w_sh & 0xFFFFu, b1 = w_sh >> 16;
-    const uint32_t ll = a0 * b0, lh = a0 * b1, hl = a1 * b0, hh = a1 * b1;
-    const uint32_t mid = lh + hl;
-    const uint32_t carry_mid = mid < lh;
-    const uint32_t lo = ll + (mid << 16);
-    const uint32_t carry_lo = lo < ll;
-    const uint32_t hi = hh + (mid >> 16) + (carry_mid << 16) + carry_lo;
-    return hk::csub(a * w - hi * q, q);
-  }
-};
-
-struct ShoupApprox {
-  __device__ __forceinline__ static uint32_t mul(uint32_t a, uint32_t w,
-                                                 uint32_t w_sh, uint32_t q) {
-    const uint32_t a0 = a & 0xFFFFu, a1 = a >> 16;
-    const uint32_t b0 = w_sh & 0xFFFFu, b1 = w_sh >> 16;
-    const uint32_t lh = a0 * b1, hl = a1 * b0, hh = a1 * b1;
-    const uint32_t mid = lh + hl;
-    const uint32_t carry_mid = mid < lh;
-    const uint32_t hi = hh + (mid >> 16) + (carry_mid << 16);
-    return hk::csub(hk::csub(a * w - hi * q, q + q), q);
-  }
-};
-
 // x, y [rows, n1, n2] (y [rows, n2, n1] when kT); tile [n1, TC] at column
 // TC * blockIdx.y of limb blockIdx.x; tables of basis row limb % M.
-template <int kPasses, bool kMid, bool kT, class Mul>
+template <int kPasses, bool kMid, bool kT>
 __global__ void __launch_bounds__(kAnatomyThreads)
 anatomy(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
         const uint32_t* __restrict__ q, const uint32_t* __restrict__ tw1,
@@ -108,8 +99,8 @@ anatomy(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   const uint32_t qq = q[m];
   hk::load_tile(s, x + limb * len, log1, logtc, ld, 1 << log2, c0);
   for (int p = 0; p < kPasses; ++p)
-    hk::ct_rows<Mul>(s, log1, logtc, ld, tw1 + ((size_t)m << log1),
-                     tw1_sh + ((size_t)m << log1), qq);
+    hk::ct_rows(s, log1, logtc, ld, tw1 + ((size_t)m << log1),
+                tw1_sh + ((size_t)m << log1), qq);
   if constexpr (kMid)
     hk::mul_tile(s, mid + m * len, mid_sh + m * len, log1, logtc, ld,
                  1 << log2, c0, qq);
@@ -118,6 +109,64 @@ anatomy(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   } else {
     hk::store_tile(s, y + limb * len, log1, logtc, ld, 1 << log2, c0);
   }
+}
+
+// B15's resident blocks an SM: three quarters of B1's. The second run keeps
+// a few more values live than B1's phase A, which at L = 8 (four blocks
+// of 256 threads, 64 registers a thread) spilled in every form; at three
+// blocks no form spills, and all three share one occupancy.
+template <int L>
+constexpr int kFormBlocks = hk::RadixSplit<L>::kMinBlocks * 3 / 4;
+
+// B15: x [rows, 2^L, ncols] -> y [rows, ncols, 2^L], the [2^L, TC] tile at
+// column TC * blockIdx.y of limb blockIdx.x (TC = 2^logtc), with the flat
+// stage pair (tw, tw_sh [M, 2^L]) and q of basis row limb % M; the
+// schedule of the note above, its two runs one loop (unrolled, it took
+// more registers and, at L = 9 and 10, local memory). L <= 8: at 2^9 and
+// 2^10 points natmul and approx kept their values in local memory.
+template <int L, class Mul>
+__global__ void __launch_bounds__(hk::RadixSplit<L>::kMaxThreads,
+                                  kFormBlocks<L>)
+shoup_forms_radix(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                  const uint32_t* __restrict__ q,
+                  const uint32_t* __restrict__ tw,
+                  const uint32_t* __restrict__ tw_sh, int M, int ncols,
+                  int logtc) {
+  using S = hk::RadixSplit<L>;
+  constexpr int n = 1 << L, R = S::kR, U = S::kU;
+  extern __shared__ uint32_t sm[];
+  uint32_t* const tws = sm;  // stage row [n], then its Shoup row [n]
+  uint32_t* const tile = sm + 2 * n;
+  const int m = blockIdx.x % M;
+  const int c = threadIdx.x & ((1 << logtc) - 1);
+  const int u = threadIdx.x >> logtc;
+  const uint32_t qq = q[m];
+  uint32_t v[R];
+  {
+    const uint32_t* xc = x + ((size_t)blockIdx.x * ncols << L) +
+                         (blockIdx.y << logtc) + c;
+#pragma unroll
+    for (int t = 0; t < R; ++t)  // strided rows, values < q
+      v[t] = xc[(size_t)(u + U * t) * ncols];
+  }
+  hk::load_twiddles<L>(tws, tw + ((size_t)m << L), tw_sh + ((size_t)m << L));
+#pragma unroll 1
+  for (int run = 0;; ++run) {
+    hk::radix_ct_rows<L, Mul>(v, tile, tws, qq, u, c, logtc);  // [0, 4q)
+    if (run == 1) break;
+#pragma unroll
+    for (int t = 0; t < R; ++t)  // the words this thread read last
+      tile[hk::tile_at<L>(u * R + t, c, logtc)] = v[t];
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < R; ++t)
+      v[t] = tile[hk::tile_at<L>(u + U * t, c, logtc)];
+  }
+#pragma unroll
+  for (int t = 0; t < R; ++t) v[t] = hk::csub(hk::csub(v[t], 2 * qq), qq);
+  const int col = (blockIdx.y << logtc) + c;
+  hk::store_run<R>(y + ((size_t)blockIdx.x * ncols << L) + (size_t)col * n +
+                       u * R, v);
 }
 
 constexpr int kCopyThreads = 256;
@@ -141,31 +190,37 @@ using AnatomyKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
                                int, int);
 
 // The instantiated variants, found by their flags (ops/anatomy.py names
-// them): stage passes, mid product, transposed store, Shoup form (0
-// production, 1 natmul, 2 approx).
+// them): stage passes, mid product, transposed store.
 struct Variant {
   int passes;
   bool mid, t;
-  int form;
   AnatomyKernel kernel;
 };
 const Variant kVariants[] = {
-    {0, false, true, 0, anatomy<0, false, true, hk::ShoupMul>},    // copy^T
-    {0, true, false, 0, anatomy<0, true, false, hk::ShoupMul>},    // mid
-    {0, true, true, 0, anatomy<0, true, true, hk::ShoupMul>},      // midT
-    {1, false, false, 0, anatomy<1, false, false, hk::ShoupMul>},  // stages1
-    {1, false, true, 0, anatomy<1, false, true, hk::ShoupMul>},
-    {2, false, true, 0, anatomy<2, false, true, hk::ShoupMul>},  // stages2x
-    {2, false, true, 1, anatomy<2, false, true, ShoupNatmul>},
-    {2, false, true, 2, anatomy<2, false, true, ShoupApprox>},
+    {0, false, true, anatomy<0, false, true>},    // copy^T
+    {0, true, false, anatomy<0, true, false>},    // mid
+    {0, true, true, anatomy<0, true, true>},      // midT
+    {1, false, false, anatomy<1, false, false>},  // stages1
+    {1, false, true, anatomy<1, false, true>},
+    {2, false, true, anatomy<2, false, true>},    // stages2x
 };
 
-AnatomyKernel find_variant(int passes, int mid, int t, int form) {
+AnatomyKernel find_variant(int passes, int mid, int t) {
   for (const Variant& v : kVariants)
-    if (v.passes == passes && v.mid == (mid != 0) && v.t == (t != 0) &&
-        v.form == form)
+    if (v.passes == passes && v.mid == (mid != 0) && v.t == (t != 0))
       return v.kernel;
   return nullptr;
+}
+
+using FormKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
+                            const uint32_t*, const uint32_t*, int, int, int);
+
+// B15's kernel at axis 2^L in form 0 (production), 1 (natmul), 2 (approx).
+template <int L>
+FormKernel form_kernel(int form) {
+  return form == 0   ? &shoup_forms_radix<L, hk::ShoupLazy>
+         : form == 1 ? &shoup_forms_radix<L, hk::ShoupNatmul>
+                     : &shoup_forms_radix<L, hk::ShoupApprox>;
 }
 
 }  // namespace
@@ -173,16 +228,15 @@ AnatomyKernel find_variant(int passes, int mid, int t, int form) {
 extern "C" {
 
 // x [rows, n1, n2] -> out [rows, n1, n2], or [rows, n2, n1] when
-// transposed; the variant of flags (passes, mid, transposed, form), one of
+// transposed; the variant of flags (passes, mid, transposed), one of
 // kVariants; tables [M, n1] (tw1, tw1_sh) and [M, n1, n2] (mid,
 // mid_sh) of basis row limb % M. n1 in [2, 1024], n2 >= 2, powers of two.
 int hk_ntt_anatomy(const void* x, void* out, const void* q, const void* tw1,
                    const void* tw1_sh, const void* mid, const void* mid_sh,
-                   int passes, int mid_product, int transposed, int form,
-                   int rows, int M, int n1, int n2, void* stream) {
+                   int passes, int mid_product, int transposed, int rows,
+                   int M, int n1, int n2, void* stream) {
   const int log1 = ilog2(n1), log2 = ilog2(n2);
-  const AnatomyKernel kernel =
-      find_variant(passes, mid_product, transposed, form);
+  const AnatomyKernel kernel = find_variant(passes, mid_product, transposed);
   if (kernel == nullptr || rows <= 0 || M <= 0 || rows % M != 0 ||
       log1 < 1 || log1 > 10 || log2 < 1)
     return cudaErrorInvalidValue;
@@ -198,6 +252,36 @@ int hk_ntt_anatomy(const void* x, void* out, const void* q, const void* tw1,
       static_cast<const uint32_t*>(tw1_sh), static_cast<const uint32_t*>(mid),
       static_cast<const uint32_t*>(mid_sh), M, log1, log2, lt);
   return cudaGetLastError();
+}
+
+// B15: x [rows, n1, n2] -> out [rows, n2, n1], 16 stages at n1 = 256 in
+// Shoup form `form` (0 production, 1 natmul, 2 approx), tiles of
+// 2^logtc columns (ops/ntt_kernels.py::radix_phases' phase A); tw1, tw1_sh
+// [M, n1] of basis row limb % M. n1 in [2, 256], n2 >= 2^logtc, powers
+// of two.
+int hk_ntt_shoup_forms(const void* x, void* out, const void* q,
+                       const void* tw1, const void* tw1_sh, int form,
+                       int rows, int M, int n1, int n2, int logtc,
+                       void* stream) {
+  const int log1 = ilog2(n1), log2 = ilog2(n2);
+  if (form < 0 || form > 2 || rows <= 0 || M <= 0 || rows % M != 0 ||
+      log1 < 1 || log1 > 8 || log2 < 1 || log2 > 24)
+    return cudaErrorInvalidValue;
+  return hk::with_log<8>(log1, [&](auto l) {
+    constexpr int L = decltype(l)::value;
+    const FormKernel kernel = form_kernel<L>(form);
+    int threads;
+    size_t smem;
+    const cudaError_t err =
+        hk::radix_block<L>(kernel, log2, logtc, &threads, &smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3(rows, 1 << (log2 - logtc)), threads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
+        static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(tw1),
+        static_cast<const uint32_t*>(tw1_sh), M, n2, logtc);
+    return (int)cudaGetLastError();
+  });
 }
 
 // B16's copy: y = x over n < 2^32 words (x, y 16-byte aligned).

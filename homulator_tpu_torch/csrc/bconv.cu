@@ -1,6 +1,7 @@
-// RNS base conversion (kernel B3) on Hopper's tensor cores (sm_90a).
+// RNS base conversion (kernel B3) and its step 2 alone (kernel B5) on
+// Hopper's tensor cores (sm_90a).
 //
-// Replaces: homulator_tpu/ops/bconv_fused.py::bconv_fused. Per coefficient
+// B3 replaces homulator_tpu/ops/bconv_fused.py::bconv_fused. Per coefficient
 // c of nd input limbs x_i (primes q_i) it computes
 //   xh_i   = x_i * s_i mod q_i                                (step 1)
 //   v      = #{i : xh_i >= (q_i >> 1) + 1}     (only when center is set)
@@ -11,6 +12,18 @@
 // of csrc/planes_mma.cuh (u8 x u8 -> s32, exact). Every output is the
 // canonical residue, so the result equals the plain version (bconv_plain)
 // bit for bit.
+//
+// B5 replaces homulator_tpu/ops/bconv_pallas.py::bconv_step2_pallas, the
+// graph route's step 2 (ntt_mode="jnp": every ModUp digit and ModDown):
+// out_j = sum_t xhat_t * M[j, t] mod p_j on rows xhat already scaled by
+// step 1 outside the kernel, as the JAX function takes them, the count row
+// v last when the conversion is centered (its column is the table's last).
+// It is B3's device code with step 1 and the count turned off (Step2
+// below): the staged word is the A fragment itself, and the byte planes
+// take any uint32, so inputs may exceed the output prime. Its first form,
+// one thread a coefficient with nd Shoup products and a 64-bit remainder
+// an output, was bound by integer instructions at 34-42% of its bound;
+// on the tensor cores it moves the same bytes as B3 (PERF.md §6).
 //
 // Epilogue, in registers, per output (j, c) from the plane sums D_0..D_3
 // (each < 2^23, planes_mma.cuh):
@@ -24,8 +37,9 @@
 // (numtheory.PRIME_CAP). The TPU's pairing fold (conditional subtracts of
 // 4q and 2q on lo, which needs q >= 2^28) has no counterpart.
 //
-// What bounds it on the card: bytes. A ModUp digit at N = 2^16 reads 15
-// limbs and writes 35 (13.1 MB, 3.9 us at 3.35 TB/s); its int32 work
+// What bounds both on the card: bytes. A ModUp digit at N = 2^16 reads 15
+// limbs (B5: 16 rows, the count row included) and writes 35 (13.1 MB, 3.9
+// us at 3.35 TB/s; B5 13.4 MB, 4.0 us); B3's int32 work
 // (step 1, the count, the epilogue: ~665 operations a coefficient, 2.6 us
 // at 16.75 T/s) and its u8 products (1.2 G operations, 0.6 us at 1979
 // T/s) are below that. So nothing but x and the output crosses device
@@ -36,6 +50,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "modarith.cuh"
 #include "planes_mma.cuh"
@@ -44,55 +59,20 @@ namespace {
 
 using namespace hk::planes;
 
-struct Conv {
-  const uint32_t* s;
-  const uint32_t* s_sh;
-  const uint32_t* in_q;
+// The epilogue of both ops: the residues of output rows 8 jb .. 8 jb + 7
+// of a warp tile from their plane sums (see the note above), with the
+// output rows' q and horner_sh staged in outc.
+struct Residues {
   const uint32_t* hsh;
   const uint32_t* out_q;
   uint32_t* out;
-  uint4* rowc;  // shared [8 ks]: s, s_sh, q, centering threshold
   uint2* outc;  // shared [8 jb]: q, horner_sh
-  Layout lay;
-  int nd_in, center, m_out, g, tig;
+  int m_out, g, tig;
   long long ncoef;
 
   __device__ void stage() const {
-    for (int t = threadIdx.x; t < 8 * lay.ks; t += blockDim.x) {
-      // rows past nd_in: xh = 0 (s = 0), never counted
-      rowc[t] = t < nd_in ? make_uint4(s[t], s_sh[t], in_q[t],
-                                       (in_q[t] >> 1) + 1)
-                          : make_uint4(0, 0, ~0u, ~0u);
-    }
-    for (int j = threadIdx.x; j < 8 * lay.jb; j += blockDim.x)
+    for (int j = threadIdx.x; j < (m_out + 7) / 8 * 8; j += blockDim.x)
       outc[j] = j < m_out ? make_uint2(out_q[j], hsh[j]) : make_uint2(1, 0);
-  }
-
-  __device__ uint32_t input(int t, uint32_t x, uint32_t& cnt) const {
-    const uint4 c = rowc[t];
-    const uint32_t xh = hk::shoup_mul(x, c.x, c.y, c.z);
-    cnt += xh >= c.w;
-    return xh;
-  }
-
-  template <int KS>
-  __device__ void count(uint32_t (&a)[2][KS][4],
-                        const uint32_t (&cnt)[2][2]) const {
-    if (!center) return;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t v = cnt[mt][h];  // the quad's four lanes share a column
-        v += __shfl_xor_sync(0xFFFFFFFFu, v, 1);
-        v += __shfl_xor_sync(0xFFFFFFFFu, v, 2);
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2)
-            if (8 * ks + 4 * h2 + tig == nd_in) a[mt][ks][h + 2 * h2] = v;
-      }
-    }
   }
 
   // C fragment e of m16 tile mt: output row 8 jb + 2 tig + (e & 1),
@@ -123,6 +103,97 @@ struct Conv {
   }
 };
 
+// B3: step 1 and the centering count on the staged words, then step 2.
+struct Conv {
+  Residues res;
+  const uint32_t* s;
+  const uint32_t* s_sh;
+  const uint32_t* in_q;
+  uint4* rowc;  // shared [8 ks]: s, s_sh, q, centering threshold
+  Layout lay;
+  int nd_in, center;
+
+  __device__ void stage() const {
+    for (int t = threadIdx.x; t < 8 * lay.ks; t += blockDim.x) {
+      // rows past nd_in: xh = 0 (s = 0), never counted
+      rowc[t] = t < nd_in ? make_uint4(s[t], s_sh[t], in_q[t],
+                                       (in_q[t] >> 1) + 1)
+                          : make_uint4(0, 0, ~0u, ~0u);
+    }
+    res.stage();
+  }
+
+  __device__ uint32_t input(int t, uint32_t x, uint32_t& cnt) const {
+    const uint4 c = rowc[t];
+    const uint32_t xh = hk::shoup_mul(x, c.x, c.y, c.z);
+    cnt += xh >= c.w;
+    return xh;
+  }
+
+  template <int KS>
+  __device__ void count(uint32_t (&a)[2][KS][4],
+                        const uint32_t (&cnt)[2][2]) const {
+    if (!center) return;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t v = cnt[mt][h];  // the quad's four lanes share a column
+        v += __shfl_xor_sync(0xFFFFFFFFu, v, 1);
+        v += __shfl_xor_sync(0xFFFFFFFFu, v, 2);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+            if (8 * ks + 4 * h2 + res.tig == nd_in) a[mt][ks][h + 2 * h2] = v;
+      }
+    }
+  }
+
+  __device__ void store(int jb, const int (&d)[2][4][4], long long c0,
+                        bool full) const {
+    res.store(jb, d, c0, full);
+  }
+};
+
+// B5: step 2 alone. The staged words are the rows xhat_t themselves (the
+// count row, when there is one, the last of them), so an A-fragment
+// register is the word as it was loaded; rows past nd hold no data and
+// enter as 0.
+struct Step2 {
+  Residues res;
+  int nd;
+
+  __device__ void stage() const { res.stage(); }
+
+  __device__ uint32_t input(int t, uint32_t x, uint32_t&) const {
+    return t < nd ? x : 0u;
+  }
+
+  template <int KS>
+  __device__ void count(uint32_t (&)[2][KS][4],
+                        const uint32_t (&)[2][2]) const {}
+
+  __device__ void store(int jb, const int (&d)[2][4][4], long long c0,
+                        bool full) const {
+    res.store(jb, d, c0, full);
+  }
+};
+
+// The epilogue's view of a launch: its output, the output rows' constants
+// in shared memory after the input rows' (a uint4 each, B3's), and the
+// thread's fragment coordinates.
+__device__ Residues residues(uint32_t* out, const uint32_t* hsh,
+                             const uint32_t* out_q, int m_out,
+                             long long ncoef, uint8_t* sm,
+                             const Layout& lay) {
+  const int lane = threadIdx.x & 31;
+  return Residues{hsh, out_q, out,
+                  reinterpret_cast<uint2*>(sm + lay.const_offset() +
+                                           16 * 8 * lay.ks),
+                  m_out, lane >> 2, lane & 3, ncoef};
+}
+
 template <int KS>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 bconv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
@@ -134,29 +205,50 @@ bconv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
              int m_out, long long ncoef, int vec) {
   extern __shared__ __align__(16) uint8_t sm[];
   const Layout lay(nd + center, m_out, 0);
-  uint4* rowc = reinterpret_cast<uint4*>(sm + lay.const_offset());
-  const int lane = threadIdx.x & 31;
-  Conv op{s, s_sh, in_q, hsh, out_q, out, rowc,
-          reinterpret_cast<uint2*>(rowc + 8 * lay.ks), lay, nd, center,
-          m_out, lane >> 2, lane & 3, ncoef};
+  Conv op{residues(out, hsh, out_q, m_out, ncoef, sm, lay), s, s_sh, in_q,
+          reinterpret_cast<uint4*>(sm + lay.const_offset()), lay, nd,
+          center};
   run<KS>(op, x, tab, nd, ncoef, vec, sm, lay);
 }
 
 template <int KS>
-cudaError_t launch(const void* x, void* out, const void* s, const void* s_sh,
-                   const void* in_q, const void* tab, const void* hsh,
-                   const void* out_q, int nd, int center, int m_out,
-                   long long ncoef, cudaStream_t st) {
-  const size_t smem = Layout(nd + center, m_out, 0).bytes();
-  const cudaError_t err = allow_smem(bconv_kernel<KS>, smem);
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+bconv_step2_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                   const uint8_t* __restrict__ tab,
+                   const uint32_t* __restrict__ hsh,
+                   const uint32_t* __restrict__ out_q, int nd, int m_out,
+                   long long ncoef, int vec) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  const Layout lay(nd, m_out, 0);
+  Step2 op{residues(out, hsh, out_q, m_out, ncoef, sm, lay), nd};
+  run<KS>(op, x, tab, nd, ncoef, vec, sm, lay);
+}
+
+// f(std::integral_constant<int, KS>()) for the k32 steps KS = ceil(nd / 8)
+// of a table of nd <= 32 columns / 4: the host's dispatch to an
+// instantiation.
+template <class F>
+cudaError_t with_ks(int nd, F&& f) {
+  switch ((nd + 7) / 8) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 3: return f(std::integral_constant<int, 3>());
+    default: return f(std::integral_constant<int, 4>());
+  }
+}
+
+// A launch of B3's or B5's kernel over ncoef coefficients, nd table
+// columns / 4 and m_out output rows: the grid of grid_blocks, kThreads a
+// block, Layout's shared memory; vec when x and ncoef allow 16-byte loads.
+template <class Kernel, class... Args>
+cudaError_t launch(Kernel kernel, int nd, int m_out, const void* x,
+                   long long ncoef, cudaStream_t st, Args... args) {
+  const size_t smem = Layout(nd, m_out, 0).bytes();
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int vec = ncoef % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  bconv_kernel<KS><<<grid_blocks(ncoef, smem), kThreads, smem, st>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(s), static_cast<const uint32_t*>(s_sh),
-      static_cast<const uint32_t*>(in_q), static_cast<const uint8_t*>(tab),
-      static_cast<const uint32_t*>(hsh), static_cast<const uint32_t*>(out_q),
-      nd, center, m_out, ncoef, vec);
+  kernel<<<grid_blocks(ncoef, smem), kThreads, smem, st>>>(
+      static_cast<const uint32_t*>(x), args..., ncoef, vec);
   return cudaGetLastError();
 }
 
@@ -175,21 +267,36 @@ int hk_bconv(const void* x, void* out, const void* s, const void* s_sh,
   if (nd < 1 || m_out < 1 || ncoef < 1 || (center != 0 && center != 1) ||
       nd + center > kMaxNd)
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((nd + center + 7) / 8) {
-    case 1:
-      return launch<1>(x, out, s, s_sh, in_q, tab, hsh, out_q, nd, center,
-                       m_out, ncoef, st);
-    case 2:
-      return launch<2>(x, out, s, s_sh, in_q, tab, hsh, out_q, nd, center,
-                       m_out, ncoef, st);
-    case 3:
-      return launch<3>(x, out, s, s_sh, in_q, tab, hsh, out_q, nd, center,
-                       m_out, ncoef, st);
-    default:
-      return launch<4>(x, out, s, s_sh, in_q, tab, hsh, out_q, nd, center,
-                       m_out, ncoef, st);
-  }
+  return with_ks(nd + center, [&](auto ks) {
+    return launch(bconv_kernel<decltype(ks)::value>, nd + center, m_out, x,
+                  ncoef, static_cast<cudaStream_t>(stream),
+                  static_cast<uint32_t*>(out),
+                  static_cast<const uint32_t*>(s),
+                  static_cast<const uint32_t*>(s_sh),
+                  static_cast<const uint32_t*>(in_q),
+                  static_cast<const uint8_t*>(tab),
+                  static_cast<const uint32_t*>(hsh),
+                  static_cast<const uint32_t*>(out_q), nd, center, m_out);
+  });
+}
+
+// B5: xhat [nd, ncoef] (any uint32 words; the count row, if any, last) ->
+// out [m_out, ncoef]; tab, the device layout of the step-2 matrix's
+// build_bf16_tables table ([32 ceil(m_out / 8), 32 ceil(nd / 8) + 16]
+// bytes, 16-byte aligned), horner_sh and out_q [m_out]; nd <= 32.
+int hk_bconv_step2(const void* xhat, void* out, const void* tab,
+                   const void* hsh, const void* out_q, int nd, int m_out,
+                   long long ncoef, void* stream) {
+  if (nd < 1 || nd > kMaxNd || m_out < 1 || ncoef < 1)
+    return cudaErrorInvalidValue;
+  return with_ks(nd, [&](auto ks) {
+    return launch(bconv_step2_kernel<decltype(ks)::value>, nd, m_out, xhat,
+                  ncoef, static_cast<cudaStream_t>(stream),
+                  static_cast<uint32_t*>(out),
+                  static_cast<const uint8_t*>(tab),
+                  static_cast<const uint32_t*>(hsh),
+                  static_cast<const uint32_t*>(out_q), nd, m_out);
+  });
 }
 
 }  // extern "C"

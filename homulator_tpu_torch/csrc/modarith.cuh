@@ -7,7 +7,8 @@
 // of B1 and B2 (ntt_reg.cuh).
 // Hopper multiplies 32x32 -> 64 natively: __umulhi gives the exact high
 // word, so the TPU's 16-bit partial products and approximate high word
-// (homulator_tpu/ops/modmath.py:36-58, 136-157) have no counterpart here.
+// (homulator_tpu/ops/modmath.py:36-58, 136-157) have no counterpart on any
+// op's path; ShoupNatmul and ShoupApprox below time them (kernel B15).
 #pragma once
 
 #include <cstdint>
@@ -40,24 +41,6 @@ __device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w,
   return r >= q ? r - q : r;
 }
 
-// sum_{i < n} x[i] * w[i] over register-resident inputs x (any uint32: an
-// input may exceed q), each term a lazy Shoup product in [0, 2q) summed in
-// uint64, which no n <= MAXND <= 2^31 can overflow; the caller reduces the
-// sum mod q once. The multiply-accumulate of both base conversions (B3,
-// B5), with w, w_sh one output row of the matrix Shoup pair.
-template <int MAXND>
-__device__ __forceinline__ uint64_t shoup_dot_lazy(const uint32_t (&x)[MAXND],
-                                                   int n, const uint32_t* w,
-                                                   const uint32_t* w_sh,
-                                                   uint32_t q) {
-  uint64_t acc = 0;
-#pragma unroll
-  for (int i = 0; i < MAXND; ++i) {
-    if (i < n) acc += shoup_mul_lazy(x[i], w[i], w_sh[i], q);
-  }
-  return acc;
-}
-
 // log2(n) for a power of two n >= 1, else -1: the hosts' shape checks.
 inline int ilog2(int n) {
   int l = 0;
@@ -69,6 +52,54 @@ inline int ilog2(int n) {
 __device__ __forceinline__ uint32_t csub(uint32_t a, uint32_t m) {
   return a >= m ? a - m : a;
 }
+
+// The lazy Shoup product a * w mod q of the CT butterflies (ntt_reg.cuh's
+// ct_lazy, ct_pass, radix_ct_rows take it as their Mul), in [0, 2q) for any
+// uint32 a, in three forms of the high word floor(a * w_sh / 2^32):
+//   ShoupLazy    __umulhi's exact high word: every kernel's form;
+//   ShoupNatmul  the exact high word from four 16-bit partial products with
+//                their carries, the TPU's form (scripts/microbench_ntt2.py,
+//                shoup_natmul);
+//   ShoupApprox  the TPU's three partial products without the low one
+//                (microbench_ntt2.py, shoup_approx): short by at most 1, so
+//                a * w - hi * q lies in [0, 3q) (3q < 2^32 as q < 2^32/6),
+//                and one conditional subtract of 2q brings it to [0, 2q)
+//                before a butterfly adds it (7q would wrap uint32).
+// Kernel B15 (anatomy.cu) times the three on B1's register passes.
+struct ShoupLazy {
+  __device__ __forceinline__ static uint32_t mul(uint32_t a, uint32_t w,
+                                                 uint32_t w_sh, uint32_t q) {
+    return shoup_mul_lazy(a, w, w_sh, q);
+  }
+};
+
+struct ShoupNatmul {
+  __device__ __forceinline__ static uint32_t mul(uint32_t a, uint32_t w,
+                                                 uint32_t w_sh, uint32_t q) {
+    const uint32_t a0 = a & 0xFFFFu, a1 = a >> 16;
+    const uint32_t b0 = w_sh & 0xFFFFu, b1 = w_sh >> 16;
+    const uint32_t ll = a0 * b0, lh = a0 * b1, hl = a1 * b0, hh = a1 * b1;
+    const uint32_t mid = lh + hl;
+    const uint32_t carry_mid = mid < lh;
+    const uint32_t lo = ll + (mid << 16);
+    const uint32_t carry_lo = lo < ll;
+    const uint32_t hi = hh + (mid >> 16) + (carry_mid << 16) + carry_lo;
+    return a * w - hi * q;
+  }
+};
+
+struct ShoupApprox {
+  __device__ __forceinline__ static uint32_t mul(uint32_t a, uint32_t w,
+                                                 uint32_t w_sh, uint32_t q) {
+    const uint32_t a0 = a & 0xFFFFu, a1 = a >> 16;
+    const uint32_t b0 = w_sh & 0xFFFFu, b1 = w_sh >> 16;
+    const uint32_t lh = a0 * b1, hl = a1 * b0, hh = a1 * b1;
+    const uint32_t mid = lh + hl;
+    const uint32_t carry_mid = mid < lh;
+    const uint32_t hi = hh + (mid >> 16) + (carry_mid << 16);
+    return csub(a * w - hi * q, q + q);
+  }
+};
 
 // Montgomery product a * b * 2^-32 mod q, in [0, 2q) for a, b < q
 // (qinv_neg = -q^{-1} mod 2^32): (a*b + m*q) / 2^32 < q^2 / 2^32 + q.

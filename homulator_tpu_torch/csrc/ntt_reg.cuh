@@ -2,9 +2,10 @@
 // written as helpers so that other NTT phases run on them: B4's two
 // launches (hpip.cu) and the phases of the coefficient-sharded NTT in
 // ntt.cu: forward phase 1 (B6, B10: radix_phase1) and phase 2 (B7, B11:
-// B1's phase B, radix_phase<L, true, false>), and the lane-packed inverse
-// phase 2 (B12: B2's phase A, radix_phase<L, false, false>) and phase 1
-// (B13: radix_iphase1).
+// B1's phase B, radix_phase<L, true, false>), and the inverse phase 2
+// (B8, B12: B2's phase A, radix_phase<L, false, false>) and phase 1 (B9,
+// B13: radix_iphase1); and, on no op's path, the anatomy's Shoup forms
+// (B15, anatomy.cu: radix_ct_rows in each form of the product).
 //
 // One phase transforms an [n, ncols] limb along its n = 2^L rows, one
 // column at a time; a block holds TC columns. Each transform splits its
@@ -61,12 +62,14 @@ struct RadixSplit {
 };
 
 // Harvey CT butterfly (x, y) -> (x + w*y, x - w*y) mod q. In: x in [0, 4q),
-// y any uint32. Out: both in [0, 4q).
+// y any uint32. Out: both in [0, 4q). Mul: the form of the lazy Shoup
+// product (modarith.cuh), in [0, 2q) for any uint32 y.
+template <class Mul = ShoupLazy>
 __device__ __forceinline__ void ct_lazy(uint32_t& x, uint32_t& y, uint32_t w,
                                         uint32_t w_sh, uint32_t q,
                                         uint32_t q2) {
   const uint32_t a = csub(x, q2);                      // [0, 2q)
-  const uint32_t t = shoup_mul_lazy(y, w, w_sh, q);    // [0, 2q)
+  const uint32_t t = Mul::mul(y, w, w_sh, q);          // [0, 2q)
   x = a + t;                                           // [0, 4q)
   y = a - t + q2;                                      // (0, 4q)
 }
@@ -84,8 +87,8 @@ __device__ __forceinline__ void gs_lazy(uint32_t& x, uint32_t& y, uint32_t w,
 // off + 2^LR): global stages s0 .. s0 + LR - 1 of a unit whose index bits
 // above the pass are g. Local stage s pairs v[j] and v[j + 2^(LR-1-s)];
 // block b of it takes the flat twiddle 2^(s0+s) + (g << s) + b. tw holds
-// the stage row [n], tw + n its Shoup row.
-template <int LR, int N>
+// the stage row [n], tw + n its Shoup row; Mul as ct_lazy's.
+template <int LR, class Mul = ShoupLazy, int N>
 __device__ __forceinline__ void ct_pass(uint32_t (&v)[N], int off,
                                         const uint32_t* tw, int n, int s0,
                                         int g, uint32_t q) {
@@ -99,8 +102,8 @@ __device__ __forceinline__ void ct_pass(uint32_t (&v)[N], int off,
       const uint32_t w = tw[k], w_sh = tw[n + k];
 #pragma unroll
       for (int j = 0; j < h; ++j)
-        ct_lazy(v[off + 2 * b * h + j], v[off + 2 * b * h + j + h], w, w_sh,
-                q, q2);
+        ct_lazy<Mul>(v[off + 2 * b * h + j], v[off + 2 * b * h + j + h], w,
+                     w_sh, q, q2);
     }
   }
 }
@@ -181,14 +184,15 @@ __device__ __forceinline__ void store_run(uint32_t* __restrict__ p,
 // Shoup row in shared memory. The tile may be written again once every
 // thread of the block has passed another barrier. B1's phase B stores the
 // values; B4's phase B (hpip.cu) multiplies them by its keys, B6 and B10
-// (radix_phase1) by the mid table.
-template <int L>
+// (radix_phase1) by the mid table; B15 (anatomy.cu) runs it twice in each
+// form of the twiddle product (Mul, as ct_lazy's).
+template <int L, class Mul = ShoupLazy>
 __device__ __forceinline__ void radix_ct_rows(
     uint32_t (&v)[RadixSplit<L>::kR], uint32_t* tile, const uint32_t* tws,
     uint32_t q, int u, int c, int logtc) {
   using S = RadixSplit<L>;
   constexpr int n = 1 << L, R = S::kR, U = S::kU, LA = S::kLA, LB = S::kLB;
-  ct_pass<LA>(v, 0, tws, n, 0, 0, q);
+  ct_pass<LA, Mul>(v, 0, tws, n, 0, 0, q);
 #pragma unroll
   for (int t = 0; t < R; ++t) tile[tile_at<L>(u + U * t, c, logtc)] = v[t];
   __syncthreads();
@@ -196,7 +200,7 @@ __device__ __forceinline__ void radix_ct_rows(
   for (int t = 0; t < R; ++t) v[t] = tile[tile_at<L>(u * R + t, c, logtc)];
 #pragma unroll
   for (int k = 0; k < S::kSub; ++k)
-    ct_pass<LB>(v, k << LB, tws, n, LA, u * S::kSub + k, q);
+    ct_pass<LB, Mul>(v, k << LB, tws, n, LA, u * S::kSub + k, q);
 }
 
 // The GS stages of one 2^L-point column c of a tile, radix_ct_rows's

@@ -1,6 +1,6 @@
-// Column-tile NTT building blocks of the NTT anatomy kernels (anatomy.cu:
-// B14-B16), the first design of B1's forward phase; no op's path runs
-// them (every NTT kernel of an op runs on ntt_reg.cuh).
+// Column-tile NTT building blocks of the NTT anatomy kernels B14 and B16
+// (anatomy.cu), the first design of B1's forward phase; no op's path runs
+// them (every NTT kernel of an op, and B15, runs on ntt_reg.cuh).
 //
 // A block owns an [n, TC] column tile of one limb in shared memory (row
 // stride ld = TC + 1: no bank conflicts in the transposed write; TC =
@@ -23,20 +23,9 @@ namespace hk {
 
 constexpr int kLogTileCols = 5;  // TC = 32 columns: 128-byte row segments
 
-// The Shoup product a * w mod q in [0, q) of the stage loops (__umulhi).
-// A type, so that csrc/anatomy.cu can time other forms of it in ct_rows.
-struct ShoupMul {
-  __device__ __forceinline__ static uint32_t mul(uint32_t a, uint32_t w,
-                                                 uint32_t w_sh, uint32_t q) {
-    return shoup_mul(a, w, w_sh, q);
-  }
-};
-
 // CT (DIT) butterflies along the rows of an [n, tc] tile in shared memory
-// (row stride ld). Thread t takes column t % tc of butterfly t / tc, so a
-// warp touches 32 consecutive words of a row. Mul::mul is the twiddle
-// product; it must return a * w mod q in [0, q).
-template <class Mul = ShoupMul>
+// (row stride ld), each fully reduced. Thread t takes column t % tc of
+// butterfly t / tc, so a warp touches 32 consecutive words of a row.
 __device__ inline void ct_rows(uint32_t* s, int logn, int logtc, int ld,
                                const uint32_t* __restrict__ tw,
                                const uint32_t* __restrict__ tw_sh,
@@ -52,7 +41,7 @@ __device__ inline void ct_rows(uint32_t* s, int logn, int logtc, int ld,
       const int r1 = r0 + (1 << logh);
       const int k = (1 << st) + b;
       const uint32_t u = s[r0 * ld + col];
-      const uint32_t v = Mul::mul(s[r1 * ld + col], tw[k], tw_sh[k], q);
+      const uint32_t v = shoup_mul(s[r1 * ld + col], tw[k], tw_sh[k], q);
       s[r0 * ld + col] = mod_add(u, v, q);
       s[r1 * ld + col] = mod_sub(u, v, q);
     }

@@ -1,10 +1,13 @@
 // The byte-plane product of the base conversion on Hopper's tensor cores:
-// the core shared by kernel B3 (csrc/bconv.cu, the whole conversion) and
-// kernel B17 (csrc/bconv_mma.cu, the product alone).
+// the core shared by kernels B3 and B5 (csrc/bconv.cu: the whole
+// conversion, and its step 2 on rows already scaled) and kernel B17
+// (csrc/bconv_mma.cu, the product alone).
 //
-// Both replace a TPU kernel that splits each input word into four byte
-// planes and contracts them with a table of bytes in ONE bf16 matmul
-// (homulator_tpu/ops/bconv_fused.py:1-27, 72-110). For x [nd, ncoef]
+// B3 and B17 replace a TPU kernel that splits each input word into four
+// byte planes and contracts them with a table of bytes in ONE bf16 matmul
+// (homulator_tpu/ops/bconv_fused.py:1-27, 72-110); B5 replaces one that
+// sums Shoup products (bconv_pallas.py) and runs this product too, on the
+// same tables. For x [nd, ncoef]
 // (32-bit words xh_t) and the table mbig [4 m_out, 4 nd] of
 // build_bf16_tables (row i*m_out + j, column p*nd + t holds byte i of
 // mat[j, t] * 2^(8p) mod q_j, an integer in [0, 256)), the plane sums are
@@ -49,12 +52,12 @@
 //    free of bank conflicts; ldmatrix.x4 gives a thread the B fragments
 //    (bytes 4 tig .. 4 tig + 3 of row g) of two planes at one k32 step. It
 //    is staged once a block with 16-byte cp.async, all of it in flight at
-//    once beside the first x tile: B3 copies the layout that its context
-//    built once on the host; B17, whose caller hands it mbig, copies mbig
+//    once beside the first x tile: B3 and B5 copy the layout that their
+//    context built once on the host; B17, whose caller hands it mbig, copies mbig
 //    as it is and rewrites it into the layout in shared memory.
 //  - the kernel's per-row constants (B3: the step-1 Shoup pair, q and the
 //    centering threshold of every input row; q and horner_sh of every
-//    output row).
+//    output row; B5: the output rows' only).
 //
 // Blocks are persistent: the grid is the number of blocks that fit on the
 // card at once (two per SM; fewer where there are fewer tiles), and warp w
@@ -81,8 +84,8 @@ constexpr int kBlocksPerSm = 2;
 
 // Shared-memory layout of a launch, in this order (bytes): the warps' x
 // buffers, the table in the device layout, mbig as it is (raw: B17 only),
-// the kernel's constants (B3: a uint4 per input row, a uint2 per output
-// row).
+// the kernel's constants (B3 and B5: a uint4 per input row, used by B3
+// only, and a uint2 per output row).
 struct Layout {
   int nd, m_out, raw;
   int ks, jb;  // k32 steps, blocks of 8 output rows

@@ -72,15 +72,19 @@ _SIGNATURES = {
     # x, out, s, s_sh, in_q, the table's device layout, horner_sh, out_q,
     # nd, center, m_out, ncoef, stream
     "hk_bconv": [_P] * 8 + [_I] * 3 + [ctypes.c_longlong, _P],
-    # xhat, out, mat, mat_sh, out_q, nd, m_out, ncoef, stream
+    # xhat, out, the table's device layout, horner_sh, out_q, nd, m_out,
+    # ncoef, stream
     "hk_bconv_step2": [_P] * 5 + [_I] * 2 + [ctypes.c_longlong, _P],
     # convs, conv_rows, spans (host arrays), d_eval, key, scratch, out, q,
     # qinv, 6 tables, beta, alpha, level, k_full, n1, n2, log2 of the tile
     # columns of phases A and B, stream
     "hk_hpip": [_P] * 15 + [_I] * 8 + [_P],
     # x, out, q, tw1, tw1_sh, mid, mid_sh, passes, mid product, transposed,
-    # form, rows, M, n1, n2, stream
-    "hk_ntt_anatomy": [_P] * 7 + [_I] * 8 + [_P],
+    # rows, M, n1, n2, stream
+    "hk_ntt_anatomy": [_P] * 7 + [_I] * 7 + [_P],
+    # x, out, q, tw1, tw1_sh, Shoup form, rows, M, n1, n2, log2 of the tile
+    # columns, stream
+    "hk_ntt_shoup_forms": [_P] * 5 + [_I] * 6 + [_P],
     # x, out, words, stream
     "hk_copy_words": [_P] * 2 + [ctypes.c_longlong, _P],
     # x, mbig, out, nd, m_out, ncoef, stream

@@ -15,14 +15,15 @@ rows. Every output is in [0, q):
     stages2x, with the butterflies' Shoup product in form f: production
     (the exact high word, __umulhi), natmul (the exact high word from four
     16-bit partial products, the TPU's form) or approx (the TPU's
-    3-product high word, short by at most 1, so the product lies in
-    [0, 3q) before two conditional subtracts)
+    3-product high word, short by at most 1); on B1's register passes
+    (its phase A geometry, lazy ranges), where B14 and B16 run on the
+    column tiles
   B16, `scripts/bench_ntt_variants.py::main` (k_copy, k_transpose, k_mid,
   k_stages1): ntt_components(x, nb, p)
     copy, transpose, mid (x * mid mod q), stages1; only transpose
     transposes                                       -> [M, n1, n2]
     (copy is a plain vectorised copy of its own, hk_copy_words; the
-    other parts are variants of the anatomy template)
+    other parts, like B14's, are variants of the anatomy template)
 
 The TPU kernels leave B14's stages1 and stages2x (and its full variant)
 lazy in [0, 3q); they agree with these mod q. microbench_ntt2's natmul and
@@ -42,22 +43,22 @@ from .. import kernels
 from ..context import NttBasis
 from .modmath import _u32, cond_sub, mulmod
 from .ntt import _ct_stages, _rep_rows, _tables, ntt, ntt_plain
+from .ntt_kernels import radix_phases
 
-# the Shoup forms of B15, in hk_ntt_anatomy's numbering
+# the Shoup forms of B15, in hk_ntt_shoup_forms' numbering
 FORMS = ("production", "natmul", "approx")
-# variant -> (stage passes, mid product, transposed store, Shoup form), the
-# flags hk_ntt_anatomy instantiates; B14's "full" is B1, B16's "copy" its
-# own kernel (hk_copy_words)
-B14_VARIANTS = {"copy": (0, False, True, "production"),
-                "midT": (0, True, True, "production"),
-                "stages1": (1, False, True, "production"),
-                "stages2x": (2, False, True, "production"), "full": None}
-B15_FORMS = {f: (2, False, True, f) for f in FORMS}
-B16_PARTS = {"copy": None,
-             "transpose": (0, False, True, "production"),
-             "mid": (0, True, False, "production"),
-             "stages1": (1, False, False, "production")}
-_MAX_N1 = 1024  # the [n1, 32] tile: n1 * 33 words of shared memory
+# variant -> (stage passes, mid product, transposed store), the flags
+# hk_ntt_anatomy instantiates; B14's "full" is B1, B16's "copy" its own
+# kernel (hk_copy_words)
+B14_VARIANTS = {"copy": (0, False, True), "midT": (0, True, True),
+                "stages1": (1, False, True), "stages2x": (2, False, True),
+                "full": None}
+# form -> the function every form computes: B14's stages2x
+B15_FORMS = {f: B14_VARIANTS["stages2x"] for f in FORMS}
+B16_PARTS = {"copy": None, "transpose": (0, False, True),
+             "mid": (0, True, False), "stages1": (1, False, False)}
+_MAX_N1 = 1024  # B14, B16: the [n1, 32] tile, n1 * 33 words
+_MAX_N1_FORMS = 256  # B15: shoup_forms_radix<L, Mul> at L = 1 .. 8
 
 
 def shoup_form(a, w, w_sh, q, form: str) -> torch.Tensor:
@@ -76,8 +77,9 @@ def shoup_form(a, w, w_sh, q, form: str) -> torch.Tensor:
     return cond_sub(cond_sub(a * w.long() - hi * q, q + q), q)
 
 
-def _plain(spec: tuple, x: torch.Tensor, nb: NttBasis) -> torch.Tensor:
-    passes, mid, transposed, form = spec
+def _plain(spec: tuple, x: torch.Tensor, nb: NttBasis,
+           form: str = "production") -> torch.Tensor:
+    passes, mid, transposed = spec
     rows = _rep_rows(nb, 1)
     q, tw1, tw1_sh, mids = _tables(nb, rows, "q", "tw1", "tw1_sh", "mid")
     q4 = q.view(-1, 1, 1, 1)
@@ -96,33 +98,59 @@ def _plain(spec: tuple, x: torch.Tensor, nb: NttBasis) -> torch.Tensor:
     return y.to(torch.int32).contiguous()
 
 
-def _launch(name: str, spec: tuple, x: torch.Tensor,
-            nb: NttBasis) -> torch.Tensor:
+def _check(name: str, x: torch.Tensor, nb: NttBasis, tables,
+           max_n1: int = _MAX_N1) -> None:
+    """Raise unless x [M, n1, n2] and nb's q and `tables` are what the
+    anatomy kernels take on x's CUDA device, n1 <= max_n1."""
     if not x.is_cuda:
         raise ValueError(f"{name}: CUDA kernel called on {x.device}")
     if nb.shard is not None:
         raise ValueError(f"{name}: sharded basis {nb.shard}")
     M, n1, n2 = nb.q.shape[0], nb.n1, nb.n2
-    if n1 > _MAX_N1:
-        raise ValueError(f"{name}: n1={n1} above {_MAX_N1}")
-    dev = x.device
-    kernels.require_cuda_int32("x", x, dev, (M, n1, n2))
-    kernels.require_cuda_int32("q", nb.q, dev, (M,))
-    for t, shape in (("tw1", (M, n1)), ("tw1_sh", (M, n1)),
-                     ("mid", (M, n1, n2)), ("mid_sh", (M, n1, n2))):
-        kernels.require_cuda_int32(t, getattr(nb, t), dev, shape)
+    if n1 > max_n1:
+        raise ValueError(f"{name}: n1={n1} above {max_n1}")
+    kernels.require_cuda_int32("x", x, x.device, (M, n1, n2))
+    kernels.require_cuda_int32("q", nb.q, x.device, (M,))
+    for t in tables:
+        kernels.require_cuda_int32(
+            t, getattr(nb, t), x.device,
+            (M, n1) if t.startswith("tw1") else (M, n1, n2))
+
+
+def _launch(name: str, spec: tuple, x: torch.Tensor,
+            nb: NttBasis) -> torch.Tensor:
+    _check(name, x, nb, ("tw1", "tw1_sh", "mid", "mid_sh"))
+    M, n1, n2 = nb.q.shape[0], nb.n1, nb.n2
     lib = kernels.load()
-    passes, mid, transposed, form = spec
+    passes, mid, transposed = spec
     out = torch.empty((M, n2, n1) if transposed else (M, n1, n2),
-                      dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+                      dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
         rc = lib.hk_ntt_anatomy(
             kernels.ptr(x), kernels.ptr(out), kernels.ptr(nb.q),
             kernels.ptr(nb.tw1), kernels.ptr(nb.tw1_sh), kernels.ptr(nb.mid),
-            kernels.ptr(nb.mid_sh), passes, int(mid), int(transposed),
-            FORMS.index(form), M, M, n1, n2, kernels.stream(x))
+            kernels.ptr(nb.mid_sh), passes, int(mid), int(transposed), M, M,
+            n1, n2, kernels.stream(x))
     kernels.check(rc, name)
     kernels.count(name)
+    return out
+
+
+def _launch_forms(x: torch.Tensor, nb: NttBasis, form: str) -> torch.Tensor:
+    """B15 on the GPU (hk_ntt_shoup_forms): x int32 [M, n1, n2] -> [M, n2,
+    n1], tiles of B1 phase A's width (radix_phases)."""
+    _check("ntt_shoup_forms", x, nb, ("tw1", "tw1_sh"), _MAX_N1_FORMS)
+    M, n1, n2 = nb.q.shape[0], nb.n1, nb.n2
+    tc = radix_phases(M, n1, n2, True)[0][2]
+    lib = kernels.load()
+    out = torch.empty((M, n2, n1), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.hk_ntt_shoup_forms(
+            kernels.ptr(x), kernels.ptr(out), kernels.ptr(nb.q),
+            kernels.ptr(nb.tw1), kernels.ptr(nb.tw1_sh), FORMS.index(form),
+            M, M, n1, n2, tc.bit_length() - 1, kernels.stream(x))
+    kernels.check(rc, "ntt_shoup_forms")
+    kernels.count("ntt_shoup_forms")
     return out
 
 
@@ -179,14 +207,17 @@ def ntt_shoup_forms(x: torch.Tensor, nb: NttBasis, form: str) -> torch.Tensor:
     """Kernel B15: 16 CT stages (stage 1 twice) along n1 of x int32
     [M, n1, n2] with the Shoup product in `form` -> [M, n2, n1] in [0, q),
     the same for every form."""
-    return _run("ntt_shoup_forms", _spec(B15_FORMS, form, "Shoup form"), x,
-                nb)
+    _spec(B15_FORMS, form, "Shoup form")
+    if x.device.type == "cpu":
+        return ntt_shoup_forms_plain(x, nb, form)
+    return _launch_forms(x, nb, form)
 
 
 def ntt_shoup_forms_plain(x: torch.Tensor, nb: NttBasis,
                           form: str) -> torch.Tensor:
-    """Plain version of kernel B15 (the form's high word in int64)."""
-    return _plain(_spec(B15_FORMS, form, "Shoup form"), x, nb)
+    """Plain version of kernel B15 (the form's high word in int64, every
+    product fully reduced)."""
+    return _plain(_spec(B15_FORMS, form, "Shoup form"), x, nb, form)
 
 
 def ntt_components(x: torch.Tensor, nb: NttBasis, part: str) -> torch.Tensor:

@@ -13,7 +13,7 @@ A centered conversion appends the count row v to xhat
 (bconv_step1_centered) and reads it through the matrix's centering column;
 step 2 takes the rows as they come. Step 1 is a PyTorch op on the int64
 carrier, as the JAX package computes it outside any Pallas kernel; step 2
-goes to B5 (csrc/bconv_step2.cu) on a CUDA tensor.
+goes to B5 (csrc/bconv.cu, on B3's tensor-core core) on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -22,9 +22,6 @@ import torch
 
 from .. import kernels
 from .modmath import col, mulmod, shoup_mul
-
-_MAX_ND = 32  # csrc/bconv_step2.cu instantiates nd <= 16 and nd <= 32
-
 
 def bconv_step1(x, s, s_sh, in_q) -> torch.Tensor:
     """xhat_i = x_i * s_i mod in_q_i for x [nd, ...] (s/s_sh: [nd] Shoup
@@ -59,31 +56,39 @@ def bconv_step2_plain(xhat, mat, out_q) -> torch.Tensor:
     return (acc % oq).to(torch.int32)
 
 
-def bconv_step2(xhat, mat, mat_sh, out_q) -> torch.Tensor:
+def bconv_step2(xhat, mat, mat_mma, horner_sh, out_q) -> torch.Tensor:
     """out_j = sum_i xhat_i * mat[j, i] mod out_q_j: xhat [nd, ...] ->
-    int32 [m_out, ...]. mat/mat_sh: [m_out, nd] Shoup pair (mat_sh read by
-    the kernel only). A CPU tensor runs bconv_step2_plain; a CUDA tensor
-    launches kernel B5 (csrc/bconv_step2.cu), which takes nd <= 32."""
+    int32 [m_out, ...]. mat: [m_out, nd] plain residues (read by the plain
+    version only); mat_mma/horner_sh: the device layout of mat's
+    build_bf16_tables table (ops/bconv_fused.py::mma_table) and its
+    horner_sh, which DeviceContext builds once (read by the kernel only).
+    A CPU tensor runs bconv_step2_plain; any other call needs both tables
+    (none is built per call), and a CUDA tensor launches kernel B5 (B3's
+    tensor-core core with step 1 and the count off, csrc/bconv.cu), which
+    takes nd <= 32."""
     if xhat.device.type == "cpu":
         return bconv_step2_plain(xhat, mat, out_q)
+    if mat_mma is None or horner_sh is None:
+        raise ValueError("bconv_step2: kernel B5 takes the matrix's table "
+                         "in the device layout and its horner_sh "
+                         "(DeviceContext builds them); none given")
     if not xhat.is_cuda:
         raise ValueError(f"unsupported device {xhat.device}")
+    from .bconv_fused import check_mma_table  # it imports this module
+
     nd, m_out = xhat.shape[0], out_q.shape[0]
-    if nd > _MAX_ND:
-        raise ValueError(f"bconv_step2: nd={nd} above {_MAX_ND}")
     dev = xhat.device
+    check_mma_table("bconv_step2", mat_mma, nd, m_out, dev)
     x = xhat.to(torch.int32).contiguous()
-    for name, t, shape in (("mat", mat, (m_out, nd)),
-                           ("mat_sh", mat_sh, (m_out, nd)),
-                           ("out_q", out_q, (m_out,))):
-        kernels.require_cuda_int32(name, t, dev, shape)
+    for name, t in (("horner_sh", horner_sh), ("out_q", out_q)):
+        kernels.require_cuda_int32(name, t, dev, (m_out,))
     lib = kernels.load()
     out = torch.empty((m_out,) + tuple(x.shape[1:]), dtype=torch.int32,
                       device=dev)
     with torch.cuda.device(dev):
         rc = lib.hk_bconv_step2(
-            kernels.ptr(x), kernels.ptr(out), kernels.ptr(mat),
-            kernels.ptr(mat_sh), kernels.ptr(out_q), nd, m_out,
+            kernels.ptr(x), kernels.ptr(out), kernels.ptr(mat_mma),
+            kernels.ptr(horner_sh), kernels.ptr(out_q), nd, m_out,
             x[0].numel(), kernels.stream(x))
     kernels.check(rc, "bconv_step2")
     kernels.count("bconv_step2")

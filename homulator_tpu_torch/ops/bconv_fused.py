@@ -72,6 +72,15 @@ def mma_table(mbig: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(tab.reshape(32 * jb, -1)).to(mbig.device)
 
 
+def check_mma_table(name, tab, nd, m_out, dev):
+    """Raise unless tab is a table in the device layout (mma_table) for nd
+    columns / 4 and m_out output rows on dev that a launch of B3 or B5
+    takes."""
+    ks, jb = _geometry(nd, m_out)
+    _check_table(name, tab, (32 * jb, 32 * ks + _TAB_PAD), torch.uint8, nd,
+                 m_out, dev)
+
+
 def _check_table(name, tab, shape, dtype, nd, m_out, dev):
     """Raise unless tab is a contiguous, 16-byte aligned `dtype` tensor of
     `shape` on dev, nd <= 32, and the launch fits a block's shared
@@ -118,10 +127,7 @@ def bconv_fused(x, s, s_sh, in_q, mat, mat_mma, horner_sh, out_q, *,
     nd, R, C = x.shape
     m_out = out_q.shape[0]
     dev = x.device
-    ndt = nd + int(center)
-    ks, jb = _geometry(ndt, m_out)
-    _check_table("bconv", mat_mma, (32 * jb, 32 * ks + _TAB_PAD),
-                 torch.uint8, ndt, m_out, dev)
+    check_mma_table("bconv", mat_mma, nd + int(center), m_out, dev)
     kernels.require_cuda_int32("x", x, dev)
     for name, t, shape in (("s", s, (nd,)), ("s_sh", s_sh, (nd,)),
                            ("in_q", in_q, (nd,)),

@@ -244,7 +244,7 @@ def modup_digit(c_coeff: torch.Tensor, kt: KeySwitchLevelTables,
     own = c_coeff[dt.lo:dt.hi].to(torch.int32)
     conv = bconv_step2(
         bconv_step1_centered(own, dt.step1, dt.step1_sh, dt.in_q),
-        dt.mat, dt.mat_sh, dt.other_nt.q)
+        dt.mat, dt.mat_mma, dt.horner_sh, dt.other_nt.q)
     cut = kt.special_nt.q.shape[0] + dt.lo
     return torch.cat([conv[:cut], own, conv[cut:]])
 
@@ -302,7 +302,7 @@ def moddown(c_ext: torch.Tensor, kt: KeySwitchLevelTables) -> torch.Tensor:
     b = intt(c_ext[:alpha].to(torch.int32), kt.special_nt)
     conv = bconv_step2(
         bconv_step1_centered(b, kt.md_s1, kt.md_s1_sh, kt.special_nt.q),
-        kt.md_mat, kt.md_mat_sh, kt.main_nt.q)
+        kt.md_mat, kt.md_mma, kt.md_horner_sh, kt.main_nt.q)
     conv_eval = ntt(conv, kt.main_nt)
     mq = col(kt.main_nt.q)
     diff = modsub(c_ext[alpha:], conv_eval, mq)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of kernels B3 (bconv_fused) and B17 (bconv_planes_mm) at
-the shapes a set-B key switch gives B3, for one checkout of the port.
+"""Device time of kernels B3 (bconv_fused), B5 (bconv_step2) and B17
+(bconv_planes_mm) at the shapes a set-B key switch gives them, for one
+checkout of the port.
 
     python3 scripts/bench_bconv_torch.py [--root DIR] [--out FILE]
 
@@ -8,12 +9,15 @@ Times the `homulator_tpu_torch` of DIR (default: this checkout; another
 one, such as an earlier commit unpacked with `git archive`, builds its own
 kernels under its own build/): B3 at the five conversions of a piecewise
 hmult at level 35 (ModUp digits 0-2, ModDown, the fused tail) and at ModUp
-digit 0 on a 4-shard column slice, B17 on ModUp digit 0 (its 15 rows and a
-zero row); each against its plain version bit for bit, then the device
-time of one call (CUDA-graph replay, the median of 20 replays of 10 calls;
-benchlib.device_ms). B3's table arguments follow DIR's wrapper: the
-device layout and horner_sh where its tables have `mat_mma`, the
-matrix's Shoup pair (`mat_sh`) in earlier checkouts. It prints no bound:
+digit 0 on a 4-shard column slice, B5 at the graph route's ModUp digits 0
+and 2 and ModDown (the rows of torch's step 1 and the count row), B17 on
+ModUp digit 0 (its 15 rows and a zero row); each against its plain
+version bit for bit, then the device time of one call (CUDA-graph replay,
+the median of 20 replays of 10 calls; benchlib.device_ms). The table
+arguments follow DIR's wrappers: B3 takes the device layout and horner_sh
+where its tables have `mat_mma`, the matrix's Shoup pair (`mat_sh`) in
+earlier checkouts; B5 the device layout and horner_sh where its tables
+have no `mat_sh`, the Shoup pair before. It prints no bound:
 two checkouts' kernels may do different work, and chip_smoke.py prints
 the bound of its own. Prints the card's name and power limit and one JSON
 line, also written to FILE. To compare two commits, run both in one call
@@ -53,9 +57,19 @@ def conversions(kt):
              getattr(tt, "horner_sh", None)), tt.out_nt.q, False)
     out[f"moddown {kt.md_s1.shape[0]}+1->{kt.md_mat.shape[0]}"] = (
         kt.special_nt.q, (kt.md_s1, kt.md_s1_sh),
-        tabs(kt.md_mat, kt.md_mat_sh, getattr(kt, "md_mma", None),
+        tabs(kt.md_mat, getattr(kt, "md_mat_sh", None),
+             getattr(kt, "md_mma", None),
              getattr(kt, "md_horner_sh", None)), kt.main_nt.q, True)
     return out
+
+
+def step2_tabs(t, mat, mma, hsh):
+    """B5's table arguments in DIR's API: the matrix, its device layout and
+    horner_sh; or, where the tables keep the matrix's Shoup pair, the
+    pair."""
+    if hasattr(t, mat + "_sh"):
+        return getattr(t, mat), getattr(t, mat + "_sh")
+    return getattr(t, mat), getattr(t, mma), getattr(t, hsh)
 
 
 def main() -> int:
@@ -75,6 +89,9 @@ def main() -> int:
     from homulator_tpu_torch import benchlib
     from homulator_tpu_torch.api import get_params
     from homulator_tpu_torch.context import DeviceContext
+    from homulator_tpu_torch.ops.bconv import (
+        bconv_step1_centered, bconv_step2, bconv_step2_plain,
+    )
     from homulator_tpu_torch.ops.bconv_fused import (
         bconv_fused, bconv_planes_mm, bconv_planes_mm_plain, bconv_plain,
         build_bf16_tables, byte_planes,
@@ -104,6 +121,28 @@ def main() -> int:
             raise AssertionError(f"bconv {label}: != its plain version")
         rows[label] = benchlib.device_ms(b3)
         print(f"# bconv {label}: {rows[label]:.4f} ms")
+    out["kernels"]["bconv_step2"] = rows = {}
+    step2 = {  # label -> (step-1 pair, input primes, DIR's table args,
+        # matrix, out q)
+        f"modup digit{d}": ((dt.step1, dt.step1_sh), dt.in_q,
+                            step2_tabs(dt, "mat", "mat_mma", "horner_sh"),
+                            dt.mat, dt.other_nt.q)
+        for d, dt in ((0, kt.digits[0]), (2, kt.digits[2]))}
+    step2["moddown"] = ((kt.md_s1, kt.md_s1_sh), kt.special_nt.q,
+                        step2_tabs(kt, "md_mat", "md_mma", "md_horner_sh"),
+                        kt.md_mat, kt.main_nt.q)
+    for label, ((s, s_sh), in_q, tabs, mat, out_q) in step2.items():
+        x = benchlib.residues(in_q, (in_q.shape[0], n1, n2), len(rows))
+        xhat = bconv_step1_centered(x, s, s_sh, in_q).to(torch.int32)
+        label = f"{label} {xhat.shape[0]}->{out_q.shape[0]}"
+
+        def b5():
+            return bconv_step2(xhat, *tabs, out_q)
+
+        if not torch.equal(b5(), bconv_step2_plain(xhat, mat, out_q)):
+            raise AssertionError(f"bconv_step2 {label}: != its plain version")
+        rows[label] = benchlib.device_ms(b5)
+        print(f"# bconv_step2 {label}: {rows[label]:.4f} ms")
     dt = kt.digits[0]
     nd, m_out = dt.hi - dt.lo, dt.other_nt.q.shape[0]
     mbig = build_bf16_tables(dt.mat.cpu().numpy(),

@@ -410,23 +410,31 @@ def test_op_counts_fit_measured_peaks():
 
 
 def test_anatomy_variants_instantiated():
-    """The variants ops/anatomy.py asks hk_ntt_anatomy for are the ones
-    csrc/anatomy.cu instantiates, each row's flags equal to its
-    template's."""
-    with open(os.path.join(ROOT, "homulator_tpu_torch", "csrc",
-                           "anatomy.cu")) as f:
-        rows = re.findall(
-            r"\{(\d), (true|false), (true|false), (\d), "
-            r"anatomy<(\d), (true|false), (true|false), (?:hk::)?(\w+)>\}",
-            f.read())
-    muls = {"ShoupMul": 0, "ShoupNatmul": 1, "ShoupApprox": 2}
+    """The variants ops/anatomy.py asks hk_ntt_anatomy for (B14, B16) are
+    the ones csrc/anatomy.cu instantiates, each row's flags equal to its
+    template's; the Shoup forms it asks hk_ntt_shoup_forms for (B15) are
+    its form_kernel's, in FORMS' order, each a product form that
+    csrc/modarith.cuh defines, at the axis lengths the wrapper admits."""
+    csrc = os.path.join(ROOT, "homulator_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "anatomy.cu")) as f:
+        src = f.read()
+    rows = re.findall(
+        r"\{(\d), (true|false), (true|false), "
+        r"anatomy<(\d), (true|false), (true|false)>\}", src)
     built = set()
-    for passes, mid, t, form, tp, tmid, tt, mul in rows:
-        assert (passes, mid, t, int(form)) == (tp, tmid, tt, muls[mul])
-        built.add((int(passes), mid == "true", t == "true", int(form)))
-    asked = {(passes, mid, t, anatomy.FORMS.index(form))
-             for table in (anatomy.B14_VARIANTS, anatomy.B15_FORMS,
-                           anatomy.B16_PARTS)
-             for passes, mid, t, form in filter(None, table.values())}
+    for passes, mid, t, tp, tmid, tt in rows:
+        assert (passes, mid, t) == (tp, tmid, tt)
+        built.add((int(passes), mid == "true", t == "true"))
+    asked = {spec for table in (anatomy.B14_VARIANTS, anatomy.B16_PARTS)
+             for spec in filter(None, table.values())}
     assert len(built) == len(rows)
     assert asked == built  # each asked for, each used
+    forms = re.findall(r"&shoup_forms_radix<L, hk::(\w+)>", src)
+    assert forms == ["ShoupLazy", "ShoupNatmul", "ShoupApprox"]
+    assert len(forms) == len(anatomy.FORMS) == len(anatomy.B15_FORMS)
+    with open(os.path.join(csrc, "modarith.cuh")) as f:
+        defined = set(re.findall(r"^struct (\w+) \{", f.read(), re.M))
+    assert set(forms) <= defined
+    # the axis lengths hk_ntt_shoup_forms instantiates, the wrapper's limit
+    assert re.findall(r"with_log<(\d+)>\(log1", src) == [
+        str(anatomy._MAX_N1_FORMS.bit_length() - 1)]

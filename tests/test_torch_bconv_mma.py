@@ -1,9 +1,11 @@
-"""Kernels B3 and B17 (csrc/bconv.cu, csrc/bconv_mma.cu on the tensor-core
-core of csrc/planes_mma.cuh) around what the CPU can run: a plain int64
-model of their schedule, bit for bit (tolerance 0) against the plain
-versions `bconv_plain` / `bconv_planes_mm_plain`, which
-tests/test_torch_bconv.py and tests/test_torch_anatomy.py hold against
-the JAX package.
+"""Kernels B3, B5 and B17 (csrc/bconv.cu, csrc/bconv_mma.cu on the
+tensor-core core of csrc/planes_mma.cuh) around what the CPU can run: a
+plain int64 model of their schedule, bit for bit (tolerance 0) against the
+plain versions `bconv_plain` / `bconv_step2_plain` /
+`bconv_planes_mm_plain`, which tests/test_torch_bconv.py,
+tests/test_torch_bconv_step2.py and tests/test_torch_anatomy.py hold
+against the JAX package; B5's model also against the JAX
+`bconv_step2_pallas` in interpret mode.
 
 The model follows the kernels lane by lane: the table staged from
 build_bf16_tables' mbig into the device layout (row (jb*4 + i)*8 + r, byte
@@ -14,19 +16,24 @@ addresses the kernel gives it, the m16n8k32 u8 product from the fragment
 layouts of the PTX ISA, the C fragments, and the epilogue's fold and
 reductions, with every exactness margin asserted as it is used: s32 plane
 sums below 2^23, the folds below 2^31 (no uint32 wrap), each lazy Shoup
-product in [0, 2q), their sum below 4q < 2^32. The worst case (every table
-byte and every input byte 255, nd = 32, the largest primes below
-numtheory.PRIME_CAP) runs through the same model. The port's bf16 tables
-equal the JAX context's bit for bit."""
+product in [0, 2q), their sum below 4q < 2^32. B5 is the same schedule
+with step 1 and the count off: its rows (the count row last) enter the
+product as they were staged. The worst case (every table byte and every
+input byte 255, nd = 32, the largest primes below numtheory.PRIME_CAP)
+runs through the same model. The port's bf16 tables equal the JAX
+context's bit for bit."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from homulator_tpu.context import DeviceContext as JaxContext
+from homulator_tpu.ops.bconv_pallas import bconv_step2_pallas
 from homulator_tpu.params import get_params as jax_params
 from homulator_tpu_torch import numtheory as nt
 from homulator_tpu_torch.context import DeviceContext
+from homulator_tpu_torch.ops.bconv import bconv_step2, bconv_step2_plain
 from homulator_tpu_torch.ops.bconv_fused import (
     SMEM_LIMIT, bconv_plain, bconv_planes_mm_plain, build_bf16_tables,
     mma_smem_bytes, mma_table,
@@ -122,20 +129,21 @@ def epilogue(d, q, hsh):
     return np.where(r >= q, r - q, r)
 
 
-def model(x, mbig, m_out, conv=None, rng=None):
-    """The schedule of B3 (conv = (s, s_sh, in_q, hsh, out_q, center)) or
-    B17 (conv None) on x uint64 [nd_in, ncoef], one warp tile of 32
-    coefficients after another. Returns uint64 [m_out, ncoef]: B3's
-    residues, or B17's D_0."""
+def model(x, mbig, m_out, conv=None, rng=None, step2=None):
+    """The schedule of B3 (conv = (s, s_sh, in_q, hsh, out_q, center)), B5
+    (step2 = (hsh, out_q)) or B17 (neither) on x uint64 [nd_in, ncoef],
+    one warp tile of 32 coefficients after another. Returns uint64
+    [m_out, ncoef]: B3's or B5's residues, or B17's D_0."""
     nd_in, ncoef = x.shape
     center = conv[5] if conv else False
     nd = nd_in + int(center)
     ks, jb = _geometry(nd, m_out)
     tab = stage_table(mbig)
     assert tab.shape == (32 * jb, 32 * ks + 16)
-    assert mma_smem_bytes(nd, m_out, conv is None) <= SMEM_LIMIT
+    assert mma_smem_bytes(nd, m_out, not (conv or step2)) <= SMEM_LIMIT
+    hsh, out_q = conv[3:5] if conv else step2 or (None, None)
     if conv:  # the constants of every staged row (Conv::stage)
-        s, s_sh, in_q, hsh, out_q, _ = conv
+        s, s_sh, in_q = conv[:3]
         rowc = np.zeros((8 * ks, 4), dtype=np.uint64)
         rowc[:, 2:] = MASK
         rowc[:nd_in] = np.stack([s, s_sh, in_q, (in_q >> np.uint64(1)) + 1],
@@ -160,7 +168,7 @@ def model(x, mbig, m_out, conv=None, rng=None):
                             v = shoup_lazy(v, sv, ssh, qv)
                             v = np.where(v >= qv, v - qv, v)
                             cnt[mt, h] += v >= th
-                        else:  # PlanesMm::input
+                        else:  # Step2::input, PlanesMm::input
                             v = np.where(t < nd, v, 0)
                         a[mt, k, :, h + 2 * h2] = v
         if center:  # Conv::count: the quad's sum, into row t = nd_in
@@ -186,7 +194,7 @@ def model(x, mbig, m_out, conv=None, rng=None):
                     c = c0 + 16 * mt + 8 * (e >> 1) + G
                     ok = (j < m_out) & (c < ncoef)
                     dj = d[mt, :, :, e].astype(np.uint64)[:, ok]
-                    if conv:
+                    if hsh is not None:  # Residues::store
                         out[j[ok], c[ok]] = epilogue(
                             dj, out_q[j[ok]], hsh[j[ok]])
                     else:
@@ -300,12 +308,103 @@ def test_b3_model_matches_plain_wide(nd, m_out, center):
     np.testing.assert_array_equal(got, want)
 
 
+# B5's widths: nd rows in all (the count row included) -> m_out rows; set
+# B's ModUp digits 0/1 and ModDown (16 -> 35) and digit 2 (6 -> 45), one
+# row, set A's alpha 28 plus the count row, and the widest table
+B5_SHAPES = {1: 3, 6: 45, 16: 35, 29: 12, 32: 9}
+
+
+def _b5_inputs(nd, m_out, worst, rng, ncoef=96):
+    """xhat [nd, ncoef]: nd - 1 rows scaled by step 1 over the largest
+    primes below PRIME_CAP and their centering count row last (nd = 1:
+    one scaled row, no count); the matrix [m_out, nd] over the next m_out
+    primes, so inputs exceed the output primes. worst: every scaled word
+    q_i - 1, so the count row is nd - 1 everywhere."""
+    k = max(nd - 1, 1)
+    primes = np.array(nt.gen_ntt_primes(64, k + m_out), dtype=np.uint64)
+    in_q, out_q = primes[:k], primes[k:]
+    assert nt.PRIME_CAP - (1 << 20) < in_q.max() < nt.PRIME_CAP
+    xs = rng.integers(0, in_q[:, None], size=(k, ncoef), dtype=np.uint64)
+    if worst:
+        xs[:] = in_q[:, None] - 1
+    if nd > 1:
+        thr = (in_q[:, None] >> np.uint64(1)) + np.uint64(1)
+        xs = np.concatenate([xs, (xs >= thr).sum(axis=0, keepdims=True)])
+    if worst:
+        assert (xs[-1] == nd - 1).all() if nd > 1 else True
+    mat = rng.integers(0, out_q[:, None], size=(m_out, nd)).astype(np.uint64)
+    return xs.astype(np.uint64), mat, out_q
+
+
+@pytest.mark.parametrize("worst", [False, True], ids=["random", "worst"])
+@pytest.mark.parametrize("nd", list(B5_SHAPES))
+def test_b5_model_matches_plain_and_pallas(nd, worst):
+    """B5's Step2 schedule (B3's with step 1 and the count off) on nd
+    rows, the count row last, against bconv_step2_plain and the TPU
+    kernel B5 replaces (bconv_step2_pallas, interpret mode), tolerance 0;
+    worst: every scaled input q_i - 1 (above every output prime), the
+    count row nd - 1, output primes at the top of the band."""
+    m_out = B5_SHAPES[nd]
+    rng = np.random.default_rng(100 + nd)
+    x, mat, out_q = _b5_inputs(nd, m_out, worst, rng)
+    mbig, hsh = build_bf16_tables(mat, out_q)
+    got = model(x, mbig, m_out, rng=rng, step2=(_u64(hsh), out_q))
+    want = _u64(bconv_step2_plain(_t(x), _t(mat), _t(out_q)))
+    np.testing.assert_array_equal(got, want)
+    mat_sh = (mat << np.uint64(32)) // out_q[:, None]
+    jax_out = np.asarray(bconv_step2_pallas(
+        *(jnp.asarray(a.astype(np.uint32)) for a in (x, mat, mat_sh, out_q)),
+        interpret=True))
+    np.testing.assert_array_equal(got, jax_out.astype(np.uint64))
+
+
+@pytest.mark.parametrize("which", ["modup0", "modup1", "modup2", "moddown"])
+def test_b5_model_on_the_context_tables(tables, which):
+    """The graph route's conversions as ops/keyswitch.py hands them to B5:
+    torch step 1 and the count row, then the context's table and
+    horner_sh of the same matrix (ncoef 200: a ragged last warp tile)."""
+    from homulator_tpu_torch.ops.bconv import bconv_step1_centered
+
+    _, kt = tables
+    in_q, (s, s_sh, _, mat, mbig, hsh, out_q), _ = _cases(kt)[which]
+    rng = np.random.default_rng(7)
+    q = _u64(in_q)
+    x = rng.integers(0, q[:, None], size=(len(q), 200), dtype=np.uint64)
+    x[:, :32] = q[:, None] - 1
+    xhat = bconv_step1_centered(_t(x), s, s_sh, in_q)
+    assert xhat.shape[0] == mat.shape[1] == len(q) + 1
+    got = model(xhat.numpy().astype(np.uint64), mbig, out_q.shape[0],
+                rng=rng, step2=(_u64(hsh), _u64(out_q)))
+    np.testing.assert_array_equal(
+        got, _u64(bconv_step2_plain(xhat, mat, out_q)))
+
+
+def test_b5_wrapper_needs_the_tables():
+    """Off the CPU, bconv_step2 takes the kernel's tables or raises before
+    it looks at the device or builds anything; on the CPU it runs the
+    plain version without them."""
+    xhat = torch.zeros((3, 64), dtype=torch.int32)
+    mat = torch.ones((2, 3), dtype=torch.int32)
+    out_q = torch.full((2,), 97, dtype=torch.int32)
+    meta = xhat.to("meta")
+    for tabs in ((None, None), (None, out_q.to("meta")),
+                 (torch.zeros((32, 48), dtype=torch.uint8).to("meta"), None)):
+        with pytest.raises(ValueError, match="device layout"):
+            bconv_step2(meta, mat.to("meta"), *tabs, out_q.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        bconv_step2(meta, mat, torch.zeros((32, 48), dtype=torch.uint8),
+                    out_q, out_q)
+    assert torch.equal(bconv_step2(xhat, mat, None, None, out_q),
+                       bconv_step2_plain(xhat, mat, out_q))
+
+
 def test_worst_case_margins():
     """Every table byte 255 at nd = 32 over the largest primes below
     PRIME_CAP. B17 on every input byte 255: the plane sums reach
     4 * 32 * 255^2 = 8,323,200 < 2^23 and the folds 257 times that < 2^31;
-    the epilogue reduces those sums to (D (1 + 2^8 + 2^16 + 2^24)) mod q.
-    B3 with the tail's identity step 1 on x = q - 1 everywhere."""
+    the epilogue reduces those sums to (D (1 + 2^8 + 2^16 + 2^24)) mod q,
+    as B5 does on the same words. B3 with the tail's identity step 1 on
+    x = q - 1 everywhere."""
     nd, m_out = 32, 9
     rng = np.random.default_rng(0)
     primes = np.array(nt.gen_ntt_primes(64, m_out + nd), dtype=np.uint64)
@@ -321,6 +420,10 @@ def test_worst_case_margins():
     np.testing.assert_array_equal(
         epilogue(np.full((4, m_out), d, dtype=np.uint64), out_q, hsh),
         (d * 0x01010101) % out_q)
+    # B5 on every word 2^32 - 1 (any uint32 enters the product as it is)
+    np.testing.assert_array_equal(
+        model(x, mbig, m_out, rng=rng, step2=(hsh, out_q)),
+        np.repeat(((d * 0x01010101) % out_q)[:, None], 64, axis=1))
     x = np.repeat((in_q - 1)[:, None], 64, axis=1)
     ones = np.ones(nd, dtype=np.uint64)
     got = model(x, mbig, m_out,

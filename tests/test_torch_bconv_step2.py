@@ -18,6 +18,7 @@ from homulator_tpu.ops.bconv_pallas import bconv_step2_pallas
 from homulator_tpu_torch.ops.bconv import (
     bconv_step1, bconv_step2, bconv_step2_plain,
 )
+from homulator_tpu_torch.ops.bconv_fused import build_bf16_tables, mma_table
 
 N = 1024
 M_OUT = 5
@@ -74,9 +75,11 @@ def test_step2_plain_matches_jax_and_pallas(primes, nd):
     got = bconv_step2_plain(_t(xhat), _t(mat), _t(out_q))
     assert got.dtype == torch.int32
     assert np.array_equal(_u32(got), want)
-    # the wrapper takes the plain version for a CPU tensor, on any rank
-    tiles = bconv_step2(_t(xhat).view(nd, 32, 32), _t(mat), _t(mat_sh),
-                        _t(out_q))
+    # the wrapper takes the plain version for a CPU tensor, on any rank,
+    # given the kernel's tables as the context builds them
+    mbig, hsh = build_bf16_tables(mat, out_q)
+    tiles = bconv_step2(_t(xhat).view(nd, 32, 32), _t(mat), mma_table(mbig),
+                        hsh, _t(out_q))
     assert np.array_equal(_u32(tiles).reshape(M_OUT, N), want)
 
 

@@ -165,11 +165,13 @@ def _lazy(a, w, w_sh, q):
     return r
 
 
-def _ct(x, y, w, w_sh, q):
+def _ct(x, y, w, w_sh, q, mul=_lazy):
+    """ct_lazy; mul: the form of the lazy Shoup product (ct_lazy's Mul),
+    in [0, 2q) for any uint32."""
     _bound(x, 4 * q)
     _count("lazy_butterfly", x)
     a = _csub(x, 2 * q)
-    t = _lazy(y, w, w_sh, q)
+    t = mul(y, w, w_sh, q)
     x, y = a + t, a - t + 2 * q
     _bound(x, 4 * q)
     _bound(y, 4 * q)
@@ -185,10 +187,11 @@ def _gs(x, y, w, w_sh, q):
     return x, y
 
 
-def _pass(v, off, lr, s0, g, tw, q, fwd):
+def _pass(v, off, lr, s0, g, tw, q, fwd, mul=_lazy):
     """ct_pass (fwd) / gs_pass on the values v[off: off + 2^lr], each
     [rows, U, ncols]; g [U, 1]: the index bits above the pass, a thread's
-    own; tw: the stage row and its Shoup row, [rows, n] each."""
+    own; tw: the stage row and its Shoup row, [rows, n] each; mul: the CT
+    butterflies' product form (ct_pass's Mul)."""
     stages = range(lr) if fwd else range(lr - 1, -1, -1)
     for s in stages:
         h = 1 << (lr - 1 - s)
@@ -197,8 +200,9 @@ def _pass(v, off, lr, s0, g, tw, q, fwd):
             w, w_sh = tw[0][:, k, None], tw[1][:, k, None]
             for j in range(h):
                 i0 = off + 2 * b * h + j
-                v[i0], v[i0 + h] = (_ct if fwd else _gs)(
-                    v[i0], v[i0 + h], w, w_sh, q)
+                v[i0], v[i0 + h] = (
+                    _ct(v[i0], v[i0 + h], w, w_sh, q, mul) if fwd
+                    else _gs(v[i0], v[i0 + h], w, w_sh, q))
 
 
 def _rows(L):
@@ -209,21 +213,22 @@ def _rows(L):
     return [u + U * t for t in range(R)], [u * R + t for t in range(R)]
 
 
-def _ct_rows(v, L, ncols, tw, q):
-    """csrc/ntt_reg.cuh::radix_ct_rows<L> on every column at once: v, the
-    values of the strided rows (each [rows, U, ncols], below 4q) -> the
-    values of the contiguous rows after all L CT stages, in [0, 4q)."""
+def _ct_rows(v, L, ncols, tw, q, mul=_lazy):
+    """csrc/ntt_reg.cuh::radix_ct_rows<L, Mul> on every column at once: v,
+    the values of the strided rows (each [rows, U, ncols], below 4q) -> the
+    values of the contiguous rows after all L CT stages, in [0, 4q); mul:
+    the product form (Mul, default ShoupLazy)."""
     la, lb, R, U = _split(L)
     n, sub = 1 << L, R >> lb
     u = torch.arange(U)[:, None]
     strided, contig = _rows(L)
-    _pass(v, 0, la, 0, torch.zeros_like(u), tw, q, True)
+    _pass(v, 0, la, 0, torch.zeros_like(u), tw, q, True, mul)
     tile = torch.empty((v[0].shape[0], n, ncols), dtype=torch.int64)
     for t, i in enumerate(strided):
         tile[:, i[:, 0]] = v[t]
     v = [tile[:, i[:, 0]] for i in contig]
     for k in range(sub):
-        _pass(v, k << lb, lb, la, u * sub + k, tw, q, True)
+        _pass(v, k << lb, lb, la, u * sub + k, tw, q, True, mul)
     return v
 
 
