@@ -11,8 +11,10 @@ failure and the script then exits non-zero:
   2. the kernel build (nvcc, one process per source) and its time, with
      ptxas's registers and spills of each instantiation of B1's, B2's,
      B4's and B6-B13's register-radix phase kernels (one for each axis
-     length 2^1 .. 2^10, B4's 2^1 .. 2^8), of B15's (`shoup_forms_radix`,
-     2^1 .. 2^8 in each of its three Shoup forms) and of B3's, B5's and
+     length 2^1 .. 2^10, B4's 2^1 .. 2^8), of the anatomy's stage kernels
+     (`stages_radix`: the production form at 2^1 .. 2^10 for one run with
+     either store and two runs transposed, natmul and approx at 2^1 ..
+     2^8 for two runs transposed) and of B3's, B5's and
      B17's tensor-core kernels (`bconv_kernel`, `bconv_step2_kernel`,
      `planes_mm`: one for each count of k32 steps, 1 .. 4), failing if one
      is missing or takes local memory;
@@ -50,10 +52,11 @@ failure and the script then exits non-zero:
      equal bits, both timed;
  3b. the NTT anatomy and roofline path, on no op's path: the anatomy
      kernels on set B's 35 main limbs [256, 256] (B14: copy^T, midT,
-     stages1, stages2x and full, which is B1; B15: 16 stages on B1's
-     register passes with the production, natmul and approx Shoup
-     products, also in the worst case (every input q - 1); B16: copy, transpose,
-     mid, stages1), the byte-plane product B17 on ModUp digit 0 (16 rows
+     stages1, stages2x and full, which is B1; B15: 16 stages with the
+     production, natmul and approx Shoup products; B16: copy, transpose,
+     mid, stages1; every stage variant on B1's register passes, and also
+     in the worst case, every input q - 1), the byte-plane product B17 on
+     ModUp digit 0 (16 rows
      -> 35, all 140 rows computed), each peak chain (squaring, Shoup,
      Montgomery) on the roofline's 8 Mi residues over 8 iterations of 32
      links and the stream pass over two 256 MB arrays, each against its
@@ -134,12 +137,13 @@ operations) over four: an H100 SM has 64 int32 lanes. Operations are
 counted from the shapes with a fixed cost per primitive (`benchlib.OPS`):
 a Shoup product 5 (three multiplies, a subtract, an unsigned min; the
 measured Shoup chain leaves room for no more), a modular add or subtract
-3, a butterfly 11. B1, B2, B4, B6-B13 and B15 count their Harvey
-butterflies (9) and lazy products as they compute them
+3, a butterfly 11. B1, B2, B4, B6-B13 and the anatomy's stage variants
+count their Harvey butterflies (9) and lazy products as they compute them
 (`benchlib.radix_ntt_ops`, `benchlib.hpip_ops`: B4's lazy Montgomery
 product-accumulate 7; `benchlib.radix_phase1_ops` for B6, B9, B10 and
-B13, `benchlib.radix_phase2_ops` for B7, B8, B11 and B12,
-`benchlib.shoup_forms_ops` for B15, one count for its three forms). B3
+B13, `benchlib.radix_phase2_ops` for B7, B8, B11 and B12 and one run of
+the stages (B14's and B16's stages1), `benchlib.shoup_forms_ops` for two
+(B14's stages2x, B15, one count for its three forms)). B3
 counts as it computes (`bconv_bound`): step 1, the centering count, its
 epilogue and the u8 products of all four planes; B5 (`step2_bound`) its
 epilogue and u8 products; B17 its u8 products alone. A link of a peak
@@ -399,23 +403,17 @@ def hpip_bound(kt):
 
 def anatomy_bound(M, n1, n2, passes, mid):
     """B14-B16 on M limbs [n1, n2]: x read and the output written, the mid
-    pair (mid variants), the stage-1 pair (stage variants) and q; passes *
-    n1/2 * log2(n1) butterflies on each of n2 columns and n1 * n2 mid
-    products (mid variants), a limb."""
+    pair (mid variants), the stage-1 pair (stage variants) and q; n1 * n2
+    mid products, a limb (mid variants), or the register passes'
+    operations (stage variants: one run as B1's phase B,
+    benchlib.radix_phase2_ops, two as benchlib.shoup_forms_ops, one count
+    for B15's three forms)."""
     nbytes = 4 * (2 * M * n1 * n2 + int(mid) * 2 * M * n1 * n2
                   + int(passes > 0) * 2 * M * n1 + int(mid or passes > 0) * M)
-    ops = M * (passes * n2 * (n1 // 2) * (n1.bit_length() - 1)
-               * OPS["butterfly"] + int(mid) * n1 * n2 * OPS["shoup"])
+    runs = {1: radix_phase2_ops, 2: shoup_forms_ops}
+    ops = ((runs[passes](M, n1, n2) if passes else 0)
+           + int(mid) * M * n1 * n2 * OPS["shoup"])
     return bound(nbytes, ops)
-
-
-def shoup_forms_bound(M, n1, n2):
-    """B15 on M limbs [n1, n2]: x read and the transposed output written,
-    the stage-1 pair and q; its register passes' operations
-    (benchlib.shoup_forms_ops: two runs of Harvey butterflies and the
-    final reduction), one bound for its three Shoup forms."""
-    return bound(4 * (2 * M * n1 * n2 + 2 * M * n1 + M),
-                 shoup_forms_ops(M, n1, n2))
 
 
 def planes_mm_bound(nd, m_out, n):
@@ -449,8 +447,10 @@ def compare(torch, name, label, kernel, plain, bnd, results, library=None,
 
 # kernel templates whose every instantiation chip_smoke holds to no local
 # memory: name -> instantiations (B1/B2 and B6-B13: axis length 2^L, L =
-# 1..10; B4's two phases and B15 (in each of its three Shoup forms): L =
-# 1..8; B3/B5/B17: k32 steps 1..4)
+# 1..10; B4's two phases: L = 1..8; the anatomy's stage kernels: L =
+# 1..10 in the production form at (runs, store) (1, transposed), (1,
+# row-major) and (2, transposed), L = 1..8 in natmul and approx at (2,
+# transposed); B3/B5/B17: k32 steps 1..4)
 CHECKED_INSTANTIATIONS = {"ntt_fwd_radix_a": 10, "ntt_fwd_radix_b": 10,
                           "ntt_inv_radix_a": 10, "ntt_inv_radix_b": 10,
                           "hpip_radix_a": 8, "hpip_radix_b": 8,
@@ -460,9 +460,9 @@ CHECKED_INSTANTIATIONS = {"ntt_fwd_radix_a": 10, "ntt_fwd_radix_b": 10,
                           "packed_iphase2_radix": 10,
                           "ntt_iphase1_radix": 10,
                           "packed_iphase1_radix": 10,
-                          "shoup_forms_radix": 24, "bconv_kernel": 4,
+                          "stages_radix": 3 * 10 + 2 * 8, "bconv_kernel": 4,
                           "bconv_step2_kernel": 4, "planes_mm": 4}
-# B15's Shoup forms in its kernels' mangled names
+# the Shoup forms in the stage kernels' mangled names
 SHOUP_FORMS = ("ShoupLazy", "ShoupNatmul", "ShoupApprox")
 
 
@@ -470,7 +470,8 @@ def kernel_registers(log_text):
     """ptxas's registers and local-memory bytes (stack frame, spill stores
     and loads) of each instantiation of CHECKED_INSTANTIATIONS' kernels in
     nvcc's log: {kernel: {template arguments: (registers, local bytes)}},
-    the arguments L or KS, or (L, Shoup form) for B15."""
+    the arguments L or KS, or (L, Shoup form, runs, "T" transposed or "R"
+    row-major) for stages_radix."""
     import re
 
     names = "|".join(CHECKED_INSTANTIATIONS)
@@ -478,10 +479,11 @@ def kernel_registers(log_text):
     out, entry, spill = {}, None, 0
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(rf"\d({names})ILi(\d+)E(?:N2hk\d+({forms})E)?",
-                          line)
+            m = re.search(rf"\d({names})ILi(\d+)E"
+                          rf"(?:N2hk\d+({forms})ELi(\d+)ELb([01])E)?", line)
             arg = m and (int(m.group(2)) if m.group(3) is None
-                         else (int(m.group(2)), m.group(3)))
+                         else (int(m.group(2)), m.group(3),
+                               int(m.group(4)), "RT"[int(m.group(5))]))
             entry, spill = (m.group(1), arg) if m else None, 0
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -734,7 +736,9 @@ def check_phase_kernels(np, torch, dc, rng, results):
 def check_anatomy_kernels(np, torch, dc, rng, results):
     """Phase 3b, the NTT anatomy and roofline path (on no op's path): B14's
     variants, B15's forms and B16's parts on the M = 35 main limbs [256,
-    256], B17 on ModUp digit 0 (its 15 rows and a zero row -> 35 rows),
+    256], the stage variants (B14's stages1 and stages2x, B15, B16's
+    stages1) also in the worst case (every input q - 1), B17 on ModUp
+    digit 0 (its 15 rows and a zero row -> 35 rows),
     each against its plain version bit for bit, with the one PyTorch call
     that computes the same function where there is one; each peak chain
     and the stream pass on the inputs the path gives them
@@ -758,26 +762,28 @@ def check_anatomy_kernels(np, torch, dc, rng, results):
         # copy, None: neither)
         return anatomy_bound(M, n1, n2, *(spec or (0, False))[:2])
 
-    for v, spec in anatomy.B14_VARIANTS.items():
-        compare(torch, "ntt_anatomy", f"{v} M={M}",
-                lambda: anatomy.ntt_anatomy(x, nb, v),
-                lambda: anatomy.ntt_anatomy_plain(x, nb, v),
-                ntt_bound(nb, 1, True) if spec is None else bnd(spec),
-                results,
-                library=transpose if v == "copy" else None)
+    library = {"copy": lambda: copy_out.copy_(x), "transpose": transpose}
     worst = (nb.q - 1).view(-1, 1, 1).expand(-1, n1, n2).contiguous()
     for xf, tag in ((x, ""), (worst, " worst case (all q-1)")):
-        for form in anatomy.B15_FORMS:
+        for v, spec in anatomy.B14_VARIANTS.items():
+            if not tag or spec and spec[0]:  # worst case: stage variants
+                compare(torch, "ntt_anatomy", f"{v} M={M}{tag}",
+                        lambda: anatomy.ntt_anatomy(xf, nb, v),
+                        lambda: anatomy.ntt_anatomy_plain(xf, nb, v),
+                        ntt_bound(nb, 1, True) if spec is None
+                        else bnd(spec), results,
+                        library=transpose if v == "copy" else None)
+        for form, spec in anatomy.B15_FORMS.items():
             compare(torch, "ntt_shoup_forms", f"{form} M={M}{tag}",
                     lambda: anatomy.ntt_shoup_forms(xf, nb, form),
                     lambda: anatomy.ntt_shoup_forms_plain(xf, nb, form),
-                    shoup_forms_bound(M, n1, n2), results)
-    library = {"copy": lambda: copy_out.copy_(x), "transpose": transpose}
-    for part, spec in anatomy.B16_PARTS.items():
-        compare(torch, "ntt_components", f"{part} M={M}",
-                lambda: anatomy.ntt_components(x, nb, part),
-                lambda: anatomy.ntt_components_plain(x, nb, part),
-                bnd(spec), results, library=library.get(part))
+                    bnd(spec), results)
+        for part, spec in anatomy.B16_PARTS.items():
+            if not tag or spec and spec[0]:
+                compare(torch, "ntt_components", f"{part} M={M}{tag}",
+                        lambda: anatomy.ntt_components(xf, nb, part),
+                        lambda: anatomy.ntt_components_plain(xf, nb, part),
+                        bnd(spec), results, library=library.get(part))
 
     dt = kt.digits[0]
     nd, m_out = dt.hi - dt.lo, dt.other_nt.q.shape[0]
@@ -938,17 +944,18 @@ def main() -> int:
     for name, by_arg in sorted(regs.items()):
         arg = ("KS" if name in ("bconv_kernel", "bconv_step2_kernel",
                                 "planes_mm")
-               else "L, form" if name == "shoup_forms_radix" else "L")
+               else "L, form, runs, store" if name == "stages_radix"
+               else "L")
         print(f"# {name} ptxas, {arg}: registers / local bytes: "
               + ", ".join(f"{a}: {r} / {sp}" for a, (r, sp)
                           in sorted(by_arg.items())))
     if {k: len(v) for k, v in regs.items()} != CHECKED_INSTANTIATIONS:
-        raise AssertionError("nvcc's log lacks B1-B13/B15/B17 "
+        raise AssertionError("nvcc's log lacks B1-B17 "
                              f"instantiations: {regs}")
     spilled = {f"{name}<{a}>": sp for name, by_arg in regs.items()
                for a, (_, sp) in by_arg.items() if sp}
     if spilled:
-        raise AssertionError("B1-B13/B15/B17 instantiations "
+        raise AssertionError("B1-B17 instantiations "
                              f"use local memory (stack or spill bytes): "
                              f"{spilled}")
 

@@ -27,7 +27,8 @@ its int32 operations over INT32_OPS_PER_S (the float32 peak of 67 TFLOP/s,
 OPS is the one count of int32 operations a primitive costs;
 radix_ntt_ops counts a transform of B1 or B2 with it, hpip_ops a call of
 B4, radix_phase1_ops one of B6, B10 or B13, radix_phase2_ops one of B7,
-B11 or B12, shoup_forms_ops one of B15.
+B11 or B12 (and of B14's and B16's stages1, one run of the anatomy's
+stage kernel), shoup_forms_ops one of B15 or B14's stages2x (two runs).
 """
 
 from __future__ import annotations
@@ -104,17 +105,19 @@ def radix_phase2_ops(rows, n, c, fwd=True):
     B1's phase B) or B8 or B12 (B2's phase A) on `rows` limb slices [n,
     c]: n/2 * log2(n) Harvey butterflies on each of c columns and, an
     element, the conditional subtracts before the store: two from [0, 4q)
-    forward, one from [0, 2q) inverse."""
+    forward, one from [0, 2q) inverse. One run of the anatomy's stage
+    kernel (csrc/anatomy.cu::stages_radix: B14's and B16's stages1) does
+    the forward count on `rows` limbs [n, c]."""
     return rows * c * (n // 2 * (n.bit_length() - 1) * OPS["lazy_butterfly"]
                        + n * (2 if fwd else 1) * OPS["csub"])
 
 
 def shoup_forms_ops(rows, n1, n2):
-    """int32 operations of B15 (csrc/anatomy.cu::shoup_forms_radix) on
-    `rows` limbs [n1, n2]: two runs of the register passes along n1 (n1/2
-    * log2(n1) Harvey butterflies a column each) and, an element, two
-    conditional subtracts before the store; one count for every Shoup
-    form, which do the same work."""
+    """int32 operations of B15 and B14's stages2x (two runs of
+    csrc/anatomy.cu::stages_radix) on `rows` limbs [n1, n2]: two runs of
+    the register passes along n1 (n1/2 * log2(n1) Harvey butterflies a
+    column each) and, an element, two conditional subtracts before the
+    store; one count for every Shoup form, which do the same work."""
     return rows * n2 * (2 * (n1 // 2) * (n1.bit_length() - 1)
                         * OPS["lazy_butterfly"] + 2 * n1 * OPS["csub"])
 

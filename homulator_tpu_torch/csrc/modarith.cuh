@@ -15,17 +15,6 @@
 
 namespace hk {
 
-__device__ __forceinline__ uint32_t mod_add(uint32_t a, uint32_t b,
-                                            uint32_t q) {
-  const uint32_t s = a + b;
-  return s >= q ? s - q : s;
-}
-
-__device__ __forceinline__ uint32_t mod_sub(uint32_t a, uint32_t b,
-                                            uint32_t q) {
-  return a >= b ? a - b : a + q - b;
-}
-
 // a * w - floor(a * w_sh / 2^32) * q for w_sh = floor(w * 2^32 / q), w < q:
 // lies in [0, 2q) for any uint32 a.
 __device__ __forceinline__ uint32_t shoup_mul_lazy(uint32_t a, uint32_t w,

@@ -4,8 +4,10 @@
 // ntt.cu: forward phase 1 (B6, B10: radix_phase1) and phase 2 (B7, B11:
 // B1's phase B, radix_phase<L, true, false>), and the inverse phase 2
 // (B8, B12: B2's phase A, radix_phase<L, false, false>) and phase 1 (B9,
-// B13: radix_iphase1); and, on no op's path, the anatomy's Shoup forms
-// (B15, anatomy.cu: radix_ct_rows in each form of the product).
+// B13: radix_iphase1); and, on no op's path, the anatomy's stage variants
+// (B14's and B16's stages1, B14's stages2x and B15's Shoup forms,
+// anatomy.cu::stages_radix: radix_ct_rows once or twice, in each form of
+// the product).
 //
 // One phase transforms an [n, ncols] limb along its n = 2^L rows, one
 // column at a time; a block holds TC columns. Each transform splits its
@@ -184,8 +186,9 @@ __device__ __forceinline__ void store_run(uint32_t* __restrict__ p,
 // Shoup row in shared memory. The tile may be written again once every
 // thread of the block has passed another barrier. B1's phase B stores the
 // values; B4's phase B (hpip.cu) multiplies them by its keys, B6 and B10
-// (radix_phase1) by the mid table; B15 (anatomy.cu) runs it twice in each
-// form of the twiddle product (Mul, as ct_lazy's).
+// (radix_phase1) by the mid table; the anatomy's stage kernels
+// (anatomy.cu::stages_radix) run it once, or twice in each form of the
+// twiddle product (Mul, as ct_lazy's).
 template <int L, class Mul = ShoupLazy>
 __device__ __forceinline__ void radix_ct_rows(
     uint32_t (&v)[RadixSplit<L>::kR], uint32_t* tile, const uint32_t* tws,

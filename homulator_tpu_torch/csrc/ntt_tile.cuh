@@ -1,12 +1,12 @@
-// Column-tile NTT building blocks of the NTT anatomy kernels B14 and B16
-// (anatomy.cu), the first design of B1's forward phase; no op's path runs
-// them (every NTT kernel of an op, and B15, runs on ntt_reg.cuh).
+// Column-tile building blocks of the NTT anatomy's byte-bound variants
+// (anatomy.cu: B14's copy^T and midT, B16's transpose and mid): a tile
+// loaded, multiplied by a per-element table, stored row-major or
+// transposed. No op's path runs them; every stage loop (every NTT kernel
+// of an op, and the anatomy's stage variants) runs on ntt_reg.cuh.
 //
 // A block owns an [n, TC] column tile of one limb in shared memory (row
 // stride ld = TC + 1: no bank conflicts in the transposed write; TC =
-// min(32, row pitch)) and runs every butterfly stage of one axis on it.
-// Stage twiddles are flat [n] rows: stage s, block b at column 2^s + b.
-// Values stay fully reduced in [0, q) after every butterfly.
+// min(32, row pitch)). Values stay fully reduced in [0, q).
 //
 // Every loop below gives thread t the tile column t % TC, and blockDim is a
 // multiple of TC, so a thread keeps one column for the whole kernel:
@@ -22,32 +22,6 @@
 namespace hk {
 
 constexpr int kLogTileCols = 5;  // TC = 32 columns: 128-byte row segments
-
-// CT (DIT) butterflies along the rows of an [n, tc] tile in shared memory
-// (row stride ld), each fully reduced. Thread t takes column t % tc of
-// butterfly t / tc, so a warp touches 32 consecutive words of a row.
-__device__ inline void ct_rows(uint32_t* s, int logn, int logtc, int ld,
-                               const uint32_t* __restrict__ tw,
-                               const uint32_t* __restrict__ tw_sh,
-                               uint32_t q) {
-  const int work = 1 << (logn - 1 + logtc);
-  for (int st = 0; st < logn; ++st) {
-    const int logh = logn - 1 - st;
-    for (int t = threadIdx.x; t < work; t += blockDim.x) {
-      const int col = t & ((1 << logtc) - 1);
-      const int j = t >> logtc;
-      const int b = j >> logh;
-      const int r0 = (b << (logh + 1)) + (j & ((1 << logh) - 1));
-      const int r1 = r0 + (1 << logh);
-      const int k = (1 << st) + b;
-      const uint32_t u = s[r0 * ld + col];
-      const uint32_t v = shoup_mul(s[r1 * ld + col], tw[k], tw_sh[k], q);
-      s[r0 * ld + col] = mod_add(u, v, q);
-      s[r1 * ld + col] = mod_sub(u, v, q);
-    }
-    __syncthreads();
-  }
-}
 
 // Load the [n, tc] tile at column c0 of a row-major [n, stride] limb.
 __device__ inline void load_tile(uint32_t* s, const uint32_t* __restrict__ src,

@@ -79,12 +79,12 @@ _SIGNATURES = {
     # qinv, 6 tables, beta, alpha, level, k_full, n1, n2, log2 of the tile
     # columns of phases A and B, stream
     "hk_hpip": [_P] * 15 + [_I] * 8 + [_P],
-    # x, out, q, tw1, tw1_sh, mid, mid_sh, passes, mid product, transposed,
-    # rows, M, n1, n2, stream
-    "hk_ntt_anatomy": [_P] * 7 + [_I] * 7 + [_P],
-    # x, out, q, tw1, tw1_sh, Shoup form, rows, M, n1, n2, log2 of the tile
-    # columns, stream
-    "hk_ntt_shoup_forms": [_P] * 5 + [_I] * 6 + [_P],
+    # x, out, q, mid, mid_sh, mid product, transposed, rows, M, n1, n2,
+    # stream
+    "hk_ntt_anatomy": [_P] * 5 + [_I] * 6 + [_P],
+    # x, out, q, tw1, tw1_sh, Shoup form, runs, transposed, rows, M, n1, n2,
+    # log2 of the tile columns, stream
+    "hk_ntt_stages": [_P] * 5 + [_I] * 8 + [_P],
     # x, out, words, stream
     "hk_copy_words": [_P] * 2 + [ctypes.c_longlong, _P],
     # x, mbig, out, nd, m_out, ncoef, stream

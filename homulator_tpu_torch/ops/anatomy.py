@@ -15,15 +15,17 @@ rows. Every output is in [0, q):
     stages2x, with the butterflies' Shoup product in form f: production
     (the exact high word, __umulhi), natmul (the exact high word from four
     16-bit partial products, the TPU's form) or approx (the TPU's
-    3-product high word, short by at most 1); on B1's register passes
-    (its phase A geometry, lazy ranges), where B14 and B16 run on the
-    column tiles
+    3-product high word, short by at most 1)
   B16, `scripts/bench_ntt_variants.py::main` (k_copy, k_transpose, k_mid,
   k_stages1): ntt_components(x, nb, p)
     copy, transpose, mid (x * mid mod q), stages1; only transpose
     transposes                                       -> [M, n1, n2]
-    (copy is a plain vectorised copy of its own, hk_copy_words; the
-    other parts, like B14's, are variants of the anatomy template)
+
+Every stage variant (B14's stages1 and stages2x, B15, B16's stages1) runs
+B1's register passes (hk_ntt_stages: its phase A geometry, lazy ranges;
+B14's stages2x is B15's production form); copy^T, midT, transpose and
+mid are the column tiles' byte-bound variants (hk_ntt_anatomy); B16's copy
+is a plain vectorised copy of its own (hk_copy_words).
 
 The TPU kernels leave B14's stages1 and stages2x (and its full variant)
 lazy in [0, 3q); they agree with these mod q. microbench_ntt2's natmul and
@@ -45,11 +47,12 @@ from .modmath import _u32, cond_sub, mulmod
 from .ntt import _ct_stages, _rep_rows, _tables, ntt, ntt_plain
 from .ntt_kernels import radix_phases
 
-# the Shoup forms of B15, in hk_ntt_shoup_forms' numbering
+# the Shoup forms of B15, in hk_ntt_stages' numbering
 FORMS = ("production", "natmul", "approx")
-# variant -> (stage passes, mid product, transposed store), the flags
-# hk_ntt_anatomy instantiates; B14's "full" is B1, B16's "copy" its own
-# kernel (hk_copy_words)
+# variant -> (stage passes, mid product, transposed store): hk_ntt_stages
+# runs the variants with stage passes (1 or 2 runs of B1's register
+# passes), hk_ntt_anatomy the others; B14's "full" is B1, B16's "copy" its
+# own kernel (hk_copy_words)
 B14_VARIANTS = {"copy": (0, False, True), "midT": (0, True, True),
                 "stages1": (1, False, True), "stages2x": (2, False, True),
                 "full": None}
@@ -57,8 +60,10 @@ B14_VARIANTS = {"copy": (0, False, True), "midT": (0, True, True),
 B15_FORMS = {f: B14_VARIANTS["stages2x"] for f in FORMS}
 B16_PARTS = {"copy": None, "transpose": (0, False, True),
              "mid": (0, True, False), "stages1": (1, False, False)}
-_MAX_N1 = 1024  # B14, B16: the [n1, 32] tile, n1 * 33 words
-_MAX_N1_FORMS = 256  # B15: shoup_forms_radix<L, Mul> at L = 1 .. 8
+# n1 the kernels take: the column tiles ([n1, 32], n1 * 33 words) and the
+# production stage kernels (stages_radix at L = 1 .. 10)
+_MAX_N1 = 1024
+_MAX_N1_FORMS = 256  # natmul and approx: stages_radix at L = 1 .. 8
 
 
 def shoup_form(a, w, w_sh, q, form: str) -> torch.Tensor:
@@ -117,48 +122,45 @@ def _check(name: str, x: torch.Tensor, nb: NttBasis, tables,
             (M, n1) if t.startswith("tw1") else (M, n1, n2))
 
 
-def _launch(name: str, spec: tuple, x: torch.Tensor,
-            nb: NttBasis) -> torch.Tensor:
-    _check(name, x, nb, ("tw1", "tw1_sh", "mid", "mid_sh"))
-    M, n1, n2 = nb.q.shape[0], nb.n1, nb.n2
-    lib = kernels.load()
+def _launch(name: str, spec: tuple, x: torch.Tensor, nb: NttBasis,
+            form: str = "production") -> torch.Tensor:
+    """The variant `spec` on the GPU, counted under `name`: its stage
+    passes on B1's register passes in Shoup form `form` (hk_ntt_stages,
+    tiles of B1 phase A's width, radix_phases), or the column tiles'
+    product and store (hk_ntt_anatomy)."""
     passes, mid, transposed = spec
+    M, n1, n2 = nb.q.shape[0], nb.n1, nb.n2
+    if passes:
+        _check(name, x, nb, ("tw1", "tw1_sh"),
+               _MAX_N1 if form == "production" else _MAX_N1_FORMS)
+    else:
+        _check(name, x, nb, ("mid", "mid_sh"))
+    lib = kernels.load()
     out = torch.empty((M, n2, n1) if transposed else (M, n1, n2),
                       dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = lib.hk_ntt_anatomy(
-            kernels.ptr(x), kernels.ptr(out), kernels.ptr(nb.q),
-            kernels.ptr(nb.tw1), kernels.ptr(nb.tw1_sh), kernels.ptr(nb.mid),
-            kernels.ptr(nb.mid_sh), passes, int(mid), int(transposed), M, M,
-            n1, n2, kernels.stream(x))
+        if passes:
+            tc = radix_phases(M, n1, n2, True)[0][2]
+            rc = lib.hk_ntt_stages(
+                kernels.ptr(x), kernels.ptr(out), kernels.ptr(nb.q),
+                kernels.ptr(nb.tw1), kernels.ptr(nb.tw1_sh),
+                FORMS.index(form), passes, int(transposed), M, M, n1, n2,
+                tc.bit_length() - 1, kernels.stream(x))
+        else:
+            rc = lib.hk_ntt_anatomy(
+                kernels.ptr(x), kernels.ptr(out), kernels.ptr(nb.q),
+                kernels.ptr(nb.mid), kernels.ptr(nb.mid_sh), int(mid),
+                int(transposed), M, M, n1, n2, kernels.stream(x))
     kernels.check(rc, name)
     kernels.count(name)
     return out
 
 
-def _launch_forms(x: torch.Tensor, nb: NttBasis, form: str) -> torch.Tensor:
-    """B15 on the GPU (hk_ntt_shoup_forms): x int32 [M, n1, n2] -> [M, n2,
-    n1], tiles of B1 phase A's width (radix_phases)."""
-    _check("ntt_shoup_forms", x, nb, ("tw1", "tw1_sh"), _MAX_N1_FORMS)
-    M, n1, n2 = nb.q.shape[0], nb.n1, nb.n2
-    tc = radix_phases(M, n1, n2, True)[0][2]
-    lib = kernels.load()
-    out = torch.empty((M, n2, n1), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.hk_ntt_shoup_forms(
-            kernels.ptr(x), kernels.ptr(out), kernels.ptr(nb.q),
-            kernels.ptr(nb.tw1), kernels.ptr(nb.tw1_sh), FORMS.index(form),
-            M, M, n1, n2, tc.bit_length() - 1, kernels.stream(x))
-    kernels.check(rc, "ntt_shoup_forms")
-    kernels.count("ntt_shoup_forms")
-    return out
-
-
-def _run(name: str, spec: tuple, x: torch.Tensor,
-         nb: NttBasis) -> torch.Tensor:
+def _run(name: str, spec: tuple, x: torch.Tensor, nb: NttBasis,
+         form: str = "production") -> torch.Tensor:
     if x.device.type == "cpu":
-        return _plain(spec, x, nb)
-    return _launch(name, spec, x, nb)
+        return _plain(spec, x, nb, form)
+    return _launch(name, spec, x, nb, form)
 
 
 def _launch_copy(x: torch.Tensor, nb: NttBasis) -> torch.Tensor:
@@ -207,10 +209,8 @@ def ntt_shoup_forms(x: torch.Tensor, nb: NttBasis, form: str) -> torch.Tensor:
     """Kernel B15: 16 CT stages (stage 1 twice) along n1 of x int32
     [M, n1, n2] with the Shoup product in `form` -> [M, n2, n1] in [0, q),
     the same for every form."""
-    _spec(B15_FORMS, form, "Shoup form")
-    if x.device.type == "cpu":
-        return ntt_shoup_forms_plain(x, nb, form)
-    return _launch_forms(x, nb, form)
+    return _run("ntt_shoup_forms", _spec(B15_FORMS, form, "Shoup form"), x,
+                nb, form)
 
 
 def ntt_shoup_forms_plain(x: torch.Tensor, nb: NttBasis,

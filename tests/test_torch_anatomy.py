@@ -19,6 +19,7 @@ uint32; one conditional subtract of q after the product repairs it.
 """
 
 import ast
+import ctypes
 import glob
 import importlib
 import importlib.util
@@ -43,7 +44,7 @@ from homulator_tpu.ops.ntt_pallas import (
     _SMEM_FULL, _csub, _ct_stages_val, _slab, ntt_pallas,
 )
 from homulator_tpu.params import get_params
-from homulator_tpu_torch import benchlib
+from homulator_tpu_torch import benchlib, kernels
 from homulator_tpu_torch.context import DeviceContext
 from homulator_tpu_torch.ops import anatomy, peaks
 from homulator_tpu_torch.ops.bconv_fused import (
@@ -410,31 +411,112 @@ def test_op_counts_fit_measured_peaks():
 
 
 def test_anatomy_variants_instantiated():
-    """The variants ops/anatomy.py asks hk_ntt_anatomy for (B14, B16) are
-    the ones csrc/anatomy.cu instantiates, each row's flags equal to its
-    template's; the Shoup forms it asks hk_ntt_shoup_forms for (B15) are
-    its form_kernel's, in FORMS' order, each a product form that
-    csrc/modarith.cuh defines, at the axis lengths the wrapper admits."""
+    """The column-tile variants ops/anatomy.py asks hk_ntt_anatomy for
+    (B14, B16 without stage passes) are the ones csrc/anatomy.cu
+    instantiates, each row's flags equal to its template's; the stage
+    variants it asks hk_ntt_stages for (B14's and B16's stages, B15's
+    forms: form, runs, store) are stage_kernel's instantiations of
+    stages_radix, each product form one that csrc/modarith.cuh defines,
+    at the axis lengths the wrapper admits (production up to _MAX_N1,
+    natmul and approx up to _MAX_N1_FORMS)."""
     csrc = os.path.join(ROOT, "homulator_tpu_torch", "csrc")
     with open(os.path.join(csrc, "anatomy.cu")) as f:
         src = f.read()
-    rows = re.findall(
-        r"\{(\d), (true|false), (true|false), "
-        r"anatomy<(\d), (true|false), (true|false)>\}", src)
+    rows = re.findall(r"\{(true|false), (true|false), "
+                      r"anatomy<(true|false), (true|false)>\}", src)
     built = set()
-    for passes, mid, t, tp, tmid, tt in rows:
-        assert (passes, mid, t) == (tp, tmid, tt)
-        built.add((int(passes), mid == "true", t == "true"))
-    asked = {spec for table in (anatomy.B14_VARIANTS, anatomy.B16_PARTS)
-             for spec in filter(None, table.values())}
+    for mid, t, tmid, tt in rows:
+        assert (mid, t) == (tmid, tt)
+        built.add((0, mid == "true", t == "true"))
+    tables = (anatomy.B14_VARIANTS, anatomy.B16_PARTS)
+    specs = {spec for table in tables for spec in filter(None,
+                                                         table.values())}
     assert len(built) == len(rows)
-    assert asked == built  # each asked for, each used
-    forms = re.findall(r"&shoup_forms_radix<L, hk::(\w+)>", src)
-    assert forms == ["ShoupLazy", "ShoupNatmul", "ShoupApprox"]
-    assert len(forms) == len(anatomy.FORMS) == len(anatomy.B15_FORMS)
+    assert {s for s in specs if s[0] == 0} == built  # each asked, each used
+    assert "ct_rows(" not in src  # no column tile runs a stage
+    stages = re.findall(r"&stages_radix<L, hk::(\w+), (\d), (true|false)>",
+                        src)
+    forms = dict(zip(anatomy.FORMS, ("ShoupLazy", "ShoupNatmul",
+                                     "ShoupApprox")))
+    asked = {("production", s[0], s[2]) for s in specs if s[0]} | {
+        (f, *anatomy.B15_FORMS[f][::2]) for f in anatomy.FORMS}
+    assert len(stages) == len(set(stages))
+    assert {(f, int(r), t == "true") for f, r, t in stages} == {
+        (forms[f], r, t) for f, r, t in asked}
     with open(os.path.join(csrc, "modarith.cuh")) as f:
         defined = set(re.findall(r"^struct (\w+) \{", f.read(), re.M))
-    assert set(forms) <= defined
-    # the axis lengths hk_ntt_shoup_forms instantiates, the wrapper's limit
-    assert re.findall(r"with_log<(\d+)>\(log1", src) == [
+    assert set(forms.values()) <= defined
+    with open(os.path.join(csrc, "ntt_tile.cuh")) as f:
+        assert "ct_rows" not in f.read()
+    # the axis lengths hk_ntt_stages instantiates, the wrapper's limits:
+    # with_log's default (ntt_reg.cuh) for production, kMaxLForms for the
+    # TPU's forms
+    assert re.findall(r"with_log\(ilog2\(n1\)", src)
+    with open(os.path.join(csrc, "ntt_reg.cuh")) as f:
+        assert re.search(r"template <int kMaxL = (\d+),", f.read()).group(
+            1) == str(anatomy._MAX_N1.bit_length() - 1)
+    assert re.findall(r"constexpr int kMaxLForms = (\d+);", src) == [
         str(anatomy._MAX_N1_FORMS.bit_length() - 1)]
+
+
+def _c_params():
+    """name -> the parameter list of each extern "C" entry of csrc/*.cu."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(ROOT, "homulator_tpu_torch",
+                                              "csrc", "*.cu"))):
+        with open(path) as f:
+            for m in re.finditer(r"^int (hk_\w+)\(([^)]*)\)", f.read(),
+                                 re.M):
+                out[m.group(1)] = [p.strip() for p in m.group(2).split(",")]
+    return out
+
+
+@pytest.mark.parametrize("name", list(kernels._SIGNATURES))
+def test_kernel_signatures_match_sources(name):
+    """kernels._SIGNATURES, the ctypes argument types each C entry is
+    called with, equals the entry's parameters in its source, one for
+    one: a pointer c_void_p, a long long c_longlong, an unsigned c_uint,
+    an int c_int (no nvcc here, so a mismatch would show only on the
+    card)."""
+    def kind(p):
+        if "*" in p:
+            return ctypes.c_void_p
+        if p.startswith("long long"):
+            return ctypes.c_longlong
+        if p.startswith("unsigned "):
+            return ctypes.c_uint
+        assert p.startswith("int "), p
+        return ctypes.c_int
+    params = _c_params()[name]
+    assert [kind(p) for p in params] == kernels._SIGNATURES[name]
+
+
+def test_chip_smoke_reads_stage_kernel_ptxas():
+    """chip_smoke's ptxas parser reads each stages_radix instantiation
+    that anatomy.cu takes the address of (mangled as nvcc's host compiler
+    mangles a template of the anonymous namespace) with its axis, form,
+    runs and store, as many as CHECKED_INSTANTIATIONS holds it to, and
+    its local-memory bytes."""
+    smoke = _load_root_module("chip_smoke")
+    with open(os.path.join(ROOT, "homulator_tpu_torch", "csrc",
+                           "anatomy.cu")) as f:
+        stages = re.findall(r"&stages_radix<L, hk::(\w+), (\d), (true|false)>",
+                            f.read())
+    lines, want = [], {}
+    for form, runs, t in stages:
+        n1 = anatomy._MAX_N1 if form == "ShoupLazy" else anatomy._MAX_N1_FORMS
+        for L in range(1, n1.bit_length()):
+            lines += [
+                "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N_"
+                f"_0a1b_10anatomy_cu_5c2d12stages_radixILi{L}EN2hk"
+                f"{len(form)}{form}ELi{runs}ELb{int(t == 'true')}EEEvPKjPjS4"
+                "_S4_S4_iii' for 'sm_90a'",
+                "ptxas info    : Function properties for x",
+                f"    {L % 2 * 8} bytes stack frame, 0 bytes spill stores, 0 "
+                "bytes spill loads",
+                f"ptxas info    : Used {20 + L} registers, 380 bytes cmem[0]"]
+            want[(L, form, int(runs), "T" if t == "true" else "R")] = (
+                20 + L, L % 2 * 8)
+    got = smoke.kernel_registers("\n".join(lines))
+    assert got == {"stages_radix": want}
+    assert len(want) == smoke.CHECKED_INSTANTIATIONS["stages_radix"]
