@@ -17,7 +17,11 @@ failure and the script then exits non-zero:
      2^8 for two runs transposed) and of B3's, B5's and
      B17's tensor-core kernels (`bconv_kernel`, `bconv_step2_kernel`,
      `planes_mm`: one for each count of k32 steps, 1 .. 4), failing if one
-     is missing or takes local memory;
+     is missing or takes local memory; then the native host core
+     (`native.py`: g++ on `native/ckks_core.cpp`), with g++'s version and
+     its time, whose keys, encodes and ciphertexts at N = 2^13 must equal
+     the numpy path's bit for bit; every engine below makes its keys,
+     encodes and encryptions on it;
   3. each CUDA kernel against its plain PyTorch version on the card, at the
      shapes parameter set B gives it, bit for bit (tolerance 0), with the
      device time of each (CUDA graph replay between CUDA events, so host
@@ -68,15 +72,14 @@ failure and the script then exits non-zero:
      (every one must launch); then one short sample of each of the
      roofline's five peaks (CUDA-graph replay), printed;
   4. an independent oracle at N = 2^13 (n1 = 64 != n2 = 128), maxLevel 8,
-     level 8, alpha 3 (a partial digit): the exact numpy engine
+     level 8, alpha 3 (a partial digit): the exact host engine
      (`RefCkks`) equals the port's hmult, hsquare, hrotate (steps 1 and
      -1), the fused-route hmult, hsquare and hrotate(1) and the
      graph-route (ntt_mode="jnp") hmult and hrotate (steps 1 and -1) on
      the card bit for bit, and
      conjugate equals the same engine on the CPU bit for bit; a 16 x 16
      `linalg.bsgs_matvec` on the graph route decrypts within 1e-2 of
-     M @ x (at this size: set B's four more rotation keys would cost
-     about 20 s of host numpy);
+     M @ x;
   5. parameter set B (N = 2^16, 45 main + 15 special primes) through
      `CkksEngine(device="cuda")`, level 35. The main path: hmult and
      hrotate(step 1) on the piecewise key-switch route, then both and
@@ -122,7 +125,21 @@ failure and the script then exits non-zero:
      the eager latency of hadd, pmult, padd and rescale, and of the
      sharded ops on 4 and 8 shards (all on one card: not a multi-card
      latency; no graph capture across the shard threads);
-  7. one JSON line of per-kernel results (each kernel's times and bound at
+  7. the encrypted workloads (`workloads.py`, the counterparts of
+     scripts/bench_workload.py and bench_logreg.py) at set B, level 35, on
+     phase 5's engine, which then holds the union of their rotation keys
+     (1..7, 8, 16, .., 56 and 2^i, i < 15: 23 keys; the host seconds of
+     each printed, with one key and one level-35 encode also on the numpy
+     path, whose encode must give the same bits): the 64 x 64 BSGS matvec
+     (g = 8: 14 key switches) and logreg (17), each on the piecewise and
+     the fused route with the launch counts set to 0 just before each of
+     these four runs and read just after it (B1, B2, B3 on both routes,
+     B4 on the fused one only, once a fused key switch), the routes'
+     outputs equal bit for bit, all 32768 slots decrypting within 1e-2 of
+     M @ x or of the sigmoid polynomial, the eager latency and device
+     time of each run; then both (16 x 16, g = 4) at N = 2^13 on the card,
+     on both routes, equal to the CPU plain path bit for bit;
+  8. one JSON line of per-kernel results (each kernel's times and bound at
      one shape the main path launches, named in `shape`; `max_abs_err`
      over every shape checked; `launches` summed over the main-path runs,
      per run in `launches_by_run`; for the kernels of 3b every variant's
@@ -152,6 +169,7 @@ chain is counted as `PEAK_LINK_OPS` says.
 
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -886,6 +904,195 @@ def check_oracle(np, torch, CkksEngine, get_params, api):
     return err
 
 
+def check_native(np, get_params):
+    """Phase 2: the native host core's keys, encodes and ciphertexts at
+    N = 2^13 equal the numpy path's (RefCkks(use_native=False)) bit for
+    bit; prints the seconds of each side."""
+    from homulator_tpu_torch.refimpl import RefCkks
+
+    pm = get_params(n=1 << 13, max_level=8, alpha=3)
+    v = np.random.default_rng(8).normal(size=pm.n // 2)
+    words, secs = {}, {}
+    for label, use in (("numpy", False), ("native", True)):
+        t0 = time.perf_counter()
+        r = RefCkks(pm, seed=3, use_native=use)
+        if use and r._native is None:
+            raise AssertionError("RefCkks(use_native=True) took numpy")
+        r.keygen()
+        words[label] = (r.relin_key.digits + r.gen_rotation_key(1).digits
+                        + [r.encrypt(r.encode_complex(v, 8, SCALE)).data])
+        secs[label] = time.perf_counter() - t0
+    if not all(np.array_equal(x, y)
+               for x, y in zip(words["numpy"], words["native"])):
+        raise AssertionError("native host core != numpy path at N=2^13")
+    print(f"# native host core == numpy path at N=2^13 L8 a3 (relin key, "
+          f"rotation key 1, encode + encrypt), bit-exact: "
+          f"{secs['native']:.2f} s against {secs['numpy']:.2f} s")
+
+
+def workload_cases(np, eng, level, scale, seed, d, g, cts=None):
+    """Phase 7's inputs on one engine, from numpy's generator at `seed`: a
+    d x d matrix and a d-vector for the matvec, a slot vector, weights and
+    bias for logreg, the two vectors encrypted at (level, scale) (or the
+    ciphertext tensors `cts`, moved to the engine's device). Returns
+    (matvec prep, logreg prep, cases, prep seconds, ciphertext tensors):
+    cases maps each workload to (its device function, the slots its
+    decrypt should give, the output level and scale)."""
+    from homulator_tpu_torch import workloads
+
+    rng = np.random.default_rng(seed)
+    slots = eng.params.n // 2
+    M, x = rng.normal(size=(d, d)) / d, rng.normal(size=d)
+    xs, w = rng.normal(size=slots), rng.normal(size=slots) / np.sqrt(slots)
+    b = 0.3
+    if cts is None:
+        cts = [eng.encrypt_complex(v, level, scale).data
+               for v in (np.tile(x, slots // d), xs)]
+    ct_m, ct_l = (c.to(eng.dc.device) for c in cts)
+    t0 = time.perf_counter()
+    mprep = workloads.matvec_prep(eng, M, level, scale, g)
+    t1 = time.perf_counter()
+    lprep = workloads.logreg_prep(eng, w, b, level, scale)
+    t2 = time.perf_counter()
+    score = float(np.dot(xs, w) + b)
+    c0, c1, c3 = workloads.SIGMOID3
+    cases = {
+        "matvec_bsgs": (lambda: workloads.matvec_bsgs(ct_m, mprep),
+                        np.tile(M @ x, slots // d), level, mprep.out_scale),
+        "logreg_sigmoid3": (
+            lambda: workloads.logreg_sigmoid3(ct_l, lprep),
+            np.full(slots, c0 + c1 * score + c3 * score**3),
+            lprep.out_level, lprep.s_out),
+    }
+    return mprep, lprep, cases, (t1 - t0, t2 - t1), (ct_m, ct_l)
+
+
+def check_workloads(np, torch, kernels, api, eng, get_params, launches):
+    """Phase 7: the BSGS matvec (64 x 64, g = 8) and logreg at set B,
+    level 35, on the engine of phase 5 (its host engine on the native
+    core), which then holds the union of both workloads' rotation keys;
+    each workload on the piecewise and the fused route with the launch
+    counts around each run, the routes' outputs equal, full-slot decrypts
+    within GATE, eager and device times; then both at N = 2^13 on the
+    card against the CPU plain path. Returns (errors, timings)."""
+    from homulator_tpu_torch import workloads
+    from homulator_tpu_torch.context import Ciphertext
+    from homulator_tpu_torch.refimpl import RefCkks
+
+    t_phase = time.perf_counter()
+    if eng.ref._native is None:
+        raise AssertionError("phase 7: the engine's host engine is not on "
+                             "the native core")
+    params = eng.params
+    slots = params.n // 2
+    baby, giant = workloads.matvec_steps(64, 8)
+    steps = sorted(set(baby + giant + workloads.logreg_steps(slots)))
+    key_s = {}
+    for s in steps:
+        if s not in eng.rot_keys:
+            t0 = time.perf_counter()
+            eng.gen_rotation_key(s)
+            key_s[s] = time.perf_counter() - t0
+    key_bytes = sum(eng.rot_keys[s].numel() * 4 for s in steps)
+    print(f"# set B rotation keys (host, native core, upload included), s "
+          "each: " + ", ".join(f"{s}: {v:.2f}" for s, v in key_s.items())
+          + f"; {len(steps)} keys, {key_bytes / 1e9:.2f} GB on the card")
+    # one key and one encode on the numpy path, beside the native core
+    ref_np = RefCkks(params, seed=1, use_native=False)
+    ref_np.s_eval, ref_np.rot_keys = eng.ref.s_eval, {}
+    v = np.random.default_rng(10).normal(size=slots)
+    host = {}
+    for label, ref in (("native", eng.ref), ("numpy", ref_np)):
+        t0 = time.perf_counter()
+        ref._gen_galois_key(params.galois_elt(3))
+        t1 = time.perf_counter()
+        pt = ref.encode_complex(v, LEVEL_B, SCALE)
+        host[label] = (t1 - t0, time.perf_counter() - t1, pt.data)
+    if not np.array_equal(host["native"][2], host["numpy"][2]):
+        raise AssertionError("set B encode: native core != numpy path")
+    print("# set B host engine alone, native core / numpy: rotation key "
+          f"{host['native'][0]:.2f} / {host['numpy'][0]:.2f} s, "
+          f"encode_complex at level {LEVEL_B} {host['native'][1]:.3f} / "
+          f"{host['numpy'][1]:.3f} s (equal bits)")
+    mprep, lprep, cases, prep_s, _ = workload_cases(
+        np, eng, LEVEL_B, SCALE, 7, 64, 8)
+    print(f"# set B workload prep (host, native core): matvec 64 diagonal "
+          f"encodes {prep_s[0]:.2f} s ({prep_s[0] / 64:.3f} s each), logreg "
+          f"weights, bias and constants {prep_s[1]:.2f} s")
+    errs, timings, outs = {}, {}, {}
+    for name, (fn, want, level, scale) in cases.items():
+        for fused in (False, True):
+            label = name + (" fused" if fused else "")
+            api.USE_FUSED_HPIP = fused
+            try:
+                outs[label], launches[label] = drive(
+                    torch, kernels, f"{label} (45,35,15)", fn,
+                    FUSED_KERNELS if fused else PIECES_KERNELS)
+                timings[label] = (latency_ms(fn), device_ms(fn, calls=2))
+            finally:
+                api.USE_FUSED_HPIP = False
+            print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager, "
+                  f"{timings[label][1]:.3f} ms device time")
+        ks = (mprep.keyswitches if name == "matvec_bsgs"
+              else lprep.keyswitches)
+        fused_ks = len(mprep.giant_keys) if name == "matvec_bsgs" else ks
+        if launches[name + " fused"]["hpip"] != fused_ks:
+            raise AssertionError(f"{name} fused: B4 launched "
+                                 f"{launches[name + ' fused']['hpip']} "
+                                 f"times, not {fused_ks}")
+        if not torch.equal(outs[name], outs[name + " fused"]):
+            raise AssertionError(f"{name}: fused route != piecewise route")
+        got = eng.decrypt_complex(Ciphertext(outs[name], level, scale)).real
+        errs[name] = float(np.max(np.abs(got - want)))
+        print(f"# {name}(45,35,15): fused == piecewise, bit-exact; {ks} key "
+              f"switches, B4 launched {fused_ks} times fused; verify "
+              f"max-abs-err = {errs[name]:.3e}, all {slots} slots")
+        if not errs[name] < GATE:
+            raise AssertionError(f"{name} decrypt gate {GATE} failed")
+    # N = 2^13: the card on both routes against the CPU plain path, which
+    # holds the card engine's keys and takes its ciphertexts
+    pm = get_params(n=1 << 13, max_level=8, alpha=3)
+    es = workloads.native_engine(pm, seed=5, device="cuda")
+    es.keygen()
+    _, _, small, _, cts = workload_cases(np, es, 8, SCALE, 9, 16, 4)
+    ec = cpu_twin(es)
+    small_cpu = workload_cases(np, ec, 8, SCALE, 9, 16, 4, cts)[2]
+    for name, (fn, want, level, scale) in small.items():
+        cpu = small_cpu[name][0]()
+        for fused in (False, True):
+            api.USE_FUSED_HPIP = fused
+            try:
+                got = fn()
+            finally:
+                api.USE_FUSED_HPIP = False
+            if not torch.equal(got.cpu(), cpu):
+                raise AssertionError(f"{name} at N=2^13, fused={fused}: "
+                                     "GPU != CPU plain path")
+        err = float(np.max(np.abs(ec.decrypt_complex(
+            Ciphertext(cpu, level, scale)).real - want)))
+        errs[f"{name} N=2^13"] = err
+        if not err < GATE:
+            raise AssertionError(f"{name} at N=2^13: decrypt gate failed")
+    print("# matvec_bsgs 16x16 g=4 and logreg_sigmoid3 at N=2^13 L8 l8 a3: "
+          "GPU (piecewise and fused) == CPU plain path, bit-exact; verify "
+          f"max-abs-err {errs['matvec_bsgs N=2^13']:.3e}, "
+          f"{errs['logreg_sigmoid3 N=2^13']:.3e}")
+    print(f"# phase 7 (workloads): {time.perf_counter() - t_phase:.1f} s")
+    return errs, timings
+
+
+def cpu_twin(eng):
+    """The CPU plain-path engine of eng's params holding eng's host engine
+    and keys."""
+    from homulator_tpu_torch.api import CkksEngine
+
+    cpu = CkksEngine(eng.params, device="cpu")
+    cpu.ref = eng.ref
+    cpu.relin_key = eng.relin_key.cpu()
+    cpu.rot_keys = {s: k.cpu() for s, k in eng.rot_keys.items()}
+    return cpu
+
+
 def drive(torch, kernels, name, fn, expect):
     """One main-path run: launch counts set to 0 just before, read just
     after; every kernel in `expect` must have launched, and no other."""
@@ -913,7 +1120,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from homulator_tpu_torch import api, kernels
+    from homulator_tpu_torch import api, kernels, native
     from homulator_tpu_torch.api import CkksEngine, get_params
     from homulator_tpu_torch.ops import anatomy, peaks
     from homulator_tpu_torch.ops.bconv_fused import bconv_planes_mm
@@ -958,6 +1165,16 @@ def main() -> int:
         raise AssertionError("B1-B17 instantiations "
                              f"use local memory (stack or spill bytes): "
                              f"{spilled}")
+    # ... and the native host core (g++), which every engine below takes
+    t0 = time.perf_counter()
+    gxx = subprocess.run([native.CXX, "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    gxx_s = native.build()
+    native.load()
+    print(f"# native host core build: {time.perf_counter() - t0:.1f} s "
+          f"(g++ {gxx_s:.1f} s; {gxx}; {' '.join(native.CXXFLAGS)}) -> "
+          f"{os.path.relpath(native.library_path(), ROOT)}")
+    check_native(np, get_params)
 
     # 3. kernels vs plain versions at the set-B shapes
     t0 = time.perf_counter()
@@ -1013,14 +1230,16 @@ def main() -> int:
                      ("rotation key step 2", lambda: eng.gen_rotation_key(2))):
         t0 = time.perf_counter()
         fn()
-        print(f"# set B {what} (host numpy): {time.perf_counter() - t0:.1f} s")
+        print(f"# set B {what} (host, native core): "
+              f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(7)
     slots = params.n // 2
     v1, v2 = rng.normal(size=slots), rng.normal(size=slots)
     t0 = time.perf_counter()
     ct1 = eng.encrypt_complex(v1, LEVEL_B, SCALE)
     ct2 = eng.encrypt_complex(v2, LEVEL_B, SCALE)
-    print(f"# set B encrypt (host numpy): {time.perf_counter() - t0:.1f} s")
+    print(f"# set B encrypt (host, native core): "
+          f"{time.perf_counter() - t0:.1f} s")
     out, launches["hmult"] = drive(torch, kernels, "hmult(45,35,15)",
                                    lambda: eng.hmult(ct1, ct2), PIECES_KERNELS)
     rot, launches["hrotate"] = drive(torch, kernels, "hrotate(45,35,15)",
@@ -1052,9 +1271,7 @@ def main() -> int:
     print("# fused HPIP route == piecewise route (hmult, hrotate, hsquare), "
           "bit-exact; B4 launched once an op")
 
-    cpu = CkksEngine(params, seed=1, device="cpu")  # the plain path
-    cpu.relin_key = eng.relin_key.cpu()
-    cpu.rot_keys = {1: eng.rot_keys[1].cpu()}
+    cpu = cpu_twin(eng)  # the plain path
     cts_cpu = [Ciphertext(c.data.cpu(), c.level, c.scale) for c in (ct1, ct2)]
     t0 = time.perf_counter()
     out_cpu = cpu.hmult(*cts_cpu)
@@ -1239,7 +1456,13 @@ def main() -> int:
     print(f"# (eager: CUDA events, median of 20 after 3 warm-up runs; device "
           f"time: CUDA graph replay; peak memory {peak:.0f} MiB)")
 
-    # 7. results
+    # 7. the encrypted workloads at set B
+    wl_errs, wl_timings = check_workloads(np, torch, kernels, api, eng,
+                                          get_params, launches)
+    errs.update(wl_errs)
+    timings.update(wl_timings)
+
+    # 8. results
     print(f"# chip_smoke total: {time.perf_counter() - t_start:.1f} s "
           "(kernel build included)")
     bad = sorted(m for m in sys.modules

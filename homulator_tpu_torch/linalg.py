@@ -7,6 +7,8 @@ port's engine on either key-switch route:
   pack_vector / encrypt_vector   d-periodic slot packing (slot rotation
                                  by k realises the length-d cyclic
                                  rotation of the vector in every copy)
+  bsgs_diagonals                 M's diagonals in BSGS order, each
+                                 pre-rotated in the clear and packed
   bsgs_matvec                    y = M @ x, diagonal method with
                                  baby-step/giant-step rotations; the
                                  baby rotations share ONE ModUp via
@@ -38,6 +40,20 @@ def pack_vector(x: np.ndarray, slots: int) -> np.ndarray:
     d = x.shape[0]
     assert slots % d == 0, (d, slots)
     return np.tile(x, slots // d)
+
+
+def bsgs_diagonals(M: np.ndarray, g: int, slots: int) -> np.ndarray:
+    """The d diagonals of the d x d matrix M in BSGS order: row g*j + i
+    is diagonal g*j + i, pre-rotated by -g*j so that one giant rotation
+    finishes group j, packed d-periodically: [d, slots]."""
+    d = M.shape[0]
+    out = []
+    for j in range(d // g):
+        for i in range(g):
+            k = g * j + i
+            diag_k = np.array([M[t % d, (t + k) % d] for t in range(d)])
+            out.append(pack_vector(np.roll(diag_k, g * j), slots))
+    return np.stack(out)
 
 
 def encrypt_vector(eng, x: np.ndarray, level: int,
@@ -75,15 +91,12 @@ def bsgs_matvec(eng, ct_x: Ciphertext, M: np.ndarray, *,
         for s, ct in zip(steps, eng.hrotate_hoisted(ct_x, steps)):
             baby[s] = ct
 
+    diags = bsgs_diagonals(M, g, slots)
     acc = None
     for j in range(d // g):
         group = None
         for i in range(g):
-            k = g * j + i
-            diag_k = np.array([M[t % d, (t + k) % d] for t in range(d)])
-            # pre-rotate by -g*j so one giant rotation finishes the group
-            pdiag = pack_vector(np.roll(diag_k, g * j), slots)
-            pt = eng.plaintext_complex(pdiag, level, scale)
+            pt = eng.plaintext_complex(diags[g * j + i], level, scale)
             term = eng.pmult(baby[i], pt)
             group = term if group is None else eng.hadd(group, term)
         if g * j != 0:

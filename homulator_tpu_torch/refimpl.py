@@ -17,9 +17,10 @@ the reference models:
 Every TPU kernel is validated bit-exactly against this module. All values
 are standard-domain residues < q < 2**30 held in uint64 (products fit).
 
-The port's own copy of `homulator_tpu/refimpl.py`, arithmetic unchanged,
-without the optional native NTT library (which gives the same bits): the
-NTTs here are always the numpy ones.
+The port's own copy of `homulator_tpu/refimpl.py`, arithmetic unchanged.
+As there, the NTTs may run in the native host core (`native.py`, the
+port's binding of `native/ckks_core.cpp`), which gives the same bits:
+`use_native` says when.
 """
 
 from __future__ import annotations
@@ -60,13 +61,26 @@ class KeySwitchKey:
 
 
 class RefCkks:
-    def __init__(self, params: CkksParams, seed: int = 0):
+    def __init__(self, params: CkksParams, seed: int = 0, use_native=None):
+        """use_native: None = use the native core when it is already built
+        for the checkout's source (never builds it), False = pure numpy
+        (the canonical spec path used by algorithm tests), True = build the
+        native core now if needed, raising if that fails."""
         self.p = params
         self.rng = np.random.default_rng(seed)
+        self._native = None
+        if use_native is not False:
+            from . import native as _nat
+
+            lib = _nat.load() if use_native is True else _nat.load_if_built()
+            if lib is not None:
+                self._native = _nat.NativeNtt(params, lib)
 
     # ------------------------------------------------------------------ NTT
     def ntt(self, x: np.ndarray, idx: np.ndarray) -> np.ndarray:
         """Forward negacyclic NTT. x: [M, N] residues, idx: [M] prime indices."""
+        if self._native is not None:
+            return self._native.ntt(x, idx)
         p, t = self.p, self.p.ntt
         M = x.shape[0]
         q = p.q_arr[idx][:, None, None]
@@ -78,6 +92,8 @@ class RefCkks:
         return y.reshape(M, t.n)
 
     def intt(self, x: np.ndarray, idx: np.ndarray) -> np.ndarray:
+        if self._native is not None:
+            return self._native.intt(x, idx)
         p, t = self.p, self.p.ntt
         M = x.shape[0]
         q = p.q_arr[idx][:, None, None]

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Where the device time of one hmult (or hrotate) goes in the PyTorch +
-CUDA port.
+"""Where the device time of one hmult (or hrotate, or encrypted workload)
+goes in the PyTorch + CUDA port.
 
-    python3 scripts/profile_hmult_torch.py [--op hmult|hrotate] [--fused-hpip]
+    python3 scripts/profile_hmult_torch.py
+        [--op hmult|hrotate|matvec_bsgs|logreg_sigmoid3] [--fused-hpip]
         [--ntt-mode auto|jnp] [--trace hmult_trace.json]
 
 Runs the op at (45,35,15) of parameter set B (N = 2^16) eagerly on one
-CUDA GPU, CALLS times after 3 warm-up calls, under torch.profiler and
+CUDA GPU (the workloads of homulator_tpu_torch/workloads.py at level 35:
+the 64 x 64 BSGS matvec with g = 8, logreg over all 32768 slots; the host
+engine on the native core), CALLS times after 3 warm-up calls, under
+torch.profiler and
 groups the CUDA kernels it launched by name: the port's kernels of the
 single-device routes (B1 ntt_fwd, B2 ntt_inv, B3 bconv, B4 hpip with its
 two launches apart, B5 bconv_step2), torch's copies and concatenations and gathers, its
@@ -51,7 +55,8 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--op", choices=["hmult", "hrotate"], default="hmult")
+    ap.add_argument("--op", default="hmult", choices=[
+        "hmult", "hrotate", "matvec_bsgs", "logreg_sigmoid3"])
     ap.add_argument("--fused-hpip", action="store_true",
                     help="key switch through the fused HPIP kernel B4")
     ap.add_argument("--ntt-mode", choices=["auto", "jnp"], default="auto",
@@ -67,8 +72,8 @@ def main() -> int:
         print("profile_hmult_torch: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from homulator_tpu_torch import api, kernels
-    from homulator_tpu_torch.api import CkksEngine, get_params
+    from homulator_tpu_torch import api, kernels, workloads
+    from homulator_tpu_torch.api import get_params
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -77,7 +82,8 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
 
     params = get_params(n=1 << 16, max_level=45, alpha=15)
-    eng = CkksEngine(params, seed=1, device="cuda", ntt_mode=args.ntt_mode)
+    eng = workloads.native_engine(params, seed=1, device="cuda",
+                                  ntt_mode=args.ntt_mode)
     eng.keygen()
     if args.op == "hrotate":
         eng.gen_rotation_key(1)
@@ -87,10 +93,18 @@ def main() -> int:
     scale = float(1 << 29)
     ct1 = eng.encrypt_complex(rng.normal(size=slots), LEVEL, scale)
     ct2 = eng.encrypt_complex(rng.normal(size=slots), LEVEL, scale)
-
-    def op():
-        return (eng.hmult(ct1, ct2) if args.op == "hmult"
-                else eng.hrotate(ct1, 1))
+    if args.op == "matvec_bsgs":
+        prep = workloads.matvec_prep(
+            eng, rng.normal(size=(64, 64)) / 64, LEVEL, scale, 8)
+    elif args.op == "logreg_sigmoid3":
+        prep = workloads.logreg_prep(
+            eng, rng.normal(size=slots) / np.sqrt(slots), 0.3, LEVEL, scale)
+    ops = {"hmult": lambda: eng.hmult(ct1, ct2),
+           "hrotate": lambda: eng.hrotate(ct1, 1),
+           "matvec_bsgs": lambda: workloads.matvec_bsgs(ct1.data, prep),
+           "logreg_sigmoid3": lambda: workloads.logreg_sigmoid3(ct1.data,
+                                                                prep)}
+    op = ops[args.op]
 
     for _ in range(3):
         op()

@@ -120,15 +120,16 @@ def test_cuda_device_is_explicit(small_params):
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports every module of the port (its ops and
-    parallel packages, serialize, linalg, benchlib, the anatomy and peak
-    kernels' wrappers included), chip_smoke and the port's scripts
-    (scripts/*_torch.py: the roofline, the three NTT anatomy scripts and
-    B4's bench among them),
+    parallel packages, serialize, linalg, benchlib, the native host core's
+    binding, the workloads, the anatomy and peak kernels' wrappers
+    included), chip_smoke, the port's scripts (scripts/*_torch.py: the
+    roofline, the three NTT anatomy scripts, B4's bench and the two
+    workload programs among them) and its examples (examples/*_torch.py),
     takes get_params from the port, runs a tiny hmult, hrotate,
     fused-route hmult, 2-shard coefficient-sharded hmult, graph-route
-    hmult, the elementwise ops, a serialize round trip and a linalg dot,
-    and has loaded neither jax nor any module of the JAX package
-    homulator_tpu."""
+    hmult, the elementwise ops, a serialize round trip, a linalg dot and
+    a workloads BSGS matvec, and has loaded neither jax nor any module of
+    the JAX package homulator_tpu."""
     code = (
         "import pkgutil, sys\n"
         "import numpy as np\n"
@@ -168,21 +169,28 @@ def test_port_imports_no_jax():
         "serialize.save_ciphertext(path, a, e.params)\n"
         "assert (serialize.load_ciphertext(path, e.dc).data == a.data).all()\n"
         "assert linalg.dot(e, a, np.ones(32)).level == 2\n"
+        "from homulator_tpu_torch import workloads\n"
+        "prep = workloads.matvec_prep(e, np.eye(4), 3, 2.0**29, 2)\n"
+        "assert workloads.matvec_bsgs(a.data, prep).shape == a.data.shape\n"
         "import glob, importlib.util\n"
         "scripts = sorted(glob.glob('scripts/*_torch.py'))\n"
-        "for path in scripts:\n"
+        "examples = sorted(glob.glob('examples/*_torch.py'))\n"
+        "assert len(examples) == 3, examples\n"
+        "for path in scripts + examples:\n"
         "    spec = importlib.util.spec_from_file_location("
         "os.path.basename(path)[:-3], path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "for name in ('roofline_torch', 'microbench_ntt_torch',"
         " 'microbench_ntt2_torch', 'bench_ntt_variants_torch',"
-        " 'bench_hpip_torch', 'bench_phase_torch'):\n"
+        " 'bench_hpip_torch', 'bench_phase_torch', 'bench_workload_torch',"
+        " 'bench_logreg_torch'):\n"
         "    assert f'scripts/{name}.py' in scripts, name\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'homulator_tpu'))\n"
         "assert not bad, bad\n"
         "for m in ('ops.hpip', 'ops.bconv', 'ops.rescale', 'serialize',"
-        " 'linalg', 'benchlib', 'ops.anatomy', 'ops.peaks'):\n"
+        " 'linalg', 'benchlib', 'ops.anatomy', 'ops.peaks', 'native',"
+        " 'workloads'):\n"
         "    assert 'homulator_tpu_torch.' + m in sys.modules, m\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)

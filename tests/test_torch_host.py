@@ -79,10 +79,12 @@ def test_numtheory_equal():
 @pytest.mark.parametrize("shape", SHAPES)
 def test_refimpl_keys_and_ciphertexts_equal(shape):
     """Same seed, same keys, ciphertexts and results: keygen, a rotation
-    key, encode + encrypt, hmult, hrotate and decrypt."""
+    key, encode + encrypt, hmult, hrotate and decrypt, both on the numpy
+    path (the native core's equality: tests/test_torch_native.py)."""
     jp, tp = jparams.get_params(*shape), params.get_params(*shape)
     jr = jrefimpl.RefCkks(jp, seed=5, use_native=False)
-    tr = refimpl.RefCkks(tp, seed=5)
+    tr = refimpl.RefCkks(tp, seed=5, use_native=False)
+    assert tr._native is None
     jr.keygen()
     tr.keygen()
     assert np.array_equal(jr.s_eval, tr.s_eval)
