@@ -41,7 +41,15 @@ failure and the script then exits non-zero:
      partial digit's other rows M = 45, the specials M = 15 twice, and the
      tail's shapes) and at 2, 8, 16 and 32 shards (c = 128, 32, 16 and 8;
      M = 35: the per-limb kernels beside the packed ones at equal widths),
-     and B3 once on a 4-shard slice; their lane-packed forms (B10-B13) on
+     and B3 once on a 4-shard slice; the limb and hybrid dispatches'
+     shapes (limb rank 1 of 4: B2 on its 9 main rows, B3 of ModUp digit
+     0 onto its whole 13-row ext block on a 64 x 256 gather chunk, also
+     in the worst case, B1 at rep 3 over that block, B2 at rep 2 over its
+     specials and last-limb slot, B3 of the tail and of ModDown onto its
+     main rows on a chunk, B1 at rep 2 over them; hybrid rank (1, 1) of 2
+     x 2: B3 of digit 0 onto its 26-row block on a 64 x 128 chunk, B6/B7
+     at rep 3 over that block, B8/B9 over its 18 main rows); their
+     lane-packed forms (B10-B13) on
      the last rank's [G, n, 128] lane groups at 8, 16 and 32 shards (c =
      32, 16, 8; k = 4, 8, 16; the main rows M = 35), and at 8 shards also
      the specials (M = 15) and the tail's last limb (M = 1) at rep = 2,
@@ -118,13 +126,33 @@ failure and the script then exits non-zero:
      2,793,472 / 3,112,960), and the 4- and 8-shard hmult results decrypt
      within 1e-2 in all 32768 slots. Last, the batch axis: a batch of two
      hmults on a 2 x 4 mesh (`ThreadMesh(4, "cuda", data=2)`,
-     `data_axis="data"`) equals the two single-device hmults bit for bit;
+     `data_axis="data"`) equals the two single-device hmults bit for bit.
+     Then the limb dispatch (`parallel.limb_sharded.make_limb_hmult` /
+     `make_limb_hrotate`, step 1) on `ThreadMesh(2 | 4 | 8, "cuda",
+     names=("limb",))`, which must launch B1, B2 and B3 and nothing else,
+     and the hybrid (`make_hybrid_*`) on `ThreadMesh((2 | 4, 2), "cuda",
+     names=("limb", "coeff"))`, which must launch B3 and B6-B9 and nothing
+     else (launch counts set to 0 just before each run and read just
+     after): the gathered results equal the single-device piecewise ones
+     on the real rows, the pad rows zero; the bytes each shard received
+     over its axes equal the JAX package's ici_bytes_per_op_limb /
+     _hybrid (9,437,184 / 8,912,896, 14,942,208 / 13,369,344 and
+     20,185,088 / 16,515,072 at 2, 4 and 8 limb shards; 14,548,992 /
+     14,155,776 and 12,451,840 / 11,534,336 at 2 x 2 and 4 x 2, where
+     hrotate(1)'s block map is the identity, and 18,874,368 and 13,893,632
+     for hrotate(1) also run on the automorphism's gather route); the limb
+     axis's collective calls equal limb_collective_count (8); the 4-shard
+     limb and the 2 x 2 hybrid hmult decrypt within 1e-2 in all 32768
+     slots; and a batch of two hmults on 2 data rows x 4 limb shards
+     equals the single-device hmults;
   6. latency (CUDA events around eager calls, median of 20 after 3 warm-up
      runs) and device time (graph replay) of hmult and hsquare, of hmult
      and hrotate on all three key-switch routes (piecewise, fused, graph);
-     the eager latency of hadd, pmult, padd and rescale, and of the
-     sharded ops on 4 and 8 shards (all on one card: not a multi-card
-     latency; no graph capture across the shard threads);
+     the eager latency of hadd, pmult, padd and rescale; the eager
+     latency and device time (torch.profiler: no graph capture across the
+     shard threads) of the sharded hmult and hrotate, coeff on 2, 4 and 8
+     shards, limb on 2, 4 and 8, hybrid on 2 x 2 and 4 x 2 (a ThreadMesh
+     of shards on this one card: not a multi-card latency);
   7. the encrypted workloads (`workloads.py`, the counterparts of
      scripts/bench_workload.py and bench_logreg.py) at set B, level 35, on
      phase 5's engine, which then holds the union of their rotation keys
@@ -142,8 +170,9 @@ failure and the script then exits non-zero:
   8. one JSON line of per-kernel results (each kernel's times and bound at
      one shape the main path launches, named in `shape`; `max_abs_err`
      over every shape checked; `launches` summed over the main-path runs,
-     per run in `launches_by_run`; for the kernels of 3b every variant's
-     numbers in `variants`), then the device line last.
+     per run in `launches_by_run`; the limb and hybrid shapes' numbers in
+     `limb_hybrid_shapes`; for the kernels of 3b every variant's numbers
+     in `variants`), then the device line last.
 
 Bound of a kernel call (`benchlib.bound`): the largest of the bytes it
 must move (each input read once, each output written once) over 3.35
@@ -175,8 +204,9 @@ import time
 
 from homulator_tpu_torch import benchlib
 from homulator_tpu_torch.benchlib import (
-    OPS, bound, device_ms, hpip_ops, latency_ms, peak_inputs, radix_ntt_ops,
-    radix_phase1_ops, radix_phase2_ops, residues, shoup_forms_ops,
+    OPS, bound, device_ms, hpip_ops, latency_ms, peak_inputs, profiled_ms,
+    radix_ntt_ops, radix_phase1_ops, radix_phase2_ops, residues,
+    shoup_forms_ops,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -252,6 +282,17 @@ NS_PACKED = (8, 16, 32)  # shard counts that take the lane-packed kernels
 # ns -> (hmult, hrotate(1)), the JAX package's ici_bytes_per_op
 PACKED_BYTES = {8: (7684096, 9748480), 16: (4546560, 5447680),
                 32: (2793472, 3112960)}
+NS_LIMB = (2, 4, 8)  # limb shards of the limb dispatch's runs
+HYBRID_SHAPES = ((2, 2), (4, 2))  # (limb, coeff) shards of the hybrid's
+# bytes a shard receives at set B, level 35, the JAX package's
+# ici_bytes_per_op_limb: (hmult, hrotate(1)); and ici_bytes_per_op_hybrid:
+# (hmult, hrotate(1) on its route, whose block map at 2 coeff shards is
+# the identity (no exchange), hrotate(1) on the gather route, whose
+# all_gather moves what a ppermute would: route_identity=False)
+LIMB_BYTES = {2: (9437184, 8912896), 4: (14942208, 13369344),
+              8: (20185088, 16515072)}
+HYBRID_BYTES = {(2, 2): (14548992, 14155776, 18874368),
+                (4, 2): (12451840, 11534336, 13893632)}
 
 
 def ntt_cases(kt):
@@ -751,6 +792,190 @@ def check_phase_kernels(np, torch, dc, rng, results):
                 center, results)
 
 
+def check_limb_kernels(np, torch, dc, rng, results):
+    """Phase 3, the shapes of the limb and hybrid dispatches (set B, level
+    35; parallel/limb_sharded.py's per-shard tables). On limb rank 1 of 4
+    (sm = 9 main rows, sa = 4 specials, its ext block B = 13 rows, G = 4
+    gather chunks of n1/G = 64 rows): B2 on its main rows, B3 of ModUp
+    digit 0 onto its whole ext block (specials and mains, the digit's own
+    rows included) on a chunk, also in the worst case (x = q - 1), B1 at
+    rep = beta = 3 over its ext basis, B2 at rep 2 over its [specials,
+    last-limb slot] basis, B3 of the tail and of ModDown onto its main
+    rows on a chunk, B1 at rep 2 over its main rows. On hybrid rank (1, 1)
+    of 2 x 2 (B = 26, 128 columns): B3 of digit 0 on a chunk, B6 and B7 at
+    rep 3 over its ext basis, B8 and B9 over its main rows."""
+    from homulator_tpu_torch.ops import ntt as ntt_mod
+    from homulator_tpu_torch.ops import ntt_kernels
+    from homulator_tpu_torch.parallel.limb_sharded import build_limb_tables
+
+    n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
+    T = build_limb_tables(dc, LEVEL_B, 4, 1)
+    tag = "limb ns=4 rank1"
+    beta = len(T.digits)
+    for name, nb, what, rep in (
+            ("ntt_inv", T.main_nt, "main", 1),
+            ("ntt_fwd", T.ext_nt, "ext", beta),
+            ("ntt_inv", T.tailzl_nt, "tailzl", 2),
+            ("ntt_fwd", T.main_nt, "main", 2)):
+        fwd = name == "ntt_fwd"
+        q = np.tile(nb.q.cpu().numpy(), rep)
+        x = residues(q, (len(q),) + ((n1, n2) if fwd else (n2, n1)), rng)
+        kernel = ntt_kernels.ntt_fwd if fwd else ntt_kernels.ntt_inv
+        plain = ntt_mod.ntt_plain if fwd else ntt_mod.intt_plain
+        compare(torch, name, f"{tag} {what} M={nb.q.shape[0]} rep={rep}",
+                lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
+                ntt_bound(nb, rep, fwd), results)
+    ch = n1 // T.gchunks
+    d0 = T.digits[0]
+    nd, B, sm, alpha = d0.hi - d0.lo, T.sa + T.sm, T.sm, T.alpha
+    cases = {
+        f"{tag} modup digit0 {nd}+1->{B} chunk {ch}x{n2}": (
+            d0.in_q, (d0.step1, d0.step1_sh, d0.in_q, d0.mat, d0.mat_mma,
+                      d0.horner_sh, T.q_ext), True),
+        f"{tag} tail {alpha + 3}->{sm} chunk {ch}x{n2}": (
+            T.in_q_tail, (T.one_tail, T.one_tail_sh, T.in_q_tail,
+                          T.tail_mat, T.tail_mma, T.tail_hsh, T.q_main),
+            False),
+        f"{tag} moddown {alpha}+1->{sm} chunk {ch}x{n2}": (
+            T.q_sp_full, (T.one_sp, T.one_sp_sh, T.q_sp_full, T.md_mat,
+                          T.md_mma, T.md_hsh, T.q_main), True)}
+    for label, (in_q, tabs, center) in cases.items():
+        x = residues(in_q, (in_q.shape[0], ch, n2), rng)
+        check_bconv(torch, label, x, tabs, center, results)
+    label, (in_q, tabs, center) = next(iter(cases.items()))
+    worst = (in_q - 1).view(-1, 1, 1).expand(-1, ch, n2).contiguous()
+    check_bconv(torch, f"{label} worst case (x = q-1)", worst, tabs, center,
+                results)
+    H = build_limb_tables(dc, LEVEL_B, 2, 1, (1, 2))
+    tag, w = "hybrid 2x2 rank(1,1)", n2 // 2
+    d0, ch = H.digits[0], n1 // H.gchunks
+    check_bconv(torch, f"{tag} modup digit0 {nd}+1->{H.sa + H.sm} chunk "
+                f"{ch}x{w}", residues(d0.in_q, (nd, ch, w), rng),
+                (d0.step1, d0.step1_sh, d0.in_q, d0.mat, d0.mat_mma,
+                 d0.horner_sh, H.q_ext), True, results)
+    for name in PHASE_KERNELS:
+        nb, what, rep = ((H.ext_nt, "ext", beta) if name.startswith("ntt")
+                         else (H.main_nt, "main", 1))
+        x = phase_input(np, torch, name, nb, rep, False, rng)
+        kernel = getattr(ntt_kernels, name)
+        plain = getattr(ntt_mod, name + "_plain")
+        compare(torch, name,
+                f"{tag} c={w} {what} M={nb.q.shape[0]} rep={rep}",
+                lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
+                phase_bound(nb, x.shape[0], x.shape[1], x.shape[2], name),
+                results)
+
+
+def check_limb_dispatch(np, torch, kernels, eng, cts, wants, v12, launches,
+                        errs):
+    """Phase 5, the limb and hybrid dispatches at set B, level 35: limb
+    hmult and hrotate(1) on ThreadMesh(2 | 4 | 8, names=("limb",)), hybrid
+    on ThreadMesh((2 | 4, 2), names=("limb", "coeff")), its hrotate(1)
+    on its route (an identity block map) and on the gather route, each run
+    with the launch counts set to 0 just before and read just after (limb:
+    B1, B2 and B3 only; hybrid: B3 and B6-B9 only); the gathered results equal
+    the single-device piecewise ones (wants) on the real rows, the pad
+    rows zero; the bytes each shard received, over all its axes, equal
+    the JAX package's figures; the limb axis's collective calls equal
+    limb_collective_count; the 4-shard limb and 2 x 2 hybrid hmults
+    decrypt within GATE in every slot; then a batch of two hmults on 2
+    data rows x 4 limb shards. Returns {label: fn} of the runs."""
+    from homulator_tpu_torch.context import Ciphertext
+    from homulator_tpu_torch.parallel import limb_sharded as ls
+    from homulator_tpu_torch.parallel.comm import ThreadMesh
+
+    params, dc = eng.params, eng.dc
+    (ct1, ct2), (out, rot) = cts, wants
+    g = params.galois_elt(1)
+    perm = dc.automorph_perm(g)
+    runs = {}  # label -> (mesh, fn, want, bytes, (ns_l, ns_c), kernels)
+    for shape in [(ns, 1) for ns in NS_LIMB] + list(HYBRID_SHAPES):
+        nl, nc = shape
+        if nc == 1:
+            mesh, tag = ThreadMesh(nl, "cuda", names=("limb",)), f"limb x{nl}"
+            fh = ls.make_limb_hmult(dc, LEVEL_B, mesh)
+            fr, route = ls.make_limb_hrotate(dc, LEVEL_B, mesh), perm
+            nbytes, expect = LIMB_BYTES[nl], PIECES_KERNELS
+            calc = (ls.ici_bytes_per_op_limb(params, LEVEL_B, nl, "hmult"),
+                    ls.ici_bytes_per_op_limb(params, LEVEL_B, nl, "hrotate"))
+        else:
+            mesh = ThreadMesh(shape, "cuda", names=("limb", "coeff"))
+            tag = f"hybrid {nl}x{nc}"
+            fh = ls.make_hybrid_hmult(dc, LEVEL_B, mesh)
+            fr = ls.make_hybrid_hrotate(dc, LEVEL_B, mesh)
+            route = dc.automorph_shard_route(g, nc)
+            nbytes, expect = HYBRID_BYTES[shape], COEFF_KERNELS
+            calc = tuple(ls.ici_bytes_per_op_hybrid(
+                params, LEVEL_B, nl, nc, op, route_identity=ident)
+                for op, ident in (("hmult", False), ("hrotate", route[2]),
+                                  ("hrotate", False)))
+        if calc != nbytes:
+            raise AssertionError(f"{tag}: the port's byte counts {calc} != "
+                                 f"the JAX package's {nbytes}")
+        a, b = (ls.shard_rows(c.data, LEVEL_B, nl, nc) for c in (ct1, ct2))
+        key = ls.limb_key(eng.relin_key, params, LEVEL_B, nl, nc)
+        rk = ls.limb_key(eng.rot_keys[1], params, LEVEL_B, nl, nc)
+        runs[f"hmult {tag}"] = (mesh, lambda f=fh, a=a, b=b, k=key: f(
+            a, b, k), out.data, nbytes[0], shape, expect)
+        runs[f"hrotate {tag}"] = (mesh, lambda f=fr, a=a, r=route, k=rk: f(
+            a, r, k), rot.data, nbytes[1], shape, expect)
+        if nc > 1:  # the automorphism's all_gather form in the coeff group
+            runs[f"hrotate {tag} gather"] = (
+                mesh, lambda f=fr, a=a, k=rk: f(a, (perm, None, False), k),
+                rot.data, nbytes[2], shape, expect)
+    for label, (mesh, fn, want, nbytes, (nl, nc), expect) in runs.items():
+        mesh.reset_counts()
+        got, launches[label] = drive(torch, kernels, f"{label} (45,35,15)",
+                                     fn, expect)
+        got = ls.gather_rows(got, nl, nc)
+        rows = want.shape[1]
+        if not torch.equal(got[:, :rows], want) or got[:, rows:].any():
+            raise AssertionError(f"{label}: != single-device result on the "
+                                 "real rows, or pad rows not zero")
+        if mesh.recv_bytes != [nbytes] * len(mesh.comms):
+            raise AssertionError(f"{label}: shards received "
+                                 f"{mesh.recv_bytes} bytes, expected "
+                                 f"{nbytes}")
+        calls = ls.limb_collective_count(params, LEVEL_B, nl,
+                                         label.split()[0], ns_c=nc)
+        if mesh.calls("limb") != [calls] * len(mesh.comms):
+            raise AssertionError(f"{label}: limb-axis collective calls "
+                                 f"{mesh.calls('limb')}, "
+                                 f"limb_collective_count = {calls}")
+        print(f"# {label}: == single-device piecewise result, bit-exact, "
+              f"pad rows zero; {nbytes} bytes received by each shard, "
+              f"{calls} collective calls on the limb axis"
+              + (f", {mesh.calls('coeff')[0]} on the coeff axis"
+                 if nc > 1 else ""))
+        if label in ("hmult limb x4", "hmult hybrid 2x2"):
+            ct = Ciphertext(got[:, :rows].contiguous(), rows, out.scale)
+            errs[label] = float(np.max(np.abs(eng.decrypt_complex(ct)
+                                              - v12)))
+            print(f"# verify max-abs-err = {errs[label]:.3e} ({label}), "
+                  f"all {params.n // 2} slots")
+            if not errs[label] < GATE:
+                raise AssertionError(f"{label} decrypt gate {GATE} failed")
+    # the batch axis: [ct1, ct2] x [ct2, ct1] on 2 data rows x 4 limb shards
+    dmesh = ThreadMesh(4, "cuda", data=2, names=("limb",))
+    batched = ls.make_limb_hmult(dc, LEVEL_B, dmesh, data_axis="data")
+    ab = torch.stack([ct1.data, ct2.data])
+    bb = torch.stack([ct2.data, ct1.data])
+    key = ls.limb_key(eng.relin_key, params, LEVEL_B, 4)
+    got, launches["hmult limb 2x4 data"] = drive(
+        torch, kernels, "hmult limb 2x4 data (45,35,15)",
+        lambda: batched(ls.shard_rows(ab, LEVEL_B, 4, data=2),
+                        ls.shard_rows(bb, LEVEL_B, 4, data=2), key),
+        PIECES_KERNELS)
+    got = ls.gather_rows(got, 4, data=2)[:, :, :LEVEL_B - 1]
+    want = torch.stack([out.data, eng.hmult(ct2, ct1).data])
+    if not torch.equal(got, want):
+        raise AssertionError("hmult on a 2 x 4 data x limb mesh != the "
+                             "single-device hmults")
+    print("# hmult limb 2x4 data: batch of 2 == single-device hmults, "
+          "bit-exact")
+    return {label: r[1] for label, r in runs.items()}
+
+
 def check_anatomy_kernels(np, torch, dc, rng, results):
     """Phase 3b, the NTT anatomy and roofline path (on no op's path): B14's
     variants, B15's forms and B16's parts on the M = 35 main limbs [256,
@@ -1187,6 +1412,7 @@ def main() -> int:
                   get_params)
     check_radix_sweep(np, torch, get_params)
     check_phase_kernels(np, torch, eng.dc, np.random.default_rng(3), results)
+    check_limb_kernels(np, torch, eng.dc, np.random.default_rng(4), results)
     check_step2_kernel(np, torch, eng.dc, np.random.default_rng(6), results)
     print(f"# kernel checks: {time.perf_counter() - t0:.1f} s")
 
@@ -1419,6 +1645,13 @@ def main() -> int:
                              "single-device hmults")
     print("# hmult coeff 2x4 data: batch of 2 == single-device hmults, "
           "bit-exact")
+    # 5, limb and hybrid: the limb dispatch on 2, 4 and 8 shards of this
+    # card and on 2 data rows x 4, the hybrid on 2 x 2 and 4 x 2
+    t0 = time.perf_counter()
+    limb_fns = check_limb_dispatch(np, torch, kernels, eng, (ct1, ct2),
+                                   (out, rot), v1 * v2, launches, errs)
+    print(f"# limb and hybrid dispatch checks: "
+          f"{time.perf_counter() - t0:.1f} s (tables built included)")
 
     # 6. timings
     torch.cuda.reset_peak_memory_stats()
@@ -1447,11 +1680,29 @@ def main() -> int:
             ("rescale", lambda: latency_ms(lambda: geng.rescale(ct1)))):
         timings[label] = (eager_ms(), None)
         print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager")
-    for label in ("hmult coeff x4", "hrotate coeff x4", "hmult coeff x8",
-                  "hrotate coeff x8"):
-        timings[label] = (latency_ms(sharded[label][1]), None)
-        print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager "
-              "(all shards on one card, not a multi-card latency)")
+    # the sharded dispatches beside each other at 2, 4 and 8 shards: eager
+    # latency and device time (torch.profiler: no graph capture across the
+    # shard threads); a ThreadMesh of shards on this one card each
+    mesh2 = ThreadMesh(2, "cuda")
+    c2 = (make_shardmap_hmult(eng.dc, LEVEL_B, mesh2),
+          make_shardmap_hrotate(eng.dc, LEVEL_B, mesh2),
+          eng.dc.automorph_shard_route(params.galois_elt(1), 2))
+    a2 = shard_cols(ct1.data, 2)
+    b2, k2, r2 = (shard_cols(t, 2) for t in (ct2.data, eng.relin_key, rkey))
+    sharded_fns = {"hmult coeff x2": lambda: c2[0](a2, b2, k2),
+                   "hrotate coeff x2": lambda: c2[1](a2, c2[2], r2)}
+    for ns in (4, 8):
+        for op in ("hmult", "hrotate"):
+            sharded_fns[f"{op} coeff x{ns}"] = sharded[f"{op} coeff x{ns}"][1]
+    sharded_fns.update((k, f) for k, f in limb_fns.items()
+                       if not k.endswith("gather"))
+    t0 = time.perf_counter()
+    for label, fn in sharded_fns.items():
+        timings[label] = (latency_ms(fn), profiled_ms(fn)[0])
+        print(f"# {label}(45,35,15): {timings[label][0]:.3f} ms eager, "
+              f"{timings[label][1]:.3f} ms device (torch.profiler); a "
+              "ThreadMesh of shards on one card, not a multi-card latency")
+    print(f"# sharded timings: {time.perf_counter() - t0:.1f} s")
     peak = torch.cuda.max_memory_allocated() / 2**20
     print(f"# (eager: CUDA events, median of 20 after 3 warm-up runs; device "
           f"time: CUDA graph replay; peak memory {peak:.0f} MiB)")
@@ -1492,6 +1743,12 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
         }
+        dispatch_rows = {r[0]: dict(zip(
+            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms"), r[1:])) for r in res
+            if r[0].startswith(("limb", "hybrid"))}
+        if dispatch_rows:
+            row["limb_hybrid_shapes"] = dispatch_rows
         if name in ANATOMY_KERNELS:
             row["note"] = ("on no op's path: launched by the anatomy and "
                            "roofline path only")

@@ -12,6 +12,9 @@ on the card, CUDA events bracket the work.
   device_ms(fn)   device time of one call without host overhead: calls
                   captured in a CUDA graph, the graph replayed between
                   CUDA events.
+  profiled_ms(fn) device kernel time of one call under torch.profiler,
+                  where no graph can be captured (the shard threads of a
+                  ThreadMesh), by kernel group.
 
 The op timers (ntt_pair_ms, hmult_ms, hrotate_ms, hadd_ms, padd_ms,
 pmult_ms: the JAX package's *_seconds) return the device time of one call,
@@ -33,6 +36,7 @@ stage kernel), shoup_forms_ops one of B15 or B14's stages2x (two runs).
 
 from __future__ import annotations
 
+import collections
 import statistics
 import subprocess
 
@@ -179,6 +183,36 @@ def device_ms(fn, calls: int = 10, replays: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def profiled_ms(fn, calls: int = 5, group_of=None):
+    """(device kernel ms per call, {group: ms per call}, {waiting runtime
+    call: count per call}) of fn over `calls` eager calls under
+    torch.profiler (CUPTI sees the kernels and runtime calls of every
+    thread, so this times the shard threads of a ThreadMesh too, where a
+    CUDA graph cannot be captured). group_of(kernel name) names a kernel's
+    group (one group "all" without it); the waiting runtime calls are the
+    synchronise, memcpy and event-query calls."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = collections.defaultdict(float)
+    waits = collections.defaultdict(int)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us[group_of(e.name) if group_of else "all"] += \
+                e.time_range.elapsed_us()
+        elif e.name.startswith("cuda") and any(
+                k in e.name for k in ("Synchronize", "Memcpy", "EventQuery")):
+            waits[e.name] += 1
+    total = sum(us.values())
+    if total == 0:
+        raise RuntimeError("the profiler recorded no device kernels")
+    return (total / calls / 1e3, {g: v / calls / 1e3 for g, v in us.items()},
+            {k: v / calls for k, v in waits.items()})
 
 
 def card_line() -> str:

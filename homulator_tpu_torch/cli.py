@@ -16,17 +16,35 @@ accelerated route (the graph route is the engine's ntt_mode="jnp").
 through the fused HPIP kernel (api.USE_FUSED_HPIP) for the run and
 restores the flag afterwards.
 
-A [cluster] positional above 1 selects a multi-device dispatch, as in the
-JAX CLI. `--dispatch coeff` runs hmult or hrotate coefficient-sharded
-(parallel/sharded.py) on a ThreadMesh of [cluster] shards on the chosen
-device, where `coeff_shard_ok` allows it, routed as the JAX CLI routes it
-(`make_shardmap_*`'s default: the lane-packed phase kernels where
-`pack_k_for` > 0, e.g. 8 to 32 shards at N = 2^16); it checks the bytes
-each shard received against `ici_bytes_per_op` of that routing, and with
-`--verify` the result against the single-device op bit for bit. The other
-dispatches (auto, the default, and limb, hybrid, gspmd), and the ops
-other than hmult and hrotate at [cluster] > 1 (which the JAX CLI runs
-through GSPMD), exit with status 2 and name ROADMAP A12.
+A [cluster] positional above 1 selects a multi-device dispatch of hmult
+or hrotate, as in the JAX CLI, run on a ThreadMesh of [cluster] shards on
+the chosen device (all shards on one device: not a multi-device run):
+
+  limb    RNS rows sharded (parallel/limb_sharded.py, the reference's
+          primary dispatch): whole-limb NTTs (B1, B2) and base
+          conversions (B3) per shard, row-block all_gathers between them;
+  coeff   the coefficient axis sharded (parallel/sharded.py), routed as
+          the JAX CLI routes it (`make_shardmap_*`'s default: the
+          lane-packed phase kernels where `pack_k_for` > 0, e.g. 8 to 32
+          shards at N = 2^16), where `coeff_shard_ok` allows it;
+  hybrid  a ([cluster]/2 limb x 2 coeff) mesh (`make_hybrid_*`), for an
+          even [cluster] >= 4 and a tile that splits 2-way: the limb
+          programs with every transform phase-split (B6-B9);
+  auto    (the default) limb or coeff by `dispatch_model.choose_axis`.
+          The port has no measured anchors for the model, so it picks the
+          axis whose shards receive fewer bytes and says so ("picked by
+          ICI volume (no model anchors)"); the JAX CLI picks by its TPU
+          model, so the two CLIs may take different axes for one shape.
+
+A sharded run prints the JAX CLI's `ici/device: limb=..., coeff=... ->
+<axis>` comparison, checks the bytes each shard received against the
+exact count of its dispatch (`ici_bytes_per_op`, `_limb`, `_hybrid`), and
+with `--verify` the result against the single-device op bit for bit.
+`--dispatch gspmd`, and the ops other than hmult and hrotate at [cluster]
+> 1 (which the JAX CLI runs through GSPMD), exit with status 2 and name
+ROADMAP A12.4. A usage error (`--dispatch coeff` on a tile
+`coeff_shard_ok` rejects, `--dispatch hybrid` on an odd [cluster] or one
+below 4) exits 1 with the JAX CLI's message.
 
 The stat table has the JAX CLI's keys `batchCount` (N/256) and, on a
 sharded run, `ICI_bytes_per_device` (the bytes each shard received in one
@@ -59,23 +77,17 @@ def run_op(args) -> int:
               "> 1 (the sharded paths are multi-device dispatches)",
               file=sys.stderr)
         return 1
-    if ns > 1 and args.op not in ("hmult", "hrotate"):
-        print(f"cluster={ns} {args.op}: the JAX CLI runs it through GSPMD, "
-              "which is not ported to homulator_tpu_torch yet: ROADMAP A12",
-              file=sys.stderr)
-        return 2
-    if ns > 1 and args.dispatch != "coeff":
-        print(f"cluster={ns} --dispatch {args.dispatch}: only the "
-              "coefficient dispatch (--dispatch coeff) is ported to "
-              "homulator_tpu_torch yet; the others: ROADMAP A12",
-              file=sys.stderr)
+    if ns > 1 and (args.op not in ("hmult", "hrotate")
+                   or args.dispatch == "gspmd"):
+        print(f"cluster={ns} {args.op} --dispatch {args.dispatch}: the JAX "
+              "CLI runs it through GSPMD, which is not ported to "
+              "homulator_tpu_torch yet: ROADMAP A12.4", file=sys.stderr)
         return 2
     import torch
 
     from . import api as api_mod
     from . import kernels
     from .api import CkksEngine
-    from .parallel.mesh import coeff_shard_ok, pack_k_for
 
     rc = RunConfig.from_cli(args.cfg, args.op, args.max_level, args.level,
                             args.alpha, args.cluster)
@@ -95,11 +107,11 @@ def run_op(args) -> int:
 
     stats = Statistic()
     params = get_params(rc.n, rc.max_level, rc.alpha, rc.scale_bits)
-    if ns > 1 and not coeff_shard_ok(params.ntt.n1, params.ntt.n2, ns):
-        print(f"--dispatch coeff needs n1, n2 % {ns} == 0 and per-shard "
-              f"tiles >= 8 (n1={params.ntt.n1}, n2={params.ntt.n2})",
-              file=sys.stderr)
-        return 1
+    if ns > 1:
+        pick = _pick_dispatch(params, rc, ns, args.dispatch)
+        if isinstance(pick, str):
+            print(pick, file=sys.stderr)
+            return 1
     with stats.timer("setup/engine"):
         eng = CkksEngine(params, seed=args.seed, device=args.device)
     with stats.timer("setup/keygen"):
@@ -133,13 +145,10 @@ def run_op(args) -> int:
 
     single = op_once
     if ns > 1:
-        op_once, mesh, ici = _coeff_op(eng, rc, ns, ct1, ct2)
-        k = pack_k_for(params.ntt.n1, params.ntt.n2, ns)
-        print(f"# dispatch=coeff mesh=ThreadMesh({ns} shards on one "
-              f"{args.device} device) ici_bytes_per_shard={ici} "
-              + (f"ntt=lane-packed k={k} (B10-B13)" if k
-                 else "ntt=per-limb (B6-B9)"))
-
+        axis, note = pick
+        op_once, mesh, ici, desc = _sharded_op(eng, rc, ns, axis, ct1, ct2)
+        print(f"# dispatch={axis} mesh=({desc}) ThreadMesh on one "
+              f"{args.device} device ici_bytes_per_device={ici} {note}")
     with stats.timer("first_run"):  # includes the kernel build on a GPU
         out = op_once()
         sync()
@@ -154,12 +163,13 @@ def run_op(args) -> int:
     for k, v in kernels.LAUNCHES.items():
         stats.set(f"launches/{k}", v)
     if ns > 1:
-        # bytes each shard received per run: ici_bytes_per_op's count
+        # bytes each shard received per run: its dispatch's exact count
         got = mesh.recv_bytes
         stats.set("ICI_bytes_per_device", ici)
-        if got != [ici * args.iters] * ns:
+        if got != [ici * args.iters] * len(mesh.comms):
             print(f"shards received {got} bytes in {args.iters} runs, "
-                  f"ici_bytes_per_op gives {ici} a run", file=sys.stderr)
+                  f"the {axis} dispatch's count gives {ici} a run",
+                  file=sys.stderr)
             return 1
     stats.set("modmul_count", op_modmul_count(
         rc.op, rc.n, rc.level, rc.alpha, params.beta(rc.level)))
@@ -169,7 +179,7 @@ def run_op(args) -> int:
     if args.verify:
         if ns > 1:
             same = torch.equal(out.data, single().data)
-            print(f"# coeff dispatch == single-device {rc.op}: "
+            print(f"# {axis} dispatch == single-device {rc.op}: "
                   + ("bit-exact" if same else "DIFFERS"))
             if not same:
                 return 1
@@ -193,39 +203,140 @@ def run_op(args) -> int:
     return 0
 
 
-def _coeff_op(eng, rc, ns, ct1, ct2):
-    """(op_once, mesh, ici): the op of rc coefficient-sharded over a
-    ThreadMesh of ns shards on the engine's device, its operands and key
-    sharded once here; op_once gathers the result into a Ciphertext."""
+def _pick_dispatch(params, rc, ns, dispatch):
+    """(axis, note) of a sharded run at ns shards: the forced axis, or
+    auto's pick (dispatch_model.choose_axis), and the JAX CLI's
+    `ici/device: ...` comparison; or the usage error's message."""
+    from .ops.automorph import BlockAlignmentError, build_shard_route
+    from .parallel.dispatch_model import choose_axis, predict_hybrid_ms
+    from .parallel.limb_sharded import ici_bytes_per_op_limb
+    from .parallel.mesh import coeff_shard_ok, pack_k_for
+    from .parallel.sharded import ici_bytes_per_op
+
+    n1, n2 = params.ntt.n1, params.ntt.n2
+    coeff_ok = coeff_shard_ok(n1, n2, ns)
+    hybrid_ok = ns >= 4 and ns % 2 == 0 and coeff_shard_ok(n1, n2, 2)
+    if dispatch == "coeff" and not coeff_ok:
+        return (f"--dispatch coeff needs n1,n2 % {ns} == 0 and per-shard "
+                f"tiles >= 8 (n1={n1}, n2={n2})")
+    if dispatch == "hybrid" and not hybrid_ok:
+        return ("--dispatch hybrid needs an even cluster >= 4 and a "
+                "2-way-shardable coefficient tile")
+    # hrotate(1)'s automorphism may be an exchange-free identity route at
+    # the coeff shard count (at ns here, at 2 in the hybrid's coeff group)
+    ident = {}
+    for m in (ns, 2):
+        try:
+            ident[m] = rc.op == "hrotate" and n1 % m == 0 and \
+                build_shard_route(params.automorph_eval_perm(
+                    params.galois_elt(1)), n2, n1, m)[2]
+        except BlockAlignmentError:
+            ident[m] = False
+    ici_limb = ici_bytes_per_op_limb(params, rc.level, ns, rc.op)
+    ici_coeff = (ici_bytes_per_op(params, rc.level, ns, rc.op,
+                                  route_identity=ident[ns])
+                 if coeff_ok else None)
+    pred = ""
+    if dispatch == "auto":
+        dispatch, t_l, t_c, how = choose_axis(
+            params, rc.op, ns, rc.level, coeff_ok=coeff_ok,
+            route_identity=ident[ns])
+        if how == "model":
+            t_h = (predict_hybrid_ms(params, rc.op, ns // 2, 2, rc.level,
+                                     route_identity=ident[2])
+                   if hybrid_ok else None)
+            if t_h is not None and t_h <= min(
+                    t for t in (t_l, t_c) if t is not None):
+                dispatch = "hybrid"
+            pred = (f"; predicted T: limb={t_l:.3f} ms, coeff="
+                    + (f"{t_c:.3f} ms" if t_c is not None else "n/a")
+                    + (f", hybrid({ns // 2}x2)={t_h:.3f} ms"
+                       if t_h is not None else ""))
+        else:
+            pred = "; picked by ICI volume (no model anchors)"
+        forced = ""
+    else:
+        forced = " (forced)"
+    k = pack_k_for(n1, n2, ns)
+    ntt = {"limb": "ntt=whole-limb (B1, B2)",
+           "hybrid": "ntt=per-limb phases (B6-B9)",
+           "coeff": (f"ntt=lane-packed k={k} (B10-B13)" if k
+                     else "ntt=per-limb (B6-B9)")}[dispatch]
+    both = (f"ici/device: limb={ici_limb / 1e6:.2f} MB, coeff="
+            + (f"{ici_coeff / 1e6:.2f} MB" if ici_coeff is not None
+               else "n/a (tile shape)") + f" -> {dispatch}{forced}{pred}")
+    return dispatch, f"{ntt} \u2014 {both}"
+
+
+def _sharded_op(eng, rc, ns, axis, ct1, ct2):
+    """(op_once, mesh, ici, mesh description): the op of rc on `axis` over
+    a ThreadMesh of ns shards on the engine's device, its operands and key
+    laid out once here; op_once gathers the result into a Ciphertext."""
     from .context import Ciphertext
+    from .parallel import limb_sharded as ls
     from .parallel.comm import ThreadMesh
     from .parallel.sharded import (
         gather_cols, ici_bytes_per_op, make_shardmap_hmult,
         make_shardmap_hrotate, shard_cols,
     )
 
-    params = eng.params
-    mesh = ThreadMesh(ns, eng.dc.device)
-    a = shard_cols(ct1.data, ns)
+    params, dc, level = eng.params, eng.dc, rc.level
+    g = params.galois_elt(1)
+    key = eng.relin_key if rc.op == "hmult" else eng.rot_keys[1]
     if rc.op == "hmult":
-        f = make_shardmap_hmult(eng.dc, rc.level, mesh)
-        b, key = shard_cols(ct2.data, ns), shard_cols(eng.relin_key, ns)
-        ici = ici_bytes_per_op(params, rc.level, ns, "hmult")
-
-        def op_once():
-            return Ciphertext(gather_cols(f(a, b, key)), rc.level - 1,
-                              ct1.scale * ct2.scale / params.qs[rc.level - 1])
+        out_level = level - 1
+        scale = ct1.scale * ct2.scale / params.qs[level - 1]
     else:
-        f = make_shardmap_hrotate(eng.dc, rc.level, mesh)
-        route = eng.dc.automorph_shard_route(params.galois_elt(1), ns)
-        key = shard_cols(eng.rot_keys[1], ns)
-        ici = ici_bytes_per_op(params, rc.level, ns, "hrotate",
-                               route_identity=route[2])
+        out_level, scale = level, ct1.scale
+    if axis == "coeff":
+        mesh = ThreadMesh(ns, dc.device)
+        a, k = shard_cols(ct1.data, ns), shard_cols(key, ns)
+        if rc.op == "hmult":
+            f, b = make_shardmap_hmult(dc, level, mesh), shard_cols(
+                ct2.data, ns)
+            run = lambda: f(a, b, k)  # noqa: E731
+            ici = ici_bytes_per_op(params, level, ns, "hmult")
+        else:
+            f = make_shardmap_hrotate(dc, level, mesh)
+            route = dc.automorph_shard_route(g, ns)
+            run = lambda: f(a, route, k)  # noqa: E731
+            ici = ici_bytes_per_op(params, level, ns, "hrotate",
+                                   route_identity=route[2])
+        return (lambda: Ciphertext(gather_cols(run()), out_level, scale),
+                mesh, ici, f"{ns} coeff")
+    ns_l, ns_c = (ns, 1) if axis == "limb" else (ns // 2, 2)
+    if axis == "limb":
+        mesh = ThreadMesh(ns, dc.device, names=("limb",))
+        desc = f"{ns} limb"
+    else:
+        mesh = ThreadMesh((ns_l, ns_c), dc.device, names=("limb", "coeff"))
+        desc = f"{ns_l} limb, {ns_c} coeff"
+    a = ls.shard_rows(ct1.data, level, ns_l, ns_c)
+    k = ls.limb_key(key, params, level, ns_l, ns_c)
+    if rc.op == "hmult":
+        make = ls.make_limb_hmult if axis == "limb" else ls.make_hybrid_hmult
+        f, b = make(dc, level, mesh), ls.shard_rows(ct2.data, level, ns_l,
+                                                    ns_c)
+        run = lambda: f(a, b, k)  # noqa: E731
+        ici = (ls.ici_bytes_per_op_limb(params, level, ns, "hmult")
+               if axis == "limb" else
+               ls.ici_bytes_per_op_hybrid(params, level, ns_l, ns_c, "hmult"))
+    elif axis == "limb":
+        f = ls.make_limb_hrotate(dc, level, mesh)
+        perm = dc.automorph_perm(g)
+        run = lambda: f(a, perm, k)  # noqa: E731
+        ici = ls.ici_bytes_per_op_limb(params, level, ns, "hrotate")
+    else:
+        f = ls.make_hybrid_hrotate(dc, level, mesh)
+        route = dc.automorph_shard_route(g, ns_c)
+        run = lambda: f(a, route, k)  # noqa: E731
+        ici = ls.ici_bytes_per_op_hybrid(params, level, ns_l, ns_c,
+                                         "hrotate", route_identity=route[2])
 
-        def op_once():
-            return Ciphertext(gather_cols(f(a, route, key)), rc.level,
-                              ct1.scale)
-    return op_once, mesh, ici
+    def op_once():
+        data = ls.gather_rows(run(), ns_l, ns_c)[:, :out_level]
+        return Ciphertext(data.contiguous(), out_level, scale)
+    return op_once, mesh, ici, desc
 
 
 def main(argv=None) -> int:
@@ -239,7 +350,7 @@ def main(argv=None) -> int:
     runp.add_argument("level", type=int)
     runp.add_argument("alpha", type=int)
     runp.add_argument("cluster", type=int, nargs="?", default=None,
-                      help="shard count; above 1 with --dispatch coeff")
+                      help="shard count; above 1 a sharded dispatch")
     runp.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                       help="cuda: the CUDA kernels; cpu: their plain "
                            "PyTorch versions")
@@ -251,8 +362,8 @@ def main(argv=None) -> int:
                            "kernel B4 (also cfg key fused_hpip = 1)")
     runp.add_argument("--dispatch", default="auto",
                       choices=["auto", "limb", "coeff", "hybrid", "gspmd"],
-                      help="multi-device dispatch for [cluster] > 1; only "
-                           "coeff is ported (ROADMAP A12)")
+                      help="multi-device dispatch for [cluster] > 1 "
+                           "(gspmd is not ported: ROADMAP A12.4)")
     args = ap.parse_args(argv)
     from . import api as api_mod
 

@@ -1,47 +1,57 @@
-"""Collectives of the coefficient-sharded dispatch, and the meshes that run
-its per-shard programs.
+"""Collectives of the sharded dispatches, and the meshes that run their
+per-shard programs.
 
 The JAX package's shard_map bodies call four `jax.lax` collectives:
 `all_to_all(tiled=True)` for the NTT's transpose
 (`homulator_tpu/ops/ntt.py:77`), `all_gather` and `axis_index` for the
-gather-route automorphism (`ops/automorph.py:63-67`) and `ppermute` for the
-shard-permutation automorphism (`:123`). Here they are one interface,
-`Comm`: `rank`, `size`, `all_to_all(x, split_dim, cat_dim)`,
-`all_gather(x, dim)` and `ppermute(x, pairs)`, with two implementations:
+gather-route automorphism (`ops/automorph.py:63-67`) and the limb
+dispatch's row-block gathers (`parallel/limb_sharded.py:452`), and
+`ppermute` for the shard-permutation automorphism (`:123`). Here they are
+one interface, `Comm`: `rank`, `size`, `all_to_all(x, split_dim,
+cat_dim)`, `all_gather(x, dim)` and `ppermute(x, pairs)`, with two
+implementations:
 
-  ThreadMesh(ns, device)  the ns shard programs as ns threads of one
-                          process on one device. Each collective is a copy
-                          on that device: the shards hand their operands
-                          over through shared slots between two barriers.
-                          All shards launch on the caller's current stream,
-                          so stream order puts every exchange after the
+  ThreadMesh(shape, device)  the shard programs as threads of one process
+                          on one device. Each collective is a copy on that
+                          device: the shards hand their operands over
+                          through shared slots between two barriers. All
+                          shards launch on the caller's current stream, so
+                          stream order puts every exchange after the
                           launches that produced its input. One shard at a
                           time runs its host code (see ThreadMesh).
   DistMesh(group)         one shard per process through torch.distributed
                           (gloo on the CPU, NCCL on a machine with a card
-                          per shard).
+                          per shard); `DistMesh.grid` builds a mesh of
+                          named axes from `dist.new_group` subgroups.
 
-A mesh may also have a data extent d (the JAX meshes' "data" axis): d rows
-of ns coefficient shards, `ThreadMesh(ns, device, data=d)` or one DistMesh
-per process over its row's process group. The collectives of a Comm run
-within its row (`row`); `index` = row * ns + rank is its place in the
-mesh's row-major list of shards.
+A mesh is d data rows (the JAX meshes' "data" axis: `data=d`) of shards
+laid out row-major over one or more named axes, e.g. `("limb",)` or
+`("limb", "coeff")`. A shard's Comm runs its collectives over its row
+(`row`; `index` = row * size + rank is its place in the mesh's row-major
+list of shards), and `comm.axis(name)` is its Comm over one axis: the
+shards of its row that share every other coordinate, with that axis's
+coordinate as `rank` and its extent as `size` (on a mesh of one axis, the
+row's Comm itself).
 
 Every Comm counts in `recv_bytes` the bytes its rank received from other
-ranks; a rank's own chunk is not counted, as in
-`parallel/sharded.ici_bytes_per_op`.
+ranks (a rank's own chunk is not counted, as in
+`parallel/sharded.ici_bytes_per_op`) and in `calls` its collective calls;
+`total_recv_bytes` sums a shard's Comms.
 
 A shard program finds its Comm through `current()`, bound by the mesh for
 the thread that runs it, as shard_map binds the axis name that the
 collectives inside it use: the sharded NTT (ops/ntt.py) takes it from
-there.
+there. A program that runs transforms over one axis of a larger mesh
+binds that axis's Comm with `bound(comm.axis(name))`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import math
 import threading
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,7 +68,8 @@ def current() -> "Comm":
 
 
 @contextlib.contextmanager
-def _bound(comm: "Comm"):
+def bound(comm: "Comm"):
+    """Bind comm as this thread's `current()` for the block."""
     prev = getattr(_LOCAL, "comm", None)
     _LOCAL.comm = comm
     try:
@@ -92,6 +103,35 @@ def _check_split(x: torch.Tensor, dim: int, size: int) -> None:
                          f"not split into {size} chunks")
 
 
+def _mesh_shape(shape, names) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """(extents, axis names) of a mesh's row: shape an int or a tuple of
+    extents, names one distinct name per axis ("data" is the rows'), or
+    None for an unnamed mesh of one axis."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    names = () if names is None else tuple(names)
+    if not shape or min(shape) < 1:
+        raise ValueError(f"mesh extents {shape} must be >= 1")
+    if names and len(names) != len(shape):
+        raise ValueError(f"{len(names)} axis names {names} for a mesh of "
+                         f"{len(shape)} axes")
+    if not names and len(shape) > 1:
+        raise ValueError("a mesh of several axes names them")
+    if len(set(names)) != len(names) or "data" in names:
+        raise ValueError(f"axis names {names} must be distinct and not "
+                         "'data' (the rows)")
+    return shape, names
+
+
+def _axis_groups(shape: Tuple[int, ...], k: int) -> List[List[int]]:
+    """The row ranks of each group along axis k: for every combination of
+    the other coordinates, the ranks that differ only in coordinate k, in
+    the order of that coordinate."""
+    others = [range(e) if j != k else (0,) for j, e in enumerate(shape)]
+    return [[int(sum(c * math.prod(shape[j + 1:]) for j, c in enumerate(
+        base[:k] + (i,) + base[k + 1:]))) for i in range(shape[k])]
+        for base in itertools.product(*others)]
+
+
 class Comm:
     """One rank's view of a mesh: its index, the mesh size and the
     collectives over the mesh (see the module docstring)."""
@@ -100,11 +140,40 @@ class Comm:
     size: int
     row: int = 0
     recv_bytes: int
+    calls: int
+    shard: "Comm"  # the shard's row Comm (itself on a row Comm)
+    _axes: Dict[str, "Comm"]
 
     @property
     def index(self) -> int:
         """This shard's place in its mesh's row-major shard list."""
-        return self.row * self.size + self.rank
+        s = self.shard
+        return s.row * s.size + s.rank
+
+    def axis(self, name: str) -> "Comm":
+        """This shard's Comm over mesh axis `name`."""
+        if name not in self._axes:
+            raise ValueError(f"mesh has no axis {name!r} (axes: "
+                             f"{tuple(self._axes)})")
+        return self._axes[name]
+
+    def _comms(self) -> List["Comm"]:
+        """This shard's Comms: its row's and its axes', each once."""
+        out: List[Comm] = [self]
+        for c in self._axes.values():
+            if all(c is not o for o in out):
+                out.append(c)
+        return out
+
+    @property
+    def total_recv_bytes(self) -> int:
+        """Bytes this shard received over all its Comms."""
+        return sum(c.recv_bytes for c in self._comms())
+
+    def reset_counts(self) -> None:
+        for c in self._comms():
+            c.recv_bytes = 0
+            c.calls = 0
 
     def all_to_all(self, x: torch.Tensor, split_dim: int,
                    cat_dim: int) -> torch.Tensor:
@@ -125,13 +194,22 @@ class Comm:
 
 
 class _ThreadComm(Comm):
-    def __init__(self, mesh: "ThreadMesh", row: int, rank: int):
+    """A shard's Comm over one exchange group of a ThreadMesh (`gid`): its
+    row, or one axis's group. `shard` is the shard's row Comm, which holds
+    the baton for all of the shard's Comms."""
+
+    def __init__(self, mesh: "ThreadMesh", row: int, rank: int, size: int,
+                 gid: int, shard: Optional["_ThreadComm"] = None):
         self.mesh = mesh
         self.row = row
         self.rank = rank
-        self.size = mesh.size
+        self.size = size
+        self.gid = gid
+        self.shard = self if shard is None else shard
         self.recv_bytes = 0
+        self.calls = 0
         self.holds_baton = False
+        self._axes = {}
 
     def all_to_all(self, x, split_dim, cat_dim):
         _check_split(x, split_dim, self.size)
@@ -158,17 +236,18 @@ class _ThreadComm(Comm):
 
 
 class ThreadMesh:
-    """ns shard programs as ns threads of this process on one device; with
-    data=d, d rows of ns shards (d*ns threads), each row exchanging only
-    within itself.
+    """The shard programs of a mesh as threads of this process on one
+    device: `shape` shards a row (an int, or a tuple of extents of the axes
+    `names`, row-major), `data` rows, each row exchanging only within
+    itself and each axis group only within itself.
 
     `run(body)` calls body(comm) once per shard, each in its own thread
-    with that shard's Comm bound (`current()`), and returns the results in
-    row-major order (`Comm.index`). The exchanges of a row wait on its
-    `threading.Barrier` with a timeout: a shard that raises aborts every
-    barrier, so the others stop at their next exchange, and `run`
-    re-raises the first failure. A run never hangs and never returns a
-    partial result.
+    with that shard's row Comm bound (`current()`), and returns the results
+    in row-major order (`Comm.index`). Each exchange group waits on its
+    own `threading.Barrier` with a timeout: a shard that raises aborts
+    every barrier, so the others stop at their next exchange on any axis,
+    and `run` re-raises the first failure. A run never hangs and never
+    returns a partial result.
 
     A shard runs its host code only while it holds the mesh's baton, a
     lock it gives up while it waits at an exchange. The shards' host code
@@ -177,63 +256,92 @@ class ThreadMesh:
     each other at every call, and on an H100 host 4 shards took 106 ms
     per set-B hmult where the card was busy for 7.4 ms of it."""
 
-    def __init__(self, ns: int, device="cuda", timeout: float = 300.0, *,
-                 data: int = 1):
-        if ns < 1 or data < 1:
-            raise ValueError(f"ThreadMesh needs ns, data >= 1, got {ns}, "
-                             f"{data}")
-        self.size = ns
+    def __init__(self, shape, device="cuda", timeout: float = 300.0, *,
+                 data: int = 1, names: Optional[Sequence[str]] = None):
+        self.shape, self.names = _mesh_shape(shape, names)
+        if data < 1:
+            raise ValueError(f"ThreadMesh needs data >= 1, got {data}")
+        self.size = math.prod(self.shape)
         self.data = data
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ThreadMesh(device='cuda'): "
                                "torch.cuda.is_available() is False")
         self.timeout = timeout
-        self.comms = [_ThreadComm(self, row, r) for row in range(data)
-                      for r in range(ns)]
-        self._slots: List[List[object]] = [[None] * ns for _ in range(data)]
+        self.comms = [_ThreadComm(self, row, r, self.size, row)
+                      for row in range(data) for r in range(self.size)]
+        self._group_sizes = [self.size] * data  # exchange group -> ranks
+        for k, name in enumerate(self.names):
+            if len(self.shape) == 1:  # the row is the axis
+                for c in self.comms:
+                    c._axes[name] = c
+                continue
+            for row in range(data):
+                for members in _axis_groups(self.shape, k):
+                    gid = len(self._group_sizes)
+                    self._group_sizes.append(len(members))
+                    for i, r in enumerate(members):
+                        top = self.comms[row * self.size + r]
+                        top._axes[name] = _ThreadComm(
+                            self, row, i, len(members), gid, shard=top)
+        self._slots: List[List[object]] = [[None] * n
+                                           for n in self._group_sizes]
         self._barriers: List[threading.Barrier] = []
         self._baton = threading.Lock()
 
+    def extent(self, name: str) -> int:
+        """The number of shards along axis `name`."""
+        if name not in self.names:
+            raise ValueError(f"mesh has no axis {name!r} (axes: "
+                             f"{self.names})")
+        return self.shape[self.names.index(name)]
+
     @property
     def recv_bytes(self) -> List[int]:
-        """Bytes each shard received from the others of its row so far, in
-        row-major order."""
-        return [c.recv_bytes for c in self.comms]
+        """Bytes each shard received from the others so far, over all its
+        Comms, in row-major order."""
+        return [c.total_recv_bytes for c in self.comms]
+
+    def calls(self, axis: Optional[str] = None) -> List[int]:
+        """Collective calls of each shard so far over axis `axis` (its
+        row's Comm when None), in row-major order."""
+        return [(c if axis is None else c.axis(axis)).calls
+                for c in self.comms]
 
     def reset_counts(self) -> None:
         for c in self.comms:
-            c.recv_bytes = 0
+            c.reset_counts()
 
-    def _take_baton(self, comm: "_ThreadComm") -> None:
+    def _take_baton(self, shard: "_ThreadComm") -> None:
         if not self._baton.acquire(timeout=self.timeout):
             raise TimeoutError(f"ThreadMesh: no shard gave up the baton "
                                f"within {self.timeout} s")
-        comm.holds_baton = True
+        shard.holds_baton = True
 
-    def _give_baton(self, comm: "_ThreadComm") -> None:
-        if comm.holds_baton:
-            comm.holds_baton = False
+    def _give_baton(self, shard: "_ThreadComm") -> None:
+        if shard.holds_baton:
+            shard.holds_baton = False
             self._baton.release()
 
     def _exchange(self, comm: "_ThreadComm", item) -> list:
-        """Publish item, wait for every rank of comm's row, take a
+        """Publish item, wait for every rank of comm's group, take a
         snapshot of all of theirs, and wait until each has taken its
         snapshot."""
-        slots, barrier = self._slots[comm.row], self._barriers[comm.row]
+        slots, barrier = self._slots[comm.gid], self._barriers[comm.gid]
+        comm.calls += 1
         slots[comm.rank] = item
-        self._give_baton(comm)
+        self._give_baton(comm.shard)
         try:
             barrier.wait()
             got = list(slots)
             barrier.wait()
         finally:
-            self._take_baton(comm)
+            self._take_baton(comm.shard)
         return got
 
     def run(self, body: Callable[[Comm], object]) -> list:
-        self._barriers = [threading.Barrier(self.size, timeout=self.timeout)
-                          for _ in range(self.data)]
+        self._barriers = [threading.Barrier(n, timeout=self.timeout)
+                          for n in self._group_sizes]
         results: List[object] = [None] * len(self.comms)
         errors: List[BaseException] = []  # in the order the shards failed
         stream = (torch.cuda.current_stream(self.device)
@@ -243,7 +351,7 @@ class ThreadMesh:
             try:
                 self._take_baton(comm)
                 with contextlib.ExitStack() as stack:
-                    stack.enter_context(_bound(comm))
+                    stack.enter_context(bound(comm))
                     if stream is not None:
                         stack.enter_context(torch.cuda.stream(stream))
                     results[comm.index] = body(comm)
@@ -277,9 +385,12 @@ class DistMesh(Comm):
     group runs the same program.
 
     On a mesh of d data rows, group is this process's row (a group from
-    `dist.new_group`, one per row) and row its index, data = d."""
+    `dist.new_group`, one per row) and row its index, data = d. `axes`
+    maps axis names to this shard's DistMesh over each axis's group;
+    `DistMesh.grid` builds them all."""
 
-    def __init__(self, group=None, *, row: int = 0, data: int = 1):
+    def __init__(self, group=None, *, row: int = 0, data: int = 1,
+                 axes: Optional[Dict[str, "DistMesh"]] = None):
         import torch.distributed as dist
 
         if not 0 <= row < data:
@@ -291,12 +402,51 @@ class DistMesh(Comm):
         self.row = row
         self.data = data
         self.recv_bytes = 0
+        self.calls = 0
+        self.shard = self
+        self._axes = dict(axes or {})
+        for c in self._axes.values():
+            c.shard = self
 
-    def reset_counts(self) -> None:
-        self.recv_bytes = 0
+    @classmethod
+    def grid(cls, shape, names: Sequence[str], *,
+             data: int = 1) -> "DistMesh":
+        """This process's shard of a mesh of `data` rows of `shape` shards
+        (extents of the axes `names`, row-major) over the whole world, in
+        global rank order: every process calls it, in the same order, as
+        `dist.new_group` requires. Builds each row's group (data > 1) and
+        each axis's groups."""
+        import torch.distributed as dist
+
+        shape, names = _mesh_shape(shape, names)
+        size = math.prod(shape)
+        if dist.get_world_size() != data * size:
+            raise ValueError(f"world of {dist.get_world_size()} processes "
+                             f"for {data} rows of {shape}")
+        row, rank = divmod(dist.get_rank(), size)
+        rows = [dist.new_group(list(range(r * size, (r + 1) * size)))
+                for r in range(data)] if data > 1 else [None]
+        axes: Dict[str, DistMesh] = {}
+        for k, name in enumerate(names):
+            if len(shape) == 1:
+                continue
+            for r in range(data):
+                for members in _axis_groups(shape, k):
+                    g = dist.new_group([r * size + m for m in members])
+                    if r == row and rank in members:
+                        axes[name] = cls(g, row=row, data=data)
+        mesh = cls(rows[row], row=row, data=data, axes=axes)
+        if len(shape) == 1:
+            mesh._axes[names[0]] = mesh
+        mesh.shape, mesh.names = shape, names
+        return mesh
+
+    def extent(self, name: str) -> int:
+        """The number of shards along axis `name`."""
+        return self.axis(name).size
 
     def run(self, body: Callable[[Comm], object]) -> list:
-        with _bound(self):
+        with bound(self):
             return [body(self)]
 
     def _peer(self, r: int) -> int:
@@ -307,6 +457,7 @@ class DistMesh(Comm):
 
     def all_to_all(self, x, split_dim, cat_dim):
         _check_split(x, split_dim, self.size)
+        self.calls += 1
         inp = torch.stack(x.chunk(self.size, split_dim))  # [size, ...]
         out = torch.empty_like(inp)
         self._dist.all_to_all_single(out, inp, group=self.group)
@@ -314,6 +465,7 @@ class DistMesh(Comm):
         return torch.cat(list(out.unbind(0)), cat_dim)
 
     def all_gather(self, x, dim):
+        self.calls += 1
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
         self._dist.all_gather(parts, x, group=self.group)
@@ -322,6 +474,7 @@ class DistMesh(Comm):
 
     def ppermute(self, x, pairs):
         dist = self._dist
+        self.calls += 1
         src_of = _sources(pairs, self.size)
         dst = {s: d for d, s in src_of.items()}.get(self.rank)
         src = src_of.get(self.rank)

@@ -49,14 +49,16 @@ def test_cli_fused_hpip_cfg_key(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["hmult", "8", "4", "4", "2"], "A12"),
+    (["hmult", "8", "4", "4", "2", "--dispatch", "gspmd"], "A12"),
     (["hadd", "8", "4", "4", "2", "--dispatch", "coeff"], "A12"),
 ])
 def test_cli_names_roadmap_item_of_unported(argv, item, capsys):
+    """GSPMD (forced, or the JAX CLI's route for the ops other than hmult
+    and hrotate at [cluster] > 1) is not ported: exit 2 naming A12.4."""
     rc = cli.main(["run", CFG, *argv, "--device", "cpu"])
     err = capsys.readouterr().err
     assert rc == 2
-    assert f"ROADMAP {item}" in err
+    assert f"ROADMAP {item}.4" in err
 
 
 def test_cli_unknown_op_gets_jax_message(capsys):
@@ -82,7 +84,7 @@ def test_cli_coeff_dispatch_packed(op, tmp_path, capsys):
     assert rc == 0, outp
     p = get_params(n=4096, max_level=4, alpha=2)
     want = ici_bytes_per_op(p, 4, 8, op)
-    assert f"ici_bytes_per_shard={want} ntt=lane-packed k=16" in outp
+    assert f"ici_bytes_per_device={want} ntt=lane-packed k=16" in outp
     assert "bit-exact" in outp and "verify max-abs-err" in outp
     assert _stat(outp, "ICI_bytes_per_device") == want
     assert _stat(outp, "batchCount") == 4096 // 256
@@ -114,6 +116,10 @@ def test_cli_stat_table_keys(capsys):
     (["hrotate", "8", "4", "4", "--dispatch", "hybrid"],
      "needs the [cluster]"),
     (["hmult", "8", "8", "4", "4", "--dispatch", "coeff"], "per-shard tiles"),
+    (["hmult", "8", "8", "4", "2", "--dispatch", "hybrid"],
+     "--dispatch hybrid needs an even cluster >= 4"),
+    (["hrotate", "8", "8", "4", "3", "--dispatch", "hybrid"],
+     "--dispatch hybrid needs an even cluster >= 4"),
 ])
 def test_cli_usage_errors_exit_1(argv, msg, capsys):
     """Usage errors exit with 1, as the JAX CLI's SystemExit("...")
@@ -121,3 +127,64 @@ def test_cli_usage_errors_exit_1(argv, msg, capsys):
     rc = cli.main(["run", CFG, *argv, "--device", "cpu"])
     assert rc == 1
     assert msg in capsys.readouterr().err
+
+
+def _run_sharded(op, level, cluster, dispatch, capsys):
+    """A --verify run of op at [cluster]; returns its stdout."""
+    rc = cli.main(["run", CFG, op, "8", str(level), "4", str(cluster),
+                   "--dispatch", dispatch, "--device", "cpu", "--verify",
+                   "--iters", "1"])
+    outp = capsys.readouterr().out
+    assert rc == 0, outp
+    assert "bit-exact" in outp and "verify max-abs-err" in outp
+    return outp
+
+
+@pytest.mark.parametrize("op", ["hmult", "hrotate"])
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_cli_auto_takes_choose_axis(op, cluster, capsys):
+    """The default --dispatch auto runs the axis dispatch_model.choose_axis
+    names (no anchors: the one whose shards receive fewer bytes), says
+    why, and reports that axis's bytes a shard."""
+    from homulator_tpu_torch.parallel.dispatch_model import choose_axis
+    from homulator_tpu_torch.parallel.limb_sharded import (
+        ici_bytes_per_op_limb,
+    )
+    from homulator_tpu_torch.parallel.mesh import coeff_shard_ok
+    from homulator_tpu_torch.parallel.sharded import ici_bytes_per_op
+    from homulator_tpu_torch.params import get_params
+
+    p = get_params(n=256, max_level=8, alpha=4)
+    ok = coeff_shard_ok(p.ntt.n1, p.ntt.n2, cluster)
+    axis = choose_axis(p, op, cluster, 4, coeff_ok=ok)[0]
+    outp = _run_sharded(op, 4, cluster, "auto", capsys)
+    assert f"# dispatch={axis} " in outp
+    assert f"-> {axis}; picked by ICI volume (no model anchors)" in outp
+    want = (ici_bytes_per_op_limb(p, 4, cluster, op) if axis == "limb"
+            else ici_bytes_per_op(p, 4, cluster, op))
+    assert _stat(outp, "ICI_bytes_per_device") == want
+
+
+@pytest.mark.parametrize("op", ["hmult", "hrotate"])
+@pytest.mark.parametrize("level", [4, 5], ids=["divisible", "padded"])
+def test_cli_forced_limb(op, level, capsys):
+    """--dispatch limb at 4 shards, level 4 (divides) and 5 (pad rows)."""
+    outp = _run_sharded(op, level, 4, "limb", capsys)
+    assert "# dispatch=limb mesh=(4 limb)" in outp
+    assert "-> limb (forced)" in outp
+
+
+@pytest.mark.parametrize("op", ["hmult", "hrotate"])
+def test_cli_forced_hybrid(op, capsys):
+    """--dispatch hybrid at [cluster] 4: 2 limb x 2 coeff, level 5."""
+    from homulator_tpu_torch.parallel.limb_sharded import (
+        ici_bytes_per_op_hybrid,
+    )
+    from homulator_tpu_torch.params import get_params
+
+    outp = _run_sharded(op, 5, 4, "hybrid", capsys)
+    assert "# dispatch=hybrid mesh=(2 limb, 2 coeff)" in outp
+    p = get_params(n=256, max_level=8, alpha=4)
+    # rotation by 1 is the identity block map at 2 coeff shards here
+    assert _stat(outp, "ICI_bytes_per_device") == ici_bytes_per_op_hybrid(
+        p, 5, 2, 2, op, route_identity=True)

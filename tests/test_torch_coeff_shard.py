@@ -273,9 +273,9 @@ def test_dist_mesh_gloo_two_processes(engines, tmp_path):
 def test_cli_coeff_dispatch(capsys):
     """`run configs/tiny.cfg hmult 8 8 4 2 --dispatch coeff --device cpu
     --verify` (N = 256, n1 = 16: 2 shards is the most coeff_shard_ok
-    allows) exits 0 and matches the single-device op; the dispatches not
-    ported exit 2 naming ROADMAP A12; a tile coeff_shard_ok rejects is a
-    usage error, exit 1 as in the JAX CLI."""
+    allows) exits 0 and matches the single-device op; GSPMD, not ported,
+    exits 2 naming ROADMAP A12.4; a tile coeff_shard_ok rejects and a
+    hybrid mesh on 2 shards are usage errors, exit 1 as in the JAX CLI."""
     rc = cli.main(["run", "configs/tiny.cfg", "hmult", "8", "8", "4", "2",
                    "--dispatch", "coeff", "--device", "cpu", "--verify",
                    "--iters", "1"])
@@ -283,10 +283,12 @@ def test_cli_coeff_dispatch(capsys):
     assert rc == 0, outp
     assert "dispatch=coeff" in outp and "bit-exact" in outp
     assert "verify max-abs-err" in outp
-    for dispatch in ("limb", "hybrid", "gspmd", "auto"):
-        rc = cli.main(["run", "configs/tiny.cfg", "hmult", "8", "8", "4", "2",
-                       "--dispatch", dispatch, "--device", "cpu"])
-        assert rc == 2 and "ROADMAP A12" in capsys.readouterr().err
+    rc = cli.main(["run", "configs/tiny.cfg", "hmult", "8", "8", "4", "2",
+                   "--dispatch", "gspmd", "--device", "cpu"])
+    assert rc == 2 and "ROADMAP A12.4" in capsys.readouterr().err
+    rc = cli.main(["run", "configs/tiny.cfg", "hmult", "8", "8", "4", "2",
+                   "--dispatch", "hybrid", "--device", "cpu"])
+    assert rc == 1 and "even cluster >= 4" in capsys.readouterr().err
     rc = cli.main(["run", "configs/tiny.cfg", "hmult", "8", "8", "4", "4",
                    "--dispatch", "coeff", "--device", "cpu"])
     assert rc == 1 and "per-shard tiles" in capsys.readouterr().err

@@ -126,7 +126,8 @@ def test_port_imports_no_jax():
     roofline, the three NTT anatomy scripts, B4's bench and the two
     workload programs among them) and its examples (examples/*_torch.py),
     takes get_params from the port, runs a tiny hmult, hrotate,
-    fused-route hmult, 2-shard coefficient-sharded hmult, graph-route
+    fused-route hmult, 2-shard coefficient-sharded and limb-sharded
+    hmult, graph-route
     hmult, the elementwise ops, a serialize round trip, a linalg dot and
     a workloads BSGS matvec, and has loaded neither jax nor any module of
     the JAX package homulator_tpu."""
@@ -156,6 +157,13 @@ def test_port_imports_no_jax():
         "out = sharded.gather_cols(f(s(a.data, 2), s(a.data, 2),"
         " s(e.relin_key, 2)))\n"
         "assert (out == e.hmult(a, a).data).all()\n"
+        "from homulator_tpu_torch.parallel import limb_sharded as ls\n"
+        "f = ls.make_limb_hmult(e.dc, 3, comm.ThreadMesh(2, 'cpu',"
+        " names=('limb',)))\n"
+        "out = ls.gather_rows(f(ls.shard_rows(a.data, 3, 2),"
+        " ls.shard_rows(a.data, 3, 2), ls.limb_key(e.relin_key, e.params,"
+        " 3, 2)), 2)\n"
+        "assert (out[:, :2] == e.hmult(a, a).data).all()\n"
         "g = CkksEngine(e.params, seed=1, device='cpu', ntt_mode='jnp')\n"
         "g.relin_key = e.relin_key\n"
         "assert (g.hmult(a, a).data == e.hmult(a, a).data).all()\n"
