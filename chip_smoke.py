@@ -167,12 +167,36 @@ failure and the script then exits non-zero:
      M @ x or of the sigmoid polynomial, the eager latency and device
      time of each run; then both (16 x 16, g = 4) at N = 2^13 on the card,
      on both routes, equal to the CPU plain path bit for bit;
-  8. one JSON line of per-kernel results (each kernel's times and bound at
+  8. the JAX package's GSPMD surface on the port's explicit dispatches,
+     the CLI's remainder, the counters and the dry run, at set B, level
+     35: `make_sharded_hmult` on `make_mesh((2, 2, 2))` (the hybrid
+     program with a data axis: B3 and B6-B9 only) and on
+     `make_mesh((2, 4))` (the limb program: B1-B3 only), a batch of two
+     each, equal to the single-device hmults bit for bit, each shard's
+     bytes the hybrid's or limb's count for its one element, with the
+     eager latency and device time of the (2, 2, 2) run (8 shards sharing
+     this card, not a multi-card latency); `make_coeff_sharded_ntt` on the
+     35 main rows at 4 shards (B6-B9 only) and 8 shards (B10-B13 only),
+     forward equal to the single-device ntt_rep and inverse to the input;
+     the CLI in this process at [cluster] 4 with `--verify` for hadd,
+     hsub, padd and pmult (rows over the mesh, 0 bytes a shard), hsquare
+     (hmult's dispatch) and hmult `--dispatch gspmd` (the limb dispatch),
+     each bit-exact to the single-device op and decrypting within 1e-2 in
+     all 32768 slots; hadd, hsub, padd and pmult on 4 shards in the
+     CLI's layout (n2 at level 35) equal to the single-device graph, with
+     eager and profiled device ms beside the single device's eager and
+     graph-replay ms; `op_cost_counters` of the seven ops (HBM_bytes,
+     MEM_arg, MEM_out and MEM_temp bytes, with HBM_GBps_achieved over the
+     eager median), and the same counts, but MEM_temp_bytes, on the card
+     and on its CPU twin at N = 2^13 for every op; one CLI hmult run with
+     `--profile`, whose Chrome trace must hold B1's launches; and
+     `dryrun_multichip(8, device="cuda")` on a ThreadMesh;
+  9. one JSON line of per-kernel results (each kernel's times and bound at
      one shape the main path launches, named in `shape`; `max_abs_err`
      over every shape checked; `launches` summed over the main-path runs,
      per run in `launches_by_run`; the limb and hybrid shapes' numbers in
      `limb_hybrid_shapes`; for the kernels of 3b every variant's numbers
-     in `variants`), then the device line last.
+     in `variants`) and phase 8's counters, then the device line last.
 
 Bound of a kernel call (`benchlib.bound`): the largest of the bytes it
 must move (each input read once, each output written once) over 3.35
@@ -198,6 +222,7 @@ chain is counted as `PEAK_LINK_OPS` says.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -211,6 +236,7 @@ from homulator_tpu_torch.benchlib import (
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SET_B = dict(n=1 << 16, max_level=45, alpha=15)
+N16_CFG = os.path.join(ROOT, "configs", "n16.cfg")  # N = 2^16, the CLI's
 LEVEL_B = 35
 # B4's levels: set B's, a last digit partly full, a last digit of one row
 HPIP_LEVELS = (35, 20, 31)
@@ -976,6 +1002,199 @@ def check_limb_dispatch(np, torch, kernels, eng, cts, wants, v12, launches,
     return {label: r[1] for label, r in runs.items()}
 
 
+def check_gspmd_surface(np, torch, kernels, eng, cts, pt, wants, launches,
+                        errs, timings):
+    """Phase 8, the JAX package's GSPMD surface on the port's explicit
+    dispatches, the CLI's remainder, the counters and the dry run, at set
+    B, level 35 (see the module docstring). Returns {op: counters}."""
+    import contextlib
+    import io
+
+    from homulator_tpu_torch import cli
+    from homulator_tpu_torch.api import (
+        CkksEngine, get_params, hadd_graph, hsub_graph, padd_graph,
+        pmult_graph,
+    )
+    from homulator_tpu_torch.context import Ciphertext, Plaintext
+    from homulator_tpu_torch.dryrun import dryrun_multichip
+    from homulator_tpu_torch.ops.ntt import intt_rep, ntt_rep
+    from homulator_tpu_torch.parallel.coeff_ntt import make_coeff_sharded_ntt
+    from homulator_tpu_torch.parallel.comm import ThreadMesh
+    from homulator_tpu_torch.parallel.mesh import make_mesh
+    from homulator_tpu_torch.parallel.sharded import (
+        elementwise_axis, gather_cols, make_sharded_elementwise,
+        make_sharded_hmult, shard_cols, shard_elementwise,
+    )
+
+    t_phase = time.perf_counter()
+    params, dc = eng.params, eng.dc
+    (ct1, ct2), (out, _) = cts, wants
+    # make_sharded_hmult: [ct1, ct2] x [ct2, ct1] over (2, 2, 2) and (2, 4)
+    ab = torch.stack([ct1.data, ct2.data])
+    bb = torch.stack([ct2.data, ct1.data])
+    want = torch.stack([out.data, eng.hmult(ct2, ct1).data])
+    for shape, expect, per in (((2, 2, 2), COEFF_KERNELS,
+                                HYBRID_BYTES[(2, 2)][0]),
+                               ((2, 4), PIECES_KERNELS, LIMB_BYTES[4][0])):
+        mesh = make_mesh(shape, device="cuda")
+        f = make_sharded_hmult(dc, LEVEL_B, mesh)
+        label = f"make_sharded_hmult {shape}"
+        mesh.reset_counts()
+        got, launches[label] = drive(torch, kernels, f"{label} B=2 (45,35,15)",
+                                     lambda: f(ab, bb, eng.relin_key), expect)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: != the single-device hmults")
+        if mesh.recv_bytes != [per] * len(mesh.comms):
+            raise AssertionError(f"{label}: shards received "
+                                 f"{mesh.recv_bytes} bytes, expected {per}")
+        print(f"# {label}: batch of 2 == single-device hmults, bit-exact; "
+              f"{per} bytes received by each shard (one element a data "
+              "row)")
+        if shape == (2, 2, 2):
+            fn = lambda f=f: f(ab, bb, eng.relin_key)  # noqa: E731
+            timings[label] = (latency_ms(fn), profiled_ms(fn)[0])
+            print(f"# {label} B=2 (45,35,15): {timings[label][0]:.3f} ms "
+                  f"eager, {timings[label][1]:.3f} ms device "
+                  "(torch.profiler); 8 shards sharing one card, not a "
+                  "multi-card latency")
+    # make_coeff_sharded_ntt on the 35 main rows: 4 shards (B6-B9), 8
+    # shards (lane-packed, B10-B13)
+    rows = dc.main_rows(LEVEL_B)
+    nb = dc.ntt_basis(rows)
+    x = residues(nb.q, (LEVEL_B, nb.n1, nb.n2), rng=11)
+    ev = ntt_rep(x, nb, 1)
+    if not torch.equal(intt_rep(ev, nb, 1), x):
+        raise AssertionError("single-device ntt_rep / intt_rep round trip")
+    for ns, expect in ((4, PHASE_KERNELS), (8, PACKED_KERNELS)):
+        mesh = make_mesh((1, ns), device="cuda", axis_names=("data", "coeff"))
+        f, fi = make_coeff_sharded_ntt(dc, rows, mesh)
+        label = f"make_coeff_sharded_ntt x{ns}"
+        (fwd, back), launches[label] = drive(
+            torch, kernels, f"{label} (35 main rows)",
+            lambda: (lambda y: (y, fi(y)))(f(shard_cols(x, ns))), expect)
+        if not (torch.equal(gather_cols(fwd), ev)
+                and torch.equal(gather_cols(back), x)):
+            raise AssertionError(f"{label}: != single-device ntt_rep / "
+                                 "intt_rep")
+        print(f"# {label}: forward == ntt_rep, inverse == intt_rep, "
+              "bit-exact")
+    # the CLI at [cluster] 4, in-process, each with --verify
+    for argv in (["hadd"], ["hsub"], ["padd"], ["pmult"], ["hsquare"],
+                 ["hmult", "--dispatch", "gspmd"]):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["run", N16_CFG, argv[0], "45",
+                           str(LEVEL_B), "15", "4", *argv[1:], "--verify",
+                           "--iters", "3", "--device", "cuda"])
+        text = buf.getvalue()
+        keep = [ln for ln in text.splitlines()
+                if ln.startswith(("# dispatch=", "# verify", "FHE-Op"))
+                or "dispatch ==" in ln or ln.startswith("ICI_bytes")]
+        print(f"# CLI {' '.join(argv)} 45 35 15 4 --verify "
+              f"({time.perf_counter() - t0:.1f} s): " + " | ".join(keep))
+        if rc != 0 or "bit-exact" not in text:
+            raise AssertionError(f"CLI {argv} at cluster 4: rc {rc}\n{text}")
+        if argv[0] in ("hadd", "hsub", "padd", "pmult") and not re.search(
+                r"^ICI_bytes_per_device\s+0$", text, re.MULTILINE):
+            raise AssertionError(f"CLI {argv[0]}: a shard received bytes")
+        m = re.search(r"verify max-abs-err = (\S+)", text)
+        errs[f"cli {argv[0]} x4"] = float(m.group(1))
+    # the elementwise ops on 4 shards of this card in the CLI's layout (n2
+    # at level 35), beside the single-device graph: eager and device ms
+    axis = elementwise_axis(LEVEL_B, 4)
+    mesh = ThreadMesh(4, "cuda")
+    q = dc.q_level(LEVEL_B)
+    for op, graph, other in (("hadd", hadd_graph, ct2.data),
+                             ("hsub", hsub_graph, ct2.data),
+                             ("padd", padd_graph, pt.data),
+                             ("pmult", pmult_graph, pt.data)):
+        f = make_sharded_elementwise(dc, op, LEVEL_B, mesh)
+        a_s, b_s = (shard_elementwise(t, axis, 4) for t in (ct1.data, other))
+        fn = lambda f=f, a=a_s, b=b_s: f(a, b)  # noqa: E731
+        one = lambda g=graph, b=other: g(ct1.data, b, q)  # noqa: E731
+        mesh.reset_counts()
+        if not torch.equal(torch.cat(fn(), dim=axis), one()):
+            raise AssertionError(f"{op} on 4 shards != single-device")
+        if any(mesh.recv_bytes):
+            raise AssertionError(f"{op} on 4 shards: a shard received bytes")
+        label = f"{op} gspmd x4"
+        timings[label] = (latency_ms(fn), profiled_ms(fn)[0])
+        single = (latency_ms(one), device_ms(one))
+        print(f"# {label} (45,35,15), n2 over 4 shards: == single-device, "
+              f"bit-exact, 0 bytes a shard; {timings[label][0]:.3f} ms "
+              f"eager, {timings[label][1]:.3f} ms device (torch.profiler; 4 "
+              f"shards sharing one card); single device {single[0]:.3f} ms "
+              f"eager, {single[1]:.3f} ms device (graph replay)")
+    # op_cost_counters at set B, and the same counts on the CPU twin at
+    # the oracle's N = 2^13
+    ops = {"hmult": lambda e, a, b, p: e.hmult(a, b),
+           "hsquare": lambda e, a, b, p: e.hsquare(a),
+           "hrotate": lambda e, a, b, p: e.hrotate(a, 1),
+           "hadd": lambda e, a, b, p: e.hadd(a, b),
+           "hsub": lambda e, a, b, p: e.hsub(a, b),
+           "padd": lambda e, a, b, p: e.padd(a, p),
+           "pmult": lambda e, a, b, p: e.pmult(a, p)}
+    counters = {}
+    for op, fn in ops.items():
+        cc = eng.op_cost_counters(op, ct1, ct2, pt)
+        ms = latency_ms(lambda fn=fn: fn(eng, ct1, ct2, pt))
+        cc["HBM_GBps_achieved"] = cc["HBM_bytes"] / ms / 1e6
+        cc["eager_ms"] = ms
+        counters[op] = cc
+        print(f"# op_cost_counters {op}(45,35,15): " + ", ".join(
+            f"{k} {v:.0f}" if k.endswith("bytes") else f"{k} {v:.3f}"
+            for k, v in cc.items()) + " (HBM_bytes counted; GB/s over the "
+            "eager median)")
+    small = CkksEngine(get_params(n=1 << 13, max_level=8, alpha=3), seed=4,
+                       device="cuda")
+    small.keygen()
+    small.gen_rotation_key(1)
+    rng = np.random.default_rng(12)
+    s1, s2 = (small.encrypt_complex(rng.normal(size=1 << 12), 8, SCALE)
+              for _ in range(2))
+    sp = small.plaintext_complex(rng.normal(size=1 << 12), 8, SCALE)
+    twin = cpu_twin(small)
+    c1, c2 = (Ciphertext(c.data.cpu(), c.level, c.scale) for c in (s1, s2))
+    cp = Plaintext(sp.data.cpu(), sp.level, sp.scale)
+    for op in ops:
+        g = small.op_cost_counters(op, s1, s2, sp)
+        c = twin.op_cost_counters(op, c1, c2, cp)
+        if any(g[k] != c[k] for k in c):
+            raise AssertionError(f"op_cost_counters {op} at N=2^13: card "
+                                 f"{g} != CPU {c}")
+    print("# op_cost_counters at N=2^13 L8 l8 a3, card == CPU plain path "
+          "(HBM_bytes, MEM_arg_bytes, MEM_out_bytes), every op")
+    # one --profile run of the CLI: its trace holds B1's launches
+    prof_dir = os.path.join(ROOT, "build", "smoke_profile")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["run", N16_CFG, "hmult", "45", str(LEVEL_B),
+                       "15", "--iters", "2", "--device", "cuda", "--profile",
+                       prof_dir])
+    text = buf.getvalue()
+    with open(os.path.join(prof_dir, "homulator_tpu_torch_hmult.json")) as fh:
+        trace = json.load(fh)
+    b1 = sum(1 for e in trace["traceEvents"] if e.get("cat") == "kernel"
+             and "ntt_fwd_radix" in e.get("name", ""))
+    keep = [ln for ln in text.splitlines() if ln.startswith(
+        ("FHE-Op", "HBM_", "MEM_", "# profiler"))]
+    print("# CLI hmult 45 35 15 --profile: " + " | ".join(keep)
+          + f"; {b1} B1 phase launches in the trace")
+    if rc != 0 or b1 == 0:
+        raise AssertionError(f"--profile run: rc {rc}, {b1} B1 launches in "
+                             "its trace")
+    # the dry run on a ThreadMesh of 8 shards on this card
+    t0 = time.perf_counter()
+    paths = dryrun_multichip(8, device="cuda")
+    print(f"# dryrun_multichip(8, device='cuda'), ThreadMesh: {len(paths)} "
+          f"paths bit-exact ({', '.join(paths)}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"# phase 8 (GSPMD surface, CLI, counters, dry run): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counters
+
+
 def check_anatomy_kernels(np, torch, dc, rng, results):
     """Phase 3b, the NTT anatomy and roofline path (on no op's path): B14's
     variants, B15's forms and B16's parts on the M = 35 main limbs [256,
@@ -1713,7 +1932,13 @@ def main() -> int:
     errs.update(wl_errs)
     timings.update(wl_timings)
 
-    # 8. results
+    # 8. the GSPMD surface, the CLI's remainder, the counters, the dry run
+    counters = check_gspmd_surface(
+        np, torch, kernels, eng, (ct1, ct2),
+        eng.plaintext_complex(v2, LEVEL_B, SCALE), (out, rot), launches,
+        errs, timings)
+
+    # 9. results
     print(f"# chip_smoke total: {time.perf_counter() - t_start:.1f} s "
           "(kernel build included)")
     bad = sorted(m for m in sys.modules
@@ -1763,7 +1988,8 @@ def main() -> int:
                       if v[1] is not None},
         "verify_max_err": dict({"hmult": err_mult, "hsquare": err_sq,
                                 "hrotate": err_rot,
-                                "bsgs_matvec N=2^13": err_matvec}, **errs)}))
+                                "bsgs_matvec N=2^13": err_matvec}, **errs),
+        "op_cost_counters": counters}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,9 @@ hrotate, conjugate, hrotate_hoisted, the elementwise ops (hadd, hsub,
 padd, pmult, cmult, cadd), mod_drop / align_levels, keyswitch_poly,
 rescale and the ntt / intt host views.
 
-The counterpart of `homulator_tpu/api.py` (all but `op_cost_counters`).
+The counterpart of `homulator_tpu/api.py`; `op_cost_counters` counts
+one run of the op where the JAX one reads XLA's compiled-program analysis
+(stats.torch_counters).
 Key generation, encoding, encryption and decryption run on the host
 through the exact reference engine (the port's copy of `refimpl.RefCkks`,
 pure numpy); keys and ciphertexts are uploaded in the JAX package's
@@ -149,6 +151,34 @@ def hrotate_hoisted_graph(a: torch.Tensor, perms: Sequence[torch.Tensor],
     return torch.stack(outs)
 
 
+def hadd_graph(a: torch.Tensor, b: torch.Tensor,
+               q: torch.Tensor) -> torch.Tensor:
+    """a + b mod q: int32 [2, rows, n2, n1] ciphertexts, q [rows] the
+    primes of their rows (any slice of rows or columns of the operands
+    with the q of its rows: the sharded elementwise ops run this on each
+    shard's slice)."""
+    return modadd(a, b, col(q)).to(torch.int32)
+
+
+def hsub_graph(a: torch.Tensor, b: torch.Tensor,
+               q: torch.Tensor) -> torch.Tensor:
+    """a - b mod q (hadd_graph's operands)."""
+    return modsub(a, b, col(q)).to(torch.int32)
+
+
+def padd_graph(a: torch.Tensor, p: torch.Tensor,
+               q: torch.Tensor) -> torch.Tensor:
+    """The plaintext p [rows, n2, n1] added to c0 of a [2, rows, n2, n1]."""
+    c0 = modadd(a[0], p, col(q)).to(torch.int32)
+    return torch.stack([c0, a[1]])
+
+
+def pmult_graph(a: torch.Tensor, p: torch.Tensor,
+                q: torch.Tensor) -> torch.Tensor:
+    """Both components of a [2, rows, n2, n1] times the plaintext p."""
+    return mulmod(a, p, col(q)).to(torch.int32)
+
+
 class CkksEngine:
     """One CKKS context on one torch device ("cuda" or "cpu").
 
@@ -241,33 +271,32 @@ class CkksEngine:
     def hadd(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         self._same_level(a, b)
         self._count("hadd", a.level)
-        q = col(self.dc.q_level(a.level))
-        return Ciphertext(modadd(a.data, b.data, q).to(torch.int32), a.level,
-                          a.scale)
+        return Ciphertext(hadd_graph(a.data, b.data,
+                                     self.dc.q_level(a.level)),
+                          a.level, a.scale)
 
     def hsub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         self._same_level(a, b)
         self._count("hsub", a.level)
-        q = col(self.dc.q_level(a.level))
-        return Ciphertext(modsub(a.data, b.data, q).to(torch.int32), a.level,
-                          a.scale)
+        return Ciphertext(hsub_graph(a.data, b.data,
+                                     self.dc.q_level(a.level)),
+                          a.level, a.scale)
 
     def padd(self, a: Ciphertext, pt: Plaintext) -> Ciphertext:
         """Add a plaintext to c0."""
         self._same_level(a, pt)
         self._count("padd", a.level)
-        q = col(self.dc.q_level(a.level))
-        c0 = modadd(a.data[0], pt.data, q).to(torch.int32)
-        return Ciphertext(torch.stack([c0, a.data[1]]), a.level, a.scale)
+        return Ciphertext(padd_graph(a.data, pt.data,
+                                     self.dc.q_level(a.level)),
+                          a.level, a.scale)
 
     def pmult(self, a: Ciphertext, pt: Plaintext) -> Ciphertext:
         """Multiply both components by a plaintext (no rescale)."""
         self._same_level(a, pt)
         l = a.level
         self._count("pmult", l)
-        q = col(self.dc.q_level(l))
-        return Ciphertext(mulmod(a.data, pt.data, q).to(torch.int32), l,
-                          a.scale * pt.scale)
+        return Ciphertext(pmult_graph(a.data, pt.data, self.dc.q_level(l)),
+                          l, a.scale * pt.scale)
 
     def cmult(self, a: Ciphertext, value: float,
               scale_bits: Optional[int] = None) -> Ciphertext:
@@ -372,6 +401,38 @@ class CkksEngine:
         package's keyswitch() (its tables' branches). Returns int32
         [2, level, n2, n1] (e0, e1)."""
         return keyswitch(d, key, self.dc.keyswitch_tables(level))
+
+    def op_cost_counters(self, op: str, a: Ciphertext,
+                         b: Optional[Ciphertext] = None,
+                         pt: Optional[Plaintext] = None) -> Dict[str, float]:
+        """Counters of one run of one of the CLI's ops (hmult, hsquare,
+        hrotate by one step, hadd, hsub, padd, pmult) on a, b or pt, with
+        the JAX engine's keys: HBM_bytes (counted, not measured),
+        MEM_arg_bytes, MEM_out_bytes and, on the card only,
+        MEM_temp_bytes (stats.torch_counters). Runs the op graph twice
+        and leaves the engine's stats untouched; hrotate makes the
+        rotation key of step 1 if it is missing."""
+        from .stats import torch_counters
+
+        l, dc = a.level, self.dc
+        if op == "hrotate" and 1 not in self.rot_keys:
+            self.gen_rotation_key(1)
+        runs = {
+            "hmult": lambda: hmult_graph(a.data, b.data, self.relin_key,
+                                         dc.keyswitch_tables(l)),
+            "hsquare": lambda: hsquare_graph(a.data, self.relin_key,
+                                             dc.keyswitch_tables(l)),
+            "hrotate": lambda: hrotate_graph(
+                a.data, dc.automorph_perm(self.params.galois_elt(1)),
+                self.rot_keys[1], dc.keyswitch_tables(l)),
+            "hadd": lambda: hadd_graph(a.data, b.data, dc.q_level(l)),
+            "hsub": lambda: hsub_graph(a.data, b.data, dc.q_level(l)),
+            "padd": lambda: padd_graph(a.data, pt.data, dc.q_level(l)),
+            "pmult": lambda: pmult_graph(a.data, pt.data, dc.q_level(l)),
+        }
+        if op not in runs:
+            raise ValueError(op)
+        return torch_counters(runs[op], dc.device)
 
     def rescale(self, a: Ciphertext) -> Ciphertext:
         """Divide by the last prime (rescale_poly on each component)."""

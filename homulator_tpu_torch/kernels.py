@@ -9,10 +9,18 @@ the CUDA stream cross as `c_void_p`; every C entry returns
 
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without `nvcc` or a GPU.
+
+Each wrapper also declares what its kernel moves when it counts the
+launch: the tensors the kernel reads and the bytes it writes. While a
+byte count of `stats.OpCosts` (`CkksEngine.op_cost_counters`) is active,
+`count` adds them to it, and a kernel's plain version runs under
+`as_kernel`: unseen by the count, which takes the kernel's declared bytes
+instead, so one op counts the same bytes on the CPU and on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -22,7 +30,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -103,10 +111,50 @@ def reset_launch_counts() -> None:
             LAUNCHES[k] = 0
 
 
-def count(name: str) -> None:
-    """One launch of kernel `name` (called by its wrapper only)."""
+# The active byte count (a stats.OpCosts), or None: set by its `counting()`.
+COSTS = None
+
+
+def count(name: str, reads: Sequence[torch.Tensor] = (),
+          nbytes: int = 0) -> None:
+    """One launch of kernel `name` (called by its wrapper only), which
+    reads the tensors `reads` and moves `nbytes` other bytes (its outputs
+    written, a scratch array written and read back, an input it reads as
+    int32): the declaration an active byte count adds."""
     with _LOCK:
         LAUNCHES[name] += 1
+    declare(reads, nbytes)
+
+
+def declare(reads: Sequence[torch.Tensor], nbytes: int) -> None:
+    """Add one kernel's declared traffic to the active byte count."""
+    costs = COSTS
+    if costs is not None:
+        costs.kernel(reads, nbytes)
+
+
+@contextlib.contextmanager
+def unobserved():
+    """A block whose aten calls the active byte count does not see: a
+    kernel wrapper's own allocations and casts, or a plain version."""
+    costs = COSTS
+    if costs is None:
+        yield
+        return
+    costs.paused += 1
+    try:
+        yield
+    finally:
+        costs.paused -= 1
+
+
+@contextlib.contextmanager
+def as_kernel(reads: Sequence[torch.Tensor], nbytes: int):
+    """Run a kernel's plain version (on a CPU tensor) as the kernel it
+    stands for: unobserved, then the kernel's declared traffic."""
+    with unobserved():
+        yield
+    declare(reads, nbytes)
 
 
 def _nvcc() -> str:

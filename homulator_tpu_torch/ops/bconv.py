@@ -18,6 +18,8 @@ goes to B5 (csrc/bconv.cu, on B3's tensor-core core) on a CUDA tensor.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import kernels
@@ -65,9 +67,20 @@ def bconv_step2(xhat, mat, mat_mma, horner_sh, out_q) -> torch.Tensor:
     A CPU tensor runs bconv_step2_plain; any other call needs both tables
     (none is built per call), and a CUDA tensor launches kernel B5 (B3's
     tensor-core core with step 1 and the count off, csrc/bconv.cu), which
-    takes nd <= 32."""
+    takes nd <= 32. Its declared traffic: xhat read as int32, the
+    tables read, the output written (kernels.count)."""
+    traffic = ([t for t in (mat_mma, horner_sh, out_q) if t is not None],
+               4 * (xhat.shape[0] + out_q.shape[0])
+               * math.prod(xhat.shape[1:]))
     if xhat.device.type == "cpu":
-        return bconv_step2_plain(xhat, mat, out_q)
+        with kernels.as_kernel(*traffic):
+            return bconv_step2_plain(xhat, mat, out_q)
+    with kernels.unobserved():
+        return _bconv_step2_kernel(xhat, mat_mma, horner_sh, out_q, traffic)
+
+
+def _bconv_step2_kernel(xhat, mat_mma, horner_sh, out_q,
+                        traffic) -> torch.Tensor:
     if mat_mma is None or horner_sh is None:
         raise ValueError("bconv_step2: kernel B5 takes the matrix's table "
                          "in the device layout and its horner_sh "
@@ -91,5 +104,5 @@ def bconv_step2(xhat, mat, mat_mma, horner_sh, out_q) -> torch.Tensor:
             kernels.ptr(horner_sh), kernels.ptr(out_q), nd, m_out,
             x[0].numel(), kernels.stream(x))
     kernels.check(rc, "bconv_step2")
-    kernels.count("bconv_step2")
+    kernels.count("bconv_step2", *traffic)
     return out

@@ -23,6 +23,8 @@ the same core; it replaces `scripts/roofline.py::main._mm_kernel`): rows
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -119,11 +121,22 @@ def bconv_fused(x, s, s_sh, in_q, mat, mat_mma, horner_sh, out_q, *,
     (read by the plain version only); mat_mma/horner_sh: the device layout
     of its build_bf16_tables table (mma_table) and that table's horner_sh
     (read by the kernel only). A CPU tensor runs bconv_plain; a CUDA tensor
-    launches kernel B3 (csrc/bconv.cu)."""
+    launches kernel B3 (csrc/bconv.cu). Its declared traffic: x and the
+    kernel's tables read, the output written (kernels.count)."""
+    traffic = ((x, s, s_sh, in_q, mat_mma, horner_sh, out_q),
+               4 * out_q.shape[0] * math.prod(x.shape[1:]))
     if x.device.type == "cpu":
-        return bconv_plain(x, s, s_sh, in_q, mat, out_q, center)
+        with kernels.as_kernel(*traffic):
+            return bconv_plain(x, s, s_sh, in_q, mat, out_q, center)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
+    with kernels.unobserved():
+        return _bconv_kernel(x, s, s_sh, in_q, mat_mma, horner_sh, out_q,
+                             center, traffic)
+
+
+def _bconv_kernel(x, s, s_sh, in_q, mat_mma, horner_sh, out_q, center,
+                  traffic) -> torch.Tensor:
     nd, R, C = x.shape
     m_out = out_q.shape[0]
     dev = x.device
@@ -143,7 +156,7 @@ def bconv_fused(x, s, s_sh, in_q, mat, mat_mma, horner_sh, out_q, *,
             kernels.ptr(horner_sh), kernels.ptr(out_q), nd, int(center),
             m_out, R * C, kernels.stream(x))
     kernels.check(rc, "bconv")
-    kernels.count("bconv")
+    kernels.count("bconv", *traffic)
     return out
 
 

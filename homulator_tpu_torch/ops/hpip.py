@@ -43,6 +43,21 @@ def hpip_phases(conv_rows: int, K: int, n1: int, n2: int):
     return radix_tile_cols(conv_rows, n1, n2), radix_tile_cols(K, n2, n1)
 
 
+def traffic(convs, d_eval: torch.Tensor, key: torch.Tensor,
+            kt: KeySwitchLevelTables):
+    """(tensors read, other bytes) of one launch of B4, as hpip_kernel
+    declares it (kernels.count): the conversion pieces, d_eval, the
+    digits' key rows, q, qinv and the ext basis's forward tables read;
+    the output [2, K, n2, n1] written and the phase-A scratch (one row a
+    converted row) written and read back."""
+    nt = kt.ext_nt
+    K = kt.special_nt.q.shape[0] + kt.level
+    n = nt.n1 * nt.n2
+    reads = (*convs, d_eval, key[:len(kt.digits), :, :K], nt.q, kt.ext_qinv,
+             *(getattr(nt, k) for k in _FWD_TABLES))
+    return reads, 4 * n * (2 * K + 2 * sum(c.shape[0] for c in convs))
+
+
 def hpip_plain(convs, d_eval: torch.Tensor, key: torch.Tensor,
                kt: KeySwitchLevelTables) -> torch.Tensor:
     """Plain version of kernel B4: each digit's converted rows through
@@ -114,6 +129,6 @@ def hpip_kernel(convs, d_eval: torch.Tensor, key: torch.Tensor,
             tc_a.bit_length() - 1, tc_b.bit_length() - 1,
             kernels.stream(d_eval))
     kernels.check(rc, "hpip")
-    kernels.count("hpip")
+    kernels.count("hpip", *traffic(convs, d_eval, key, kt))
     return out
 

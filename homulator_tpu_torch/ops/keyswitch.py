@@ -43,10 +43,11 @@ from typing import List, Tuple
 
 import torch
 
+from .. import kernels
 from ..context import KeySwitchLevelTables
 from .bconv import bconv_step1_centered, bconv_step2
 from .bconv_fused import bconv_fused
-from .hpip import hpip_kernel, hpip_plain
+from .hpip import hpip_kernel, hpip_plain, traffic as hpip_traffic
 from .modmath import (
     col, lazy_sum_reduce, lazy_tree_sum, modadd, modsub, mont_mul, shoup_mul,
 )
@@ -114,8 +115,10 @@ def hpip_acc(convs, d_eval: torch.Tensor, key: torch.Tensor,
     A CPU tensor runs hpip_plain; a CUDA tensor launches kernel B4
     (csrc/hpip.cu)."""
     if d_eval.device.type == "cpu":
-        return hpip_plain(convs, d_eval, key, kt)
-    return hpip_kernel(convs, d_eval, key, kt)
+        with kernels.as_kernel(*hpip_traffic(convs, d_eval, key, kt)):
+            return hpip_plain(convs, d_eval, key, kt)
+    with kernels.unobserved():
+        return hpip_kernel(convs, d_eval, key, kt)
 
 
 def _moddown(accs, kt: KeySwitchLevelTables) -> torch.Tensor:

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import kernels
 from ..context import NttBasis
 from ..parallel import comm as comm_mod
 from . import ntt_kernels
@@ -248,28 +249,33 @@ def _check_device(x: torch.Tensor):
         raise ValueError(f"unsupported device {x.device}")
 
 
-def _dispatch(kernel, plain):
-    """A transform that runs plain on a CPU tensor and kernel on a CUDA
-    tensor."""
+def _dispatch(name: str, plain):
+    """A transform that runs kernel `name` (ntt_kernels) on a CUDA tensor
+    and plain on a CPU tensor, as the kernel in the byte count of
+    kernels.as_kernel."""
+    kernel = getattr(ntt_kernels, name)
+
     def run(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
         _check_device(x)
-        return (kernel if x.is_cuda else plain)(x, nb, rep)
+        if x.is_cuda:
+            with kernels.unobserved():
+                return kernel(x, nb, rep)
+        with kernels.as_kernel(*ntt_kernels.traffic(name, x, nb)):
+            return plain(x, nb, rep)
     run.__doc__ = plain.__doc__
     return run
 
 
-ntt_phase1 = _dispatch(ntt_kernels.ntt_phase1, ntt_phase1_plain)
-ntt_phase2 = _dispatch(ntt_kernels.ntt_phase2, ntt_phase2_plain)
-intt_phase2 = _dispatch(ntt_kernels.intt_phase2, intt_phase2_plain)
-intt_phase1 = _dispatch(ntt_kernels.intt_phase1, intt_phase1_plain)
-ntt_phase1_packed = _dispatch(ntt_kernels.ntt_phase1_packed,
-                              ntt_phase1_packed_plain)
-ntt_phase2_packed = _dispatch(ntt_kernels.ntt_phase2_packed,
-                              ntt_phase2_packed_plain)
-intt_phase2_packed = _dispatch(ntt_kernels.intt_phase2_packed,
-                               intt_phase2_packed_plain)
-intt_phase1_packed = _dispatch(ntt_kernels.intt_phase1_packed,
-                               intt_phase1_packed_plain)
+_ntt_fwd = _dispatch("ntt_fwd", ntt_plain)
+_ntt_inv = _dispatch("ntt_inv", intt_plain)
+ntt_phase1 = _dispatch("ntt_phase1", ntt_phase1_plain)
+ntt_phase2 = _dispatch("ntt_phase2", ntt_phase2_plain)
+intt_phase2 = _dispatch("intt_phase2", intt_phase2_plain)
+intt_phase1 = _dispatch("intt_phase1", intt_phase1_plain)
+ntt_phase1_packed = _dispatch("ntt_phase1_packed", ntt_phase1_packed_plain)
+ntt_phase2_packed = _dispatch("ntt_phase2_packed", ntt_phase2_packed_plain)
+intt_phase2_packed = _dispatch("intt_phase2_packed", intt_phase2_packed_plain)
+intt_phase1_packed = _dispatch("intt_phase1_packed", intt_phase1_packed_plain)
 
 
 def _comm_of(nb: NttBasis):
@@ -313,9 +319,7 @@ def ntt_rep(x: torch.Tensor, nb: NttBasis, rep: int) -> torch.Tensor:
     if nb.shard is not None:
         y = _transpose_a2a(ntt_phase1(x, nb, rep), nb)
         return ntt_phase2(y, nb, rep)
-    if x.is_cuda:
-        return ntt_kernels.ntt_fwd(x, nb, rep)
-    return ntt_plain(x, nb, rep)
+    return _ntt_fwd(x, nb, rep)
 
 
 def intt_rep(x: torch.Tensor, nb: NttBasis, rep: int) -> torch.Tensor:
@@ -329,9 +333,7 @@ def intt_rep(x: torch.Tensor, nb: NttBasis, rep: int) -> torch.Tensor:
     if nb.shard is not None:
         y = _transpose_a2a(intt_phase2(x, nb, rep), nb)
         return intt_phase1(y, nb, rep)
-    if x.is_cuda:
-        return ntt_kernels.ntt_inv(x, nb, rep)
-    return intt_plain(x, nb, rep)
+    return _ntt_inv(x, nb, rep)
 
 
 def ntt(x: torch.Tensor, nb: NttBasis) -> torch.Tensor:

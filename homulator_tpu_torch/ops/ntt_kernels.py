@@ -29,6 +29,16 @@ from ..context import NttBasis
 
 _FWD_TABLES = ("tw1", "tw1_sh", "mid", "mid_sh", "tw2", "tw2_sh")
 _INV_TABLES = ("itw2", "itw2_sh", "mid_inv", "mid_inv_sh", "itw1", "itw1_sh")
+_P1 = ("tw1", "tw1_sh", "mid", "mid_sh")
+_IP1 = ("mid_inv", "mid_inv_sh", "itw1", "itw1_sh")
+# the basis tables each kernel reads, in its argument order
+TABLES = {"ntt_fwd": _FWD_TABLES, "ntt_inv": _INV_TABLES,
+          "ntt_phase1": _P1, "ntt_phase1_packed": _P1,
+          "ntt_phase2": ("tw2", "tw2_sh"),
+          "ntt_phase2_packed": ("tw2", "tw2_sh"),
+          "intt_phase2": ("itw2", "itw2_sh"),
+          "intt_phase2_packed": ("itw2", "itw2_sh"),
+          "intt_phase1": _IP1, "intt_phase1_packed": _IP1}
 _MAX_N = 1024  # per-axis length: the kernels take n = 2 .. 1024
 
 # The launch geometry of the register-radix phases (B1, B2, B4): a block
@@ -81,8 +91,18 @@ def radix_phases(rows: int, n1: int, n2: int,
     return tuple((n, c, radix_tile_cols(rows, n, c)) for n, c in ab)
 
 
+def traffic(name: str, x: torch.Tensor, nb: NttBasis):
+    """(tensors read, other bytes) of one launch of kernel `name` on x,
+    as its wrapper declares it (kernels.count): x, q and the kernel's
+    basis tables read once; an output of x's size written, and for B1
+    and B2 also their scratch of x's size, written and read back."""
+    nbytes = 4 * x.numel() * (3 if name in ("ntt_fwd", "ntt_inv") else 1)
+    return (x, nb.q, *(getattr(nb, k) for k in TABLES[name])), nbytes
+
+
 def _launch(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
-            tables, in_rows: int, in_cols: int) -> torch.Tensor:
+            in_rows: int, in_cols: int) -> torch.Tensor:
+    tables = TABLES[name]
     if not x.is_cuda:
         raise ValueError(f"{name}: CUDA kernel called on {x.device}")
     M = nb.q.shape[0]
@@ -109,17 +129,18 @@ def _launch(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
             rep * M, M, n1, n2, *(tc.bit_length() - 1 for _, _, tc in phases),
             kernels.stream(x))
     kernels.check(rc, name)
-    kernels.count(name)
+    kernels.count(name, *traffic(name, x, nb))
     return out
 
 
 def _launch_phase(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
-                  tables, n: int, sliced=()) -> torch.Tensor:
+                  n: int, sliced=()) -> torch.Tensor:
     """One phase kernel on x [rep*M, n, c] (c a power of two up to n)
     -> a new [rep*M, n, c]. The tables named in `sliced` are per-element
     [M, n, c] (the shard's mid slice that B6 and B9 read); the others are
     flat stage tables [M, n]. The kernel also takes log2 of its tile
     width, phase_tile_cols'."""
+    tables = TABLES[name]
     if not x.is_cuda:
         raise ValueError(f"{name}: CUDA kernel called on {x.device}")
     M = nb.q.shape[0]
@@ -145,7 +166,7 @@ def _launch_phase(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
             *(kernels.ptr(getattr(nb, k)) for k in tables),
             rep * M, M, n, c, tile.bit_length() - 1, kernels.stream(x))
     kernels.check(rc, name)
-    kernels.count(name)
+    kernels.count(name, *traffic(name, x, nb))
     return out
 
 
@@ -153,35 +174,31 @@ def ntt_phase1(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
     """Kernel B6: int32 [rep*M, n1, c] coeff columns on the GPU -> stage-1
     CT butterflies times nb.mid ([M, n1, c], this shard's slice): [rep*M,
     n1, c] in [0, q), not transposed (the exchange transposes)."""
-    return _launch_phase("ntt_phase1", x, nb, rep,
-                         ("tw1", "tw1_sh", "mid", "mid_sh"), nb.n1,
-                         ("mid", "mid_sh"))
+    return _launch_phase("ntt_phase1", x, nb, rep, nb.n1, ("mid", "mid_sh"))
 
 
 def ntt_phase2(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
     """Kernel B7: int32 [rep*M, n2, c] -> stage-2 CT butterflies, eval
     columns in [0, q)."""
-    return _launch_phase("ntt_phase2", x, nb, rep, ("tw2", "tw2_sh"), nb.n2)
+    return _launch_phase("ntt_phase2", x, nb, rep, nb.n2)
 
 
 def intt_phase2(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
     """Kernel B8: int32 [rep*M, n2, c] eval columns -> inverse stage-2 GS
     butterflies, in [0, q), on B2's phase A."""
-    return _launch_phase("intt_phase2", x, nb, rep, ("itw2", "itw2_sh"),
-                         nb.n2)
+    return _launch_phase("intt_phase2", x, nb, rep, nb.n2)
 
 
 def intt_phase1(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
     """Kernel B9: int32 [rep*M, n1, c] -> times nb.mid_inv ([M, n1, c])
     in registers, then inverse stage-1 GS butterflies (B2's passes): coeff
     columns in [0, q)."""
-    return _launch_phase("intt_phase1", x, nb, rep,
-                         ("mid_inv", "mid_inv_sh", "itw1", "itw1_sh"), nb.n1,
+    return _launch_phase("intt_phase1", x, nb, rep, nb.n1,
                          ("mid_inv", "mid_inv_sh"))
 
 
 def _launch_packed(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
-                   tables, n: int, mid=()) -> torch.Tensor:
+                   n: int, mid=()) -> torch.Tensor:
     """One lane-packed phase kernel on x [rep*G, n, k*c] (k = nb.pack, G
     = ceil(M/k) groups a copy, c a power of two up to 32 with k*c a
     multiple of 32) -> a new [rep*G, n, k*c]. The tables named in `mid`
@@ -189,6 +206,7 @@ def _launch_packed(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
     stage tables. Lane j of group g reads limb min((g mod G)*k + j div c,
     M - 1). The kernel also takes log2 of its tile width,
     phase_tile_cols'."""
+    tables = TABLES[name]
     if not x.is_cuda:
         raise ValueError(f"{name}: CUDA kernel called on {x.device}")
     M, k = nb.q.shape[0], nb.pack
@@ -216,7 +234,7 @@ def _launch_packed(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
             *(kernels.ptr(getattr(nb, t)) for t in tables),
             rep * G, G, M, k, n, c, tile.bit_length() - 1, kernels.stream(x))
     kernels.check(rc, name)
-    kernels.count(name)
+    kernels.count(name, *traffic(name, x, nb))
     return out
 
 
@@ -224,42 +242,38 @@ def ntt_phase1_packed(x: torch.Tensor, nb: NttBasis,
                       rep: int = 1) -> torch.Tensor:
     """Kernel B10: B6 on lane-packed groups, int32 [rep*G, n1, k*c] ->
     the same layout in [0, q) per lane."""
-    return _launch_packed("ntt_phase1_packed", x, nb, rep,
-                          ("tw1", "tw1_sh", "mid", "mid_sh"), nb.n1,
+    return _launch_packed("ntt_phase1_packed", x, nb, rep, nb.n1,
                           ("mid", "mid_sh"))
 
 
 def ntt_phase2_packed(x: torch.Tensor, nb: NttBasis,
                       rep: int = 1) -> torch.Tensor:
     """Kernel B11: B7 on lane-packed groups [rep*G, n2, k*c]."""
-    return _launch_packed("ntt_phase2_packed", x, nb, rep,
-                          ("tw2", "tw2_sh"), nb.n2)
+    return _launch_packed("ntt_phase2_packed", x, nb, rep, nb.n2)
 
 
 def intt_phase2_packed(x: torch.Tensor, nb: NttBasis,
                        rep: int = 1) -> torch.Tensor:
     """Kernel B12: B8 on lane-packed groups [rep*G, n2, k*c], on B2's
     phase A."""
-    return _launch_packed("intt_phase2_packed", x, nb, rep,
-                          ("itw2", "itw2_sh"), nb.n2)
+    return _launch_packed("intt_phase2_packed", x, nb, rep, nb.n2)
 
 
 def intt_phase1_packed(x: torch.Tensor, nb: NttBasis,
                        rep: int = 1) -> torch.Tensor:
     """Kernel B13: B9 on lane-packed groups [rep*G, n1, k*c], the mid_inv
     product in registers before B2's GS passes."""
-    return _launch_packed("intt_phase1_packed", x, nb, rep,
-                          ("mid_inv", "mid_inv_sh", "itw1", "itw1_sh"), nb.n1,
+    return _launch_packed("intt_phase1_packed", x, nb, rep, nb.n1,
                           ("mid_inv", "mid_inv_sh"))
 
 
 def ntt_fwd(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
     """Kernel B1: int32 [rep*M, n1, n2] coeff tiles on the GPU ->
     [rep*M, n2, n1] eval tiles in [0, q)."""
-    return _launch("ntt_fwd", x, nb, rep, _FWD_TABLES, nb.n1, nb.n2)
+    return _launch("ntt_fwd", x, nb, rep, nb.n1, nb.n2)
 
 
 def ntt_inv(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
     """Kernel B2: int32 [rep*M, n2, n1] eval tiles on the GPU ->
     [rep*M, n1, n2] coeff tiles in [0, q)."""
-    return _launch("ntt_inv", x, nb, rep, _INV_TABLES, nb.n2, nb.n1)
+    return _launch("ntt_inv", x, nb, rep, nb.n2, nb.n1)

@@ -35,6 +35,31 @@ cut into d batch blocks and ns column slices (`shard_batch`, indexed by
 `Comm.index`; the key by rank alone), each shard running its B/d
 elements one after another (the JAX body's vmap) with the collectives in
 its row; `gather_batch` joins the result.
+
+The JAX package's GSPMD surface (`homulator_tpu/parallel/sharded.py:
+358-390`, `coeff_ntt.py`, the JAX CLI's ops at [cluster] > 1 other than
+the key-switch dispatches) hands whole arrays with sharding annotations
+to XLA's partitioner. The port expresses each of those layouts with its
+explicit per-shard programs instead, not with torch DTensor:
+
+  1. DTensor needs one process-group rank per shard; NCCL puts no two
+     ranks on one GPU, so on a one-card machine it could run one shard,
+     and it cannot run on a ThreadMesh;
+  2. the op path calls the CUDA kernels through ctypes (kernels.py), and
+     DTensor cannot propagate a sharding through such calls: around each
+     kernel it would gather to a replica, which partitions nothing;
+  3. every layout the JAX package annotates already has an explicit,
+     bit-exact program here: the batched hmult over ("data", "limb") or
+     ("data", "limb", "coeff") is make_limb_hmult / make_hybrid_hmult
+     with a data axis (`make_sharded_hmult`), the coefficient-sharded NTT
+     is ops/ntt.py's phase-split transform on sharded bases
+     (parallel/coeff_ntt.py), and the elementwise ops over rows or n2 are
+     local to each shard (`make_sharded_elementwise`).
+
+`ici_bytes_from_lowered` parses the StableHLO of a lowered JAX program
+and has no counterpart: the port counts the bytes at each collective
+itself (Comm.recv_bytes), which the tests and the CLI hold against
+`ici_bytes_per_op` and its limb and hybrid forms.
 """
 
 from __future__ import annotations
@@ -43,7 +68,10 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from ..api import hmult_graph, hrotate_tail
+from ..api import (
+    hadd_graph, hmult_graph, hrotate_tail, hsub_graph, padd_graph,
+    pmult_graph,
+)
 from ..context import DeviceContext
 from ..ops.automorph import automorph_eval_sharded, automorph_eval_shardperm
 from .mesh import pack_k_for
@@ -206,3 +234,104 @@ def ici_bytes_per_op(params, level: int, ns: int, op: str = "hmult", *,
     per_row = (ns - 1) * n * 4 // (ns * ns)
     per_auto = level * n * 4 // ns
     return rows * per_row + autos * per_auto
+
+
+# ---- the JAX package's GSPMD surface, on the explicit dispatches ----------
+def batched_hmult_fn(dc: DeviceContext, level: int):
+    """Returns f(a_batch, b_batch, evk) -> out_batch: hmult over int32
+    [B, 2, level, n2, n1] batches on one device, one element after another
+    (the JAX function's vmap), out [B, 2, level-1, n2, n1]."""
+    kt = dc.keyswitch_tables(level)
+
+    def f(a_batch: torch.Tensor, b_batch: torch.Tensor,
+          evk: torch.Tensor) -> torch.Tensor:
+        return torch.stack([hmult_graph(a, b, evk, kt)
+                            for a, b in zip(a_batch, b_batch)])
+
+    return f
+
+
+def make_sharded_hmult(dc: DeviceContext, level: int, mesh):
+    """Batched hmult over a mesh of make_mesh's ("data", "limb") or
+    ("data", "limb", "coeff") layout: the batch over the data rows, the
+    RNS rows over "limb" and, with a "coeff" axis, every tile's trailing
+    axis over "coeff" (the JAX function's input shardings). Runs
+    limb_sharded.make_limb_hmult or, with a "coeff" axis,
+    make_hybrid_hmult, each with data_axis="data".
+
+    Returns f(a_batch, b_batch, evk): whole operands [B, 2, level, n2,
+    n1] and the whole key, as the JAX function takes global arrays; f
+    lays them out itself (limb_sharded.shard_rows, with pad rows where
+    the limb axis does not divide level, and limb_key). On a ThreadMesh
+    it returns the whole [B, 2, level-1, n2, n1] batch; on a DistMesh the
+    list of this process's padded slices, as the other dispatches do."""
+    from . import limb_sharded as ls
+    from .comm import ThreadMesh
+
+    names = tuple(getattr(mesh, "names", ()))
+    if names == ("limb",):
+        ns_l, ns_c = mesh.extent("limb"), 1
+        f = ls.make_limb_hmult(dc, level, mesh, data_axis="data")
+    elif names == ("limb", "coeff"):
+        ns_l, ns_c = mesh.extent("limb"), mesh.extent("coeff")
+        f = ls.make_hybrid_hmult(dc, level, mesh, data_axis="data")
+    else:
+        raise ValueError(f"mesh axes {names}: make_sharded_hmult takes "
+                         "make_mesh's ('data', 'limb') or ('data', 'limb', "
+                         "'coeff')")
+    d = mesh.data
+
+    def run(a_batch: torch.Tensor, b_batch: torch.Tensor, evk: torch.Tensor):
+        out = f(ls.shard_rows(a_batch, level, ns_l, ns_c, data=d),
+                ls.shard_rows(b_batch, level, ns_l, ns_c, data=d),
+                ls.limb_key(evk, dc.params, level, ns_l, ns_c))
+        if not isinstance(mesh, ThreadMesh):
+            return out
+        return ls.gather_rows(out, ns_l, ns_c, data=d)[:, :, :level - 1]
+
+    return run
+
+
+ELEMENTWISE = {"hadd": hadd_graph, "hsub": hsub_graph, "padd": padd_graph,
+               "pmult": pmult_graph}
+
+
+def elementwise_axis(level: int, ns: int) -> int:
+    """The axis of a ciphertext [2, level, n2, n1] that the JAX CLI shards
+    the elementwise ops over at ns devices: the rows where ns divides
+    level, else n2 (homulator_tpu/cli.py:318-334); -3 or -2."""
+    return -3 if level % ns == 0 else -2
+
+
+def shard_elementwise(x: torch.Tensor, axis: int,
+                      ns: int) -> List[torch.Tensor]:
+    """x (a ciphertext [2, level, n2, n1] or a plaintext [level, n2, n1])
+    cut along `axis` (elementwise_axis's, counted from the end) into ns
+    contiguous slices, rank order; slices differ by at most one row where
+    ns does not divide the axis."""
+    return [p.contiguous() for p in torch.tensor_split(x, ns, dim=axis)]
+
+
+def make_sharded_elementwise(dc: DeviceContext, op: str, level: int, mesh):
+    """hadd, hsub, padd or pmult at `level` over a mesh of ns shards (one
+    axis, no data rows), laid out as the JAX CLI lays them out for GSPMD:
+    rows or n2 over the mesh (elementwise_axis). Returns f(a, b) -> out
+    over per-rank slices (shard_elementwise of the ciphertext a and of
+    the ciphertext or plaintext b); each shard runs the engine's graph
+    (api.hadd_graph, ...) on its slice with the primes of its rows. No
+    collective runs: a shard receives 0 bytes."""
+    if op not in ELEMENTWISE:
+        raise ValueError(f"{op!r}: not one of {tuple(ELEMENTWISE)}")
+    _check_data_axis(mesh, None)
+    ns = mesh.size
+    q = dc.q_level(level)
+    qs = (shard_elementwise(q, -1, ns) if elementwise_axis(level, ns) == -3
+          else [q] * ns)
+    graph = ELEMENTWISE[op]
+
+    def run(a: Sequence[torch.Tensor],
+            b: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return mesh.run(lambda comm: graph(a[comm.rank], b[comm.rank],
+                                           qs[comm.rank]))
+
+    return run

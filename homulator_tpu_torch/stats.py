@@ -2,8 +2,12 @@
 Statistic table (include/Staistics.h:6-41 [sic]).
 
 The port's own copy of `Statistic` and `op_modmul_count` from
-`homulator_tpu/stats.py`, unchanged (the XLA cost counters stay behind:
-they read compiled XLA executables).
+`homulator_tpu/stats.py`, unchanged, and `torch_counters`, the
+counterpart of its `xla_counters`: XLA reads HBM bytes, buffer sizes and
+flops off a compiled executable; the port runs eagerly, so it counts one
+run of the op instead (`OpCosts`, below). It reports no FLOPs_compiled:
+no compiler counts the op's operations, and `op_modmul_count` already
+gives its modular multiplies.
 
 The reference counts per-unit busy cycles, memory stalls, HBM beats, SPM
 words, and NoC transfers, then dumps a sorted table at end of run. Here the
@@ -18,7 +22,13 @@ import json
 import time
 from collections import defaultdict
 from contextlib import contextmanager
-from typing import Dict
+from typing import Callable, Dict
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+
+from . import kernels
 
 
 class Statistic:
@@ -64,6 +74,123 @@ class Statistic:
             out[k + "_ms_min"] = 1e3 * min(ts)
             out[k + "_count"] = len(ts)
         return json.dumps(out)
+
+
+_aten = torch.ops.aten
+# calls that move no bytes: allocations (views are func.is_view)
+_ALLOCATIONS = {_aten.empty, _aten.empty_like, _aten.empty_strided,
+                _aten.new_empty, _aten.new_empty_strided, _aten.lift_fresh}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _storage(t: torch.Tensor):
+    s = t.untyped_storage()
+    return (t.device, s.data_ptr()), s.nbytes()
+
+
+class OpCosts(TorchDispatchMode):
+    """The bytes one run of an op moves, counted, not measured.
+
+    While `counting()`, every aten call adds the bytes of each tensor it
+    reads and writes (operands plus outputs, op by op, as XLA's "bytes
+    accessed"; views and allocations move none), and every kernel launch
+    the bytes its wrapper declares (kernels.count). A kernel's plain
+    version runs unobserved and adds its kernel's declaration instead
+    (kernels.as_kernel), so an op counts the same bytes on the CPU and on
+    the card. `arg_bytes` sums the storages read that the run did not make:
+    the op's arguments and the tables it reads."""
+
+    def __init__(self):
+        super().__init__()
+        self.hbm_bytes = 0
+        self.paused = 0  # kernels.unobserved's depth
+        self._made = set()
+        self._args: Dict[tuple, int] = {}
+
+    def _read(self, t: torch.Tensor) -> None:
+        key, size = _storage(t)
+        if key not in self._made:
+            self._args[key] = size
+
+    @property
+    def arg_bytes(self) -> int:
+        return sum(self._args.values())
+
+    def kernel(self, reads, nbytes: int) -> None:
+        """One kernel launch's declared traffic (kernels.declare)."""
+        self.hbm_bytes += sum(_nbytes(t) for t in reads) + nbytes
+        for t in reads:
+            self._read(t)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        ins = [t for t in tree_leaves((args, kwargs))
+               if isinstance(t, torch.Tensor)]
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        if func.is_view:
+            return out
+        in_keys = {_storage(t)[0] for t in ins}
+        if not self.paused and func.overloadpacket not in _ALLOCATIONS:
+            self.hbm_bytes += sum(_nbytes(t) for t in ins + outs)
+            for t in ins:
+                self._read(t)
+        self._made.update(k for k in (_storage(t)[0] for t in outs)
+                          if k not in in_keys)
+        return out
+
+    @contextmanager
+    def counting(self):
+        """Count the block's aten calls and kernel launches."""
+        if kernels.COSTS is not None:
+            raise RuntimeError("an OpCosts count is already running")
+        kernels.COSTS = self
+        try:
+            with self:
+                yield self
+        finally:
+            kernels.COSTS = None
+
+
+def torch_counters(run: Callable[[], torch.Tensor],
+                   device: torch.device) -> Dict[str, float]:
+    """Counters of one call of `run` (an op on `device`, returning its
+    output tensor), named after the reference's Statistic surface as
+    `xla_counters` names them:
+
+      HBM_bytes      bytes the op's aten calls and kernels read and write,
+                     counted (OpCosts), the same on the CPU and the card
+      MEM_arg_bytes  the op's tensor arguments and the tables it reads
+      MEM_out_bytes  its output
+      MEM_temp_bytes on the card only: the caching allocator's peak
+                     during the call above what was allocated when it
+                     began (the arguments and tables among it), less the
+                     output; absent on the CPU, which has no such
+                     allocator statistics
+
+    `run` is called twice: once to build what it builds on first use
+    (tables, keys, the kernel library), then once counted."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    run()
+    costs = OpCosts()
+    if cuda:
+        torch.cuda.synchronize(device)
+        before = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    with costs.counting():
+        out = run()
+    out_bytes = _nbytes(out)
+    res = {"HBM_bytes": float(costs.hbm_bytes),
+           "MEM_arg_bytes": float(costs.arg_bytes),
+           "MEM_out_bytes": float(out_bytes)}
+    if cuda:
+        torch.cuda.synchronize(device)
+        peak = torch.cuda.max_memory_allocated(device)
+        res["MEM_temp_bytes"] = float(peak - before - out_bytes)
+    return res
 
 
 def op_modmul_count(op: str, n: int, level: int, alpha: int, dnum_used: int) -> int:

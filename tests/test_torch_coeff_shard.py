@@ -273,9 +273,10 @@ def test_dist_mesh_gloo_two_processes(engines, tmp_path):
 def test_cli_coeff_dispatch(capsys):
     """`run configs/tiny.cfg hmult 8 8 4 2 --dispatch coeff --device cpu
     --verify` (N = 256, n1 = 16: 2 shards is the most coeff_shard_ok
-    allows) exits 0 and matches the single-device op; GSPMD, not ported,
-    exits 2 naming ROADMAP A12.4; a tile coeff_shard_ok rejects and a
-    hybrid mesh on 2 shards are usage errors, exit 1 as in the JAX CLI."""
+    allows) exits 0 and matches the single-device op; GSPMD, once exit 2,
+    runs as the limb dispatch and matches it too; a tile coeff_shard_ok
+    rejects and a hybrid mesh on 2 shards are usage errors, exit 1 as in
+    the JAX CLI."""
     rc = cli.main(["run", "configs/tiny.cfg", "hmult", "8", "8", "4", "2",
                    "--dispatch", "coeff", "--device", "cpu", "--verify",
                    "--iters", "1"])
@@ -284,8 +285,11 @@ def test_cli_coeff_dispatch(capsys):
     assert "dispatch=coeff" in outp and "bit-exact" in outp
     assert "verify max-abs-err" in outp
     rc = cli.main(["run", "configs/tiny.cfg", "hmult", "8", "8", "4", "2",
-                   "--dispatch", "gspmd", "--device", "cpu"])
-    assert rc == 2 and "ROADMAP A12.4" in capsys.readouterr().err
+                   "--dispatch", "gspmd", "--device", "cpu", "--verify",
+                   "--iters", "1"])
+    outp = capsys.readouterr().out
+    assert rc == 0, outp
+    assert "dispatch=gspmd -> limb" in outp and "bit-exact" in outp
     rc = cli.main(["run", "configs/tiny.cfg", "hmult", "8", "8", "4", "2",
                    "--dispatch", "hybrid", "--device", "cpu"])
     assert rc == 1 and "even cluster >= 4" in capsys.readouterr().err
