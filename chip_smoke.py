@@ -191,12 +191,36 @@ failure and the script then exits non-zero:
      and on its CPU twin at N = 2^13 for every op; one CLI hmult run with
      `--profile`, whose Chrome trace must hold B1's launches; and
      `dryrun_multichip(8, device="cuda")` on a ThreadMesh;
-  9. one JSON line of per-kernel results (each kernel's times and bound at
+  9. the op studies (`check_op_studies`; alone: python3 -c "import
+     chip_smoke; chip_smoke.op_studies_main()"): parameter sets A (N =
+     2^15, maxLevel 28, alpha 28: dnum 1), C (24, 6: dnum 4), D (26, 9)
+     and M (set A's limbs at N = 2^16), each through CkksEngine on the
+     card (host engine on the native core) at its max level and at level
+     2: hmult, hrotate(1), hadd, pmult and padd, each driven with the
+     launch counts around it, equal bit for bit to RefCkks on the same
+     ciphertexts and within 1e-2 of the expected values in every slot
+     (the key switches through the exact CRT decrypt, the others through
+     RefCkks' 3-prime decode); B3 on set A's tail (31 rows in: the widest
+     table) and ModUp digit 0 (28 + 1), and B4 at set A's level 28 (dnum
+     1) and set C's level 24 (dnum 4), against their plain versions, also
+     in the worst case (every input q - 1); the one-program batched hmult
+     (`batched_hmult_fn`) at set B, level 35, B = 1, 2, 4, 8 on the
+     piecewise and the fused route, each batch equal to B single hmults
+     and launching B1-B4 as often as one element, eager and device ms at
+     B = 1 and 8, and B1-B4 on a batch of 8 against their plain versions
+     (B3 on a row slice of the batch); hmult at the 36-bit parity shape
+     ((56, 43, 19), recomputed by scripts/bench_parity36_torch.py's
+     parity36_shape) equal to RefCkks and within 1e-2 in every slot; the
+     automorphism of a rotation on [70, 256, 256] flat, staged and as
+     one-hot bf16 products (scripts/bench_automorph_torch.py), equal
+     bit for bit, each timed;
+ 10. one JSON line of per-kernel results (each kernel's times and bound at
      one shape the main path launches, named in `shape`; `max_abs_err`
      over every shape checked; `launches` summed over the main-path runs,
      per run in `launches_by_run`; the limb and hybrid shapes' numbers in
-     `limb_hybrid_shapes`; for the kernels of 3b every variant's numbers
-     in `variants`) and phase 8's counters, then the device line last.
+     `limb_hybrid_shapes`, phase 9's in `op_studies_shapes`; for the
+     kernels of 3b every variant's numbers in `variants`) and phase 8's
+     counters, then the device line last.
 
 Bound of a kernel call (`benchlib.bound`): the largest of the bytes it
 must move (each input read once, each output written once) over 3.35
@@ -468,12 +492,13 @@ def step2_bound(nd, m_out, n):
                  2 * (4 * m_out) * (4 * nd) * n)
 
 
-def hpip_bound(kt):
-    """B4 at kt's level: the converted rows, the own rows, the key rows
-    read (beta x 2 x K), the ext basis's mid and stage tables, the output
-    (the phase-A scratch is not counted: the least the card could move);
-    the operations csrc/hpip.cu does (benchlib.hpip_ops: the converted
-    rows' NTTs in Harvey butterflies, the lazy Montgomery
+def hpip_bound(kt, batch=1):
+    """B4 at kt's level on a batch of `batch` key switches under one key:
+    each element's converted rows, own rows and output, the key rows read
+    once (beta x 2 x K), the ext basis's mid and stage tables once (the
+    phase-A scratch is not counted: the least the card could move); the
+    operations csrc/hpip.cu does, an element (benchlib.hpip_ops: the
+    converted rows' NTTs in Harvey butterflies, the lazy Montgomery
     product-accumulates, one reduction an output word)."""
     nt = kt.ext_nt
     n1, n2 = nt.n1, nt.n2
@@ -481,9 +506,9 @@ def hpip_bound(kt):
     K = nt.q.shape[0]
     beta = len(kt.digits)
     conv_rows = sum(K - (dt.hi - dt.lo) for dt in kt.digits)
-    nbytes = 4 * (conv_rows * n + kt.level * n + beta * 2 * K * n
-                  + 2 * K * n + 2 * K * (n1 + n2) + 2 * K + 2 * K * n)
-    return bound(nbytes, hpip_ops(conv_rows, K, beta, n))
+    nbytes = 4 * (batch * (conv_rows * n + kt.level * n + 2 * K * n)
+                  + beta * 2 * K * n + 2 * K * n + 2 * K * (n1 + n2) + 2 * K)
+    return bound(nbytes, batch * hpip_ops(conv_rows, K, beta, n))
 
 
 def anatomy_bound(M, n1, n2, passes, mid):
@@ -631,24 +656,25 @@ def bconv_cases(kt, prefix=""):
     return cases
 
 
-def check_bconv(torch, label, x, tabs, center, results):
-    """B3 against bconv_plain on x, bit for bit, timed, with its bound."""
+def check_bconv(torch, label, x, tabs, center, results, **timing):
+    """B3 against bconv_plain on x ([nd, R, C], or a batch [B, nd, R, C]),
+    bit for bit, timed (device_ms takes `timing`), with its bound."""
     from homulator_tpu_torch.ops.bconv_fused import bconv_fused, bconv_plain
 
     s, s_sh, iq, mat, tab, hsh, out_q = tabs
+    nd = x.shape[-3]
     compare(torch, "bconv", label,
             lambda: bconv_fused(x, s, s_sh, iq, mat, tab, hsh, out_q,
                                 center=center),
             lambda: bconv_plain(x, s, s_sh, iq, mat, out_q, center),
-            bconv_bound(x.shape[0], out_q.shape[0], center,
-                        x.shape[1] * x.shape[2]), results)
+            bconv_bound(nd, out_q.shape[0], center, x.numel() // nd),
+            results, **timing)
 
 
 def check_kernels(np, torch, dc, rng, results, get_params):
     """Phase 3: every kernel vs its plain version at the set-B shapes."""
     from homulator_tpu_torch.context import DeviceContext
     from homulator_tpu_torch.ops import ntt_kernels
-    from homulator_tpu_torch.ops.hpip import hpip_kernel, hpip_plain
     from homulator_tpu_torch.ops.ntt import intt_plain, ntt_plain
 
     kt = dc.keyswitch_tables(LEVEL_B)
@@ -688,44 +714,60 @@ def check_kernels(np, torch, dc, rng, results, get_params):
         x = residues(in_q, (in_q.shape[0], pm.ntt.n1, pm.ntt.n2), rng)
         check_bconv(torch, label, x, tabs, center, results)
 
-    # B4: random pieces, own rows and a random Montgomery-form key
-    # [dnum, 2, K_full, n2, n1] over the specials-first primes, at each of
-    # HPIP_LEVELS; then the worst case at level 35: every piece, own-row
-    # and key word q - 1 (the largest term and product the lazy ranges
-    # take)
-    p = dc.params
-    key_q = np.concatenate([p.q_arr[p.max_level:], p.q_arr[:p.max_level]])
-    key = residues(np.tile(key_q, 2 * p.dnum),
-                   (2 * p.dnum * p.num_primes, n2, n1), rng).view(
-                       p.dnum, 2, p.num_primes, n2, n1)
+    # B4 at each of HPIP_LEVELS; then the worst case at level 35
+    for level, wc in [(lv, False) for lv in HPIP_LEVELS] + [(LEVEL_B, True)]:
+        check_hpip(np, torch, dc, level, wc, rng, results)
 
-    def q_minus_1(q, shape):  # row i of the first axis all q[i] - 1
+
+def hpip_inputs(np, torch, dc, level, worst, rng, batch=None):
+    """B4's inputs at dc's `level`: random pieces, own rows and a random
+    Montgomery-form key [dnum, 2, K_full, n2, n1] over the specials-first
+    primes, or (worst) every piece, own-row and key word q - 1 (the
+    largest term and product the lazy ranges take); with batch B, B
+    elements (pieces [B, rows_d, n1, n2], d_eval [B, level, n2, n1])
+    under the one key. Returns (convs, d_eval, key, kt)."""
+    p = dc.params
+    n1, n2 = p.ntt.n1, p.ntt.n2
+    kt = dc.keyswitch_tables(level)
+
+    def make(q, shape):  # row i of the first axis mod q[i], or q[i] - 1
         if isinstance(q, torch.Tensor):
             q = q.cpu().numpy()
-        q = torch.from_numpy(np.asarray(q, dtype=np.int64) - 1).to(
-            torch.int32).cuda()
-        return q.view((-1,) + (1,) * (len(shape) - 1)).expand(
-            shape).contiguous()
+        q = np.asarray(q, dtype=np.int64)
+        if not worst:
+            return residues(q, shape, rng)
+        return torch.from_numpy((q - 1).astype(np.int32)).cuda().view(
+            (-1,) + (1,) * (len(shape) - 1)).expand(shape).contiguous()
 
-    worst_key = q_minus_1(np.tile(key_q, 2 * p.dnum),
-                          (2 * p.dnum * p.num_primes, n2, n1)).view(key.shape)
-    for level, wc in [(lv, False) for lv in HPIP_LEVELS] + [(LEVEL_B, True)]:
-        kl = dc.keyswitch_tables(level)
+    def elems(q, shape):
+        if batch is None:
+            return make(q, shape)
+        return torch.stack([make(q, shape) for _ in range(batch)])
 
-        def make(q, shape):
-            return q_minus_1(q, shape) if wc else residues(q, shape, rng)
+    key_q = np.concatenate([p.q_arr[p.max_level:], p.q_arr[:p.max_level]])
+    key = make(np.tile(key_q, 2 * p.dnum),
+               (2 * p.dnum * p.num_primes, n2, n1)).view(
+                   p.dnum, 2, p.num_primes, n2, n1)
+    convs = [elems(dt.other_nt.q, (dt.other_nt.q.shape[0], n1, n2))
+             for dt in kt.digits]
+    return convs, elems(kt.main_nt.q, (level, n2, n1)), key, kt
 
-        convs = [make(dt.other_nt.q, (dt.other_nt.q.shape[0], n1, n2))
-                 for dt in kl.digits]
-        d_eval = make(kl.main_nt.q, (level, n2, n1))
-        k = worst_key if wc else key
-        spans = " ".join(f"({dt.lo},{dt.hi})" for dt in kl.digits)
-        compare(torch, "hpip",
-                f"level {level} K={kl.ext_nt.q.shape[0]} digits {spans}"
-                + (" worst case (all q-1)" if wc else ""),
-                lambda: hpip_kernel(convs, d_eval, k, kl),
-                lambda: hpip_plain(convs, d_eval, k, kl),
-                hpip_bound(kl), results)
+
+def check_hpip(np, torch, dc, level, worst, rng, results, prefix="",
+               batch=None, **timing):
+    """B4 against hpip_plain on hpip_inputs' inputs at dc's `level`, bit
+    for bit, timed (device_ms takes `timing`), with its bound."""
+    from homulator_tpu_torch.ops.hpip import hpip_kernel, hpip_plain
+
+    convs, d_eval, key, kl = hpip_inputs(np, torch, dc, level, worst, rng,
+                                         batch)
+    spans = " ".join(f"({dt.lo},{dt.hi})" for dt in kl.digits)
+    compare(torch, "hpip",
+            f"{prefix}level {level} K={kl.ext_nt.q.shape[0]} digits {spans}"
+            + (" worst case (all q-1)" if worst else ""),
+            lambda: hpip_kernel(convs, d_eval, key, kl),
+            lambda: hpip_plain(convs, d_eval, key, kl),
+            hpip_bound(kl, batch or 1), results, **timing)
 
 
 def check_step2_kernel(np, torch, dc, rng, results):
@@ -1525,6 +1567,313 @@ def check_workloads(np, torch, kernels, api, eng, get_params, launches):
     return errs, timings
 
 
+# phase 9, the op studies: the reference's other parameter sets (maxLevel,
+# alpha; scripts/sweep_torch.py's PARAM_SETS), each at its max level and
+# at level 2
+STUDY_SETS = {"A": dict(n=1 << 15, max_level=28, alpha=28),
+              "C": dict(n=1 << 16, max_level=24, alpha=6),
+              "D": dict(n=1 << 16, max_level=26, alpha=9),
+              "M": dict(n=1 << 16, max_level=28, alpha=28)}
+BATCHES = (1, 2, 4, 8)
+BATCH_KERNELS = ("ntt_fwd", "ntt_inv", "bconv", "hpip")  # B1-B4
+STUDY = "phase 9 "  # the label prefix of phase 9's kernel shapes
+
+
+def _script(name):
+    """scripts/<name>.py of this checkout as a module (the op-study
+    scripts' helpers)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_set_ops(np, torch, kernels, eng, name, level, launches, errs):
+    """Phase 9: hmult, hrotate(1), hadd, pmult and padd of eng's set at
+    `level`, each driven with the launch counts around it (the piecewise
+    route's B1-B3 for the key switches, no kernel for the others), equal
+    bit for bit to the host engine RefCkks (native core) on the same
+    ciphertexts, and within GATE of the expected values in every slot:
+    the key switches through the exact CRT decrypt, the elementwise ops
+    through RefCkks' 3-prime CRT decode (every limb is held by the
+    equality above)."""
+    ref = eng.ref
+    rng = np.random.default_rng(level)
+    v1, v2, v3 = (rng.uniform(-0.5, 0.5, size=eng.params.n // 2)
+                  for _ in range(3))
+    ct1, ct2 = (eng.encrypt_complex(v, level, SCALE) for v in (v1, v2))
+    r1, r2 = eng.to_ref(ct1), eng.to_ref(ct2)
+    rpt = ref.encode_complex(v3, level, SCALE)
+    pt = eng.dc.upload_pt(rpt.data, level, rpt.scale)
+    ops = {  # op -> (run, oracle, expected slots, kernels, exact decrypt)
+        "hmult": (lambda: eng.hmult(ct1, ct2), lambda: ref.hmult(r1, r2),
+                  v1 * v2, PIECES_KERNELS, True),
+        "hrotate(1)": (lambda: eng.hrotate(ct1, 1),
+                       lambda: ref.hrotate(r1, 1), np.roll(v1, -1),
+                       PIECES_KERNELS, True),
+        "hadd": (lambda: eng.hadd(ct1, ct2), lambda: ref.hadd(r1, r2),
+                 v1 + v2, (), False),
+        "pmult": (lambda: eng.pmult(ct1, pt), lambda: ref.pmult(r1, rpt),
+                  v1 * v3, (), False),
+        "padd": (lambda: eng.padd(ct1, pt), lambda: ref.padd(r1, rpt),
+                 v1 + v3, (), False),
+    }
+    line = []
+    for op, (run, oracle, want, expect, exact) in ops.items():
+        label = f"set {name} {op} level {level}"
+        got, launches[label] = drive(torch, kernels, label, run, expect)
+        if not np.array_equal(eng.dc.download(got.data), oracle().data):
+            raise AssertionError(f"{label}: != RefCkks")
+        dec = (eng.decrypt_complex(got) if exact
+               else ref.decrypt_complex_fast(eng.to_ref(got)))
+        errs[label] = float(np.max(np.abs(dec - want)))
+        if not errs[label] < GATE:
+            raise AssertionError(f"{label}: decrypt gate {GATE} failed: "
+                                 f"{errs[label]:.3e}")
+        line.append(f"{op} {errs[label]:.3e}")
+    p = eng.params
+    print(f"# set {name} (N=2^{p.n.bit_length() - 1}, maxLevel "
+          f"{p.max_level}, alpha {p.alpha}, dnum {p.beta(level)}) level "
+          f"{level}: hmult, hrotate(1), hadd, pmult, padd == RefCkks, "
+          f"bit-exact; verify max-abs-err " + ", ".join(line)
+          + f", all {p.n // 2} slots")
+
+
+def check_study_kernels(np, torch, dcs, rng, results):
+    """Phase 9: B3 on set A's fused tail (nd = alpha + 3 = 31 rows in, the
+    widest table, four k32 steps) and ModUp digit 0 (28 + 1 rows), B4 at
+    set A's level 28 (dnum 1) and set C's level 24 (dnum 4), each against
+    its plain version, at random inputs and every input q - 1."""
+    da, dc_c = dcs["A"], dcs["C"]
+    ka = da.keyswitch_tables(28)
+    n1, n2 = da.params.ntt.n1, da.params.ntt.n2
+    cases = bconv_cases(ka, STUDY + "set A ")
+    for label in (next(k for k in cases if "tail" in k), next(iter(cases))):
+        in_q, tabs, center = cases[label]
+        check_bconv(torch, label, residues(in_q, (in_q.shape[0], n1, n2),
+                                           rng), tabs, center, results)
+        worst = (in_q - 1).view(-1, 1, 1).expand(-1, n1, n2).contiguous()
+        check_bconv(torch, f"{label} worst case (x = q-1)", worst, tabs,
+                    center, results)
+    for label, dc, level in (("set A ", da, 28), ("set C ", dc_c, 24)):
+        for worst in (False, True):
+            check_hpip(np, torch, dc, level, worst, rng, results,
+                       STUDY + label)
+
+
+def check_batch(np, torch, kernels, api, eng, rng, results, launches,
+                timings):
+    """Phase 9: the one-program batched hmult (batched_hmult_fn) at set B,
+    level 35, B = 1, 2, 4, 8, on the piecewise and the fused route: each
+    batch driven with the launch counts around it, equal bit for bit to B
+    single engine.hmult calls, launching B1-B4 as often as one element
+    does; eager and device ms at B = 1 and 8; then B1-B4 on a batch of 8
+    against their plain versions on the card: B3 over a row slice of the
+    batch (ModUp digit 1, elements 35 rows apart, as modup_convs_coeff
+    passes it), B4 at level 35, B2 over the 8 elements' main rows and B1
+    over the tail's 2 x 8 copies."""
+    from homulator_tpu_torch.ops import ntt_kernels
+    from homulator_tpu_torch.ops.ntt import intt_plain, ntt_plain
+    from homulator_tpu_torch.parallel.sharded import batched_hmult_fn
+
+    f = batched_hmult_fn(eng.dc, LEVEL_B)
+    key = eng.relin_key
+    cts = [eng.encrypt_complex(rng.uniform(-1, 1, size=eng.params.n // 2),
+                               LEVEL_B, SCALE) for _ in range(4)]
+    pairs = [(i, (i + j) % 4) for j in (1, 2) for i in range(4)]  # 8 pairs
+    a = torch.stack([cts[i].data for i, _ in pairs])
+    b = torch.stack([cts[j].data for _, j in pairs])
+    for route, expect in (("piecewise", PIECES_KERNELS),
+                          ("fused", FUSED_KERNELS)):
+        api.USE_FUSED_HPIP = route == "fused"
+        try:
+            _, one = drive(torch, kernels, f"hmult one element {route}",
+                           lambda: eng.hmult(cts[0], cts[1]), expect)
+            singles = torch.stack([eng.hmult(cts[i], cts[j]).data
+                                   for i, j in pairs])
+            for B in BATCHES:
+                label = f"hmult batch {B} {route}"
+                got, launches[label] = drive(
+                    torch, kernels, label, lambda: f(a[:B], b[:B], key),
+                    expect)
+                if not torch.equal(got, singles[:B]):
+                    raise AssertionError(f"{label}: != {B} single hmults")
+                if any(launches[label][k] != one[k] for k in BATCH_KERNELS):
+                    raise AssertionError(f"{label}: launched B1-B4 "
+                                         f"{launches[label]}, one element "
+                                         f"{one}")
+                if B in (1, 8):
+                    fn = (lambda bb=B: f(a[:bb], b[:bb], key))
+                    timings[label] = (latency_ms(fn), device_ms(fn, calls=2))
+                    print(f"# {label}: {timings[label][0]:.3f} ms eager, "
+                          f"{timings[label][1]:.3f} ms device time a batch")
+        finally:
+            api.USE_FUSED_HPIP = False
+    print(f"# batched hmult (45,35,15), B = {BATCHES}, piecewise and fused: "
+          "== B single hmults, bit-exact; B1-B4 launched as for one element")
+    kt = eng.dc.keyswitch_tables(LEVEL_B)
+    n1, n2 = eng.params.ntt.n1, eng.params.ntt.n2
+    quick = dict(calls=2, replays=5)
+    dt = kt.digits[1]
+    big = torch.stack([residues(kt.main_nt.q, (LEVEL_B, n1, n2), rng)
+                       for _ in range(8)])
+    x = big[:, dt.lo:dt.hi]
+    tabs = (dt.step1, dt.step1_sh, dt.in_q, dt.mat, dt.mat_mma,
+            dt.horner_sh, dt.other_nt.q)
+    check_bconv(torch, f"{STUDY}batch 8 modup digit1 row slice "
+                f"{dt.hi - dt.lo}+1->{dt.mat.shape[0]}", x, tabs, True,
+                results, **quick)
+    check_hpip(np, torch, eng.dc, LEVEL_B, False, rng, results,
+               STUDY + "batch 8 ", 8, **quick)
+    for name, kernel, plain, nb, rep, shape in (
+            ("ntt_inv", ntt_kernels.ntt_inv, intt_plain, kt.main_nt, 8,
+             (n2, n1)),
+            ("ntt_fwd", ntt_kernels.ntt_fwd, ntt_plain, kt.tail.out_nt, 16,
+             (n1, n2))):
+        q = np.tile(nb.q.cpu().numpy(), rep)
+        xn = residues(q, (len(q),) + shape, rng)
+        compare(torch, name, f"{STUDY}batch 8 M={nb.q.shape[0]} rep={rep}",
+                lambda: kernel(xn, nb, rep), lambda: plain(xn, nb, rep),
+                ntt_bound(nb, rep, name == "ntt_fwd"), results, **quick)
+
+
+def check_parity36(np, torch, kernels, get_params, launches, errs,
+                   timings):
+    """Phase 9: hmult at the 36-bit parity shape (scripts/
+    bench_parity36_torch.parity36_shape, recomputed: (56, 43, 19) at N =
+    2^16), driven with the launch counts around it, equal bit for bit to
+    RefCkks and within GATE in every slot; its eager and device ms."""
+    from homulator_tpu_torch.workloads import native_engine
+
+    L, alpha, level, _ = _script("bench_parity36_torch").parity36_shape(
+        1 << 16, 45, 15, 35)
+    t0 = time.perf_counter()
+    eng = native_engine(get_params(n=1 << 16, max_level=L, alpha=alpha),
+                        seed=1)
+    eng.keygen()
+    key_s = time.perf_counter() - t0
+    rng = np.random.default_rng(36)
+    v1, v2 = (rng.uniform(-1, 1, size=eng.params.n // 2) for _ in range(2))
+    ct1, ct2 = (eng.encrypt_complex(v, level, SCALE) for v in (v1, v2))
+    label = f"hmult parity36 ({L},{level},{alpha})"
+    out, launches[label] = drive(torch, kernels, label,
+                                 lambda: eng.hmult(ct1, ct2), PIECES_KERNELS)
+    if not np.array_equal(eng.dc.download(out.data), eng.ref.hmult(
+            eng.to_ref(ct1), eng.to_ref(ct2)).data):
+        raise AssertionError(f"{label}: != RefCkks")
+    errs[label] = float(np.max(np.abs(eng.decrypt_complex(out) - v1 * v2)))
+    if not errs[label] < GATE:
+        raise AssertionError(f"{label}: decrypt gate {GATE} failed")
+    timings[label] = (latency_ms(lambda: eng.hmult(ct1, ct2)),
+                      device_ms(lambda: eng.hmult(ct1, ct2), calls=2))
+    print(f"# {label}, dnum {eng.params.beta(level)}: == RefCkks, "
+          f"bit-exact; verify max-abs-err {errs[label]:.3e}, all "
+          f"{eng.params.n // 2} slots; {timings[label][0]:.3f} ms eager, "
+          f"{timings[label][1]:.3f} ms device time; host keys and tables "
+          f"{key_s:.1f} s")
+
+
+def check_staged_automorph(np, torch, eng, rng, timings):
+    """Phase 9: sigma_g of a rotation by one slot on [2 * 35, 256, 256]
+    (set B's hrotate shape) three ways, bit-identical: the flat gather
+    (automorph_eval), the staged form (automorph_eval_staged on
+    DeviceContext.automorph_stage_maps) and the one-hot bf16 products of
+    scripts/bench_automorph_torch.py; each one's device ms."""
+    from homulator_tpu_torch.ops.automorph import (
+        automorph_eval, automorph_eval_staged,
+    )
+
+    bench = _script("bench_automorph_torch")
+    p = eng.params
+    g = p.galois_elt(1)
+    s1, s2, s3 = eng.dc.automorph_stage_maps(g)
+    oh1, oh3 = bench.onehot_tables(s1, s3, p.ntt.n2)
+    x = residues(np.full(2 * LEVEL_B, 1 << 30), (2 * LEVEL_B, p.ntt.n2,
+                                                 p.ntt.n1), rng)
+    forms = {"flat": lambda: automorph_eval(x, eng.dc.automorph_perm(g)),
+             "staged": lambda: automorph_eval_staged(x, s1, s2, s3),
+             "onehot": lambda: bench.onehot_auto(x, oh1, s2, oh3)}
+    want = forms["flat"]()
+    for form, fn in forms.items():
+        if not torch.equal(fn(), want):
+            raise AssertionError(f"automorphism {form} != flat")
+        timings[f"automorph {form} [70, 256, 256]"] = (
+            None, device_ms(fn))
+    print("# automorphism on [70, 256, 256]: staged == one-hot == flat, "
+          "bit-exact; device ms " + ", ".join(
+              f"{form} {timings[f'automorph {form} [70, 256, 256]'][1]:.4f}"
+              for form in forms))
+
+
+def check_op_studies(np, torch, kernels, api, eng, get_params, results,
+                     launches, errs, timings):
+    """Phase 9, the op studies (see the module docstring): sets A, C, D
+    and M through the engine, B3 and B4 at their widest shapes, the
+    batched hmult, the 36-bit parity shape and the staged automorphism;
+    eng is set B's engine (keys made, host engine on the native core)."""
+    from homulator_tpu_torch.workloads import native_engine
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(19)
+    dcs = {}
+    for name, cfg in STUDY_SETS.items():
+        t0 = time.perf_counter()
+        e = native_engine(get_params(**cfg), seed=9)
+        e.keygen()
+        e.gen_rotation_key(1)
+        print(f"# set {name}: params, relin and rotation key "
+              f"{time.perf_counter() - t0:.1f} s (host, native core)")
+        for level in (cfg["max_level"], 2):
+            check_set_ops(np, torch, kernels, e, name, level, launches,
+                          errs)
+        if name in ("A", "C"):
+            dcs[name] = e.dc
+    check_study_kernels(np, torch, dcs, rng, results)
+    check_batch(np, torch, kernels, api, eng, rng, results, launches,
+                timings)
+    check_parity36(np, torch, kernels, get_params, launches, errs, timings)
+    check_staged_automorph(np, torch, eng, rng, timings)
+    print(f"# phase 9 (op studies): {time.perf_counter() - t_phase:.1f} s")
+
+
+def op_studies_main() -> int:
+    """Phase 9 alone, for a quick run on a card (python3 -c 'import
+    chip_smoke; chip_smoke.op_studies_main()'): the kernel build, the
+    native core, set B's engine and keys, then check_op_studies; its
+    kernel shapes, launches and times as one JSON line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    from homulator_tpu_torch import api, kernels, native
+    from homulator_tpu_torch.api import get_params
+    from homulator_tpu_torch.workloads import native_engine
+
+    t0 = time.perf_counter()
+    print(benchlib.card_line())
+    kernels.build()
+    kernels.load()
+    native.build()
+    native.load()
+    eng = native_engine(get_params(**SET_B), seed=1)
+    eng.keygen()
+    results = {k: [] for k in KERNELS}
+    launches, errs, timings = {}, {}, {}
+    check_op_studies(np, torch, kernels, api, eng, get_params, results,
+                     launches, errs, timings)
+    print(json.dumps({"kernels": {k: v for k, v in results.items() if v},
+                      "launches": launches, "verify_max_err": errs,
+                      "timings": timings}))
+    print(f"# op studies alone: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def cpu_twin(eng):
     """The CPU plain-path engine of eng's params holding eng's host engine
     and keys."""
@@ -1938,7 +2287,11 @@ def main() -> int:
         eng.plaintext_complex(v2, LEVEL_B, SCALE), (out, rot), launches,
         errs, timings)
 
-    # 9. results
+    # 9. the op studies
+    check_op_studies(np, torch, kernels, api, eng, get_params, results,
+                     launches, errs, timings)
+
+    # 10. results
     print(f"# chip_smoke total: {time.perf_counter() - t_start:.1f} s "
           "(kernel build included)")
     bad = sorted(m for m in sys.modules
@@ -1974,6 +2327,11 @@ def main() -> int:
             if r[0].startswith(("limb", "hybrid"))}
         if dispatch_rows:
             row["limb_hybrid_shapes"] = dispatch_rows
+        study_rows = {r[0][len(STUDY):]: dict(zip(
+            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms"), r[1:])) for r in res if r[0].startswith(STUDY)}
+        if study_rows:
+            row["op_studies_shapes"] = study_rows
         if name in ANATOMY_KERNELS:
             row["note"] = ("on no op's path: launched by the anatomy and "
                            "roofline path only")

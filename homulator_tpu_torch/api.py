@@ -61,18 +61,25 @@ def _keyswitch_rescale_tail(d0, d1, d2, key, kt: KeySwitchLevelTables):
     component (api.py:98-103); the batched moddown_rescale2 gives the same
     bits and moves the same rows through each exchange. The graph route
     (kt.graph, JAX api.py:104-110) runs keyswitch's pieces, the adds and
-    one rescale_poly per component on the tables kt.rescale."""
+    one rescale_poly per component on the tables kt.rescale. On the
+    piecewise and fused routes d0, d1, d2 may carry a leading batch axis
+    (batched_hmult_fn): every step then runs once on the whole batch."""
     d2 = d2.to(torch.int32)
     if kt.graph:
+        if d2.ndim != 3:
+            raise ValueError("the graph route takes one ciphertext a call "
+                             "(parallel.sharded.batched_hmult_fn loops)")
         e0, e1 = inner_product_moddown(modup_all(d2, kt), key, kt)
         q = col(kt.main_nt.q)
         return torch.stack([rescale_poly(modadd(d0, e0, q), kt.rescale),
                             rescale_poly(modadd(d1, e1, q), kt.rescale)])
     if _fused(kt):
         alpha = kt.special_nt.q.shape[0]
-        acc = hpip_acc(modup_convs_coeff(d2, kt), d2, key, kt)
-        return moddown_rescale2((acc[0, :alpha], acc[0, alpha:]),
-                                (acc[1, :alpha], acc[1, alpha:]), d0, d1, kt)
+        acc0, acc1 = hpip_acc(modup_convs_coeff(d2, kt), d2, key,
+                              kt).unbind(-4)
+        return moddown_rescale2(
+            (acc0[..., :alpha, :, :], acc0[..., alpha:, :, :]),
+            (acc1[..., :alpha, :, :], acc1[..., alpha:, :, :]), d0, d1, kt)
     convs = modup_conv_all(d2, kt)
     acc0, acc1 = inner_product_pieces(convs, d2, key, kt)
     return moddown_rescale2(acc0, acc1, d0, d1, kt)
@@ -81,11 +88,16 @@ def _keyswitch_rescale_tail(d0, d1, d2, key, kt: KeySwitchLevelTables):
 def hmult_graph(a: torch.Tensor, b: torch.Tensor, key: torch.Tensor,
                 kt: KeySwitchLevelTables) -> torch.Tensor:
     """Tensor product -> KeySwitch(d2) -> relinearisation add -> rescale.
-    a, b: int32 [2, level, n2, n1]; returns int32 [2, level-1, n2, n1]."""
+    a, b: int32 [2, level, n2, n1]; returns int32 [2, level-1, n2, n1].
+    On the piecewise and fused routes also a batch: a, b [B, 2, level,
+    n2, n1] -> [B, 2, level-1, n2, n1], one program for the batch (every
+    kernel launch covers it; the key and the tables are read once)."""
     q = col(kt.main_nt.q)
-    d0 = mulmod(a[0], b[0], q)
-    d1 = modadd(mulmod(a[0], b[1], q), mulmod(a[1], b[0], q), q)
-    d2 = mulmod(a[1], b[1], q)
+    a0, a1 = a.unbind(-4)
+    b0, b1 = b.unbind(-4)
+    d0 = mulmod(a0, b0, q)
+    d1 = modadd(mulmod(a0, b1, q), mulmod(a1, b0, q), q)
+    d2 = mulmod(a1, b1, q)
     return _keyswitch_rescale_tail(d0, d1, d2, key, kt)
 
 

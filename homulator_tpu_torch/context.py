@@ -270,7 +270,8 @@ class DeviceContext:
         self._itw2 = _flat_stages(t.sub2.inv_stage_tw, t.n2)
         self._nt_cache: Dict[tuple, NttBasis] = {}
         self._ks_cache: Dict[tuple, KeySwitchLevelTables] = {}
-        self._perm_cache: Dict[int, torch.Tensor] = {}
+        # sigma_g's gather indices by g, its stage maps by ("stage", g)
+        self._perm_cache: Dict[object, object] = {}
         self._route_cache: Dict[Tuple[int, int], tuple] = {}
         self._q_cache: Dict[int, torch.Tensor] = {}
         self._rs_cache: Dict[int, RescaleTables] = {}
@@ -519,6 +520,25 @@ class DeviceContext:
             perm = self.params.automorph_eval_perm(g).astype(np.int64)
             self._perm_cache[g] = torch.from_numpy(perm).to(self.device)
         return self._perm_cache[g]
+
+    def automorph_stage_maps(self, g: int):
+        """(s1, s2, s3): sigma_g on the [n2, n1] eval tile as a sublane,
+        a lane and a sublane gather (ops/perm_decomp.py, applied by
+        ops/automorph.py::automorph_eval_staged), int64 [n2, n1] on this
+        device, converted from perm_decomp's int32 maps once; cached per
+        Galois element under ("stage", g), as the JAX
+        DeviceContext.automorph_stage_maps caches them."""
+        key = ("stage", g)
+        if key not in self._perm_cache:
+            from .ops.perm_decomp import decompose_grid_perm
+
+            t = self.params.ntt
+            maps = decompose_grid_perm(self.params.automorph_eval_perm(g),
+                                       t.n2, t.n1)
+            self._perm_cache[key] = tuple(
+                torch.from_numpy(m.astype(np.int64)).to(self.device)
+                for m in maps)
+        return self._perm_cache[key]
 
     def automorph_shard_route(self, g: int, ns: int):
         """(local_src, pairs, is_identity): sigma_g on an ns-way column-

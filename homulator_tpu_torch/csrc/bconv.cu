@@ -46,6 +46,16 @@
 // memory: step 1 and the count run on each warp's staged x tile as the A
 // fragments are built, the plane sums stay in registers, and each output
 // word is written once.
+//
+// A batch of B conversions on the same table (the batched hmult's, one
+// for each ciphertext) is one launch: blockIdx.z picks the element, whose
+// x and out start x_bstride and out_bstride words after the previous
+// one's (so x may be a row slice of a larger batch). This is what a vmap
+// does to the TPU kernel's pallas_call: one more grid axis. Each z-slice
+// stages the table itself (from L2 after the first); nothing is copied
+// B times. The persistent grid is shared out: grid_blocks gives each of
+// the B slices 1/B of the blocks that fit, so at B = 1 the launch is the
+// one it was.
 
 #include <cuda_runtime.h>
 
@@ -202,8 +212,11 @@ bconv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
              const uint8_t* __restrict__ tab,
              const uint32_t* __restrict__ hsh,
              const uint32_t* __restrict__ out_q, int nd, int center,
-             int m_out, long long ncoef, int vec) {
+             int m_out, long long ncoef, int vec, long long x_bstride,
+             long long out_bstride) {
   extern __shared__ __align__(16) uint8_t sm[];
+  x += blockIdx.z * x_bstride;
+  out += blockIdx.z * out_bstride;
   const Layout lay(nd + center, m_out, 0);
   Conv op{residues(out, hsh, out_q, m_out, ncoef, sm, lay), s, s_sh, in_q,
           reinterpret_cast<uint4*>(sm + lay.const_offset()), lay, nd,
@@ -217,8 +230,11 @@ bconv_step2_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
                    const uint8_t* __restrict__ tab,
                    const uint32_t* __restrict__ hsh,
                    const uint32_t* __restrict__ out_q, int nd, int m_out,
-                   long long ncoef, int vec) {
+                   long long ncoef, int vec, long long x_bstride,
+                   long long out_bstride) {
   extern __shared__ __align__(16) uint8_t sm[];
+  x += blockIdx.z * x_bstride;
+  out += blockIdx.z * out_bstride;
   const Layout lay(nd, m_out, 0);
   Step2 op{residues(out, hsh, out_q, m_out, ncoef, sm, lay), nd};
   run<KS>(op, x, tab, nd, ncoef, vec, sm, lay);
@@ -237,18 +253,23 @@ cudaError_t with_ks(int nd, F&& f) {
   }
 }
 
-// A launch of B3's or B5's kernel over ncoef coefficients, nd table
-// columns / 4 and m_out output rows: the grid of grid_blocks, kThreads a
-// block, Layout's shared memory; vec when x and ncoef allow 16-byte loads.
+// A launch of B3's or B5's kernel over ncoef coefficients of each of
+// `batch` elements (x_bstride / out_bstride words apart), nd table columns
+// / 4 and m_out output rows: the grid of grid_blocks in x, the batch in z,
+// kThreads a block, Layout's shared memory; vec when x, its batch stride
+// and ncoef allow 16-byte loads.
 template <class Kernel, class... Args>
 cudaError_t launch(Kernel kernel, int nd, int m_out, const void* x,
-                   long long ncoef, cudaStream_t st, Args... args) {
+                   long long ncoef, int batch, long long x_bstride,
+                   long long out_bstride, cudaStream_t st, Args... args) {
   const size_t smem = Layout(nd, m_out, 0).bytes();
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int vec = ncoef % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  kernel<<<grid_blocks(ncoef, smem), kThreads, smem, st>>>(
-      static_cast<const uint32_t*>(x), args..., ncoef, vec);
+  const int vec = ncoef % 4 == 0 && x_bstride % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  kernel<<<dim3(grid_blocks(ncoef, smem, batch), 1, batch), kThreads, smem,
+           st>>>(static_cast<const uint32_t*>(x), args..., ncoef, vec,
+                 x_bstride, out_bstride);
   return cudaGetLastError();
 }
 
@@ -256,20 +277,25 @@ cudaError_t launch(Kernel kernel, int nd, int m_out, const void* x,
 
 extern "C" {
 
-// x [nd, ncoef] -> out [m_out, ncoef]; s, s_sh, in_q [nd]; tab, the
-// device layout of build_bf16_tables' mbig (ops/bconv_fused.py::mma_table,
-// [32 ceil(m_out / 8), 32 ceil((nd + center) / 8) + 16] bytes, 16-byte
-// aligned), and horner_sh [m_out]; out_q [m_out]; nd + center <= 32.
+// x [batch][nd, ncoef] -> out [batch][m_out, ncoef], element b of x at
+// x + b x_bstride, of out at out + b out_bstride (words; rows contiguous
+// within an element); s, s_sh, in_q [nd]; tab, the device layout of
+// build_bf16_tables' mbig (ops/bconv_fused.py::mma_table, [32 ceil(m_out /
+// 8), 32 ceil((nd + center) / 8) + 16] bytes, 16-byte aligned), and
+// horner_sh [m_out]; out_q [m_out]; nd + center <= 32; batch <= 65535.
 int hk_bconv(const void* x, void* out, const void* s, const void* s_sh,
              const void* in_q, const void* tab, const void* hsh,
              const void* out_q, int nd, int center, int m_out,
-             long long ncoef, void* stream) {
+             long long ncoef, int batch, long long x_bstride,
+             long long out_bstride, void* stream) {
   if (nd < 1 || m_out < 1 || ncoef < 1 || (center != 0 && center != 1) ||
-      nd + center > kMaxNd)
+      nd + center > kMaxNd || batch < 1 || batch > 65535 ||
+      (batch > 1 && (x_bstride < nd * ncoef || out_bstride < m_out * ncoef)))
     return cudaErrorInvalidValue;
   return with_ks(nd + center, [&](auto ks) {
     return launch(bconv_kernel<decltype(ks)::value>, nd + center, m_out, x,
-                  ncoef, static_cast<cudaStream_t>(stream),
+                  ncoef, batch, x_bstride, out_bstride,
+                  static_cast<cudaStream_t>(stream),
                   static_cast<uint32_t*>(out),
                   static_cast<const uint32_t*>(s),
                   static_cast<const uint32_t*>(s_sh),
@@ -291,7 +317,7 @@ int hk_bconv_step2(const void* xhat, void* out, const void* tab,
     return cudaErrorInvalidValue;
   return with_ks(nd, [&](auto ks) {
     return launch(bconv_step2_kernel<decltype(ks)::value>, nd, m_out, xhat,
-                  ncoef, static_cast<cudaStream_t>(stream),
+                  ncoef, 1, 0, 0, static_cast<cudaStream_t>(stream),
                   static_cast<uint32_t*>(out),
                   static_cast<const uint8_t*>(tab),
                   static_cast<const uint32_t*>(hsh),

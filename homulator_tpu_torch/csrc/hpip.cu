@@ -58,6 +58,13 @@
 // Both axes are at most 2^8 (N <= 2^16), as for the kernel before: at R =
 // 32 the compiler no longer unrolls phase B's passes and v goes to local
 // memory.
+// A batch of B key switches under one key (the batched hmult's) is one
+// launch pair: blockIdx.z picks the element, as a vmap adds a grid axis to
+// the TPU kernel. Element b's pieces, scratch and output follow element b
+// - 1's (each piece [B, rows_d, n1, n2], the scratch [B, sum rows_d, n2,
+// n1], the output [B, 2, K, n2, n1], all contiguous), its d_eval
+// d_eval_bstride words after; the key and the tables are the same for
+// every element and are read, not copied, by every z-slice.
 
 #include <cuda_runtime.h>
 
@@ -119,14 +126,17 @@ hpip_radix_a(HpipDigits dg, uint32_t* __restrict__ scratch,
              int logtc) {
   const int g = blockIdx.x;
   const uint32_t* conv = dg.conv[0];
-  int d = 0;
+  int d = 0, rows = dg.row0[1] - dg.row0[0];
 #pragma unroll
   for (int i = 1; i < kMaxBeta; ++i)
-    if (i < dg.beta && g >= dg.row0[i]) d = i, conv = dg.conv[i];
+    if (i < dg.beta && g >= dg.row0[i])
+      d = i, conv = dg.conv[i], rows = dg.row0[i + 1] - dg.row0[i];
   const Digit dd = digit(dg, d);
   const int l = g - dd.row0;
   const int r = ext_row(l, alpha + dd.lo, dd.hi - dd.lo);
   const size_t len = (size_t)ncols << L;
+  conv += blockIdx.z * rows * len;  // this element's piece
+  scratch += blockIdx.z * dg.row0[kMaxBeta] * len;
   hk::radix_phase<L, true, true>(
       conv + l * len, scratch + g * len, q[r], tw1 + ((size_t)r << L),
       tw1_sh + ((size_t)r << L), mid + r * len, mid_sh + r * len, ncols,
@@ -145,7 +155,7 @@ hpip_radix_b(HpipDigits dg, const uint32_t* __restrict__ scratch,
              const uint32_t* __restrict__ qinv,
              const uint32_t* __restrict__ tw2,
              const uint32_t* __restrict__ tw2_sh, int alpha, int K,
-             int k_full, int ncols, int logtc) {
+             int k_full, int ncols, int logtc, long long d_eval_bstride) {
   using S = RadixSplit<L>;
   constexpr int n = 1 << L, R = S::kR, U = S::kU;
   extern __shared__ uint32_t sm[];
@@ -156,6 +166,9 @@ hpip_radix_b(HpipDigits dg, const uint32_t* __restrict__ scratch,
   const int u = threadIdx.x >> logtc;
   const int col = (blockIdx.y << logtc) + c;
   const size_t len = (size_t)ncols << L;
+  scratch += blockIdx.z * dg.row0[kMaxBeta] * len;  // this element's
+  d_eval += blockIdx.z * d_eval_bstride;
+  out += blockIdx.z * 2 * (size_t)K * len;
   const uint32_t qq = q[r], qi = qinv[r], q2 = 2 * qq;
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     tws[k] = tw2[((size_t)r << L) + k];
@@ -208,11 +221,13 @@ hpip_radix_b(HpipDigits dg, const uint32_t* __restrict__ scratch,
 extern "C" {
 
 // convs: host array of beta device pointers, digit d's converted rows
-// [conv_rows[d], n1, n2] (coeff domain, ext order minus its own rows);
-// conv_rows: host int[beta]; spans: host int[2 * beta] (lo, hi) main-row
-// spans; d_eval [level, n2, n1]; key [dnum, 2, k_full, n2, n1] Montgomery,
-// specials first; scratch [sum conv_rows, n2, n1]; out [2, K, n2, n1] with
-// K = alpha + level; q, qinv [K] and the ext basis's forward tables (tw1,
+// [batch, conv_rows[d], n1, n2] (coeff domain, ext order minus its own
+// rows); conv_rows: host int[beta]; spans: host int[2 * beta] (lo, hi)
+// main-row spans; d_eval [batch][level, n2, n1], element b at d_eval + b
+// d_eval_bstride words; key [dnum, 2, k_full, n2, n1] Montgomery, specials
+// first, shared by the batch; scratch [batch, sum conv_rows, n2, n1]; out
+// [batch, 2, K, n2, n1] with K = alpha + level; q, qinv [K] and the ext
+// basis's forward tables (tw1,
 // tw1_sh [K, n1]; mid, mid_sh [K, n1, n2]; tw2, tw2_sh [K, n2]); tiles of
 // 2^logtc_a columns (of n2) in phase A, 2^logtc_b (of n1) in phase B
 // (ops/hpip.py::hpip_phases).
@@ -222,11 +237,12 @@ int hk_hpip(const void* convs, const void* conv_rows, const void* spans,
             const void* tw1_sh, const void* mid, const void* mid_sh,
             const void* tw2, const void* tw2_sh, int beta, int alpha,
             int level, int k_full, int n1, int n2, int logtc_a, int logtc_b,
-            void* stream) {
+            int batch, long long d_eval_bstride, void* stream) {
   const int log1 = hk::ilog2(n1), log2 = hk::ilog2(n2);
   const int K = alpha + level;
   if (log1 < 1 || log2 < 1 || beta < 1 || beta > kMaxBeta || alpha < 1 ||
-      level < 1 || k_full < K)
+      level < 1 || k_full < K || batch < 1 || batch > 65535 ||
+      (batch > 1 && d_eval_bstride < (long long)level * n1 * n2))
     return cudaErrorInvalidValue;
   HpipDigits dg;
   dg.beta = beta;
@@ -255,8 +271,8 @@ int hk_hpip(const void* convs, const void* conv_rows, const void* spans,
     const cudaError_t e =
         hk::radix_block<L>(hpip_radix_a<L>, log2, logtc_a, &threads, &smem);
     if (e != cudaSuccess) return (int)e;
-    hpip_radix_a<L><<<dim3(dg.row0[beta], n2 >> logtc_a), threads, smem,
-                      st>>>(
+    hpip_radix_a<L><<<dim3(dg.row0[beta], n2 >> logtc_a, batch), threads,
+                      smem, st>>>(
         dg, static_cast<uint32_t*>(scratch), qp,
         static_cast<const uint32_t*>(tw1),
         static_cast<const uint32_t*>(tw1_sh),
@@ -272,14 +288,14 @@ int hk_hpip(const void* convs, const void* conv_rows, const void* spans,
     const cudaError_t e =
         hk::radix_block<L>(hpip_radix_b<L>, log1, logtc_b, &threads, &smem);
     if (e != cudaSuccess) return (int)e;
-    hpip_radix_b<L><<<dim3(K, n1 >> logtc_b), threads, smem, st>>>(
+    hpip_radix_b<L><<<dim3(K, n1 >> logtc_b, batch), threads, smem, st>>>(
         dg, static_cast<const uint32_t*>(scratch),
         static_cast<const uint32_t*>(d_eval),
         static_cast<const uint32_t*>(key), static_cast<uint32_t*>(out), qp,
         static_cast<const uint32_t*>(qinv),
         static_cast<const uint32_t*>(tw2),
         static_cast<const uint32_t*>(tw2_sh), alpha, K, k_full, n1,
-        logtc_b);
+        logtc_b, d_eval_bstride);
     return (int)cudaGetLastError();
   });
 }

@@ -329,16 +329,17 @@ __device__ __forceinline__ void run(Op& op, const uint32_t* __restrict__ x,
   }
 }
 
-// Grid of a launch: the blocks that fit on the card at once, fewer where
-// there are fewer warp tiles.
-inline int grid_blocks(long long ncoef, size_t smem) {
+// Grid of a launch, per element of a batch of `batch` (the grid's z
+// extent): the blocks that fit on the card at once shared out over the
+// batch (at least one an element), fewer where there are fewer warp tiles.
+inline int grid_blocks(long long ncoef, size_t smem, int batch = 1) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   // 228 KB of shared memory an SM, 1 KB of it reserved a block
   const int fit = (int)(233472 / (smem + 1024));
-  const long long cap =
-      (long long)sms * (fit < kBlocksPerSm ? fit : kBlocksPerSm);
+  long long cap = (long long)sms * (fit < kBlocksPerSm ? fit : kBlocksPerSm);
+  cap = cap / batch > 0 ? cap / batch : 1;
   const long long want = ((ncoef + kCols - 1) / kCols + kWarps - 1) / kWarps;
   return (int)(want < cap ? want : cap);
 }

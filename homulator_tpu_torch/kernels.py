@@ -78,15 +78,16 @@ _SIGNATURES = {
     "hk_intt_phase2_packed": [_P] * 5 + [_I] * 7 + [_P],
     "hk_intt_phase1_packed": [_P] * 7 + [_I] * 7 + [_P],
     # x, out, s, s_sh, in_q, the table's device layout, horner_sh, out_q,
-    # nd, center, m_out, ncoef, stream
-    "hk_bconv": [_P] * 8 + [_I] * 3 + [ctypes.c_longlong, _P],
+    # nd, center, m_out, ncoef, batch, x's and out's batch strides, stream
+    "hk_bconv": [_P] * 8 + [_I] * 3 + [ctypes.c_longlong, _I]
+                + [ctypes.c_longlong] * 2 + [_P],
     # xhat, out, the table's device layout, horner_sh, out_q, nd, m_out,
     # ncoef, stream
     "hk_bconv_step2": [_P] * 5 + [_I] * 2 + [ctypes.c_longlong, _P],
     # convs, conv_rows, spans (host arrays), d_eval, key, scratch, out, q,
     # qinv, 6 tables, beta, alpha, level, k_full, n1, n2, log2 of the tile
-    # columns of phases A and B, stream
-    "hk_hpip": [_P] * 15 + [_I] * 8 + [_P],
+    # columns of phases A and B, batch, d_eval's batch stride, stream
+    "hk_hpip": [_P] * 15 + [_I] * 9 + [ctypes.c_longlong, _P],
     # x, out, q, mid, mid_sh, mid product, transposed, rows, M, n1, n2,
     # stream
     "hk_ntt_anatomy": [_P] * 5 + [_I] * 6 + [_P],

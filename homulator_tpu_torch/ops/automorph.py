@@ -1,10 +1,14 @@
 """Galois automorphism (rotation / conjugation) in the evaluation domain.
 
-The counterpart of `homulator_tpu/ops/automorph.py:18-33, 52-126`: sigma_g
-is a fixed slot permutation in the NTT's evaluation order
+The counterpart of `homulator_tpu/ops/automorph.py`: sigma_g is a fixed
+slot permutation in the NTT's evaluation order
 (`DeviceContext.automorph_perm`), one gather along the flat coefficient
 axis, the same for every limb. The JAX package runs it as a plain
-`jnp.take` outside any Pallas kernel, so a torch gather is its port.
+`jnp.take` outside any Pallas kernel, so a torch gather is its port. Its
+three-stage form (`automorph_eval_staged`: sublane, lane, sublane gathers
+on the [n2, n1] tile, maps from ops/perm_decomp.py through
+`DeviceContext.automorph_stage_maps`) is the JAX package's
+`take_along_axis` form, here `torch.take_along_dim`.
 
 On a coefficient-sharded eval tile ([..., n2, n1/ns] per shard) it is one
 whole-shard ppermute and a local gather (`build_shard_route`,
@@ -32,6 +36,20 @@ def automorph_eval(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     r, c = x.shape[-2:]
     flat = x.reshape(x.shape[:-2] + (r * c,))
     return flat.index_select(-1, perm).view(x.shape)
+
+
+def automorph_eval_staged(x: torch.Tensor, s1: torch.Tensor,
+                          s2: torch.Tensor, s3: torch.Tensor) -> torch.Tensor:
+    """sigma_g on x [..., n2, n1] as three gathers, in order: along n2
+    (t1[r, c] = x[s1[r, c], c]), along n1 (t2[r, c] = t1[r, s2[r, c]]),
+    along n2 (out[r, c] = t2[s3[r, c], c]). s1, s2, s3: int64 [n2, n1]
+    stage maps (DeviceContext.automorph_stage_maps, which converts
+    perm_decomp's int32 maps once). Bit-identical to automorph_eval(x,
+    perm) for maps built from the same perm."""
+    lead = (1,) * (x.ndim - 2)
+    t1 = torch.take_along_dim(x, s1.view(lead + s1.shape), dim=-2)
+    t2 = torch.take_along_dim(t1, s2.view(lead + s2.shape), dim=-1)
+    return torch.take_along_dim(t2, s3.view(lead + s3.shape), dim=-2)
 
 
 def automorph_eval_sharded(x: torch.Tensor, perm: torch.Tensor,

@@ -2,7 +2,9 @@
 
 The counterpart of `homulator_tpu/ops/bconv_fused.py::bconv_fused` (and of
 the centered conversion of `ops/bconv.py` + `keyswitch.modup_digit`'s
-virtual count row); its plain version is ops/bconv.py's two steps. For x [nd, R, C] over input primes in_q:
+virtual count row); its plain version is ops/bconv.py's two steps. For x
+[nd, R, C] (or a batch [B, nd, R, C], the batched hmult's: one launch,
+the table shared) over input primes in_q:
 
   xh_i  = x_i * s_i mod in_q_i
   v     = #{i : xh_i >= (in_q_i >> 1) + 1}           (center=True only)
@@ -22,8 +24,6 @@ the same core; it replaces `scripts/roofline.py::main._mm_kernel`): rows
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -104,27 +104,51 @@ def _check_table(name, tab, shape, dtype, nd, m_out, dev):
 
 def bconv_plain(x, s, s_sh, in_q, mat, out_q, center: bool) -> torch.Tensor:
     """Plain version of kernel B3 on int64 carriers: step 1 (with the count
-    row when centering), then step 2 (ops/bconv.py); int32 [m_out, R, C]."""
-    nd = x.shape[0]
+    row when centering), then step 2 (ops/bconv.py); int32 [m_out, R, C]
+    for x [nd, R, C], [B, m_out, R, C] for a batch x [B, nd, R, C] (the
+    batch axis moved behind the rows, so the per-row constants broadcast
+    over it: one set of tables for the whole batch)."""
+    rows_first = x.transpose(0, 1) if x.ndim == 4 else x
+    nd = rows_first.shape[0]
     if mat.shape[1] != nd + int(center):
         raise ValueError(f"matrix {tuple(mat.shape)} for {nd} input rows "
                          f"(center={center})")
     step1 = bconv_step1_centered if center else bconv_step1
-    return bconv_step2_plain(step1(x, s, s_sh, in_q), mat, out_q)
+    out = bconv_step2_plain(step1(rows_first, s, s_sh, in_q), mat, out_q)
+    return out.transpose(0, 1).contiguous() if x.ndim == 4 else out
+
+
+def bconv_traffic(x, s, s_sh, in_q, mat_mma, horner_sh, out_q):
+    """(tensors read, other bytes) of one launch of B3 on x [nd, R, C] or
+    [B, nd, R, C], as bconv_fused declares it (kernels.count): x and the
+    kernel's tables read, the output written; in a batch every element
+    reads the tables (each z-slice of the grid stages them), so a batch of
+    B declares B times an element's bytes."""
+    tables = (s, s_sh, in_q, mat_mma, horner_sh, out_q)
+    batch = x.shape[0] if x.ndim == 4 else 1
+    nbytes = (4 * out_q.shape[0] * (x.numel() // x.shape[-3])
+              + (batch - 1) * sum(t.numel() * t.element_size()
+                                  for t in tables))
+    return (x,) + tables, nbytes
 
 
 def bconv_fused(x, s, s_sh, in_q, mat, mat_mma, horner_sh, out_q, *,
                 center: bool = False) -> torch.Tensor:
-    """Base conversion of int32 x [nd, R, C] -> int32 [m_out, R, C].
+    """Base conversion of int32 x [nd, R, C] -> int32 [m_out, R, C], or of
+    a batch x [B, nd, R, C] -> [B, m_out, R, C] in one launch (rows
+    contiguous within an element; the elements any stride apart, so x may
+    be a row slice of a larger batch).
 
     s/s_sh: [nd] step-1 Shoup pair; mat: [m_out, nd+center] plain matrix
     (read by the plain version only); mat_mma/horner_sh: the device layout
     of its build_bf16_tables table (mma_table) and that table's horner_sh
     (read by the kernel only). A CPU tensor runs bconv_plain; a CUDA tensor
-    launches kernel B3 (csrc/bconv.cu). Its declared traffic: x and the
-    kernel's tables read, the output written (kernels.count)."""
-    traffic = ((x, s, s_sh, in_q, mat_mma, horner_sh, out_q),
-               4 * out_q.shape[0] * math.prod(x.shape[1:]))
+    launches kernel B3 (csrc/bconv.cu), the batch as its grid's z axis.
+    Its declared traffic: bconv_traffic."""
+    if x.ndim not in (3, 4):
+        raise ValueError(f"bconv: x {tuple(x.shape)} is not [nd, R, C] or "
+                         "[B, nd, R, C]")
+    traffic = bconv_traffic(x, s, s_sh, in_q, mat_mma, horner_sh, out_q)
     if x.device.type == "cpu":
         with kernels.as_kernel(*traffic):
             return bconv_plain(x, s, s_sh, in_q, mat, out_q, center)
@@ -137,24 +161,34 @@ def bconv_fused(x, s, s_sh, in_q, mat, mat_mma, horner_sh, out_q, *,
 
 def _bconv_kernel(x, s, s_sh, in_q, mat_mma, horner_sh, out_q, center,
                   traffic) -> torch.Tensor:
-    nd, R, C = x.shape
+    nd, R, C = x.shape[-3:]
+    batch = x.shape[0] if x.ndim == 4 else 1
     m_out = out_q.shape[0]
     dev = x.device
     check_mma_table("bconv", mat_mma, nd + int(center), m_out, dev)
-    kernels.require_cuda_int32("x", x, dev)
+    if x.ndim == 4:  # each element's [nd, R, C] contiguous, any stride apart
+        kernels.require_cuda_int32("x[0]", x[0], dev)
+        if batch > 65535 or x.stride(0) < nd * R * C:
+            raise ValueError(f"bconv: a batch of {batch} elements "
+                             f"{x.stride(0)} words apart is not one B3 "
+                             "launch takes")
+    else:
+        kernels.require_cuda_int32("x", x, dev)
     for name, t, shape in (("s", s, (nd,)), ("s_sh", s_sh, (nd,)),
                            ("in_q", in_q, (nd,)),
                            ("horner_sh", horner_sh, (m_out,)),
                            ("out_q", out_q, (m_out,))):
         kernels.require_cuda_int32(name, t, dev, shape)
     lib = kernels.load()
-    out = torch.empty((m_out, R, C), dtype=torch.int32, device=dev)
+    out = torch.empty(x.shape[:-3] + (m_out, R, C), dtype=torch.int32,
+                      device=dev)
     with torch.cuda.device(dev):
         rc = lib.hk_bconv(
             kernels.ptr(x), kernels.ptr(out), kernels.ptr(s),
             kernels.ptr(s_sh), kernels.ptr(in_q), kernels.ptr(mat_mma),
             kernels.ptr(horner_sh), kernels.ptr(out_q), nd, int(center),
-            m_out, R * C, kernels.stream(x))
+            m_out, R * C, batch, x.stride(0) if x.ndim == 4 else 0,
+            m_out * R * C, kernels.stream(x))
     kernels.check(rc, "bconv")
     kernels.count("bconv", *traffic)
     return out

@@ -16,12 +16,15 @@ The result is the inner product of the unfused route
 (`inner_product_pieces(modup_conv_all(...))`) without the eval-domain
 lifted digits ever being stored. csrc/hpip.cu has the design note: two
 launches on B1's register radix passes, their tile widths from
-hpip_phases.
+hpip_phases. A batch (the batched hmult's: conv_d [B, rows_d, n1, n2],
+d_eval [B, level, n2, n1] -> [B, 2, K, n2, n1]) under one key is one
+launch pair, the batch the grids' z axis.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -49,30 +52,43 @@ def traffic(convs, d_eval: torch.Tensor, key: torch.Tensor,
     declares it (kernels.count): the conversion pieces, d_eval, the
     digits' key rows, q, qinv and the ext basis's forward tables read;
     the output [2, K, n2, n1] written and the phase-A scratch (one row a
-    converted row) written and read back."""
+    converted row) written and read back. In a batch of B (d_eval [B,
+    level, n2, n1]) every element reads the key rows and the tables (each
+    z-slice of the grids does), so it declares B times an element's
+    bytes."""
     nt = kt.ext_nt
     K = kt.special_nt.q.shape[0] + kt.level
     n = nt.n1 * nt.n2
-    reads = (*convs, d_eval, key[:len(kt.digits), :, :K], nt.q, kt.ext_qinv,
-             *(getattr(nt, k) for k in _FWD_TABLES))
-    return reads, 4 * n * (2 * K + 2 * sum(c.shape[0] for c in convs))
+    batch = d_eval.shape[0] if d_eval.ndim == 4 else 1
+    shared = (key[:len(kt.digits), :, :K], nt.q, kt.ext_qinv,
+              *(getattr(nt, k) for k in _FWD_TABLES))
+    reads = (*convs, d_eval) + shared
+    rows = sum(c.shape[-3] for c in convs)
+    return reads, (batch * 4 * n * (2 * K + 2 * rows)
+                   + (batch - 1) * sum(t.numel() * t.element_size()
+                                       for t in shared))
 
 
 def hpip_plain(convs, d_eval: torch.Tensor, key: torch.Tensor,
                kt: KeySwitchLevelTables) -> torch.Tensor:
     """Plain version of kernel B4: each digit's converted rows through
     ntt_plain, its own rows from d_eval, Montgomery products against the
-    key, and the sum over digits. Returns int32 [2, K, n2, n1] in [0, q)."""
+    key, and the sum over digits. Returns int32 [2, K, n2, n1] in [0, q),
+    or [B, 2, K, n2, n1] for a batch (d_eval [B, level, n2, n1], conv_d
+    [B, rows_d, n1, n2]; the key and the tables broadcast over it)."""
     alpha = kt.special_nt.q.shape[0]
     K = alpha + kt.level
     q = kt.ext_nt.q.long().view(1, -1, 1, 1)
     qinv = kt.ext_qinv.long().view(1, -1, 1, 1)
     acc = 0
     for d, (conv, dt) in enumerate(zip(convs, kt.digits)):
-        t = ntt_plain(conv, dt.other_nt)
+        t = ntt_plain(conv.reshape((-1,) + conv.shape[-2:]), dt.other_nt,
+                      math.prod(conv.shape[:-3]))
+        t = t.view(conv.shape[:-2] + t.shape[-2:])
         cut = alpha + dt.lo  # converted rows before the digit's own rows
-        term = torch.cat([t[:cut], d_eval[dt.lo:dt.hi], t[cut:]])
-        acc = acc + mont_mul(term[None], key[d, :, :K], q, qinv)
+        term = torch.cat([t[..., :cut, :, :], d_eval[..., dt.lo:dt.hi, :, :],
+                          t[..., cut:, :, :]], dim=-3)
+        acc = acc + mont_mul(term.unsqueeze(-4), key[d, :, :K], q, qinv)
     return (acc % q).to(torch.int32)
 
 
@@ -80,7 +96,8 @@ def hpip_kernel(convs, d_eval: torch.Tensor, key: torch.Tensor,
                 kt: KeySwitchLevelTables) -> torch.Tensor:
     """Kernel B4 on the GPU (two launches through a phase-A scratch, tile
     widths from hpip_phases); counts one launch. Same arguments and
-    result as hpip_plain."""
+    result as hpip_plain; a batch (d_eval [B, level, n2, n1], each
+    piece [B, rows_d, n1, n2]) is one launch pair."""
     dev = d_eval.device
     if not d_eval.is_cuda:
         raise ValueError(f"hpip: CUDA kernel called on {dev}")
@@ -90,13 +107,18 @@ def hpip_kernel(convs, d_eval: torch.Tensor, key: torch.Tensor,
     level = kt.level
     K = alpha + level
     beta = len(kt.digits)
+    lead = tuple(d_eval.shape[:-3])
+    batch = d_eval.shape[0] if lead else 1
+    if len(lead) > 1 or batch > 65535:
+        raise ValueError(f"hpip: d_eval {tuple(d_eval.shape)} is not [level, "
+                         "n2, n1] or [B, level, n2, n1] (B <= 65535)")
     if len(convs) != beta or beta > _MAX_BETA:
         raise ValueError(f"hpip: {len(convs)} conversion pieces for {beta} "
                          f"digits (at most {_MAX_BETA})")
     if any(m < 2 or m > _MAX_N or m & (m - 1) for m in (n1, n2)):
         raise ValueError(f"hpip: n1={n1}, n2={n2}: need powers of two in "
                          f"[2, {_MAX_N}]")
-    kernels.require_cuda_int32("d_eval", d_eval, dev, (level, n2, n1))
+    kernels.require_cuda_int32("d_eval", d_eval, dev, lead + (level, n2, n1))
     if (key.ndim != 5 or key.shape[0] < beta or key.shape[1] != 2
             or key.shape[2] < K or tuple(key.shape[3:]) != (n2, n1)):
         raise ValueError(f"hpip: key {tuple(key.shape)} is not "
@@ -105,7 +127,8 @@ def hpip_kernel(convs, d_eval: torch.Tensor, key: torch.Tensor,
     rows = []
     for d, (c, dt) in enumerate(zip(convs, kt.digits)):
         rows.append(K - (dt.hi - dt.lo))
-        kernels.require_cuda_int32(f"convs[{d}]", c, dev, (rows[-1], n1, n2))
+        kernels.require_cuda_int32(f"convs[{d}]", c, dev,
+                                   lead + (rows[-1], n1, n2))
     kernels.require_cuda_int32("q", nt.q, dev, (K,))
     kernels.require_cuda_int32("qinv", kt.ext_qinv, dev, (K,))
     for k in _FWD_TABLES:
@@ -115,9 +138,10 @@ def hpip_kernel(convs, d_eval: torch.Tensor, key: torch.Tensor,
     conv_rows = (ctypes.c_int * beta)(*rows)
     spans = (ctypes.c_int * (2 * beta))(
         *(v for dt in kt.digits for v in (dt.lo, dt.hi)))
-    tc_a, tc_b = hpip_phases(sum(rows), K, n1, n2)
-    scratch = torch.empty((sum(rows), n2, n1), dtype=torch.int32, device=dev)
-    out = torch.empty((2, K, n2, n1), dtype=torch.int32, device=dev)
+    tc_a, tc_b = hpip_phases(batch * sum(rows), batch * K, n1, n2)
+    scratch = torch.empty(lead + (sum(rows), n2, n1), dtype=torch.int32,
+                          device=dev)
+    out = torch.empty(lead + (2, K, n2, n1), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.hk_hpip(
             ctypes.addressof(conv_ptrs), ctypes.addressof(conv_rows),
@@ -126,9 +150,8 @@ def hpip_kernel(convs, d_eval: torch.Tensor, key: torch.Tensor,
             kernels.ptr(kt.ext_qinv),
             *(kernels.ptr(getattr(nt, k)) for k in _FWD_TABLES),
             beta, alpha, level, key.shape[2], n1, n2,
-            tc_a.bit_length() - 1, tc_b.bit_length() - 1,
-            kernels.stream(d_eval))
+            tc_a.bit_length() - 1, tc_b.bit_length() - 1, batch,
+            level * n1 * n2, kernels.stream(d_eval))
     kernels.check(rc, "hpip")
     kernels.count("hpip", *traffic(convs, d_eval, key, kt))
     return out
-

@@ -32,13 +32,19 @@ JAX package runs on every other backend, and what its engine's
 
 Each function computes what its JAX namesake computes, on the same tables,
 so every array is the same canonical residue and both routes give the same
-bits. Elementwise steps are PyTorch ops on int64 carriers
+bits. On the accelerated route modup_convs_coeff, modup_conv_all,
+inner_product_pieces, hpip_acc and moddown_rescale2 also take a batch:
+[B, ...] wherever they take [...] (the JAX package's vmap of its hmult),
+with every kernel launch covering the batch (B1/B2 over B rep copies,
+B3/B4 with the batch as their grid's z axis) and the key and the tables
+read, never repeated B times. Elementwise steps are PyTorch ops on int64 carriers
 (ops/modmath.py); NTTs and base conversions go through the kernel wrappers
 (ops/ntt.py, ops/bconv_fused.py, ops/bconv.py, ops/hpip.py).
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Tuple
 
 import torch
@@ -60,26 +66,38 @@ def _col2(v: torch.Tensor) -> torch.Tensor:
     return v.long().view(1, -1, 1, 1)
 
 
+def _over_rows(transform, x: torch.Tensor, nb) -> torch.Tensor:
+    """ntt_rep or intt_rep (`transform`) of x [..., M, R, C] over basis nb,
+    each element of the leading axes one rep copy: one launch for them all
+    (x [M, R, C] is one copy, as ntt / intt take it)."""
+    y = transform(x.reshape((-1,) + x.shape[-2:]), nb,
+                  math.prod(x.shape[:-3]))
+    return y.view(x.shape[:-2] + y.shape[-2:])
+
+
 def modup_convs_coeff(d_eval: torch.Tensor,
                       kt: KeySwitchLevelTables) -> List[torch.Tensor]:
     """Per digit, the converted OTHER rows (ext order minus the digit's own
-    rows), coeff domain [m_other, n1, n2] int32."""
-    c_coeff = intt(d_eval, kt.main_nt)
+    rows), coeff domain [m_other, n1, n2] int32 ([B, m_other, n1, n2] for
+    a batch d_eval [B, level, n2, n1]: one B3 launch a digit)."""
+    c_coeff = _over_rows(intt_rep, d_eval, kt.main_nt)
     return [
-        bconv_fused(c_coeff[dt.lo:dt.hi], dt.step1, dt.step1_sh, dt.in_q,
-                    dt.mat, dt.mat_mma, dt.horner_sh, dt.other_nt.q,
-                    center=True)
+        bconv_fused(c_coeff[..., dt.lo:dt.hi, :, :], dt.step1, dt.step1_sh,
+                    dt.in_q, dt.mat, dt.mat_mma, dt.horner_sh,
+                    dt.other_nt.q, center=True)
         for dt in kt.digits
     ]
 
 
 def modup_conv_all(d_eval: torch.Tensor,
                    kt: KeySwitchLevelTables) -> List[torch.Tensor]:
-    """modup_convs_coeff, NTT'd: per digit [m_other, n2, n1] eval int32.
-    A digit's own rows are d_eval itself (the conversion reproduces them
-    exactly), so they skip the conversion and the NTT."""
+    """modup_convs_coeff, NTT'd: per digit [m_other, n2, n1] eval int32
+    ([B, m_other, n2, n1] for a batch). A digit's own rows are d_eval
+    itself (the conversion reproduces them exactly), so they skip the
+    conversion and the NTT."""
     convs = modup_convs_coeff(d_eval, kt)
-    return [ntt(c, dt.other_nt) for c, dt in zip(convs, kt.digits)]
+    return [_over_rows(ntt_rep, c, dt.other_nt)
+            for c, dt in zip(convs, kt.digits)]
 
 
 def inner_product_pieces(
@@ -89,20 +107,23 @@ def inner_product_pieces(
     key[d, k] over the ext basis (specials first), where ext_d is digit d
     lifted to the ext basis (converted rows + own rows of d_eval). Returns
     per k the pair (acc_sp [alpha, n2, n1], acc_main [level, n2, n1]),
-    int64 in [0, q)."""
+    int64 in [0, q); for a batch (d_eval [B, level, n2, n1]) each with
+    the batch axis first, the key broadcast over it."""
     alpha = kt.special_nt.q.shape[0]
     k_ext = alpha + kt.level
     q, qinv = col(kt.ext_nt.q), col(kt.ext_qinv)
     exts = []
     for conv, dt in zip(convs, kt.digits):
         cut = alpha + dt.lo  # converted rows before the digit's own rows
-        exts.append(torch.cat([conv[:cut], d_eval[dt.lo:dt.hi], conv[cut:]]))
+        exts.append(torch.cat([conv[..., :cut, :, :],
+                               d_eval[..., dt.lo:dt.hi, :, :],
+                               conv[..., cut:, :, :]], dim=-3))
     out = []
     for k in (0, 1):
         acc = lazy_sum_reduce(
             [mont_mul(e, key[d, k, :k_ext], q, qinv)
              for d, e in enumerate(exts)], q)
-        out.append((acc[:alpha], acc[alpha:]))
+        out.append((acc[..., :alpha, :, :], acc[..., alpha:, :, :]))
     return out
 
 
@@ -111,9 +132,9 @@ def hpip_acc(convs, d_eval: torch.Tensor, key: torch.Tensor,
     """Fused ModUp NTT + key inner product (kernel B4): convs are the
     COEFF-domain pieces of modup_convs_coeff. Returns int32
     [2, alpha+level, n2, n1] in [0, q): both accumulators over the ext
-    basis, specials first. Equal to inner_product_pieces(modup_conv_all).
-    A CPU tensor runs hpip_plain; a CUDA tensor launches kernel B4
-    (csrc/hpip.cu)."""
+    basis, specials first ([B, 2, ...] for a batch, one launch pair).
+    Equal to inner_product_pieces(modup_conv_all). A CPU tensor runs
+    hpip_plain; a CUDA tensor launches kernel B4 (csrc/hpip.cu)."""
     if d_eval.device.type == "cpu":
         with kernels.as_kernel(*hpip_traffic(convs, d_eval, key, kt)):
             return hpip_plain(convs, d_eval, key, kt)
@@ -183,51 +204,52 @@ def moddown_rescale2(acc0, acc1, d0, d1,
     """Both key components' ModDown + relinearisation add + rescale, i.e.
     (acc_k + P * d_k) / (P * q_last) with centered remainders, in one
     batched pass (rep=2 NTTs share the basis tables). Returns int32
-    [2, level-1, n2, n1]."""
+    [2, level-1, n2, n1]; for a batch (acc_k's pieces and d_k with a
+    leading axis B) [B, 2, level-1, n2, n1], each transform one launch
+    over the 2B copies and each B3 conversion one launch over the B."""
     tt = kt.tail
     level = kt.level
     lm1 = level - 1
     alpha = kt.special_nt.q.shape[0]
     sp_q = _col2(kt.special_nt.q)
-    b = intt_rep(torch.cat([acc0[0], acc1[0]]).to(torch.int32),
-                 kt.special_nt, 2)  # [2a, n1, n2], component-major
-    b = b.view((2, alpha) + tuple(b.shape[1:]))
+    b = _over_rows(intt_rep, torch.stack([acc0[0], acc1[0]], dim=-4)
+                   .to(torch.int32), kt.special_nt)  # [..., 2, a, n1, n2]
     bhat = shoup_mul(b, _col2(kt.md_s1), _col2(kt.md_s1_sh), sp_q)
     # centered conversion: explicit count row v_b, read by the [-P] column
-    v_b = (bhat >= (sp_q >> 1) + 1).sum(dim=1, keepdim=True)
-    bhat_ext = torch.cat([bhat, v_b], dim=1)  # [2, alpha+1, n1, n2]
+    v_b = (bhat >= (sp_q >> 1) + 1).sum(dim=-3, keepdim=True)
+    bhat_ext = torch.cat([bhat, v_b], dim=-3)  # [..., 2, alpha+1, n1, n2]
     q_last = kt.main_nt.q[lm1].long()
     # conv row of q_last (coeff domain): sum_j bhat_ext_j * [P/p_j]_{q_last}
     terms = shoup_mul(bhat_ext, _col2(tt.md2_last), _col2(tt.md2_last_sh),
                       q_last)
-    conv_last = lazy_tree_sum(terms.transpose(0, 1), q_last)  # [2, n1, n2]
-    acc_main = torch.stack([acc0[1], acc1[1]])  # [2, level, n2, n1]
-    dd = torch.stack([d0, d1])
+    conv_last = lazy_tree_sum(terms.movedim(-3, 0), q_last)  # [..., 2, n1, n2]
+    acc_main = torch.stack([acc0[1], acc1[1]], dim=-4)  # [..., 2, level, n2, n1]
+    dd = torch.stack([d0, d1], dim=-4)
     # w = Z mod q_last, Z = floor(acc / P) + d, in the coeff domain
     zl_eval = modadd(
-        acc_main[:, lm1],
-        shoup_mul(dd[:, lm1], tt.p_modq[lm1].long(), tt.p_modq_sh[lm1],
-                  q_last),
+        acc_main[..., lm1, :, :],
+        shoup_mul(dd[..., lm1, :, :], tt.p_modq[lm1].long(),
+                  tt.p_modq_sh[lm1], q_last),
         q_last)
-    zl_coeff = intt_rep(zl_eval.to(torch.int32), tt.last_nt, 2)
+    zl_coeff = _over_rows(intt_rep, zl_eval.to(torch.int32).unsqueeze(-3),
+                          tt.last_nt).squeeze(-3)
     w = shoup_mul(modsub(zl_coeff, conv_last, q_last), kt.pinv[lm1].long(),
                   kt.pinv_sh[lm1], q_last)
     # w centering indicator, read by the [-P*q_last] column
     ind_w = (w >= (q_last >> 1) + 1).long()
     convs = [
         bconv_fused(
-            torch.cat([bhat_ext[k], w[k][None], ind_w[k][None]])
-            .to(torch.int32),
+            torch.cat([bhat_ext[..., k, :, :, :], w[..., k, None, :, :],
+                       ind_w[..., k, None, :, :]], dim=-3).to(torch.int32),
             tt.one, tt.one_sh, tt.in_q, tt.mat, tt.mma, tt.horner_sh,
             tt.out_nt.q)
         for k in (0, 1)
     ]
-    e = ntt_rep(torch.cat(convs), tt.out_nt, 2)
-    e = e.view((2, lm1) + tuple(e.shape[1:]))
+    e = _over_rows(ntt_rep, torch.stack(convs, dim=-4), tt.out_nt)
     oq = _col2(tt.out_nt.q)
     z = modadd(
-        acc_main[:, :lm1],
-        shoup_mul(dd[:, :lm1], _col2(tt.p_modq[:lm1]),
+        acc_main[..., :lm1, :, :],
+        shoup_mul(dd[..., :lm1, :, :], _col2(tt.p_modq[:lm1]),
                   _col2(tt.p_modq_sh[:lm1]), oq),
         oq)
     out = shoup_mul(modsub(z, e, oq), _col2(tt.pq_inv), _col2(tt.pq_inv_sh),

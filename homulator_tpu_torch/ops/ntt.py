@@ -54,31 +54,33 @@ from .modmath import modadd, modsub, mulmod
 
 def _ct_stages(x: torch.Tensor, tw: torch.Tensor, q: torch.Tensor,
                mul=None):
-    """CT (DIT) butterflies along axis 1 of int64 [R, n, m]; tw int64
-    [R, n] flat stage twiddles; q int64 [R, 1, 1, 1]. mul(v, lo, hi), when
-    given, is the twiddle product of v [R, B, H, m] by the columns lo:hi
-    of the stage tables (ops/anatomy.py's Shoup forms); else mulmod."""
-    R, n, m = x.shape
+    """CT (DIT) butterflies along axis -2 of int64 [..., n, m]; tw int64
+    [..., n] flat stage twiddles and q int64 [..., 1, 1, 1], each
+    broadcasting against x's leading axes ([R, n] and [R, 1, 1, 1]
+    against [R, n, m], or a basis' [M, n] against [rep, M, n, m]).
+    mul(v, lo, hi), when given, is the twiddle product of v [..., B, H,
+    m] by the columns lo:hi of the stage tables (ops/anatomy.py's Shoup
+    forms); else mulmod."""
+    *lead, n, m = x.shape
     for s in range(n.bit_length() - 1):
         B, H = 1 << s, n >> (s + 1)
-        xr = x.view(R, B, 2, H, m)
-        u = xr[:, :, 0]
-        v = (mulmod(xr[:, :, 1], tw[:, B: 2 * B, None, None], q)
-             if mul is None else mul(xr[:, :, 1], B, 2 * B))
-        x = torch.stack([modadd(u, v, q), modsub(u, v, q)], dim=2)
-        x = x.view(R, n, m)
+        u, w = x.reshape(*lead, B, 2, H, m).unbind(-3)
+        v = (mulmod(w, tw[..., B: 2 * B, None, None], q)
+             if mul is None else mul(w, B, 2 * B))
+        x = torch.stack([modadd(u, v, q), modsub(u, v, q)], dim=-3)
+        x = x.view(*lead, n, m)
     return x
 
 
 def _gs_stages(x: torch.Tensor, itw: torch.Tensor, q: torch.Tensor):
-    """GS inverse butterflies along axis 1 (no 1/n factor)."""
-    R, n, m = x.shape
+    """GS inverse butterflies along axis -2 (no 1/n factor); shapes as
+    _ct_stages'."""
+    *lead, n, m = x.shape
     for s in range(n.bit_length() - 2, -1, -1):
         B, H = 1 << s, n >> (s + 1)
-        xr = x.view(R, B, 2, H, m)
-        u, v = xr[:, :, 0], xr[:, :, 1]
-        s1 = mulmod(modsub(u, v, q), itw[:, B: 2 * B, None, None], q)
-        x = torch.stack([modadd(u, v, q), s1], dim=2).view(R, n, m)
+        u, v = x.reshape(*lead, B, 2, H, m).unbind(-3)
+        s1 = mulmod(modsub(u, v, q), itw[..., B: 2 * B, None, None], q)
+        x = torch.stack([modadd(u, v, q), s1], dim=-3).view(*lead, n, m)
     return x
 
 
@@ -101,21 +103,30 @@ def _tables(nb: NttBasis, rows: torch.Tensor, *names):
     return [getattr(nb, k).long()[rows] for k in names]
 
 
-def _ntt(x, nb, rows):
-    q, tw1, mid, tw2 = _tables(nb, rows, "q", "tw1", "mid", "tw2")
-    q4 = q.view(-1, 1, 1, 1)
-    y = _ct_stages(x.long(), tw1, q4)
+def _basis(nb: NttBasis, *names):
+    """The basis tables `names` as int64, once each: [M, ...] against the
+    [rep, M, ...] view of rep stacked copies (no per-copy gather)."""
+    return [getattr(nb, k).long() for k in names]
+
+
+def _ntt(x, nb, rep):
+    M = nb.q.shape[0]
+    q, tw1, mid, tw2 = _basis(nb, "q", "tw1", "mid", "tw2")
+    q4 = q.view(M, 1, 1, 1)
+    y = _ct_stages(x.long().view((rep, M) + x.shape[1:]), tw1, q4)
     y = mulmod(y, mid, q4[:, 0])
-    y = _ct_stages(y.transpose(1, 2).contiguous(), tw2, q4)
-    return y.to(torch.int32)
+    y = _ct_stages(y.transpose(-1, -2).contiguous(), tw2, q4)
+    return y.view((rep * M,) + y.shape[2:]).to(torch.int32)
 
 
-def _intt(x, nb, rows):
-    q, itw2, mid_inv, itw1 = _tables(nb, rows, "q", "itw2", "mid_inv", "itw1")
-    q4 = q.view(-1, 1, 1, 1)
-    y = _gs_stages(x.long(), itw2, q4)
-    y = mulmod(y.transpose(1, 2), mid_inv, q4[:, 0])
-    return _gs_stages(y.contiguous(), itw1, q4).to(torch.int32)
+def _intt(x, nb, rep):
+    M = nb.q.shape[0]
+    q, itw2, mid_inv, itw1 = _basis(nb, "q", "itw2", "mid_inv", "itw1")
+    q4 = q.view(M, 1, 1, 1)
+    y = _gs_stages(x.long().view((rep, M) + x.shape[1:]), itw2, q4)
+    y = mulmod(y.transpose(-1, -2), mid_inv, q4[:, 0])
+    y = _gs_stages(y.contiguous(), itw1, q4)
+    return y.view((rep * M,) + y.shape[2:]).to(torch.int32)
 
 
 def _phase1(x, nb, rows):
@@ -143,13 +154,15 @@ def _iphase1(x, nb, rows):
 
 
 def ntt_plain(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
-    """Plain version of kernel B1: int32 [rep*M, n1, n2] -> [rep*M, n2, n1]."""
-    return _ntt(x, nb, _rep_rows(nb, rep))
+    """Plain version of kernel B1: int32 [rep*M, n1, n2] -> [rep*M, n2, n1]
+    (the basis tables broadcast over the rep copies)."""
+    return _ntt(x, nb, rep)
 
 
 def intt_plain(x: torch.Tensor, nb: NttBasis, rep: int = 1) -> torch.Tensor:
-    """Plain version of kernel B2: int32 [rep*M, n2, n1] -> [rep*M, n1, n2]."""
-    return _intt(x, nb, _rep_rows(nb, rep))
+    """Plain version of kernel B2: int32 [rep*M, n2, n1] -> [rep*M, n1, n2]
+    (the basis tables broadcast over the rep copies)."""
+    return _intt(x, nb, rep)
 
 
 def ntt_phase1_plain(x: torch.Tensor, nb: NttBasis,

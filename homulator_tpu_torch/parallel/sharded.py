@@ -239,14 +239,22 @@ def ici_bytes_per_op(params, level: int, ns: int, op: str = "hmult", *,
 # ---- the JAX package's GSPMD surface, on the explicit dispatches ----------
 def batched_hmult_fn(dc: DeviceContext, level: int):
     """Returns f(a_batch, b_batch, evk) -> out_batch: hmult over int32
-    [B, 2, level, n2, n1] batches on one device, one element after another
-    (the JAX function's vmap), out [B, 2, level-1, n2, n1]."""
+    [B, 2, level, n2, n1] batches on one device, out [B, 2, level-1, n2,
+    n1]: the JAX function's vmap of hmult_graph. On the piecewise and
+    fused routes one call of api.hmult_graph on the whole batch, so every
+    kernel launch covers it (B1/B2 over B rep copies, B3/B4 with the
+    batch as their grid's z axis) and a batch launches B1-B4 as often as
+    one element does. The graph route (ntt_mode="jnp") stays one element
+    after another: ROADMAP A5 keeps it to parity with the JAX engine and
+    to B5's path, and gives it no new option."""
     kt = dc.keyswitch_tables(level)
 
     def f(a_batch: torch.Tensor, b_batch: torch.Tensor,
           evk: torch.Tensor) -> torch.Tensor:
-        return torch.stack([hmult_graph(a, b, evk, kt)
-                            for a, b in zip(a_batch, b_batch)])
+        if kt.graph:
+            return torch.stack([hmult_graph(a, b, evk, kt)
+                                for a, b in zip(a_batch, b_batch)])
+        return hmult_graph(a_batch, b_batch, evk, kt)
 
     return f
 

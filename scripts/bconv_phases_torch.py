@@ -122,7 +122,8 @@ def main() -> int:
                 dt.step1_sh.data_ptr(), dt.in_q.data_ptr(),
                 dt.mat_mma.data_ptr(), dt.horner_sh.data_ptr(),
                 dt.other_nt.q.data_ptr(), nd, 1, m_out,
-                shape[0] * shape[1], torch.cuda.current_stream().cuda_stream)
+                shape[0] * shape[1], 1, 0, 0,
+                torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"hk_bconv: CUDA error {rc}")
 
