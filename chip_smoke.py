@@ -214,13 +214,32 @@ failure and the script then exits non-zero:
      automorphism of a rotation on [70, 256, 256] flat, staged and as
      one-hot bf16 products (scripts/bench_automorph_torch.py), equal
      bit for bit, each timed;
- 10. one JSON line of per-kernel results (each kernel's times and bound at
+ 10. the dispatch studies (`check_dispatch_studies`), set B, level 35:
+     shard 0's program of the limb x4, coeff x4, coeff x8 (lane-packed)
+     and hybrid 2 x 2 hmult and hrotate(1) alone on the card
+     (`parallel.comm.StandInMesh`: every collective a local copy of the
+     real result's shape; `parallel.comm.standin_programs`), each
+     driven with the launch counts set to 0 just before and read just
+     after (its dispatch's kernels only), its output's shape, bytes and
+     collective calls on every axis equal to the ThreadMesh rank 0's of phase 5 in the same call (the bytes also
+     the JAX figures, the limb axis's calls limb_collective_count),
+     captured in a CUDA graph and its device ms printed beside the
+     ThreadMesh's profiled device ms / ns; the kernels at the grid and
+     width studies' shapes against their plain versions, bit for bit,
+     with bounds: B6 and B7 at one shard (c = 256), B10 and B11 at k = 2
+     (4 shards), B1 and B2 at M = 4 and 60 limbs, B3 of ModUp digit 0 at
+     c = 256, 128, 64, 32; the committed anchors
+     (`parallel/_scaling_measured.py`) load, were measured at set B, and
+     `choose_axis` routes set B's hmult and hrotate at 2, 4 and 8 shards
+     by the model, its picks and the anchors' card printed;
+ 11. one JSON line of per-kernel results (each kernel's times and bound at
      one shape the main path launches, named in `shape`; `max_abs_err`
      over every shape checked; `launches` summed over the main-path runs,
      per run in `launches_by_run`; the limb and hybrid shapes' numbers in
-     `limb_hybrid_shapes`, phase 9's in `op_studies_shapes`; for the
-     kernels of 3b every variant's numbers in `variants`) and phase 8's
-     counters, then the device line last.
+     `limb_hybrid_shapes`, phase 9's in `op_studies_shapes`, phase 10's
+     in `dispatch_studies_shapes`; for the kernels of 3b every variant's
+     numbers in `variants`) and phase 8's counters, then the device line
+     last.
 
 Bound of a kernel call (`benchlib.bound`): the largest of the bytes it
 must move (each input read once, each output written once) over 3.35
@@ -947,7 +966,7 @@ def check_limb_dispatch(np, torch, kernels, eng, cts, wants, v12, launches,
     the JAX package's figures; the limb axis's collective calls equal
     limb_collective_count; the 4-shard limb and 2 x 2 hybrid hmults
     decrypt within GATE in every slot; then a batch of two hmults on 2
-    data rows x 4 limb shards. Returns {label: fn} of the runs."""
+    data rows x 4 limb shards. Returns {label: (mesh, fn)} of the runs."""
     from homulator_tpu_torch.context import Ciphertext
     from homulator_tpu_torch.parallel import limb_sharded as ls
     from homulator_tpu_torch.parallel.comm import ThreadMesh
@@ -1041,7 +1060,7 @@ def check_limb_dispatch(np, torch, kernels, eng, cts, wants, v12, launches,
                              "single-device hmults")
     print("# hmult limb 2x4 data: batch of 2 == single-device hmults, "
           "bit-exact")
-    return {label: r[1] for label, r in runs.items()}
+    return {label: r[:2] for label, r in runs.items()}
 
 
 def check_gspmd_surface(np, torch, kernels, eng, cts, pt, wants, launches,
@@ -1839,6 +1858,176 @@ def check_op_studies(np, torch, kernels, api, eng, get_params, results,
     print(f"# phase 9 (op studies): {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 10, the dispatch studies: shard 0's programs alone on the card
+# (parallel.comm.StandInMesh), the kernels at the studies' shapes, and the
+# dispatch model's anchors
+STAND_INS = (("limb", 4, 1), ("coeff", 4, 1), ("coeff", 8, 1),
+             ("hybrid", 2, 2))  # (axis, shards or limb shards, coeff shards)
+DISPATCH = "phase 10 "  # the label prefix of phase 10's kernel shapes
+GRID_MS = (4, 60)  # B1/B2 limb counts of the grid study checked here
+WIDTH_NSS = (1, 2, 4, 8)  # the width study's shards: c = 256 / ns columns
+
+
+def check_stand_ins(torch, kernels, eng, cts, thread_runs, timings,
+                    launches):
+    """Phase 10: limb x4, coeff x4, coeff x8 (lane-packed) and hybrid 2x2
+    hmult and hrotate(1) as shard 0's program on a StandInMesh
+    (parallel.comm.standin_programs), each driven with the launch counts
+    around it (its dispatch's kernels only). Its
+    output's shape, the bytes it counts and its calls on every axis equal
+    those of the ThreadMesh's rank 0 in the same call (thread_runs: phase
+    5's {label: (mesh, fn)}); the bytes also ici_bytes_per_op / the JAX
+    figures, the limb axis's calls limb_collective_count. Then it is
+    captured in a CUDA graph and its device ms printed beside the
+    ThreadMesh's profiled device ms / ns (phase 6)."""
+    from homulator_tpu_torch.parallel import limb_sharded as ls
+    from homulator_tpu_torch.parallel.comm import standin_programs
+    from homulator_tpu_torch.parallel.sharded import ici_bytes_per_op
+
+    params = eng.params
+    for axis, ns, nc in STAND_INS:
+        mesh, fns = standin_programs(eng, LEVEL_B, axis, ns, nc, cts)
+        tag = f"hybrid {ns}x{nc}" if axis == "hybrid" else f"{axis} x{ns}"
+        if axis == "coeff":
+            ident = eng.dc.automorph_shard_route(params.galois_elt(1), ns)[2]
+            want_bytes = (ici_bytes_per_op(params, LEVEL_B, ns, "hmult"),
+                          ici_bytes_per_op(params, LEVEL_B, ns, "hrotate",
+                                           route_identity=ident))
+            expect = (COEFF_PACKED_KERNELS if ns in NS_PACKED
+                      else COEFF_KERNELS)
+        elif axis == "limb":
+            want_bytes, expect = LIMB_BYTES[ns], PIECES_KERNELS
+        else:
+            want_bytes, expect = HYBRID_BYTES[(ns, nc)][:2], COEFF_KERNELS
+        for op, nbytes in zip(("hmult", "hrotate"), want_bytes):
+            label = f"stand-in {op} {tag}"
+            tmesh, tfn = thread_runs[f"{op} {tag}"]
+            tmesh.reset_counts()
+            want_shape = tuple(tfn()[0].shape)
+            torch.cuda.synchronize()
+            axes = tmesh.names or (None,)
+            tcalls = {a: tmesh.calls(a)[0] for a in axes}
+            mesh.reset_counts()
+            got, launches[label] = drive(torch, kernels,
+                                         f"{label} (45,35,15)", fns[op],
+                                         expect)
+            calls = {a: mesh.calls(a)[0] for a in axes}
+            if tuple(got[0].shape) != want_shape:
+                raise AssertionError(f"{label}: shape {tuple(got[0].shape)}"
+                                     f" != ThreadMesh rank 0's {want_shape}")
+            if mesh.recv_bytes != [nbytes] or tmesh.recv_bytes[0] != nbytes:
+                raise AssertionError(f"{label}: {mesh.recv_bytes} bytes, "
+                                     f"ThreadMesh rank 0 "
+                                     f"{tmesh.recv_bytes[0]}, expected "
+                                     f"{nbytes}")
+            if calls != tcalls or ("limb" in calls and calls["limb"] !=
+                                   ls.limb_collective_count(
+                                       params, LEVEL_B, ns, op, ns_c=nc)):
+                raise AssertionError(f"{label}: calls {calls}, ThreadMesh "
+                                     f"rank 0 {tcalls}")
+            dev = device_ms(fns[op], calls=2)
+            thread_dev = timings[f"{op} {tag}"][1]
+            timings[label] = (None, dev)
+            print(f"# {label} (45,35,15), shard 0 alone: shape "
+                  f"{want_shape}, {nbytes} bytes, calls {calls}, each == "
+                  f"ThreadMesh rank 0's; CUDA graph {dev:.4f} ms device; "
+                  f"ThreadMesh {thread_dev:.4f} ms device (profiled) / "
+                  f"{ns * nc} = {thread_dev / (ns * nc):.4f}")
+
+
+def check_study_shapes(np, torch, dc, rng, results):
+    """Phase 10: the kernels at the grid and width studies' shapes against
+    their plain versions, bit for bit, with bounds: B6 and B7 at one shard
+    (c = 256, the 35 main rows), B10 and B11 at k = 2 (4 shards, c = 64,
+    the basis packed as the context packs it; no dispatch takes k = 2),
+    B1 and B2 at M = 4 and 60 limbs (scripts/bench_ntt_grid_torch.py's
+    rows) and B3 of ModUp digit 0 on [15, n1, c] at c = 256, 128, 64, 32
+    (scripts/bench_ntt_width_torch.py)."""
+    import dataclasses
+
+    from homulator_tpu_torch.ops import ntt as ntt_mod
+    from homulator_tpu_torch.ops import ntt_kernels
+
+    rows = dc.main_rows(LEVEL_B)
+    n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
+    one = dc.ntt_basis(rows, (0, 1))
+    k2 = dataclasses.replace(dc.ntt_basis(rows, (0, 4)), pack=2)
+    for name, nb, tag in (
+            ("ntt_phase1", one, "ns=1 c=256"), ("ntt_phase2", one,
+                                                "ns=1 c=256"),
+            ("ntt_phase1_packed", k2, "ns=4 c=64 k=2"),
+            ("ntt_phase2_packed", k2, "ns=4 c=64 k=2")):
+        x = phase_input(np, torch, name, nb, 1, False, rng)
+        kernel = getattr(ntt_kernels, name)
+        plain = getattr(ntt_mod, name + "_plain")
+        c = x.shape[2] // (nb.pack or 1)
+        compare(torch, name, f"{DISPATCH}{tag} main M=35 rep=1",
+                lambda: kernel(x, nb, 1), lambda: plain(x, nb, 1),
+                phase_bound(nb, x.shape[0] * (nb.pack or 1), x.shape[1], c,
+                            name), results)
+    grid = _script("bench_ntt_grid_torch")
+    for M in GRID_MS:
+        nb = dc.ntt_basis(grid.grid_rows(M))
+        for name, kernel, plain, shape in (
+                ("ntt_fwd", ntt_kernels.ntt_fwd, ntt_mod.ntt_plain, (n1, n2)),
+                ("ntt_inv", ntt_kernels.ntt_inv, ntt_mod.intt_plain,
+                 (n2, n1))):
+            x = residues(nb.q, (M,) + shape, rng)
+            compare(torch, name, f"{DISPATCH}grid M={M} rep=1",
+                    lambda: kernel(x, nb, 1), lambda: plain(x, nb, 1),
+                    ntt_bound(nb, 1, name == "ntt_fwd"), results)
+    dt = dc.keyswitch_tables(LEVEL_B).digits[0]
+    tabs = (dt.step1, dt.step1_sh, dt.in_q, dt.mat, dt.mat_mma,
+            dt.horner_sh, dt.other_nt.q)
+    for ns in WIDTH_NSS:
+        c = n2 // ns
+        check_bconv(torch, f"{DISPATCH}width modup digit0 {dt.hi - dt.lo}+1"
+                    f"->{dt.mat.shape[0]} c={c}",
+                    residues(dt.in_q, (dt.hi - dt.lo, n1, c), rng), tabs,
+                    True, results)
+
+
+def check_anchors(params):
+    """Phase 10: the committed anchors (parallel/_scaling_measured.py) load,
+    were measured at set B, and route set B's hmult and hrotate at 2, 4
+    and 8 shards by the model (choose_axis's how == "model"); prints the
+    picks and the anchors' card beside this one."""
+    from homulator_tpu_torch.parallel import dispatch_model as dm
+
+    if dm.MEASURED is None:
+        raise AssertionError("parallel/_scaling_measured.py did not load")
+    meta = dm.MEASURED["meta"]
+    if meta["params"] != SET_B:
+        raise AssertionError(f"anchors measured at {meta['params']}, not "
+                             f"set B {SET_B}")
+    picks = []
+    for op in ("hmult", "hrotate"):
+        for ns in (2, 4, 8):
+            axis, t_l, t_c, how = dm.choose_axis(params, op, ns, LEVEL_B)
+            if how != "model":
+                raise AssertionError(f"choose_axis {op} x{ns} at set B: "
+                                     f"how {how!r}, not 'model'")
+            picks.append(f"{op} x{ns} {axis} (limb {t_l:.3f} / coeff "
+                         f"{t_c:.3f} ms)")
+    print("# dispatch model at set B, level 35 (H100 SXM5 fabric spec, not "
+          "measured): " + "; ".join(picks))
+    print(f"# anchors measured on {meta['card']} ({meta['measured_at']}); "
+          f"this card: {benchlib.card_line()}")
+
+
+def check_dispatch_studies(np, torch, kernels, eng, cts, thread_runs,
+                           results, launches, timings):
+    """Phase 10, the dispatch studies (see the module docstring)."""
+    t_phase = time.perf_counter()
+    check_stand_ins(torch, kernels, eng, cts, thread_runs, timings,
+                    launches)
+    check_study_shapes(np, torch, eng.dc, np.random.default_rng(20),
+                       results)
+    check_anchors(eng.params)
+    print(f"# phase 10 (dispatch studies): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def op_studies_main() -> int:
     """Phase 9 alone, for a quick run on a card (python3 -c 'import
     chip_smoke; chip_smoke.op_studies_main()'): the kernel build, the
@@ -2216,8 +2405,9 @@ def main() -> int:
     # 5, limb and hybrid: the limb dispatch on 2, 4 and 8 shards of this
     # card and on 2 data rows x 4, the hybrid on 2 x 2 and 4 x 2
     t0 = time.perf_counter()
-    limb_fns = check_limb_dispatch(np, torch, kernels, eng, (ct1, ct2),
-                                   (out, rot), v1 * v2, launches, errs)
+    thread_runs = check_limb_dispatch(np, torch, kernels, eng, (ct1, ct2),
+                                      (out, rot), v1 * v2, launches, errs)
+    thread_runs.update((k, v[:2]) for k, v in sharded.items())
     print(f"# limb and hybrid dispatch checks: "
           f"{time.perf_counter() - t0:.1f} s (tables built included)")
 
@@ -2262,8 +2452,9 @@ def main() -> int:
     for ns in (4, 8):
         for op in ("hmult", "hrotate"):
             sharded_fns[f"{op} coeff x{ns}"] = sharded[f"{op} coeff x{ns}"][1]
-    sharded_fns.update((k, f) for k, f in limb_fns.items()
-                       if not k.endswith("gather"))
+    sharded_fns.update((k, f) for k, (_, f) in thread_runs.items()
+                       if k.split()[1] in ("limb", "hybrid")
+                       and not k.endswith("gather"))
     t0 = time.perf_counter()
     for label, fn in sharded_fns.items():
         timings[label] = (latency_ms(fn), profiled_ms(fn)[0])
@@ -2291,7 +2482,11 @@ def main() -> int:
     check_op_studies(np, torch, kernels, api, eng, get_params, results,
                      launches, errs, timings)
 
-    # 10. results
+    # 10. the dispatch studies
+    check_dispatch_studies(np, torch, kernels, eng, (ct1, ct2), thread_runs,
+                           results, launches, timings)
+
+    # 11. results
     print(f"# chip_smoke total: {time.perf_counter() - t_start:.1f} s "
           "(kernel build included)")
     bad = sorted(m for m in sys.modules
@@ -2332,6 +2527,11 @@ def main() -> int:
              "library_ms"), r[1:])) for r in res if r[0].startswith(STUDY)}
         if study_rows:
             row["op_studies_shapes"] = study_rows
+        studies = {r[0][len(DISPATCH):]: dict(zip(
+            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms"), r[1:])) for r in res if r[0].startswith(DISPATCH)}
+        if studies:
+            row["dispatch_studies_shapes"] = studies
         if name in ANATOMY_KERNELS:
             row["note"] = ("on no op's path: launched by the anatomy and "
                            "roofline path only")

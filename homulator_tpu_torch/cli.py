@@ -40,11 +40,15 @@ multi-device run). hmult, hsquare and hrotate take a key-switch dispatch:
   hybrid  a ([cluster]/2 limb x 2 coeff) mesh (`make_hybrid_*`), for an
           even [cluster] >= 4 and a tile that splits 2-way: the limb
           programs with every transform phase-split (B6-B9);
-  auto    (the default) limb or coeff by `dispatch_model.choose_axis`.
-          The port has no measured anchors for the model, so it picks the
-          axis whose shards receive fewer bytes and says so ("picked by
-          ICI volume (no model anchors)"); the JAX CLI picks by its TPU
-          model, so the two CLIs may take different axes for one shape;
+  auto    (the default) limb, coeff or hybrid by the projected-time
+          model (`dispatch_model.choose_axis`, and `predict_hybrid_ms`
+          for the [cluster]/2 x 2 hybrid) over the H100's per-shard
+          anchors (`parallel/_scaling_measured.py`, measured at set B by
+          scripts/scaling_projection_torch.py), printing each predicted
+          T; at params without anchors, the axis whose shards receive
+          fewer bytes ("picked by ICI volume (no model anchors)"). The
+          JAX CLI picks by its TPU model, so the two CLIs may take
+          different axes for one shape;
   gspmd   the layout the JAX CLI hands its partitioner (rows over the
           mesh), run as the limb dispatch's explicit program
           (parallel/sharded.py says why the port has no partitioner).

@@ -201,11 +201,12 @@ def _launch_packed(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
                    n: int, mid=()) -> torch.Tensor:
     """One lane-packed phase kernel on x [rep*G, n, k*c] (k = nb.pack, G
     = ceil(M/k) groups a copy, c a power of two up to 32 with k*c a
-    multiple of 32) -> a new [rep*G, n, k*c]. The tables named in `mid`
-    are the shard's per-limb [M, n, c] mid slice; the others flat [M, n]
-    stage tables. Lane j of group g reads limb min((g mod G)*k + j div c,
-    M - 1). The kernel also takes log2 of its tile width,
-    phase_tile_cols'."""
+    multiple of 32, as the JAX package packs, or c = 64 at k = 2, the
+    width study's shape, also checked on the card) -> a new [rep*G, n,
+    k*c]. The tables named in `mid` are the shard's per-limb [M, n, c]
+    mid slice; the others flat [M, n] stage tables. Lane j of group g
+    reads limb min((g mod G)*k + j div c, M - 1). The kernel also takes
+    log2 of its tile width, phase_tile_cols'."""
     tables = TABLES[name]
     if not x.is_cuda:
         raise ValueError(f"{name}: CUDA kernel called on {x.device}")
@@ -216,10 +217,11 @@ def _launch_packed(name: str, x: torch.Tensor, nb: NttBasis, rep: int,
         raise ValueError(f"{name}: x {tuple(x.shape)} is not "
                          f"[{rep}*{G}, {n}, {k}*c] (pack k={k})")
     c = x.shape[2] // k
-    if (n > _MAX_N or c < 1 or c > 32 or c & (c - 1) or k & (k - 1)
-            or (k * c) % 32):
+    if (n > _MAX_N or c < 1 or c > (64 if k == 2 else 32) or c & (c - 1)
+            or k & (k - 1) or (k * c) % 32):
         raise ValueError(f"{name}: n={n}, k={k}, c={c}: need power-of-two "
-                         f"k and c <= 32, k*c a multiple of 32, n <= {_MAX_N}")
+                         f"k and c <= 32 (64 at k = 2), k*c a multiple of "
+                         f"32, n <= {_MAX_N}")
     kernels.require_cuda_int32("x", x, x.device)
     kernels.require_cuda_int32("q", nb.q, x.device, (M,))
     for t in tables:

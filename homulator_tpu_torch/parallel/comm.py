@@ -8,7 +8,7 @@ gather-route automorphism (`ops/automorph.py:63-67`) and the limb
 dispatch's row-block gathers (`parallel/limb_sharded.py:452`), and
 `ppermute` for the shard-permutation automorphism (`:123`). Here they are
 one interface, `Comm`: `rank`, `size`, `all_to_all(x, split_dim,
-cat_dim)`, `all_gather(x, dim)` and `ppermute(x, pairs)`, with two
+cat_dim)`, `all_gather(x, dim)` and `ppermute(x, pairs)`, with three
 implementations:
 
   ThreadMesh(shape, device)  the shard programs as threads of one process
@@ -23,6 +23,13 @@ implementations:
                           (gloo on the CPU, NCCL on a machine with a card
                           per shard); `DistMesh.grid` builds a mesh of
                           named axes from `dist.new_group` subgroups.
+  StandInMesh(shape, device)  shard 0 of one row alone in the caller's
+                          thread, each collective a local copy of the
+                          real result's shape (values meaningless): one
+                          shard's program timed on one device, e.g. in a
+                          CUDA graph; `standin_programs` builds shard 0's
+                          hmult and hrotate of each sharded dispatch on
+                          one (scripts/scaling_projection_torch.py).
 
 A mesh is d data rows (the JAX meshes' "data" axis: `data=d`) of shards
 laid out row-major over one or more named axes, e.g. `("limb",)` or
@@ -495,3 +502,135 @@ class DistMesh(Comm):
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return out
+
+
+class _StandInComm(Comm):
+    """Rank 0's Comm of a StandInMesh over its row or one axis: each
+    collective returns what rank 0 would receive in shape, built from
+    copies of its own operand, and counts the calls and bytes rank 0 of a
+    real mesh counts (as _ThreadComm does)."""
+
+    def __init__(self, size: int, shard: Optional["_StandInComm"] = None):
+        self.rank = 0
+        self.size = size
+        self.shard = self if shard is None else shard
+        self.recv_bytes = 0
+        self.calls = 0
+        self._axes = {}
+
+    def all_to_all(self, x, split_dim, cat_dim):
+        _check_split(x, split_dim, self.size)
+        self.calls += 1
+        mine = x.chunk(self.size, split_dim)[0]
+        self.recv_bytes += (self.size - 1) * _nbytes(mine)
+        return torch.cat([mine] * self.size, cat_dim)
+
+    def all_gather(self, x, dim):
+        self.calls += 1
+        self.recv_bytes += (self.size - 1) * _nbytes(x)
+        return torch.cat([x] * self.size, dim)
+
+    def ppermute(self, x, pairs):
+        self.calls += 1
+        src = _sources(pairs, self.size).get(0)
+        if src is None:
+            return torch.zeros_like(x)
+        if src != 0:
+            self.recv_bytes += _nbytes(x)
+        return x.clone()
+
+
+class StandInMesh:
+    """Shard 0 of one row of a mesh, alone, in the caller's thread: the
+    port of the JAX projection's `_patch_collectives`
+    (`scripts/scaling_projection.py:80-130`), a third Comm beside
+    ThreadMesh and DistMesh. It exists to time one shard's program on one
+    device: the values it returns mean nothing.
+
+    `shape`, `names`, `extent`, `size` and `data` (1) are a ThreadMesh's;
+    `run(body)` calls body(comm) once, with shard 0's row Comm bound
+    (`current()`), and returns [its result]; `comm.axis(name)` is a rank-0
+    Comm over that axis. Every collective keeps the real result's shape
+    and moves as many bytes on the device, as local copies of rank 0's own
+    operand: all_gather concatenates `size` copies of it, all_to_all
+    `size` copies of the chunk it keeps, ppermute clones it where rank 0
+    is a destination (zeros where it is none). `recv_bytes` and `calls`
+    count what a real shard 0 receives and calls, so a stand-in run can
+    be held to `ici_bytes_per_op` and the collective counts. No thread,
+    barrier or host synchronisation runs, so a stand-in shard program can
+    be captured in a CUDA graph."""
+
+    def __init__(self, shape, device="cuda", names: Optional[
+            Sequence[str]] = None):
+        self.shape, self.names = _mesh_shape(shape, names)
+        self.size = math.prod(self.shape)
+        self.data = 1
+        self.device = torch.device(device)
+        self.comm = _StandInComm(self.size)
+        for k, name in enumerate(self.names):
+            self.comm._axes[name] = (self.comm if len(self.shape) == 1 else
+                                     _StandInComm(self.shape[k], self.comm))
+
+    def extent(self, name: str) -> int:
+        """The number of shards along axis `name`."""
+        if name not in self.names:
+            raise ValueError(f"mesh has no axis {name!r} (axes: "
+                             f"{self.names})")
+        return self.shape[self.names.index(name)]
+
+    @property
+    def recv_bytes(self) -> List[int]:
+        """[bytes shard 0 would have received so far, over all its Comms]."""
+        return [self.comm.total_recv_bytes]
+
+    def calls(self, axis: Optional[str] = None) -> List[int]:
+        """[shard 0's collective calls so far over `axis`] (its row's
+        Comm when None)."""
+        return [(self.comm if axis is None else self.comm.axis(axis)).calls]
+
+    def reset_counts(self) -> None:
+        self.comm.reset_counts()
+
+    def run(self, body: Callable[[Comm], object]) -> list:
+        with bound(self.comm):
+            return [body(self.comm)]
+
+
+def standin_programs(eng, level: int, axis: str, ns: int, ns_c: int,
+                     cts):
+    """(mesh, {"hmult": fn, "hrotate": fn}): shard 0's hmult and
+    hrotate(1) programs of one dispatch on a StandInMesh on eng's device,
+    axis "coeff" (ns shards, the JAX package's packing), "limb" (ns) or
+    "hybrid" (ns limb x ns_c coeff), each fn() one call on shard 0's
+    operands cut from the ciphertexts cts = (a, b) at `level`. Tables,
+    routes and operands are made here, outside any captured call."""
+    from . import limb_sharded as ls
+    from . import sharded as sh
+
+    dc, p = eng.dc, eng.params
+    g = p.galois_elt(1)
+    a, b = (c.data for c in cts)
+    relin, rot = eng.relin_key, eng.rot_keys[1]
+    if axis == "coeff":
+        mesh = StandInMesh(ns, dc.device)
+        fh = sh.make_shardmap_hmult(dc, level, mesh)
+        fr = sh.make_shardmap_hrotate(dc, level, mesh)
+        route = dc.automorph_shard_route(g, ns)
+        a0, b0, k0, r0 = (sh.shard_cols(t, ns)[:1] for t in (a, b, relin,
+                                                              rot))
+    else:
+        nl, nc = (ns, 1) if axis == "limb" else (ns, ns_c)
+        if nc == 1:
+            mesh = StandInMesh(nl, dc.device, names=("limb",))
+            fh = ls.make_limb_hmult(dc, level, mesh)
+            fr = ls.make_limb_hrotate(dc, level, mesh)
+            route = dc.automorph_perm(g)
+        else:
+            mesh = StandInMesh((nl, nc), dc.device, names=("limb", "coeff"))
+            fh = ls.make_hybrid_hmult(dc, level, mesh)
+            fr = ls.make_hybrid_hrotate(dc, level, mesh)
+            route = dc.automorph_shard_route(g, nc)
+        a0, b0 = (ls.shard_rows(t, level, nl, nc)[:1] for t in (a, b))
+        k0, r0 = (ls.limb_key(t, p, level, nl, nc)[:1] for t in (relin, rot))
+    return mesh, {"hmult": lambda: fh(a0, b0, k0),
+                  "hrotate": lambda: fr(a0, route, r0)}

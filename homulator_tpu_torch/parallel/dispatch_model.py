@@ -11,27 +11,42 @@ coeff_collective_count); H the limb axis's credit for the chunked gathers'
 overlap with the compute they feed, per gather site the lesser of the
 transfer's (G-1)/G and the measured overlappable compute.
 
-The port has no measured anchors: the JAX package's are a TPU's, and a
-ThreadMesh of shards on one card is host-bound, so it measures no
-per-shard compute. `MEASURED` is None, `predict_ms` and
-`predict_hybrid_ms` return None, and `choose_axis` picks the axis with
-fewer bytes exchanged a shard (`how` = "volume"). The JAX CLI on its own
-tree picks by its TPU model, so the two CLIs may pick different axes for
-the same shape. `MEASURED` takes the JAX module's format: {"compute_ms":
-{"op|axis|ns": {level: ms}}, "overlap_ms": {"op|ns": {"modup": ms, "tail":
-ms, "level": L}}, "t1_ms": {op: {level: ms}}, "meta": {"params": {...}}}.
+The anchors are the card's own: `scripts/scaling_projection_torch.py`
+runs shard 0's program of each dispatch alone on one card, its
+collectives replaced by the shape-preserving local copies of
+`comm.StandInMesh`, times it by CUDA-graph replay (device time, no host)
+at levels 35 and 11, and generates `_scaling_measured.py`, which this
+module loads. Without that file, or at other params than the anchors'
+(compute scales with N and alpha), `predict_ms` and `predict_hybrid_ms`
+return None and `choose_axis` picks the axis with fewer bytes exchanged a
+shard (`how` = "volume"). `MEASURED` takes the JAX module's format:
+{"compute_ms": {"op|axis|ns": {level: ms}}, "overlap_ms": {"op|ns":
+{"modup": ms, "tail": ms, "level": L}}, "t1_ms": {op: {level: ms}},
+"meta": {"params": {...}, ...}}.
+
+The fabric constants are the published figures of an HGX H100 SXM5 node,
+not measured (the machine has one card): BW0 is half of NVLink 4's 450
+GB/s a direction a GPU, TCOLL0 an assumed launch cost of one collective
+over NVSwitch. The scaling projection sweeps both. `bw` and `tcoll`
+override them a call; their defaults are read from the module when
+called.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-# the JAX model's bandwidth and per-collective constants (its centre of the
-# sweep); they enter a prediction only with measured anchors
-BW0 = 45e9
-TCOLL0 = 5e-6
+# H100 SXM5 spec, not measured (one card): a shard's receive rate over
+# NVLink 4 (half of 450 GB/s a direction a GPU) and an assumed launch cost
+# of one collective over NVSwitch
+BW0 = 225e9
+TCOLL0 = 10e-6
 
-MEASURED: Optional[dict] = None
+MEASURED: Optional[dict]
+try:
+    from ._scaling_measured import MEASURED
+except ImportError:  # not generated in this checkout
+    MEASURED = None
 
 
 def coeff_collective_count(params, level: int, op: str, *,
@@ -72,7 +87,7 @@ def _anchors_fit(params) -> bool:
         == (params.n, params.max_level, params.alpha)
 
 
-def _overlap_credit(params, op, ns_l, ns_c, level, ov_scale) -> float:
+def _overlap_credit(params, op, ns_l, ns_c, level, ov_scale, bw) -> float:
     """H in seconds: per gather site min(bytes/bw * (G-1)/G, measured
     overlappable ms), the sites' bytes and compute on ns_c-column slices."""
     from .limb_sharded import _ceil_div, pick_gchunks
@@ -86,15 +101,21 @@ def _overlap_credit(params, op, ns_l, ns_c, level, ov_scale) -> float:
     sm, sa = _ceil_div(level, ns_l), _ceil_div(params.alpha, ns_l)
     rows_tail = 2 * (sa + 1) if op == "hmult" else 2 * sa
     scale = level / ov.get("level", level) * ov_scale
-    return sum(min((ns_l - 1) * rows * n * 4 / BW0 * (G - 1) / G,
+    return sum(min((ns_l - 1) * rows * n * 4 / bw * (G - 1) / G,
                    ov[site] * scale / 1e3)
                for rows, site in ((sm, "modup"), (rows_tail, "tail")))
 
 
 def predict_ms(params, op: str, axis: str, ns: int, level: int, *,
-               route_identity: bool = False) -> Optional[float]:
+               bw: Optional[float] = None, tcoll: Optional[float] = None,
+               route_identity: bool = False,
+               overlap: bool = True) -> Optional[float]:
     """Projected ms of one op on `axis` ("limb" or "coeff") at ns shards,
-    or None without anchors for (op, axis, ns) at these params."""
+    or None without anchors for (op, axis, ns) at these params. bw (bytes
+    a second a shard receives) and tcoll (seconds a collective) default to
+    BW0 and TCOLL0; overlap=False leaves out the limb axis's credit H."""
+    bw = BW0 if bw is None else bw
+    tcoll = TCOLL0 if tcoll is None else tcoll
     if not _anchors_fit(params):
         return None
     anchors = MEASURED["compute_ms"].get(f"{op}|{axis}|{ns}")
@@ -104,24 +125,30 @@ def predict_ms(params, op: str, axis: str, ns: int, level: int, *,
     if axis == "limb":
         from .limb_sharded import ici_bytes_per_op_limb, limb_collective_count
 
-        t = (compute + ici_bytes_per_op_limb(params, level, ns, op) / BW0
-             + limb_collective_count(params, level, ns, op) * TCOLL0
-             - _overlap_credit(params, op, ns, 1, level, 1.0))
+        t = (compute + ici_bytes_per_op_limb(params, level, ns, op) / bw
+             + limb_collective_count(params, level, ns, op) * tcoll)
+        if overlap:
+            t -= _overlap_credit(params, op, ns, 1, level, 1.0, bw)
     else:
         from .sharded import ici_bytes_per_op
 
         t = (compute + ici_bytes_per_op(params, level, ns, op,
-                                        route_identity=route_identity) / BW0
+                                        route_identity=route_identity) / bw
              + coeff_collective_count(params, level, op,
-                                      route_identity=route_identity) * TCOLL0)
+                                      route_identity=route_identity) * tcoll)
     return 1e3 * t
 
 
 def predict_hybrid_ms(params, op: str, ns_l: int, ns_c: int, level: int, *,
+                      bw: Optional[float] = None,
+                      tcoll: Optional[float] = None,
                       route_identity: bool = False) -> Optional[float]:
     """Projected ms on the (ns_l limb x ns_c coeff) mesh: compute from the
     hybrid anchors ("op|hybrid{ns_l}x{ns_c}|{ns}"), else limb(ns_l) times
-    the coeff axis's measured column ratio at ns_c; None without them."""
+    the coeff axis's measured column ratio at ns_c; None without them. bw
+    and tcoll as in predict_ms."""
+    bw = BW0 if bw is None else bw
+    tcoll = TCOLL0 if tcoll is None else tcoll
     if not _anchors_fit(params):
         return None
     comp = MEASURED["compute_ms"]
@@ -142,9 +169,9 @@ def predict_hybrid_ms(params, op: str, ns_l: int, ns_c: int, level: int, *,
              + coeff_collective_count(params, level, op,
                                       route_identity=route_identity))
     t = (compute / 1e3 + ici_bytes_per_op_hybrid(
-        params, level, ns_l, ns_c, op, route_identity=route_identity) / BW0
-         + colls * TCOLL0
-         - _overlap_credit(params, op, ns_l, ns_c, level, 1.0 / ns_c))
+        params, level, ns_l, ns_c, op, route_identity=route_identity) / bw
+         + colls * tcoll
+         - _overlap_credit(params, op, ns_l, ns_c, level, 1.0 / ns_c, bw))
     return 1e3 * t
 
 

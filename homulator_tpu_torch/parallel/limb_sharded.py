@@ -275,19 +275,27 @@ def _gather_chunks(x: torch.Tensor, dim: int, G: int,
     return [lc.all_gather(ch.contiguous(), dim - 1) for ch in x.chunk(G, dim)]
 
 
-def _modup_ev_limb(d_eval: torch.Tensor, T: LimbTables, lc) -> torch.Tensor:
-    """ModUp, rows sharded: iNTT of the shard's rows, G chunked
-    all_gathers of the coeff-domain rows, each digit's centered conversion
-    (B3) onto the shard's whole ext block chunk by chunk, then one rep = beta
-    NTT over every digit's ext rows. Returns int32 [beta*B, n2, n1] (its
-    column slice on a hybrid mesh)."""
-    c_my = intt(d_eval.to(torch.int32), T.main_nt)  # [sm, n1, w]
-    gparts = _gather_chunks(c_my, 1, T.gchunks, lc)  # G x [ns*sm, n1/G, w]
-    convs = [torch.cat([
+def _modup_convs(gparts: Sequence[torch.Tensor],
+                 T: LimbTables) -> torch.Tensor:
+    """Each digit's centered conversion (B3) onto the shard's whole ext
+    block, chunk by chunk over the gathered coeff-domain chunks gparts (G x
+    [ns*sm, n1/G, w]): int32 [beta*B, n1, w]. The compute that overlaps
+    the ModUp gather's chunks in flight."""
+    return torch.cat([torch.cat([
         bconv_fused(gp[dt.lo:dt.hi], dt.step1, dt.step1_sh, dt.in_q, dt.mat,
                     dt.mat_mma, dt.horner_sh, T.q_ext, center=True)
-        for gp in gparts], dim=1) for dt in T.digits]
-    return ntt_rep(torch.cat(convs), T.ext_nt, len(T.digits))
+        for gp in gparts], dim=1) for dt in T.digits])
+
+
+def _modup_ev_limb(d_eval: torch.Tensor, T: LimbTables, lc) -> torch.Tensor:
+    """ModUp, rows sharded: iNTT of the shard's rows, G chunked
+    all_gathers of the coeff-domain rows, each digit's conversion onto the
+    shard's ext block (`_modup_convs`), then one rep = beta NTT over every
+    digit's ext rows. Returns int32 [beta*B, n2, n1] (its column slice on
+    a hybrid mesh)."""
+    c_my = intt(d_eval.to(torch.int32), T.main_nt)  # [sm, n1, w]
+    gparts = _gather_chunks(c_my, 1, T.gchunks, lc)  # G x [ns*sm, n1/G, w]
+    return ntt_rep(_modup_convs(gparts, T), T.ext_nt, len(T.digits))
 
 
 def _ip_slice(ev: torch.Tensor, key: torch.Tensor, T: LimbTables, lo: int,
@@ -309,36 +317,22 @@ def _row_mask(T: LimbTables, lc, upto: int) -> torch.Tensor:
     return (rows < upto)[:, None, None]
 
 
-def _hmult_limb_body(a, b, key, T: LimbTables, lc) -> torch.Tensor:
-    """Row-sharded hmult of the shard's blocks a, b [2, sm, n2, n1]:
-    tensor product, ModUp (`_modup_ev_limb`), the inner product's special
-    and last-limb rows, a chunked gather of [2, sa+1] rows for the fused
-    ModDown + rescale, the main-row inner product, the tail conversion (B3)
-    and NTT of the shard's rows. Returns int32 [2, sm, n2, n1], equal to
-    api.hmult_graph on rows < level-1 and zero from there."""
-    q = col(T.q_main)
+def _tensor_d01(a, b, q):
+    """The tensor product's d0 = a0 b0 and d1 = a0 b1 + a1 b0 on the
+    shard's rows (d2 = a1 b1 feeds the ModUp)."""
     d0 = mulmod(a[0], b[0], q)
-    d1 = modadd(mulmod(a[0], b[1], q), mulmod(a[1], b[0], q), q)
-    ev = _modup_ev_limb(mulmod(a[1], b[1], q), T, lc)
-    sa, sm, alpha = T.sa, T.sm, T.alpha
+    return d0, modadd(mulmod(a[0], b[1], q), mulmod(a[1], b[0], q), q)
+
+
+def _tail_convs(gfs: Sequence[torch.Tensor], T: LimbTables):
+    """hmult's fused ModDown + rescale tail conversion, chunk by chunk over
+    the gathered chunks gfs (G x [2, ns*(sa+1), n1/G, w]: every shard's
+    sa specials and last-limb slot): the last limb's w and its centering
+    row, then B3 onto the shard's main rows. Returns ([tail conversions of
+    key 0 by chunk], [of key 1]). The compute that overlaps the tail
+    gather's chunks in flight."""
+    sa, alpha = T.sa, T.alpha
     q_last = T.q_last.long()
-    acc_sp = _ip_slice(ev, key, T, 0, sa)
-    jz = sa + T.j_zl
-    acc_zl = _ip_slice(ev, key, T, jz, jz + 1)
-    q_zl = T.q_main[T.j_zl].long()
-    xs = []
-    for k, dd in enumerate((d0, d1)):
-        # the last-limb slot: Z mod q_last (real on shard owner_zl only)
-        zl_eval = modadd(acc_zl[k][0], shoup_mul(
-            dd[T.j_zl], T.p[T.j_zl], T.p_sh[T.j_zl], q_zl), q_zl)
-        xs.append(torch.cat([acc_sp[k], zl_eval[None]]))
-    xc2 = intt_rep(torch.cat(xs).to(torch.int32), T.tailzl_nt, 2)
-    xc2 = xc2.view((2, sa + 1) + tuple(xc2.shape[1:]))
-    bhat_my = shoup_mul(xc2[:, :sa], col(T.md1), col(T.md1_sh),
-                        col(T.q_sp))
-    g = torch.cat([bhat_my, xc2[:, sa:]], dim=1).to(torch.int32)
-    gfs = _gather_chunks(g, 2, T.gchunks, lc)  # G x [2, ns*(sa+1), n1/G, w]
-    acc_mn = _ip_slice(ev, key, T, sa, sa + sm)
     th = col((T.q_sp_full.long() >> 1) + 1)
     th_last = (q_last >> 1) + 1
     md2l, md2l_sh = col(T.md2l), col(T.md2l_sh)
@@ -361,6 +355,51 @@ def _hmult_limb_body(a, b, key, T: LimbTables, lc) -> torch.Tensor:
                 torch.cat([bhat_ext[k], w[k][None], ind_w[k][None]])
                 .to(torch.int32), T.one_tail, T.one_tail_sh, T.in_q_tail,
                 T.tail_mat, T.tail_mma, T.tail_hsh, T.q_main))
+    return tcs
+
+
+def _moddown_convs(gfs: Sequence[torch.Tensor], T: LimbTables):
+    """hrotate's ModDown conversion (B3) of the gathered specials onto the
+    shard's main rows, chunk by chunk over gfs (G x [2, ns*sa, n1/G, w]).
+    Returns ([conversions of key 0 by chunk], [of key 1])."""
+    ccs = ([], [])
+    for gf in gfs:
+        for k in (0, 1):
+            ccs[k].append(bconv_fused(
+                gf[k, :T.alpha], T.one_sp, T.one_sp_sh, T.q_sp_full, T.md_mat,
+                T.md_mma, T.md_hsh, T.q_main, center=True))
+    return ccs
+
+
+def _hmult_limb_body(a, b, key, T: LimbTables, lc) -> torch.Tensor:
+    """Row-sharded hmult of the shard's blocks a, b [2, sm, n2, n1]:
+    tensor product, ModUp (`_modup_ev_limb`), the inner product's special
+    and last-limb rows, a chunked gather of [2, sa+1] rows for the fused
+    ModDown + rescale, the main-row inner product, the tail conversion (B3)
+    and NTT of the shard's rows. Returns int32 [2, sm, n2, n1], equal to
+    api.hmult_graph on rows < level-1 and zero from there."""
+    q = col(T.q_main)
+    d0, d1 = _tensor_d01(a, b, q)
+    ev = _modup_ev_limb(mulmod(a[1], b[1], q), T, lc)
+    sa, sm = T.sa, T.sm
+    acc_sp = _ip_slice(ev, key, T, 0, sa)
+    jz = sa + T.j_zl
+    acc_zl = _ip_slice(ev, key, T, jz, jz + 1)
+    q_zl = T.q_main[T.j_zl].long()
+    xs = []
+    for k, dd in enumerate((d0, d1)):
+        # the last-limb slot: Z mod q_last (real on shard owner_zl only)
+        zl_eval = modadd(acc_zl[k][0], shoup_mul(
+            dd[T.j_zl], T.p[T.j_zl], T.p_sh[T.j_zl], q_zl), q_zl)
+        xs.append(torch.cat([acc_sp[k], zl_eval[None]]))
+    xc2 = intt_rep(torch.cat(xs).to(torch.int32), T.tailzl_nt, 2)
+    xc2 = xc2.view((2, sa + 1) + tuple(xc2.shape[1:]))
+    bhat_my = shoup_mul(xc2[:, :sa], col(T.md1), col(T.md1_sh),
+                        col(T.q_sp))
+    g = torch.cat([bhat_my, xc2[:, sa:]], dim=1).to(torch.int32)
+    gfs = _gather_chunks(g, 2, T.gchunks, lc)  # G x [2, ns*(sa+1), n1/G, w]
+    acc_mn = _ip_slice(ev, key, T, sa, sa + sm)
+    tcs = _tail_convs(gfs, T)
     e2 = ntt_rep(torch.cat([torch.cat(tc, dim=1) for tc in tcs]),
                  T.main_nt, 2)
     mask = _row_mask(T, lc, T.level - 1)
@@ -382,7 +421,7 @@ def _hrotate_limb_body(a, key, T: LimbTables, lc, auto) -> torch.Tensor:
     single-device hrotate on rows < level and zero from there."""
     r0, r1 = auto(a[0]), auto(a[1])
     ev = _modup_ev_limb(r1, T, lc)
-    sa, sm, alpha = T.sa, T.sm, T.alpha
+    sa, sm = T.sa, T.sm
     q = col(T.q_main)
     acc_sp = _ip_slice(ev, key, T, 0, sa)
     xc2 = intt_rep(torch.cat(acc_sp).to(torch.int32), T.sp_nt, 2)
@@ -391,12 +430,7 @@ def _hrotate_limb_body(a, key, T: LimbTables, lc, auto) -> torch.Tensor:
                        col(T.q_sp)).to(torch.int32)  # [2, sa, n1, w]
     gfs = _gather_chunks(bstack, 2, T.gchunks, lc)
     acc_mn = _ip_slice(ev, key, T, sa, sa + sm)
-    ccs = ([], [])
-    for gf in gfs:
-        for k in (0, 1):
-            ccs[k].append(bconv_fused(
-                gf[k, :alpha], T.one_sp, T.one_sp_sh, T.q_sp_full, T.md_mat,
-                T.md_mma, T.md_hsh, T.q_main, center=True))
+    ccs = _moddown_convs(gfs, T)
     ce2 = ntt_rep(torch.cat([torch.cat(cc, dim=1) for cc in ccs]),
                   T.main_nt, 2)
     es = [shoup_mul(modsub(acc_mn[k], ce2[k * sm:(k + 1) * sm], q),

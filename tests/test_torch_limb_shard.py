@@ -224,13 +224,14 @@ def test_counts_match_jax(op, ns):
 @pytest.mark.parametrize("op", ["hmult", "hrotate"])
 @pytest.mark.parametrize("ns", [2, 4, 8])
 def test_choose_axis_matches_jax(op, ns, monkeypatch):
-    """Without anchors (MEASURED None on both sides) the port's
-    choose_axis picks what the JAX one picks, by bytes exchanged, at the
-    test shape and at set B, on either route and with coeff ruled out."""
+    """Without anchors (MEASURED None on both sides: each side's
+    generated module set aside) the port's choose_axis picks what the JAX
+    one picks, by bytes exchanged, at the test shape and at set B, on
+    either route and with coeff ruled out."""
     from homulator_tpu_torch.parallel.mesh import coeff_shard_ok
 
     monkeypatch.setattr(jax_dm, "MEASURED", None)
-    assert dm.MEASURED is None
+    monkeypatch.setattr(dm, "MEASURED", None)
     for p, level in ((get_params(n=256, max_level=8, alpha=4), 4),
                      (get_params(**SET_B), 35)):
         ok = coeff_shard_ok(p.ntt.n1, p.ntt.n2, ns)
@@ -284,25 +285,30 @@ def _anchors(p):
 
 @pytest.mark.parametrize("op", ["hmult", "hrotate"])
 def test_model_matches_jax_on_same_anchors(op, monkeypatch):
-    """With the same anchors on both sides, predict_ms, predict_hybrid_ms
-    (measured 2 x 2 and composed 4 x 2) and choose_axis equal the JAX
-    model's at set B, where its gather depth agrees (both G = 4 at n2/2 =
-    128 columns) and off the identity route; other parameters find no
-    anchors (None)."""
+    """With the same anchors and the JAX model's fabric constants on both
+    sides (passed as bw / tcoll, and set as the port's BW0 / TCOLL0 for
+    choose_axis), predict_ms, predict_hybrid_ms (measured 2 x 2 and
+    composed 4 x 2) and choose_axis equal the JAX model's at set B, where
+    its gather depth agrees (both G = 4 at n2/2 = 128 columns) and off the
+    identity route; other parameters find no anchors (None)."""
     p = get_params(**SET_B)
     meas = _anchors(p)
     monkeypatch.setattr(jax_dm, "MEASURED", meas)
     monkeypatch.setattr(dm, "MEASURED", meas)
+    fabric = dict(bw=jax_dm.BW0, tcoll=jax_dm.TCOLL0)
+    monkeypatch.setattr(dm, "BW0", jax_dm.BW0)
+    monkeypatch.setattr(dm, "TCOLL0", jax_dm.TCOLL0)
     for level in (11, 20, 35, 40):
         for ns in (2, 4, 8):
             for axis in ("limb", "coeff"):
-                assert dm.predict_ms(p, op, axis, ns, level) == \
+                assert dm.predict_ms(p, op, axis, ns, level, **fabric) == \
                     pytest.approx(jax_dm.predict_ms(p, op, axis, ns, level),
                                   rel=1e-12)
             assert dm.choose_axis(p, op, ns, level) == pytest.approx(
                 jax_dm.choose_axis(p, op, ns, level))
         for ns_l in (2, 4):
-            assert dm.predict_hybrid_ms(p, op, ns_l, 2, level) == \
+            assert dm.predict_hybrid_ms(p, op, ns_l, 2, level,
+                                        **fabric) == \
                 pytest.approx(jax_dm.predict_hybrid_ms(p, op, ns_l, 2,
                                                        level), rel=1e-12)
     other = get_params(n=256, max_level=8, alpha=4)
