@@ -61,7 +61,14 @@ failure and the script then exits non-zero:
      ModDown (16 -> 35), and at digit 0 in the worst case (every scaled
      word q - 1, the count row 15), and the whole graph-route conversion
      (torch step 1 and count row, then B5) against B3 on the same inputs,
-     equal bits, both timed;
+     equal bits, both timed; and the shapes a data-axis shard's batch of
+     two gives them (`check_data_axis_kernels`, labels "data B/d=2 ..."):
+     B6-B9 at 4 coefficient shards over the main rows, a digit's other
+     rows, the tail's output rows and the specials at rep 2 or 4, B1/B2
+     on limb rank 1 of 4 at rep 2, 4 and 6 (ext M = 13), B3 of ModUp digit
+     0 on a row slice of a [2, 36, 64, 256] gather chunk and of the tail
+     on a [2, 18, 64, 256] chunk, B6-B9 on hybrid rank (1, 1) at rep 6
+     and 2;
  3b. the NTT anatomy and roofline path, on no op's path: the anatomy
      kernels on set B's 35 main limbs [256, 256] (B14: copy^T, midT,
      stages1, stages2x and full, which is B1; B15: 16 stages with the
@@ -144,7 +151,15 @@ failure and the script then exits non-zero:
      axis's collective calls equal limb_collective_count (8); the 4-shard
      limb and the 2 x 2 hybrid hmult decrypt within 1e-2 in all 32768
      slots; and a batch of two hmults on 2 data rows x 4 limb shards
-     equals the single-device hmults;
+     equals the single-device hmults. Last, the data axis with two
+     elements a shard (`check_data_batches` on
+     scripts/bench_data_axis_torch.py's cases): coeff 2 x 4, limb 2 x 4
+     and hybrid 2 x (2 x 2), each at B = 2 (one element a shard) and B =
+     4 (two) with the launch counts around each run; B = 4 equals four
+     single-device hmults bit for bit, launches each kernel as often as
+     B = 2 and makes as many collective calls on every axis (one
+     element's: a shard runs its batch as one program), each shard
+     receiving twice B = 2's bytes; eager and profiled device ms of each;
   6. latency (CUDA events around eager calls, median of 20 after 3 warm-up
      runs) and device time (graph replay) of hmult and hsquare, of hmult
      and hrotate on all three key-switch routes (piecewise, fused, graph);
@@ -175,7 +190,8 @@ failure and the script then exits non-zero:
      each, equal to the single-device hmults bit for bit, each shard's
      bytes the hybrid's or limb's count for its one element, with the
      eager latency and device time of the (2, 2, 2) run (8 shards sharing
-     this card, not a multi-card latency); `make_coeff_sharded_ntt` on the
+     this card, not a multi-card latency), and on (2, 2, 2) B = 4 beside
+     B = 2 as phase 5's data-axis checks; `make_coeff_sharded_ntt` on the
      35 main rows at 4 shards (B6-B9 only) and 8 shards (B10-B13 only),
      forward equal to the single-device ntt_rep and inverse to the input;
      the CLI in this process at [cluster] 4 with `--verify` for hadd,
@@ -953,6 +969,171 @@ def check_limb_kernels(np, torch, dc, rng, results):
                 results)
 
 
+DATA_AXIS = "data B/d=2 "  # the label prefix of the batched shard shapes
+
+
+def check_data_axis_kernels(np, torch, dc, rng, results):
+    """Phase 3, the shapes a data-axis shard's batch of Bl = 2 elements
+    gives the kernels at set B, level 35 (one launch over the batch): on
+    coefficient rank 1 of 4 (c = 64), B8/B9 over the main rows at rep Bl
+    (the ModUp iNTT), B6/B7 over a digit's other rows at rep Bl and over
+    the tail's 34 output rows at rep 2 Bl, B8/B9 over the specials at rep
+    2 Bl; on limb rank 1 of 4, B2 over its main rows at rep Bl, B3 of
+    ModUp digit 0 onto its ext block on the digit's rows of a [Bl, 36, 64,
+    256] gather chunk (a row slice: each element's rows contiguous, the
+    elements a chunk apart), B1 over its ext block at rep beta Bl, B2 over
+    its [specials, last-limb slot] at rep 2 Bl, B3 of the tail on a
+    [Bl, 18, 64, 256] chunk, B1 over its main rows at rep 2 Bl; on hybrid
+    rank (1, 1) of 2 x 2 (c = 128), B6/B7 over its ext block at rep beta
+    Bl and B8/B9 over its main rows at rep Bl."""
+    from homulator_tpu_torch.ops import ntt as ntt_mod
+    from homulator_tpu_torch.ops import ntt_kernels
+    from homulator_tpu_torch.parallel.limb_sharded import build_limb_tables
+
+    bl = 2
+    n1, n2 = dc.params.ntt.n1, dc.params.ntt.n2
+    kt = dc.keyswitch_tables(LEVEL_B, shard=(1, NS))
+    T = build_limb_tables(dc, LEVEL_B, 4, 1)
+    H = build_limb_tables(dc, LEVEL_B, 2, 1, (1, 2))
+    beta = len(T.digits)
+    tag = f"coeff x{NS} rank1 c={n2 // NS}"
+    phase = [(f"{tag} main", kt.main_nt, bl, ("intt_phase2", "intt_phase1")),
+             (f"{tag} digit0 other", kt.digits[0].other_nt, bl,
+              ("ntt_phase1", "ntt_phase2")),
+             (f"{tag} tail out", kt.tail.out_nt, 2 * bl,
+              ("ntt_phase1", "ntt_phase2")),
+             (f"{tag} specials", kt.special_nt, 2 * bl,
+              ("intt_phase2", "intt_phase1")),
+             (f"hybrid 2x2 rank(1,1) c={n2 // 2} ext", H.ext_nt, beta * bl,
+              ("ntt_phase1", "ntt_phase2")),
+             (f"hybrid 2x2 rank(1,1) c={n2 // 2} main", H.main_nt, bl,
+              ("intt_phase2", "intt_phase1"))]
+    for what, nb, rep, names in phase:
+        for name in names:
+            x = phase_input(np, torch, name, nb, rep, False, rng)
+            kernel = getattr(ntt_kernels, name)
+            plain = getattr(ntt_mod, name + "_plain")
+            compare(torch, name,
+                    f"{DATA_AXIS}{what} M={nb.q.shape[0]} rep={rep}",
+                    lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
+                    phase_bound(nb, x.shape[0], x.shape[1], x.shape[2],
+                                name), results)
+    tag = "limb x4 rank1"
+    for name, nb, what, rep in (
+            ("ntt_inv", T.main_nt, "main", bl),
+            ("ntt_fwd", T.ext_nt, "ext", beta * bl),
+            ("ntt_inv", T.tailzl_nt, "tailzl", 2 * bl),
+            ("ntt_fwd", T.main_nt, "main", 2 * bl)):
+        fwd = name == "ntt_fwd"
+        q = np.tile(nb.q.cpu().numpy(), rep)
+        x = residues(q, (len(q),) + ((n1, n2) if fwd else (n2, n1)), rng)
+        kernel = ntt_kernels.ntt_fwd if fwd else ntt_kernels.ntt_inv
+        plain = ntt_mod.ntt_plain if fwd else ntt_mod.intt_plain
+        compare(torch, name,
+                f"{DATA_AXIS}{tag} {what} M={nb.q.shape[0]} rep={rep}",
+                lambda: kernel(x, nb, rep), lambda: plain(x, nb, rep),
+                ntt_bound(nb, rep, fwd), results)
+    ch, d0, sa = n1 // T.gchunks, T.digits[0], T.sa
+    rows = 4 * T.sm  # the gathered main rows of the 4 shards
+    q_rows = np.resize(np.asarray(dc.params.q_arr[:LEVEL_B], dtype=np.int64),
+                       rows)
+    gp = residues(np.tile(q_rows, bl), (bl * rows, ch, n2), rng).view(
+        bl, rows, ch, n2)
+    check_bconv(torch, f"{DATA_AXIS}{tag} modup digit0 {d0.hi - d0.lo}+1->"
+                f"{sa + T.sm} on [{bl}, {rows}, {ch}, {n2}] chunk rows "
+                f"{d0.lo}:{d0.hi}", gp[:, d0.lo:d0.hi],
+                (d0.step1, d0.step1_sh, d0.in_q, d0.mat, d0.mat_mma,
+                 d0.horner_sh, T.q_ext), True, results)
+    nt = T.alpha + 3
+    tail = residues(np.tile(T.in_q_tail.cpu().numpy(), bl), (bl * nt, ch, n2),
+                    rng).view(bl, nt, ch, n2)
+    check_bconv(torch, f"{DATA_AXIS}{tag} tail {nt}->{T.sm} on "
+                f"[{bl}, {nt}, {ch}, {n2}]", tail,
+                (T.one_tail, T.one_tail_sh, T.in_q_tail, T.tail_mat,
+                 T.tail_mma, T.tail_hsh, T.q_main), False, results)
+
+
+def check_data_batches(torch, kernels, eng, cts, labels, launches):
+    """Phases 5 and 8, the data axis with two elements a shard (the
+    shards' batch as one program): each of `labels`
+    (scripts/bench_data_axis_torch.py's data_cases at set B, level 35, 2
+    data rows: "coeff 2x4", "limb 2x4", "hybrid 2x(2x2)", "gspmd
+    (2,2,2)") runs a batch of B = 2 (one element a shard) and of B = 4
+    (two), each driven with the launch counts set to 0 just before and
+    read just after (coeff, hybrid, gspmd: B3 and B6-B9 only; limb: B1-B3
+    only). B = 4 equals four single-device hmults bit for bit, launches
+    each kernel as often as B = 2 and makes as many collective calls on
+    each axis, one element's (7 a shard on the coeff axis, one a
+    transform; limb_collective_count on the limb axis, 4 on the hybrid's
+    coeff axis), and each shard receives twice B = 2's bytes, which are
+    one element's (ici_bytes_per_op, the limb and hybrid figures). Returns
+    {run: (eager ms, profiled device ms)}."""
+    from homulator_tpu_torch.parallel.limb_sharded import (
+        limb_collective_count,
+    )
+    from homulator_tpu_torch.parallel.sharded import ici_bytes_per_op
+
+    bench = _script("bench_data_axis_torch")
+    params = eng.params
+    a, b, want = bench.hmult_operands(torch, eng, cts)
+    one = {  # one element's bytes and calls a shard, by label
+        "coeff 2x4": (ici_bytes_per_op(params, LEVEL_B, NS, "hmult"),
+                      {"coeff": 1 + params.beta(LEVEL_B) + 3}),
+        "limb 2x4": (LIMB_BYTES[4][0], {"limb": limb_collective_count(
+            params, LEVEL_B, 4)})}
+    one["hybrid 2x(2x2)"] = one["gspmd (2,2,2)"] = (
+        HYBRID_BYTES[(2, 2)][0],
+        {"limb": limb_collective_count(params, LEVEL_B, 2, ns_c=2),
+         "coeff": 4})
+    timings = {}
+    for label, (mesh, axes, make, join) in bench.data_cases(
+            eng, LEVEL_B, labels).items():
+        expect = PIECES_KERNELS if label.startswith("limb") else COEFF_KERNELS
+        seen = {}
+        for B in (2, 4):
+            run = f"hmult {label} data B={B}"
+            fn = make(a[:B], b[:B])
+            mesh.reset_counts()
+            got, launches[run] = drive(torch, kernels, f"{run} (45,35,15)",
+                                       fn, expect)
+            if not torch.equal(join(got), want[:B]):
+                raise AssertionError(f"{run}: != {B} single-device hmults")
+            seen[B] = (launches[run], {name: mesh.calls(ax)
+                                       for name, ax in axes},
+                       mesh.recv_bytes)
+            timings[run] = (latency_ms(fn), profiled_ms(fn)[0])
+        per, calls = one[label]
+        n = len(mesh.comms)
+        if seen[2][1] != {k: [v] * n for k, v in calls.items()}:
+            raise AssertionError(f"{label} B=2: collective calls {seen[2][1]}"
+                                 f", one element's are {calls}")
+        if seen[2][2] != [per] * n:
+            raise AssertionError(f"{label} B=2: shards received "
+                                 f"{seen[2][2]} bytes, one element's are "
+                                 f"{per}")
+        if seen[4][0] != seen[2][0]:
+            raise AssertionError(f"{label}: B=4 launched {seen[4][0]}, B=2 "
+                                 f"{seen[2][0]}: not one program a shard")
+        if seen[4][1] != seen[2][1]:
+            raise AssertionError(f"{label}: B=4 made {seen[4][1]} collective "
+                                 f"calls, B=2 {seen[2][1]}")
+        if seen[4][2] != [2 * per] * n:
+            raise AssertionError(f"{label} B=4: shards received "
+                                 f"{seen[4][2]} bytes, expected {2 * per}")
+        print(f"# hmult {label} data B=4: == four single-device hmults, "
+              f"bit-exact; two elements a shard as one program: launches "
+              f"== B=2's ({sum(seen[2][0].values())}), collective calls a "
+              "shard == B=2's ("
+              + ", ".join(f"{k} {v}" for k, v in calls.items())
+              + f"), {2 * per} bytes a shard == 2 x B=2's; eager / device "
+              f"ms B=2 {timings[f'hmult {label} data B=2'][0]:.3f} / "
+              f"{timings[f'hmult {label} data B=2'][1]:.3f}, B=4 "
+              f"{timings[f'hmult {label} data B=4'][0]:.3f} / "
+              f"{timings[f'hmult {label} data B=4'][1]:.3f} "
+              "(torch.profiler; shards sharing one card)")
+    return timings
+
+
 def check_limb_dispatch(np, torch, kernels, eng, cts, wants, v12, launches,
                         errs):
     """Phase 5, the limb and hybrid dispatches at set B, level 35: limb
@@ -1118,6 +1299,9 @@ def check_gspmd_surface(np, torch, kernels, eng, cts, pt, wants, launches,
                   f"eager, {timings[label][1]:.3f} ms device "
                   "(torch.profiler); 8 shards sharing one card, not a "
                   "multi-card latency")
+    # ... and on (2, 2, 2) with two elements a shard, B = 4 beside B = 2
+    timings.update(check_data_batches(torch, kernels, eng, (ct1, ct2),
+                                      ("gspmd (2,2,2)",), launches))
     # make_coeff_sharded_ntt on the 35 main rows: 4 shards (B6-B9), 8
     # shards (lane-packed, B10-B13)
     rows = dc.main_rows(LEVEL_B)
@@ -2170,6 +2354,8 @@ def main() -> int:
     check_radix_sweep(np, torch, get_params)
     check_phase_kernels(np, torch, eng.dc, np.random.default_rng(3), results)
     check_limb_kernels(np, torch, eng.dc, np.random.default_rng(4), results)
+    check_data_axis_kernels(np, torch, eng.dc, np.random.default_rng(5),
+                            results)
     check_step2_kernel(np, torch, eng.dc, np.random.default_rng(6), results)
     print(f"# kernel checks: {time.perf_counter() - t0:.1f} s")
 
@@ -2410,6 +2596,13 @@ def main() -> int:
     thread_runs.update((k, v[:2]) for k, v in sharded.items())
     print(f"# limb and hybrid dispatch checks: "
           f"{time.perf_counter() - t0:.1f} s (tables built included)")
+    # 5, the data axis with two elements a shard: coeff 2 x 4, limb 2 x 4,
+    # hybrid 2 x (2 x 2), B = 4 beside B = 2
+    t0 = time.perf_counter()
+    data_timings = check_data_batches(
+        torch, kernels, eng, (ct1, ct2),
+        ("coeff 2x4", "limb 2x4", "hybrid 2x(2x2)"), launches)
+    print(f"# data-axis batch checks: {time.perf_counter() - t0:.1f} s")
 
     # 6. timings
     torch.cuda.reset_peak_memory_stats()
@@ -2422,7 +2615,7 @@ def main() -> int:
         "hmult graph": (lambda: geng.hmult(ct1, ct2), False),
         "hrotate graph": (lambda: geng.hrotate(ct1, 1), False),
     }
-    timings = {}
+    timings = dict(data_timings)
     for label, (fn, fused) in timed.items():
         api.USE_FUSED_HPIP = fused
         try:
@@ -2527,6 +2720,12 @@ def main() -> int:
              "library_ms"), r[1:])) for r in res if r[0].startswith(STUDY)}
         if study_rows:
             row["op_studies_shapes"] = study_rows
+        data_rows = {r[0][len(DATA_AXIS):]: dict(zip(
+            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms"), r[1:])) for r in res
+            if r[0].startswith(DATA_AXIS)}
+        if data_rows:
+            row["data_axis_shapes"] = data_rows
         studies = {r[0][len(DISPATCH):]: dict(zip(
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"), r[1:])) for r in res if r[0].startswith(DISPATCH)}

@@ -59,11 +59,12 @@ from ..ops.automorph import (
     automorph_eval, automorph_eval_sharded, automorph_eval_shardperm,
 )
 from ..ops.bconv_fused import bconv_fused
+from ..ops.keyswitch import _over_rows
 from ..ops.modmath import (
     col, lazy_sum_reduce, lazy_tree_sum, modadd, modsub, mont_mul, mulmod,
     shoup_mul,
 )
-from ..ops.ntt import intt, intt_rep, ntt_rep
+from ..ops.ntt import intt_rep, ntt_rep
 from .comm import bound
 from .sharded import _check_data_axis
 
@@ -267,46 +268,55 @@ def build_limb_tables(dc: DeviceContext, level: int, ns: int, rank: int,
 
 
 # ---- per-shard programs ----------------------------------------------------
-def _gather_chunks(x: torch.Tensor, dim: int, G: int,
-                   lc) -> List[torch.Tensor]:
-    """x cut into G chunks along its tile's n1 axis `dim`, each made
-    contiguous and all_gathered along `dim - 1` (the row axis) over the
-    limb Comm lc."""
-    return [lc.all_gather(ch.contiguous(), dim - 1) for ch in x.chunk(G, dim)]
+# Every program takes its operands with any leading batch axes (a data-axis
+# shard's [B/d, ...] block, or none) and counts tile axes from the end, so
+# a batch runs as one program: each transform one launch over the batch's
+# rep copies, each B3 call one launch with the batch as its grid's z axis,
+# each all_gather one collective carrying every element's rows (the JAX
+# body's vmap inside shard_map).
+def _gather_chunks(x: torch.Tensor, G: int, lc) -> List[torch.Tensor]:
+    """x [..., rows, n1, w] cut into G chunks along its tile's n1 axis,
+    each made contiguous and all_gathered along the row axis over the limb
+    Comm lc: G x [..., ns*rows, n1/G, w]."""
+    return [lc.all_gather(ch.contiguous(), -3) for ch in x.chunk(G, -2)]
 
 
 def _modup_convs(gparts: Sequence[torch.Tensor],
                  T: LimbTables) -> torch.Tensor:
     """Each digit's centered conversion (B3) onto the shard's whole ext
     block, chunk by chunk over the gathered coeff-domain chunks gparts (G x
-    [ns*sm, n1/G, w]): int32 [beta*B, n1, w]. The compute that overlaps
-    the ModUp gather's chunks in flight."""
+    [..., ns*sm, n1/G, w]): int32 [..., beta*B, n1, w]. The compute that
+    overlaps the ModUp gather's chunks in flight."""
     return torch.cat([torch.cat([
-        bconv_fused(gp[dt.lo:dt.hi], dt.step1, dt.step1_sh, dt.in_q, dt.mat,
-                    dt.mat_mma, dt.horner_sh, T.q_ext, center=True)
-        for gp in gparts], dim=1) for dt in T.digits])
+        bconv_fused(gp[..., dt.lo:dt.hi, :, :], dt.step1, dt.step1_sh,
+                    dt.in_q, dt.mat, dt.mat_mma, dt.horner_sh, T.q_ext,
+                    center=True)
+        for gp in gparts], dim=-2) for dt in T.digits], dim=-3)
 
 
 def _modup_ev_limb(d_eval: torch.Tensor, T: LimbTables, lc) -> torch.Tensor:
-    """ModUp, rows sharded: iNTT of the shard's rows, G chunked
-    all_gathers of the coeff-domain rows, each digit's conversion onto the
-    shard's ext block (`_modup_convs`), then one rep = beta NTT over every
-    digit's ext rows. Returns int32 [beta*B, n2, n1] (its column slice on
-    a hybrid mesh)."""
-    c_my = intt(d_eval.to(torch.int32), T.main_nt)  # [sm, n1, w]
-    gparts = _gather_chunks(c_my, 1, T.gchunks, lc)  # G x [ns*sm, n1/G, w]
-    return ntt_rep(_modup_convs(gparts, T), T.ext_nt, len(T.digits))
+    """ModUp, rows sharded: iNTT of the shard's rows [..., sm, n2, w], G
+    chunked all_gathers of the coeff-domain rows, each digit's conversion
+    onto the shard's ext block (`_modup_convs`), then one NTT over every
+    digit's ext rows (rep = beta copies an element). Returns int32 [...,
+    beta*B, n2, n1] (its column slice on a hybrid mesh)."""
+    c_my = _over_rows(intt_rep, d_eval.to(torch.int32), T.main_nt)
+    gparts = _gather_chunks(c_my, T.gchunks, lc)  # G x [..., ns*sm, n1/G, w]
+    convs = _modup_convs(gparts, T).unflatten(-3, (len(T.digits), -1))
+    return _over_rows(ntt_rep, convs, T.ext_nt).flatten(-4, -3)
 
 
 def _ip_slice(ev: torch.Tensor, key: torch.Tensor, T: LimbTables, lo: int,
               hi: int):
-    """Digit inner product on rows [lo, hi) of the shard's ext block: per
-    key component, sum_d ev_d * key[d, k] (Montgomery key), int64 in
-    [0, q). Complete accumulator rows: no reduction across shards."""
-    B = T.sa + T.sm
+    """Digit inner product on rows [lo, hi) of the shard's ext block
+    (ev [..., beta*B, n2, w]): per key component, sum_d ev_d * key[d, k]
+    (Montgomery key, broadcast over the batch), int64 [..., hi-lo, n2, w]
+    in [0, q). Complete accumulator rows: no reduction across shards."""
+    B = T.sa + T.sm  # the ext block's rows
     q, qi = col(T.q_ext[lo:hi]), col(T.qinv_ext[lo:hi])
     return [lazy_sum_reduce([
-        mont_mul(ev[d * B + lo:d * B + hi], key[d, k, lo:hi], q, qi)
+        mont_mul(ev[..., d * B + lo:d * B + hi, :, :], key[d, k, lo:hi], q,
+                 qi)
         for d in range(len(T.digits))], q) for k in (0, 1)]
 
 
@@ -319,18 +329,20 @@ def _row_mask(T: LimbTables, lc, upto: int) -> torch.Tensor:
 
 def _tensor_d01(a, b, q):
     """The tensor product's d0 = a0 b0 and d1 = a0 b1 + a1 b0 on the
-    shard's rows (d2 = a1 b1 feeds the ModUp)."""
-    d0 = mulmod(a[0], b[0], q)
-    return d0, modadd(mulmod(a[0], b[1], q), mulmod(a[1], b[0], q), q)
+    shard's rows of a, b [..., 2, sm, n2, w] (d2 = a1 b1 feeds the
+    ModUp)."""
+    (a0, a1), (b0, b1) = a.unbind(-4), b.unbind(-4)
+    d0 = mulmod(a0, b0, q)
+    return d0, modadd(mulmod(a0, b1, q), mulmod(a1, b0, q), q)
 
 
 def _tail_convs(gfs: Sequence[torch.Tensor], T: LimbTables):
     """hmult's fused ModDown + rescale tail conversion, chunk by chunk over
-    the gathered chunks gfs (G x [2, ns*(sa+1), n1/G, w]: every shard's
-    sa specials and last-limb slot): the last limb's w and its centering
-    row, then B3 onto the shard's main rows. Returns ([tail conversions of
-    key 0 by chunk], [of key 1]). The compute that overlaps the tail
-    gather's chunks in flight."""
+    the gathered chunks gfs (G x [..., 2, ns*(sa+1), n1/G, w]: every
+    shard's sa specials and last-limb slot): the last limb's w and its
+    centering row, then B3 onto the shard's main rows. Returns ([tail
+    conversions of key 0 by chunk], [of key 1]), each [..., sm, n1/G, w].
+    The compute that overlaps the tail gather's chunks in flight."""
     sa, alpha = T.sa, T.alpha
     q_last = T.q_last.long()
     th = col((T.q_sp_full.long() >> 1) + 1)
@@ -338,23 +350,25 @@ def _tail_convs(gfs: Sequence[torch.Tensor], T: LimbTables):
     md2l, md2l_sh = col(T.md2l), col(T.md2l_sh)
     tcs = ([], [])
     for gf in gfs:
-        # [2, alpha, n1/G, w]: every shard's sa specials, the real alpha
-        shape = gf.shape[2:]
-        bhat = gf.view((2, T.ns, sa + 1) + shape)[:, :, :sa].reshape(
-            (2, T.ns * sa) + shape)[:, :alpha]
-        zl_coeff = gf[:, T.owner_zl * (sa + 1) + sa]
-        v = (bhat >= th).sum(dim=1, keepdim=True)
-        bhat_ext = torch.cat([bhat.long(), v], dim=1)
+        # [..., 2, alpha, n1/G, w]: every shard's sa specials, the real alpha
+        lead, tile = gf.shape[:-3], gf.shape[-2:]
+        bhat = gf.view(lead + (T.ns, sa + 1) + tile)[..., :sa, :, :].reshape(
+            lead + (T.ns * sa,) + tile)[..., :alpha, :, :]
+        zl_coeff = gf[..., T.owner_zl * (sa + 1) + sa, :, :]
+        v = (bhat >= th).sum(dim=-3, keepdim=True)
+        bhat_ext = torch.cat([bhat.long(), v], dim=-3)
         terms = shoup_mul(bhat_ext, md2l, md2l_sh, q_last)
-        conv_last = lazy_tree_sum(terms.transpose(0, 1), q_last)
+        conv_last = lazy_tree_sum(terms.movedim(-3, 0), q_last)
         w = shoup_mul(modsub(zl_coeff, conv_last, q_last), T.pinv_last,
                       T.pinv_last_sh, q_last)
         ind_w = (w >= th_last).long()  # w's centering row
         for k in (0, 1):
             tcs[k].append(bconv_fused(
-                torch.cat([bhat_ext[k], w[k][None], ind_w[k][None]])
-                .to(torch.int32), T.one_tail, T.one_tail_sh, T.in_q_tail,
-                T.tail_mat, T.tail_mma, T.tail_hsh, T.q_main))
+                torch.cat([bhat_ext[..., k, :, :, :],
+                           w[..., k, None, :, :], ind_w[..., k, None, :, :]],
+                          dim=-3).to(torch.int32),
+                T.one_tail, T.one_tail_sh, T.in_q_tail, T.tail_mat,
+                T.tail_mma, T.tail_hsh, T.q_main))
     return tcs
 
 
@@ -371,16 +385,26 @@ def _moddown_convs(gfs: Sequence[torch.Tensor], T: LimbTables):
     return ccs
 
 
+def _ntt_keys(convs, T: LimbTables) -> torch.Tensor:
+    """Both key components' chunked main-row conversions ([key 0's chunks],
+    [key 1's]), each chunk [..., sm, n1/G, w], joined and NTT'd in one
+    launch (rep = 2 copies an element): int32 [..., 2, sm, n2, w]."""
+    x = torch.stack([torch.cat(c, dim=-2) for c in convs], dim=-4)
+    return _over_rows(ntt_rep, x, T.main_nt)
+
+
 def _hmult_limb_body(a, b, key, T: LimbTables, lc) -> torch.Tensor:
-    """Row-sharded hmult of the shard's blocks a, b [2, sm, n2, n1]:
-    tensor product, ModUp (`_modup_ev_limb`), the inner product's special
-    and last-limb rows, a chunked gather of [2, sa+1] rows for the fused
-    ModDown + rescale, the main-row inner product, the tail conversion (B3)
-    and NTT of the shard's rows. Returns int32 [2, sm, n2, n1], equal to
+    """Row-sharded hmult of the shard's blocks a, b [..., 2, sm, n2, n1]
+    (a leading batch axis or none): tensor product, ModUp
+    (`_modup_ev_limb`), the inner product's special and last-limb rows, a
+    chunked gather of [2, sa+1] rows for the fused ModDown + rescale, the
+    main-row inner product, the tail conversion (B3) and NTT of the
+    shard's rows. Returns int32 [..., 2, sm, n2, n1], equal to
     api.hmult_graph on rows < level-1 and zero from there."""
     q = col(T.q_main)
     d0, d1 = _tensor_d01(a, b, q)
-    ev = _modup_ev_limb(mulmod(a[1], b[1], q), T, lc)
+    ev = _modup_ev_limb(mulmod(a[..., 1, :, :, :], b[..., 1, :, :, :], q),
+                        T, lc)
     sa, sm = T.sa, T.sm
     acc_sp = _ip_slice(ev, key, T, 0, sa)
     jz = sa + T.j_zl
@@ -389,27 +413,26 @@ def _hmult_limb_body(a, b, key, T: LimbTables, lc) -> torch.Tensor:
     xs = []
     for k, dd in enumerate((d0, d1)):
         # the last-limb slot: Z mod q_last (real on shard owner_zl only)
-        zl_eval = modadd(acc_zl[k][0], shoup_mul(
-            dd[T.j_zl], T.p[T.j_zl], T.p_sh[T.j_zl], q_zl), q_zl)
-        xs.append(torch.cat([acc_sp[k], zl_eval[None]]))
-    xc2 = intt_rep(torch.cat(xs).to(torch.int32), T.tailzl_nt, 2)
-    xc2 = xc2.view((2, sa + 1) + tuple(xc2.shape[1:]))
-    bhat_my = shoup_mul(xc2[:, :sa], col(T.md1), col(T.md1_sh),
+        zl_eval = modadd(acc_zl[k], shoup_mul(
+            dd[..., T.j_zl:T.j_zl + 1, :, :], T.p[T.j_zl], T.p_sh[T.j_zl],
+            q_zl), q_zl)
+        xs.append(torch.cat([acc_sp[k], zl_eval], dim=-3))
+    xc2 = _over_rows(intt_rep, torch.stack(xs, dim=-4).to(torch.int32),
+                     T.tailzl_nt)  # [..., 2, sa+1, n1, w]
+    bhat_my = shoup_mul(xc2[..., :sa, :, :], col(T.md1), col(T.md1_sh),
                         col(T.q_sp))
-    g = torch.cat([bhat_my, xc2[:, sa:]], dim=1).to(torch.int32)
-    gfs = _gather_chunks(g, 2, T.gchunks, lc)  # G x [2, ns*(sa+1), n1/G, w]
+    g = torch.cat([bhat_my, xc2[..., sa:, :, :]], dim=-3).to(torch.int32)
+    gfs = _gather_chunks(g, T.gchunks, lc)  # G x [..., 2, ns*(sa+1), n1/G, w]
     acc_mn = _ip_slice(ev, key, T, sa, sa + sm)
-    tcs = _tail_convs(gfs, T)
-    e2 = ntt_rep(torch.cat([torch.cat(tc, dim=1) for tc in tcs]),
-                 T.main_nt, 2)
+    e2 = _ntt_keys(_tail_convs(gfs, T), T)
     mask = _row_mask(T, lc, T.level - 1)
     outs = []
     for k, dd in enumerate((d0, d1)):
         z = modadd(acc_mn[k], shoup_mul(dd, col(T.p), col(T.p_sh), q), q)
-        o = shoup_mul(modsub(z, e2[k * sm:(k + 1) * sm], q), col(T.pqinv),
+        o = shoup_mul(modsub(z, e2[..., k, :, :, :], q), col(T.pqinv),
                       col(T.pqinv_sh), q)
         outs.append(torch.where(mask, o, 0))
-    return torch.stack(outs).to(torch.int32)
+    return torch.stack(outs, dim=-4).to(torch.int32)
 
 
 def _hrotate_limb_body(a, key, T: LimbTables, lc, auto) -> torch.Tensor:
@@ -424,17 +447,14 @@ def _hrotate_limb_body(a, key, T: LimbTables, lc, auto) -> torch.Tensor:
     sa, sm = T.sa, T.sm
     q = col(T.q_main)
     acc_sp = _ip_slice(ev, key, T, 0, sa)
-    xc2 = intt_rep(torch.cat(acc_sp).to(torch.int32), T.sp_nt, 2)
-    xc2 = xc2.view((2, sa) + tuple(xc2.shape[1:]))
+    xc2 = _over_rows(intt_rep, torch.stack(acc_sp).to(torch.int32), T.sp_nt)
     bstack = shoup_mul(xc2, col(T.md1), col(T.md1_sh),
                        col(T.q_sp)).to(torch.int32)  # [2, sa, n1, w]
-    gfs = _gather_chunks(bstack, 2, T.gchunks, lc)
+    gfs = _gather_chunks(bstack, T.gchunks, lc)
     acc_mn = _ip_slice(ev, key, T, sa, sa + sm)
-    ccs = _moddown_convs(gfs, T)
-    ce2 = ntt_rep(torch.cat([torch.cat(cc, dim=1) for cc in ccs]),
-                  T.main_nt, 2)
-    es = [shoup_mul(modsub(acc_mn[k], ce2[k * sm:(k + 1) * sm], q),
-                    col(T.pinv), col(T.pinv_sh), q) for k in (0, 1)]
+    ce2 = _ntt_keys(_moddown_convs(gfs, T), T)
+    es = [shoup_mul(modsub(acc_mn[k], ce2[k], q), col(T.pinv),
+                    col(T.pinv_sh), q) for k in (0, 1)]
     mask = _row_mask(T, lc, T.level)
     return torch.stack([torch.where(mask, modadd(r0, es[0], q), 0),
                         torch.where(mask, es[1], 0)]).to(torch.int32)
@@ -483,15 +503,9 @@ def _make_hmult(dc, level, mesh, axis, col_axis, data_axis):
     tabs = _limb_tables(dc, level, mesh, axis, col_axis)
 
     def run(a, b, key) -> List[torch.Tensor]:
-        def program(comm, T, lc):
-            k = key[comm.rank]
-            if data_axis is None:
-                return _hmult_limb_body(a[comm.index], b[comm.index], k, T,
-                                        lc)
-            return torch.stack([_hmult_limb_body(x, y, k, T, lc)
-                                for x, y in zip(a[comm.index],
-                                                b[comm.index])])
-        return _shard_run(mesh, tabs, axis, col_axis, program)
+        return _shard_run(mesh, tabs, axis, col_axis, lambda comm, T, lc:
+                          _hmult_limb_body(a[comm.index], b[comm.index],
+                                           key[comm.rank], T, lc))
 
     return run
 
@@ -507,8 +521,10 @@ def make_limb_hmult(dc: DeviceContext, level: int, mesh, *,
 
     With data_axis="data" over a mesh of d data rows: a and b are
     shard_rows(..., data=d) blocks [B/d, 2, sm, n2, n1] (indexed by
-    Comm.index), each shard runs its batch elements one after another (the
-    JAX body's vmap), and out is each shard's [B/d, 2, sm, n2, n1]."""
+    Comm.index), each shard runs one body on its whole block (the JAX
+    body's vmap: one element's kernel launches and collective calls, each
+    covering the B/d elements, B/d times an element's bytes), and out is
+    each shard's [B/d, 2, sm, n2, n1]."""
     _check_axes(mesh, (axis,))
     return _make_hmult(dc, level, mesh, axis, None, data_axis)
 

@@ -32,9 +32,12 @@ ThreadMesh's).
 make_shardmap_hmult(..., data_axis="data") is the JAX package's batch
 axis: a mesh of d data rows of ns shards, operands [B, 2, level, n2, n1]
 cut into d batch blocks and ns column slices (`shard_batch`, indexed by
-`Comm.index`; the key by rank alone), each shard running its B/d
-elements one after another (the JAX body's vmap) with the collectives in
-its row; `gather_batch` joins the result.
+`Comm.index`; the key by rank alone), each shard running one hmult_graph
+on its whole [B/d, ...] block, the JAX body's vmap: every kernel launch
+and every all_to_all covers the B/d elements (each transform's rep copies,
+B3's grid z axis), so a shard makes one element's collective calls and
+launches and receives B/d times its bytes; `gather_batch` joins the
+result.
 
 The JAX package's GSPMD surface (`homulator_tpu/parallel/sharded.py:
 358-390`, `coeff_ntt.py`, the JAX CLI's ops at [cluster] > 1 other than
@@ -140,7 +143,8 @@ def make_shardmap_hmult(dc: DeviceContext, level: int, mesh, *,
     With data_axis="data" over a mesh of d data rows: a and b are
     shard_batch lists of [B/d, 2, level, n2, n1/ns] (indexed by
     Comm.index), key is indexed by rank, and out is the list of each
-    shard's [B/d, 2, level-1, n2, n1/ns] (gather_batch joins them)."""
+    shard's [B/d, 2, level-1, n2, n1/ns] (gather_batch joins them): one
+    hmult_graph on the block, one element's launches and exchanges."""
     if level < 2:
         raise ValueError(f"level {level}: hmult needs level >= 2 (rescale "
                          "drops one limb)")
@@ -149,12 +153,8 @@ def make_shardmap_hmult(dc: DeviceContext, level: int, mesh, *,
 
     def run(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor],
             key: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        if data_axis is None:
-            return mesh.run(lambda comm: hmult_graph(
-                a[comm.rank], b[comm.rank], key[comm.rank], kts[comm.rank]))
-        return mesh.run(lambda comm: torch.stack([
-            hmult_graph(x, y, key[comm.rank], kts[comm.rank])
-            for x, y in zip(a[comm.index], b[comm.index])]))
+        return mesh.run(lambda comm: hmult_graph(
+            a[comm.index], b[comm.index], key[comm.rank], kts[comm.rank]))
 
     return run
 

@@ -55,11 +55,17 @@ case "$op" in
     ;;
   *) disps="auto" ;;
 esac
+# Every level and dispatch runs even after one fails; the exit status is
+# 1 if any run failed, and the log keeps the failing run's output.
+failed=0
 for lvl in $levels; do
   [ "$lvl" -lt 2 ] && continue
   for disp in $disps; do
     PYTHONPATH="$root" python3 -m homulator_tpu_torch run "$cfg" "$op" \
       "$max_level" "$lvl" "$alpha" "$cluster" --device cuda --iters 1 \
-      --verify --dispatch "$disp" 2>&1 | tee -a "$outdir/${op}_torch.log"
+      --verify --dispatch "$disp" 2>&1 | tee -a "$outdir/${op}_torch.log" \
+      || { failed=1; echo "# FAILED: $op $max_level $lvl $alpha $cluster" \
+             "--dispatch $disp" | tee -a "$outdir/${op}_torch.log"; }
   done
 done
+exit $failed

@@ -14,8 +14,10 @@ plain versions), bit for bit (tolerance 0):
     and 8 shards vs the single-device ops and the packed=False route, with
     the bytes each shard received vs the JAX `ici_bytes_per_op`;
   * the batch axis: make_shardmap_hmult(data_axis="data") on a 2 x 4
-    ThreadMesh vs the JAX one on the conftest's 8 virtual CPU devices, and
-    on 2 x 2 DistMesh processes (gloo) vs the single-device op;
+    ThreadMesh vs the JAX one on the conftest's 8 virtual CPU devices,
+    one program a shard (one element's collective and kernel-wrapper
+    calls, B/d elements' bytes), lane-packed on 2 x 8 shards at n = 4096,
+    and on 2 x 2 DistMesh processes (gloo) vs the single-device op;
   * the set-B exchange bytes of both routes at 8, 16 and 32 shards.
 """
 
@@ -49,6 +51,8 @@ from homulator_tpu_torch.parallel.sharded import (
     gather_batch, gather_cols, ici_bytes_per_op, make_shardmap_hmult,
     make_shardmap_hrotate, shard_batch, shard_cols,
 )
+
+from .test_torch_limb_shard import _kernel_calls
 
 ROWS = (9, 0, 2, 3, 4)  # a special prime first; 5 rows pad at k = 4 and 8
 PHASES = ("ntt1", "ntt2", "intt2", "intt1")  # B10, B11, B12, B13
@@ -216,7 +220,9 @@ def test_packed_shardmap_ops(engine4096, ns, op):
 def test_data_axis_matches_jax():
     """2 data rows x 4 coefficient shards, B = 4 at n = 256, level 8: the
     port's batched make_shardmap_hmult == the JAX one on a (2, 4) mesh of
-    the conftest's virtual CPU devices; each shard ran its 2 elements."""
+    the conftest's virtual CPU devices; each shard runs its 2 elements as
+    one program: one element's collective and kernel calls (one hmult on
+    a 1-row mesh), its 2 elements' bytes."""
     params = get_params(n=256, max_level=8, alpha=4)
     jeng = JaxEngine(params, seed=5, ntt_mode="interpret")
     eng = CkksEngine(params, seed=5, device="cpu")
@@ -234,15 +240,58 @@ def test_data_axis_matches_jax():
     t = from_jax_state({"a": np.asarray(ab), "b": np.asarray(bb),
                         "k": np.asarray(jeng.relin_key)}, eng.dc)
     assert torch.equal(t["k"], eng.relin_key)
+    key = shard_cols(eng.relin_key, ns)
     tmesh = ThreadMesh(ns, "cpu", timeout=60, data=d)
     f = make_shardmap_hmult(eng.dc, level, tmesh, data_axis="data")
-    out = f(shard_batch(t["a"], d, ns), shard_batch(t["b"], d, ns),
-            shard_cols(eng.relin_key, ns))
+    out, calls = _kernel_calls(lambda: f(
+        shard_batch(t["a"], d, ns), shard_batch(t["b"], d, ns), key))
     assert np.array_equal(_u32(gather_batch(out, d)), want)
     assert tmesh.recv_bytes == [B // d * ici_bytes_per_op(
         params, level, ns, "hmult")] * (d * ns)
+    one = ThreadMesh(ns, "cpu", timeout=60)
+    single, one_calls = _kernel_calls(lambda: make_shardmap_hmult(
+        eng.dc, level, one)(shard_cols(t["a"][0], ns),
+                            shard_cols(t["b"][0], ns), key))
+    assert np.array_equal(_u32(gather_cols(single)), want[0])
+    # one all_to_all a transform: the ModUp iNTT, the beta digit NTTs and
+    # the tail's three (both keys in each)
+    assert one.calls() == [1 + params.beta(level) + 3] * ns
+    assert tmesh.calls() == one.calls() * d
+    assert len(set(one_calls.values())) == 1
+    assert len(calls) == d * ns
+    assert set(calls.values()) == set(one_calls.values())
     with pytest.raises(ValueError, match="data_axis"):
         make_shardmap_hmult(eng.dc, level, tmesh)
+
+
+def test_packed_data_axis(engine4096):
+    """The lane-packed route with a batch: 2 data rows x 8 shards (k = 4),
+    B = 4 at n = 4096, level 4, == the single-device hmults; each rep copy
+    of a batched transform pads to a multiple of k on its own, so a shard
+    receives exactly 2 x ici_bytes_per_op bytes in one element's calls."""
+    eng = engine4096
+    p, level, B, d, ns = eng.params, 4, 4, 2, 8
+    rng = np.random.default_rng(17)
+    a, b = ([eng.encrypt_complex(rng.normal(size=p.n // 2), level, SCALE)
+             for _ in range(B)] for _ in range(2))
+    mesh = ThreadMesh(ns, "cpu", timeout=120, data=d)
+    f = make_shardmap_hmult(eng.dc, level, mesh, data_axis="data")
+    out, calls = _kernel_calls(lambda: f(
+        *(shard_batch(torch.stack([x.data for x in v]), d, ns)
+          for v in (a, b)), shard_cols(eng.relin_key, ns)))
+    want = torch.stack([eng.hmult(x, y).data for x, y in zip(a, b)])
+    assert torch.equal(gather_batch(out, d), want)
+    assert mesh.recv_bytes == [B // d * ici_bytes_per_op(
+        p, level, ns, "hmult")] * (d * ns)
+    assert mesh.calls() == [1 + p.beta(level) + 3] * (d * ns)
+    one = ThreadMesh(ns, "cpu", timeout=120)
+    _, one_calls = _kernel_calls(lambda: make_shardmap_hmult(
+        eng.dc, level, one)(shard_cols(a[0].data, ns),
+                            shard_cols(b[0].data, ns),
+                            shard_cols(eng.relin_key, ns)))
+    assert mesh.calls() == one.calls() * d
+    assert len(calls) == d * ns
+    assert set(calls.values()) == set(one_calls.values())
 
 
 @pytest.mark.parametrize("ns,k,bytes_", [

@@ -8,7 +8,8 @@ versions), bit for bit (tolerance 0), at n = 256, maxLevel 8, alpha 4:
   * vs the port's single-device ops on ThreadMesh((ns_l, ns_c), "cpu",
     names=("limb", "coeff")) at 2 x 2 and 4 x 2, hrotate on the identity,
     the shard-permutation and the gather route of the automorphism, and a
-    data x limb x coeff batch;
+    data x limb x coeff batch, also vs the JAX data-axis program, one
+    program a shard (one element's collective and kernel-wrapper calls);
   * in four processes through torch.distributed (gloo, DistMesh.grid
     over dist.new_group subgroups);
   * the exchanged bytes vs ici_bytes_per_op_hybrid and the limb axis's
@@ -35,6 +36,8 @@ from homulator_tpu_torch.api import CkksEngine, hmult_graph, hrotate_graph
 from homulator_tpu_torch.context import from_jax_state
 from homulator_tpu_torch.parallel import limb_sharded as ls
 from homulator_tpu_torch.parallel.comm import ThreadMesh
+
+from .test_torch_limb_shard import _kernel_calls
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCALE = 2.0**29
@@ -154,27 +157,52 @@ def test_hybrid_hrotate_matches_single_device(engines, shape, route):
 
 def test_hybrid_hmult_data_axis(engines):
     """A batch of 4 hmults on 2 data rows x (2 limb x 2 coeff) == the
-    single-device hmults; each shard received its 2 elements' bytes."""
-    _, eng = engines
+    single-device hmults and the JAX data-axis program (its vmap inside
+    shard_map) on every padded row; each shard runs its 2 elements as one
+    program: one element's collective calls on each axis and kernel calls
+    (one hmult on a 1-row mesh), its 2 elements' bytes."""
+    jeng, eng = engines
     d = 2
     rng = np.random.default_rng(31)
     a, b = (torch.stack([eng.encrypt_complex(rng.normal(size=128), LEVEL,
                                              SCALE).data for _ in range(4)])
             for _ in range(2))
+    key = ls.limb_key(eng.relin_key, eng.params, LEVEL, 2, 2)
     mesh = _mesh((2, 2), data=d)
     f = ls.make_hybrid_hmult(eng.dc, LEVEL, mesh, data_axis="data")
-    got = ls.gather_rows(f(
+    out, calls = _kernel_calls(lambda: f(
         ls.shard_rows(a, LEVEL, 2, 2, data=d),
-        ls.shard_rows(b, LEVEL, 2, 2, data=d),
-        ls.limb_key(eng.relin_key, eng.params, LEVEL, 2, 2)), 2, 2, data=d)
+        ls.shard_rows(b, LEVEL, 2, 2, data=d), key))
+    got = ls.gather_rows(out, 2, 2, data=d)
     params, dc = eng.params, eng.dc
     kt = dc.keyswitch_tables(LEVEL)
     want = torch.stack([hmult_graph(x, y, eng.relin_key, kt)
                         for x, y in zip(a, b)])
     assert torch.equal(got[:, :, :LEVEL - 1], want)
     assert not got[:, :, LEVEL - 1:].any()
+    jmesh = make_mesh(shape=(d, 2, 2), n_devices=8,
+                      axis_names=("data", "limb", "coeff"))
+    order = jnp.asarray(jax_ls.evk_limb_row_order(jeng.params, LEVEL, 2))
+    jax_out = jax_ls.make_hybrid_hmult(jeng.dc, LEVEL, jmesh,
+                                       data_axis="data")(
+        *(jax_ls.pad_main_rows(jnp.asarray(x.numpy().view(np.uint32)),
+                               LEVEL, 2) for x in (a, b)),
+        jnp.take(jeng.relin_key, order, axis=2))
+    assert np.array_equal(got.numpy().view(np.uint32), np.asarray(jax_out))
     assert mesh.recv_bytes == [2 * ls.ici_bytes_per_op_hybrid(
         params, LEVEL, 2, 2, "hmult")] * 8
+    assert mesh.calls("limb") == [ls.limb_collective_count(
+        params, LEVEL, 2, "hmult", ns_c=2)] * 8
+    assert mesh.calls("coeff") == [TRANSFORM_CALLS] * 8
+    one = _mesh((2, 2))
+    _, one_calls = _kernel_calls(lambda: ls.make_hybrid_hmult(
+        dc, LEVEL, one)(ls.shard_rows(a[0], LEVEL, 2, 2),
+                        ls.shard_rows(b[0], LEVEL, 2, 2), key))
+    for axis in ("limb", "coeff"):
+        assert mesh.calls(axis) == one.calls(axis) * d
+    assert len(set(one_calls.values())) == 1
+    assert len(calls) == 8
+    assert set(calls.values()) == set(one_calls.values())
 
 
 def test_pick_gchunks_at_the_shards_width():

@@ -8,8 +8,10 @@ n = 256, maxLevel 8, alpha 4 (the engine of tests/test_sharding.py):
     ciphertexts carried across (from_jax_state);
   * vs the port's single-device ops on ThreadMesh(ns, "cpu") at the JAX
     tests' grid of (shards, level), real rows equal and pad rows zero, and
-    a data x limb batch;
-  * in two processes through torch.distributed (gloo, DistMesh);
+    a data x limb batch, also vs the JAX data-axis program, one program a
+    shard (one element's collective and kernel-wrapper calls);
+  * in two processes through torch.distributed (gloo, DistMesh), and the
+    data x limb batch in four;
   * the exchanged bytes and collective calls vs ici_bytes_per_op_limb and
     limb_collective_count, and those, evk_limb_row_order and choose_axis
     vs the JAX functions (at this size and at set B);
@@ -18,10 +20,12 @@ n = 256, maxLevel 8, alpha 4 (the engine of tests/test_sharding.py):
     model's on the same (made-up) anchors.
 """
 
+import collections
 import os
 import socket
 import subprocess
 import sys
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +37,7 @@ from homulator_tpu.parallel import dispatch_model as jax_dm
 from homulator_tpu.parallel import limb_sharded as jax_ls
 from homulator_tpu.parallel.mesh import make_mesh
 from homulator_tpu.params import get_params
+from homulator_tpu_torch import kernels
 from homulator_tpu_torch.api import CkksEngine
 from homulator_tpu_torch.context import from_jax_state
 from homulator_tpu_torch.parallel import dispatch_model as dm
@@ -157,26 +162,68 @@ def test_limb_hrotate_matches_single_device(engines, ns, level):
     _check_counts(mesh, eng.params, level, ns, "hrotate")
 
 
+def _kernel_calls(fn):
+    """fn()'s result and its kernel-wrapper calls by shard thread: on the
+    CPU each wrapper runs its kernel's plain version inside
+    kernels.as_kernel, once where the card launches the kernel once (the
+    count kernels.LAUNCHES keeps there)."""
+    calls = collections.Counter()
+    real = kernels.as_kernel
+
+    def spy(*args, **kw):
+        calls[threading.current_thread().name] += 1
+        return real(*args, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kernels, "as_kernel", spy)
+        out = fn()
+    return out, calls
+
+
 def test_limb_hmult_data_axis(engines):
     """A batch of 4 hmults on 2 data rows x 4 limb shards (level 7: pad
-    rows) == the single-device hmults; each shard received its 2
-    elements' bytes."""
-    _, eng = engines
+    rows) == the single-device hmults and the JAX data-axis program (its
+    vmap inside shard_map) on every padded row; each shard runs its 2
+    elements as one program: one element's collective calls and kernel
+    calls (one hmult on a 1-row mesh), its 2 elements' bytes."""
+    jeng, eng = engines
     ns, d, level = 4, 2, 7
     rng = np.random.default_rng(11)
     a, b = ([eng.encrypt_complex(rng.normal(size=128), level, SCALE)
              for _ in range(4)] for _ in range(2))
+    ab, bb = (torch.stack([x.data for x in v]) for v in (a, b))
+    key = ls.limb_key(eng.relin_key, eng.params, level, ns)
     mesh = _mesh(ns, data=d)
     f = ls.make_limb_hmult(eng.dc, level, mesh, data_axis="data")
-    got = ls.gather_rows(f(
-        ls.shard_rows(torch.stack([x.data for x in a]), level, ns, data=d),
-        ls.shard_rows(torch.stack([x.data for x in b]), level, ns, data=d),
-        ls.limb_key(eng.relin_key, eng.params, level, ns)), ns, data=d)
+    out, calls = _kernel_calls(lambda: f(
+        ls.shard_rows(ab, level, ns, data=d),
+        ls.shard_rows(bb, level, ns, data=d), key))
+    got = ls.gather_rows(out, ns, data=d)
     want = torch.stack([eng.hmult(x, y).data for x, y in zip(a, b)])
     assert torch.equal(got[:, :, :level - 1], want)
     assert not got[:, :, level - 1:].any()
+    jmesh = make_mesh(shape=(d, ns), n_devices=d * ns,
+                      axis_names=("data", "limb"))
+    order = jnp.asarray(jax_ls.evk_limb_row_order(jeng.params, level, ns))
+    jax_out = jax_ls.make_limb_hmult(jeng.dc, level, jmesh,
+                                     data_axis="data")(
+        *(jax_ls.pad_main_rows(jnp.asarray(_u32(x)), level, ns)
+          for x in (ab, bb)),
+        jnp.take(jeng.relin_key, order, axis=2))
+    assert np.array_equal(_u32(got), np.asarray(jax_out))
     assert mesh.recv_bytes == [2 * ls.ici_bytes_per_op_limb(
         eng.params, level, ns, "hmult")] * (d * ns)
+    assert mesh.calls("limb") == [ls.limb_collective_count(
+        eng.params, level, ns, "hmult")] * (d * ns)
+    one = _mesh(ns)
+    _, one_calls = _kernel_calls(lambda: ls.make_limb_hmult(
+        eng.dc, level, one)(ls.shard_rows(ab[0], level, ns),
+                            ls.shard_rows(bb[0], level, ns), key))
+    assert mesh.calls("limb") == one.calls("limb") * d
+    assert len(set(one_calls.values())) == 1
+    assert sorted(calls) == [f"shard{r}.{k}" for r in range(d)
+                             for k in range(ns)]
+    assert set(calls.values()) == set(one_calls.values())
     with pytest.raises(ValueError, match="data_axis"):
         ls.make_limb_hmult(eng.dc, level, mesh)
 
@@ -377,6 +424,78 @@ def test_dist_mesh_gloo_two_processes(engines, tmp_path):
         res = torch.load(outs[r])
         assert torch.equal(res["out"], want[:, 4 * r:4 * (r + 1)])
         assert res["bytes"] == ls.ici_bytes_per_op_limb(eng.params, 7, 2)
+        assert res["calls"] == ls.limb_collective_count(eng.params, 7, 2)
+
+
+_DIST_DATA_WORKER = r"""
+import sys
+import numpy as np, torch, torch.distributed as dist
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=4)
+from homulator_tpu_torch.api import CkksEngine, get_params
+from homulator_tpu_torch.parallel import limb_sharded as ls
+from homulator_tpu_torch.parallel.comm import DistMesh
+eng = CkksEngine(get_params(n=256, max_level=8, alpha=4), seed=5,
+                 device="cpu")
+eng.keygen()
+rng = np.random.default_rng(9)
+a, b = (torch.stack([eng.encrypt_complex(rng.normal(size=128), 7,
+                                         2.0**29).data for _ in range(4)])
+        for _ in range(2))
+mesh = DistMesh.grid(2, ("limb",), data=2)
+i = mesh.index
+f = ls.make_limb_hmult(eng.dc, 7, mesh, data_axis="data")
+res = f({i: ls.shard_rows(a, 7, 2, data=2)[i]},
+        {i: ls.shard_rows(b, 7, 2, data=2)[i]},
+        {mesh.rank: ls.limb_key(eng.relin_key, eng.params, 7, 2)[mesh.rank]})
+torch.save({"out": res[0], "index": i, "bytes": mesh.total_recv_bytes,
+            "calls": mesh.calls}, out)
+dist.destroy_process_group()
+"""
+
+
+def test_dist_mesh_data_axis_gloo_four_processes(engines, tmp_path):
+    """A batch of 4 limb hmults at level 7 (a pad row) on 2 data rows x 2
+    limb shards as 4 gloo processes (DistMesh.grid with data=2), two
+    elements a shard: each shard's [2, 2, 4, n2, n1] block equals the
+    single-device results' (pad rows zero), and each received 2 x
+    ici_bytes_per_op_limb bytes in one element's limb_collective_count
+    collectives."""
+    _, eng = engines
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    outs = [tmp_path / f"rank{r}.pt" for r in range(4)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DIST_DATA_WORKER, str(r), str(port),
+         str(outs[r])], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(4)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), logs
+    # the same engine, seed and call order as the workers
+    ref = CkksEngine(eng.params, seed=5, device="cpu")
+    ref.keygen()
+    rng = np.random.default_rng(9)
+    a, b = ([ref.encrypt_complex(rng.normal(size=128), 7, SCALE)
+             for _ in range(4)] for _ in range(2))
+    hm = torch.stack([ref.hmult(x, y).data for x, y in zip(a, b)])
+    # 6 rows, 8 padded: rank 1's last two are zero
+    want = torch.cat([hm, hm.new_zeros((4, 2, 2) + hm.shape[3:])], dim=2)
+    for r in range(4):
+        res = torch.load(outs[r])
+        row, lr = divmod(r, 2)
+        assert res["index"] == r
+        assert torch.equal(res["out"], want[2 * row:2 * (row + 1), :,
+                                            4 * lr:4 * (lr + 1)])
+        assert res["bytes"] == 2 * ls.ici_bytes_per_op_limb(eng.params, 7, 2)
         assert res["calls"] == ls.limb_collective_count(eng.params, 7, 2)
 
 

@@ -20,6 +20,10 @@
   * the committed anchors (parallel/_scaling_measured.py, generated on
     the card) hold every key the projection writes, and route set B by
     the model to the axis that it predicts faster;
+  * scripts/bench_data_axis_torch.py's data-axis cases (coeff, limb,
+    hybrid, make_sharded_hmult; chip_smoke's B = 4 checks): B = 4 on 2
+    data rows equals four single-device hmults with B = 2's collective and
+    kernel-wrapper calls a shard and twice its bytes;
   * each new script imports neither jax nor the JAX package.
 """
 
@@ -33,6 +37,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from homulator_tpu.parallel import dispatch_model as jax_dm
 from homulator_tpu_torch.api import CkksEngine, get_params
@@ -46,7 +51,8 @@ SET_B = dict(n=1 << 16, max_level=45, alpha=15)
 LEVEL = 7  # pad rows at 2 and 4 limb shards
 NEW_SCRIPTS = ("scaling_projection_torch", "hybrid_projection_torch",
                "dispatch_bakeoff_torch", "bench_ntt_grid_torch",
-               "bench_ntt_width_torch")
+               "bench_ntt_width_torch", "bench_data_axis_torch")
+DATA_LABELS = ("coeff 2x4", "limb 2x4", "hybrid 2x(2x2)", "gspmd (2,2,2)")
 
 
 def _load(path, name):
@@ -265,6 +271,36 @@ def test_committed_anchors_route_set_b():
             assert t_l == dm.predict_ms(p, op, "limb", ns, 35)
             assert t_c == dm.predict_ms(p, op, "coeff", ns, 35)
             assert axis == ("coeff" if t_c < t_l else "limb")
+
+
+@pytest.mark.parametrize("label", DATA_LABELS)
+def test_data_axis_cases(eng, label):
+    """scripts/bench_data_axis_torch.py's cases (chip_smoke's data-axis
+    checks) on the CPU at level 7: a batch of 4 on 2 data rows equals four
+    single-device hmults, and beside B = 2 (one element a shard) it makes
+    the same collective calls on every axis and kernel-wrapper calls a
+    shard, and each shard receives twice the bytes."""
+    from homulator_tpu_torch import kernels
+
+    from .test_torch_limb_shard import _kernel_calls
+
+    mod = _script("bench_data_axis_torch")
+    assert mod.LABELS == DATA_LABELS
+    rng = np.random.default_rng(23)
+    cts = [eng.encrypt_complex(rng.normal(size=eng.params.n // 2), LEVEL,
+                               2.0**29) for _ in range(2)]
+    a, b, want = mod.hmult_operands(torch, eng, cts)
+    case = mod.data_cases(eng, LEVEL, (label,))[label]
+    seen = {}
+    for B in (2, 4):
+        ((got, _, calls, nbytes), _), by_shard = _kernel_calls(
+            lambda: mod.run_case(torch, kernels, case, a[:B], b[:B]))
+        assert torch.equal(got, want[:B])
+        seen[B] = calls, nbytes, by_shard
+    assert seen[4][0] == seen[2][0]
+    assert seen[4][1] == [2 * x for x in seen[2][1]]
+    assert seen[4][2] == seen[2][2] and len(set(seen[2][2].values())) == 1
+    assert len(seen[2][2]) == len(case[0].comms) == 8
 
 
 @pytest.mark.parametrize("name", NEW_SCRIPTS)
