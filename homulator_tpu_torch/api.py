@@ -15,6 +15,17 @@ engine's `ntt_mode` picks the key-switch route as in the JAX package:
 "auto" the accelerated one, "jnp" the graph one (context.DeviceContext);
 both give the same bits. Elementwise ops are PyTorch ops on the int64
 carrier, as the JAX package computes them outside any Pallas kernel.
+
+On the accelerated route the op graphs mark their steps for the span
+recorder (stats.span; `route_span`): an op (hmult_graph, hsquare_graph,
+hrotate_graph, hrotate_hoisted_graph), and inside it the phases `tensor`
+(the tensor product), `modup` (modup_conv_all; on the fused route
+modup_convs_coeff), `inner_product` (inner_product_pieces; on the fused
+route hpip_acc, which also runs ModUp's NTTs), `moddown` (moddown_rescale2,
+with the relinearisation add and the rescale, or moddown_pair2),
+`automorph` and `rotation_add`. The graph route, kept for parity with the
+JAX engine, and a sharded basis (the shard programs of parallel/) record
+none.
 """
 
 from __future__ import annotations
@@ -31,7 +42,7 @@ from .ops.automorph import automorph_eval
 from .ops.keyswitch import (
     hpip_acc, inner_product_moddown, inner_product_pieces, keyswitch,
     keyswitch_fused, keyswitch_pieces, moddown_pair2, moddown_rescale2,
-    modup_all, modup_conv_all, modup_convs_coeff,
+    modup_all, modup_conv_all, modup_convs_coeff, route_span,
 )
 from .ops.modmath import col, modadd, modsub, mulmod
 from .ops.ntt import intt, ntt
@@ -75,14 +86,22 @@ def _keyswitch_rescale_tail(d0, d1, d2, key, kt: KeySwitchLevelTables):
                             rescale_poly(modadd(d1, e1, q), kt.rescale)])
     if _fused(kt):
         alpha = kt.special_nt.q.shape[0]
-        acc0, acc1 = hpip_acc(modup_convs_coeff(d2, kt), d2, key,
-                              kt).unbind(-4)
-        return moddown_rescale2(
-            (acc0[..., :alpha, :, :], acc0[..., alpha:, :, :]),
-            (acc1[..., :alpha, :, :], acc1[..., alpha:, :, :]), d0, d1, kt)
-    convs = modup_conv_all(d2, kt)
-    acc0, acc1 = inner_product_pieces(convs, d2, key, kt)
-    return moddown_rescale2(acc0, acc1, d0, d1, kt)
+        with route_span("modup", kt):
+            convs = modup_convs_coeff(d2, kt)
+        with route_span("inner_product", kt):
+            acc0, acc1 = hpip_acc(convs, d2, key, kt).unbind(-4)
+        del convs  # not held through ModDown
+        with route_span("moddown", kt):
+            return moddown_rescale2(
+                (acc0[..., :alpha, :, :], acc0[..., alpha:, :, :]),
+                (acc1[..., :alpha, :, :], acc1[..., alpha:, :, :]), d0, d1,
+                kt)
+    with route_span("modup", kt):
+        convs = modup_conv_all(d2, kt)
+    with route_span("inner_product", kt):
+        acc0, acc1 = inner_product_pieces(convs, d2, key, kt)
+    with route_span("moddown", kt):
+        return moddown_rescale2(acc0, acc1, d0, d1, kt)
 
 
 def hmult_graph(a: torch.Tensor, b: torch.Tensor, key: torch.Tensor,
@@ -92,24 +111,28 @@ def hmult_graph(a: torch.Tensor, b: torch.Tensor, key: torch.Tensor,
     On the piecewise and fused routes also a batch: a, b [B, 2, level,
     n2, n1] -> [B, 2, level-1, n2, n1], one program for the batch (every
     kernel launch covers it; the key and the tables are read once)."""
-    q = col(kt.main_nt.q)
-    a0, a1 = a.unbind(-4)
-    b0, b1 = b.unbind(-4)
-    d0 = mulmod(a0, b0, q)
-    d1 = modadd(mulmod(a0, b1, q), mulmod(a1, b0, q), q)
-    d2 = mulmod(a1, b1, q)
-    return _keyswitch_rescale_tail(d0, d1, d2, key, kt)
+    with route_span("hmult_graph", kt):
+        q = col(kt.main_nt.q)
+        with route_span("tensor", kt):
+            a0, a1 = a.unbind(-4)
+            b0, b1 = b.unbind(-4)
+            d0 = mulmod(a0, b0, q)
+            d1 = modadd(mulmod(a0, b1, q), mulmod(a1, b0, q), q)
+            d2 = mulmod(a1, b1, q)
+        return _keyswitch_rescale_tail(d0, d1, d2, key, kt)
 
 
 def hsquare_graph(a: torch.Tensor, key: torch.Tensor,
                   kt: KeySwitchLevelTables) -> torch.Tensor:
     """d0 = c0^2, d1 = 2 c0 c1, d2 = c1^2, then the hmult tail."""
-    q = col(kt.main_nt.q)
-    d0 = mulmod(a[0], a[0], q)
-    cross = mulmod(a[0], a[1], q)
-    d1 = modadd(cross, cross, q)
-    d2 = mulmod(a[1], a[1], q)
-    return _keyswitch_rescale_tail(d0, d1, d2, key, kt)
+    with route_span("hsquare_graph", kt):
+        q = col(kt.main_nt.q)
+        with route_span("tensor", kt):
+            d0 = mulmod(a[0], a[0], q)
+            cross = mulmod(a[0], a[1], q)
+            d1 = modadd(cross, cross, q)
+            d2 = mulmod(a[1], a[1], q)
+        return _keyswitch_rescale_tail(d0, d1, d2, key, kt)
 
 
 def hrotate_tail(r0: torch.Tensor, r1: torch.Tensor, key: torch.Tensor,
@@ -122,15 +145,19 @@ def hrotate_tail(r0: torch.Tensor, r1: torch.Tensor, key: torch.Tensor,
     ks = (keyswitch if kt.graph else
           keyswitch_fused if _fused(kt) else keyswitch_pieces)
     e = ks(r1, key, kt)
-    return torch.stack([modadd(r0, e[0], q).to(torch.int32), e[1]])
+    with route_span("rotation_add", kt):
+        return torch.stack([modadd(r0, e[0], q).to(torch.int32), e[1]])
 
 
 def hrotate_graph(a: torch.Tensor, perm: torch.Tensor, key: torch.Tensor,
                   kt: KeySwitchLevelTables) -> torch.Tensor:
     """AUTO(c0), AUTO(c1) -> KeySwitch(sigma(c1)) -> add. a: int32
     [2, level, n2, n1]; returns the same shape."""
-    return hrotate_tail(automorph_eval(a[0], perm),
-                        automorph_eval(a[1], perm), key, kt)
+    with route_span("hrotate_graph", kt):
+        with route_span("automorph", kt):
+            r0 = automorph_eval(a[0], perm)
+            r1 = automorph_eval(a[1], perm)
+        return hrotate_tail(r0, r1, key, kt)
 
 
 def hrotate_hoisted_graph(a: torch.Tensor, perms: Sequence[torch.Tensor],
@@ -152,15 +179,23 @@ def hrotate_hoisted_graph(a: torch.Tensor, perms: Sequence[torch.Tensor],
             r0 = automorph_eval(a[0], perm)
             outs.append(torch.stack([modadd(r0, e0, q).to(torch.int32), e1]))
         return torch.stack(outs)
-    convs = modup_conv_all(a[1], kt)
-    for perm, key in zip(perms, keys):
-        rot_convs = [automorph_eval(c, perm) for c in convs]
-        r1 = automorph_eval(a[1], perm)
-        acc0, acc1 = inner_product_pieces(rot_convs, r1, key, kt)
-        e = moddown_pair2(acc0, acc1, kt)
-        r0 = automorph_eval(a[0], perm)
-        outs.append(torch.stack([modadd(r0, e[0], q).to(torch.int32), e[1]]))
-    return torch.stack(outs)
+    with route_span("hrotate_hoisted_graph", kt):
+        with route_span("modup", kt):
+            convs = modup_conv_all(a[1], kt)
+        for perm, key in zip(perms, keys):
+            with route_span("automorph", kt):
+                rot_convs = [automorph_eval(c, perm) for c in convs]
+                r1 = automorph_eval(a[1], perm)
+            with route_span("inner_product", kt):
+                acc0, acc1 = inner_product_pieces(rot_convs, r1, key, kt)
+            with route_span("moddown", kt):
+                e = moddown_pair2(acc0, acc1, kt)
+            with route_span("automorph", kt):
+                r0 = automorph_eval(a[0], perm)
+            with route_span("rotation_add", kt):
+                outs.append(torch.stack([modadd(r0, e[0], q).to(torch.int32),
+                                         e[1]]))
+        return torch.stack(outs)
 
 
 def hadd_graph(a: torch.Tensor, b: torch.Tensor,

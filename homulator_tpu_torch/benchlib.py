@@ -202,6 +202,10 @@ def profiled_ms(fn, calls: int = 5, group_of=None):
     us = collections.defaultdict(float)
     waits = collections.defaultdict(int)
     for e in prof.events():
+        # a record_function range (a span, stats.span) is mirrored on the
+        # device's timeline as a user annotation: not device work
+        if getattr(e, "is_user_annotation", False):
+            continue
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us[group_of(e.name) if group_of else "all"] += \
                 e.time_range.elapsed_us()

@@ -24,7 +24,9 @@ explicit `--device`, exits 1); `--cache-dir DIR` is where the kernels are
 built and loaded (kernels.BUILD_DIR, default build/kernels/), the
 counterpart of the JAX compile cache; `--profile DIR` wraps the timed
 iterations in torch.profiler (CPU activity, and CUDA activity on the
-card) and writes a Chrome trace into DIR.
+card), writes a Chrome trace into DIR, which shows the op's spans
+(stats.span) with their kernels under them, and prints the span table:
+calls, host and device self ms and kernel launches by span name.
 
 A [cluster] positional above 1 runs the op on a ThreadMesh of [cluster]
 shards on the chosen device (all shards on one device: not a
@@ -228,6 +230,7 @@ def run_op(args) -> int:
         prof.export_chrome_trace(os.path.join(
             args.profile, f"homulator_tpu_torch_{rc.op}.json"))
         print(f"# profiler trace written to {args.profile}")
+        print_span_table(args.iters)
     for k, v in kernels.LAUNCHES.items():
         stats.set(f"launches/{k}", v)
     if ns > 1:
@@ -279,6 +282,29 @@ def run_op(args) -> int:
               f"({1e3 / lat_ms:.1f} ops/s) on {device}")
     stats.show()
     return 0
+
+
+def print_span_table(iters: int) -> None:
+    """The profiled runs' spans (stats.span_table) by name: calls, host
+    and device self ms (device on the card only) and the port's kernel
+    launches, each over all `iters` runs."""
+    from .stats import span_table, spans
+
+    rows = span_table(spans())
+    if not rows:
+        print("# spans: none recorded (the op records spans on the "
+              "accelerated route only)")
+        return
+    print(f"# spans over {iters} run(s): self time is a span's own time "
+          "less its children's")
+    print("%-24s %6s %14s %16s %9s" % ("span", "calls", "host_self_ms",
+                                       "device_self_ms", "launches"))
+    for r in rows:
+        dev = ("%16.3f" % r["device_self_ms"]
+               if r["device_self_ms"] is not None else "%16s" % "-")
+        print("%-24s %6d %14.3f %s %9d" % (r["span"], r["calls"],
+                                          r["host_self_ms"], dev,
+                                          r["launches"]))
 
 
 _GSPMD_REASON = ("the JAX CLI's GSPMD layout, rows over the mesh, run as the "

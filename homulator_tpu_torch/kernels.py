@@ -106,6 +106,11 @@ _SIGNATURES = {
 }
 
 
+# Device kernels one launch of a wrapper runs, where it is not one: B1, B2
+# and B4 each run their two radix phases as two kernels.
+KERNELS_PER_LAUNCH = {"ntt_fwd": 2, "ntt_inv": 2, "hpip": 2}
+
+
 def reset_launch_counts() -> None:
     with _LOCK:
         for k in LAUNCHES:
@@ -114,6 +119,9 @@ def reset_launch_counts() -> None:
 
 # The active byte count (a stats.OpCosts), or None: set by its `counting()`.
 COSTS = None
+# The span recorder (stats.SpanRecorder) while a span is open, or None: set
+# by the recorder.
+SPANS = None
 
 
 def count(name: str, reads: Sequence[torch.Tensor] = (),
@@ -121,9 +129,13 @@ def count(name: str, reads: Sequence[torch.Tensor] = (),
     """One launch of kernel `name` (called by its wrapper only), which
     reads the tensors `reads` and moves `nbytes` other bytes (its outputs
     written, a scratch array written and read back, an input it reads as
-    int32): the declaration an active byte count adds."""
+    int32): the declaration an active byte count adds. An open span
+    (stats.span) is credited with the launch."""
     with _LOCK:
         LAUNCHES[name] += 1
+    spans = SPANS
+    if spans is not None:
+        spans.launch(name)
     declare(reads, nbytes)
 
 

@@ -51,6 +51,7 @@ import torch
 
 from .. import kernels
 from ..context import KeySwitchLevelTables
+from ..stats import NO_SPAN, span
 from .bconv import bconv_step1_centered, bconv_step2
 from .bconv_fused import bconv_fused
 from .hpip import hpip_kernel, hpip_plain, traffic as hpip_traffic
@@ -179,24 +180,43 @@ def moddown_pair2(acc0, acc1, kt: KeySwitchLevelTables) -> torch.Tensor:
     return _moddown([acc0, acc1], kt)
 
 
+def route_span(name: str, kt: KeySwitchLevelTables, timed: bool = True):
+    """stats.span(name, timed) on the accelerated route of one device;
+    nothing on the graph route (kept for parity) or on a sharded basis
+    (the shard programs of parallel/)."""
+    if kt.graph or kt.main_nt.shard is not None:
+        return NO_SPAN
+    return span(name, timed)
+
+
 def keyswitch_pieces(d_eval: torch.Tensor, key: torch.Tensor,
                      kt: KeySwitchLevelTables) -> torch.Tensor:
     """Key switch without rescale: piecewise ModUp, inner product, both
-    ModDowns batched. Returns int32 [2, level, n2, n1] (e0, e1)."""
-    convs = modup_conv_all(d_eval, kt)
-    acc0, acc1 = inner_product_pieces(convs, d_eval, key, kt)
-    return moddown_pair2(acc0, acc1, kt)
+    ModDowns batched. Returns int32 [2, level, n2, n1] (e0, e1). Each
+    step is a span (route_span): modup, inner_product, moddown."""
+    with route_span("modup", kt):
+        convs = modup_conv_all(d_eval, kt)
+    with route_span("inner_product", kt):
+        acc0, acc1 = inner_product_pieces(convs, d_eval, key, kt)
+    with route_span("moddown", kt):
+        return moddown_pair2(acc0, acc1, kt)
 
 
 def keyswitch_fused(d_eval: torch.Tensor, key: torch.Tensor,
                     kt: KeySwitchLevelTables) -> torch.Tensor:
     """keyswitch_pieces through the fused HPIP kernel. The JAX function
     ends in two moddown_pair calls; this one ends in one moddown_pair2,
-    which is bit-identical. Returns int32 [2, level, n2, n1]."""
-    acc = hpip_acc(modup_convs_coeff(d_eval, kt), d_eval, key, kt)
+    which is bit-identical. Returns int32 [2, level, n2, n1]. The same
+    spans as keyswitch_pieces; inner_product also runs ModUp's NTTs."""
+    with route_span("modup", kt):
+        convs = modup_convs_coeff(d_eval, kt)
+    with route_span("inner_product", kt):
+        acc = hpip_acc(convs, d_eval, key, kt)
+    del convs  # not held through ModDown
     alpha = kt.special_nt.q.shape[0]
-    return moddown_pair2((acc[0, :alpha], acc[0, alpha:]),
-                         (acc[1, :alpha], acc[1, alpha:]), kt)
+    with route_span("moddown", kt):
+        return moddown_pair2((acc[0, :alpha], acc[0, alpha:]),
+                             (acc[1, :alpha], acc[1, alpha:]), kt)
 
 
 def moddown_rescale2(acc0, acc1, d0, d1,

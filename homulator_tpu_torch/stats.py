@@ -14,15 +14,22 @@ words, and NoC transfers, then dumps a sorted table at end of run. Here the
 same surface reports wall-clock kernel timings, op counts, and modeled
 data-movement volumes; `show()` prints the sorted table (Staistics.h:30-36
 parity) and `to_json()` emits machine-readable output.
+
+`span` marks the op graph's own boundaries (an op, a key-switch phase, a
+workload step) for the span recorder at the end of this module: what each
+one cost on the host and on the device, and which kernels it launched.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import threading
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from contextlib import contextmanager
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -217,3 +224,232 @@ def op_modmul_count(op: str, n: int, level: int, alpha: int, dnum_used: int) -> 
             total += 2 * ((l - 1) * n + 2 * ntt_cost)  # rescale both components
         return total
     raise ValueError(op)
+
+
+# ---- spans ---------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False, slots=True)
+class Span:
+    """One recorded span. index: its place in the record, in the order the
+    spans opened; parent: the index of the span it opened in (same
+    thread), None at the top level; request: the number of its top-level
+    span among the record's top-level spans (one a request where the
+    request is one call of an op); host_start_ns / host_end_ns:
+    `time.perf_counter_ns()` at open and close (the close 0 while open);
+    timed: whether it takes a CUDA event pair (not under an untimed span);
+    launches: the port's kernel launches by wrapper name while it was the
+    innermost open span (kernels.count); device_start_ms /
+    device_end_ms: when its two events passed on the device, in ms after
+    the record's first event, filled by `spans()`, None on the CPU and
+    where untimed."""
+
+    name: str
+    index: int
+    parent: Optional[int]
+    request: int
+    host_start_ns: int
+    host_end_ns: int = 0
+    timed: bool = True
+    launches: Counter = dataclasses.field(default_factory=Counter)
+    device_start_ms: Optional[float] = None
+    device_end_ms: Optional[float] = None
+    events: Optional[tuple] = dataclasses.field(default=None, repr=False)
+
+    @property
+    def host_ms(self) -> float:
+        return (self.host_end_ns - self.host_start_ns) * 1e-6
+
+    @property
+    def device_ms(self) -> Optional[float]:
+        """From its first event to its second on the device: its device
+        work, and any time the device waited for the host within it."""
+        if self.device_start_ms is None:
+            return None
+        return self.device_end_ms - self.device_start_ms
+
+    @property
+    def device_kernels(self) -> int:
+        """Device kernels its launches ran (kernels.KERNELS_PER_LAUNCH)."""
+        return sum(n * kernels.KERNELS_PER_LAUNCH.get(k, 1)
+                   for k, n in self.launches.items())
+
+
+class SpanRecorder:
+    """The spans of one record, with one stack of open spans a thread.
+    While a span is open anywhere, `kernels.SPANS` holds the recorder, so
+    each launch is credited to the innermost span open in the launching
+    thread."""
+
+    def __init__(self):
+        self.spans: List[Span] = []
+        self.requests = 0
+        # set where recording is off: the next span starts a new record
+        self.stale = False
+        self._open = 0
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _stack(self) -> List[Span]:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def clear(self) -> None:
+        with self._lock:
+            self.spans = []
+            self.requests = 0
+            self.stale = False
+
+    def push(self, name: str, timed: bool = True) -> Span:
+        t = time.perf_counter_ns()
+        if self.stale:
+            self.clear()
+        stack = self._stack()
+        parent = stack[-1] if stack else None
+        with self._lock:
+            if parent is None:
+                request = self.requests
+                self.requests += 1
+            else:
+                request = parent.request
+                timed = timed and parent.timed
+            sp = Span(name, len(self.spans),
+                      None if parent is None else parent.index, request, t,
+                      timed=timed)
+            self.spans.append(sp)
+            self._open += 1
+            kernels.SPANS = self
+        stack.append(sp)
+        return sp
+
+    def pop(self, sp: Span) -> None:
+        sp.host_end_ns = time.perf_counter_ns()
+        self._stack().pop()
+        with self._lock:
+            self._open -= 1
+            if self._open == 0:
+                kernels.SPANS = None
+
+    def launch(self, name: str) -> None:
+        """One launch of kernel wrapper `name` (kernels.count)."""
+        stack = getattr(self._local, "stack", None)
+        if stack:
+            stack[-1].launches[name] += 1
+
+
+SPANS = SpanRecorder()
+# on inside a `recording()` block (tests, operators); also on while
+# torch.profiler records
+RECORDING = False
+NO_SPAN = contextlib.nullcontext()
+_profiler = torch.autograd.profiler
+
+
+class _OpenSpan:
+    """The context of one recorded span: its host times, where it is timed
+    its CUDA event pair on the current stream (where CUDA is in use and
+    the stream is not being captured into a graph) and, while the profiler
+    records, a `record_function` range of its name, so a profiler trace
+    shows the span with its kernels under it."""
+
+    __slots__ = ("name", "timed", "span", "rf", "end")
+
+    def __init__(self, name: str, timed: bool):
+        self.name = name
+        self.timed = timed
+
+    def __enter__(self):
+        self.span = sp = SPANS.push(self.name, self.timed)
+        self.rf = self.end = None
+        if _profiler._is_profiler_enabled:
+            self.rf = _profiler.record_function(self.name)
+            self.rf.__enter__()
+        if (sp.timed and torch.cuda.is_initialized()
+                and not torch.cuda.is_current_stream_capturing()):
+            start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            sp.events = (start, self.end)
+        return sp
+
+    def __exit__(self, *exc):
+        if self.end is not None:
+            self.end.record()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        SPANS.pop(self.span)
+        return False
+
+
+def span(name: str, timed: bool = True):
+    """`with span(name):` around one step of the op graph. Recorded while
+    torch.profiler records or inside `recording()`; at every other time
+    it costs this flag test and returns a shared empty context. An
+    untimed span, and every span under it, takes no CUDA events: the
+    device-paced ops are timed, the launch-paced workloads around them
+    are not."""
+    if RECORDING or _profiler._is_profiler_enabled:
+        return _OpenSpan(name, timed)
+    SPANS.stale = True
+    return NO_SPAN
+
+
+@contextmanager
+def recording():
+    """Record the block's spans, with or without the profiler; the block
+    starts a new record. Read it with `spans()`."""
+    global RECORDING
+    SPANS.clear()
+    RECORDING = True
+    try:
+        yield SPANS
+    finally:
+        RECORDING = False
+        SPANS.stale = True
+
+
+def spans() -> List[Span]:
+    """The recorded spans, in the order they opened: those of the last
+    profiler session or `recording()` block that recorded any. (A record
+    begins with a `recording()` block, or with the first span after one
+    ended or after a span site ran with recording off; a profiler session
+    right after another, with no op between, adds to its record.) Where
+    they carry CUDA events, synchronises first, fills each closed span's
+    device_start_ms / device_end_ms (after the first such span's first
+    event) and lets its events go."""
+    out = list(SPANS.spans)
+    timed = [s for s in out if s.events is not None and s.host_end_ns]
+    if timed:
+        torch.cuda.synchronize()
+        ref = timed[0].events[0]
+        for s in timed:
+            s.device_start_ms = ref.elapsed_time(s.events[0])
+            s.device_end_ms = ref.elapsed_time(s.events[1])
+            s.events = None
+    return out
+
+
+def span_table(recorded: List[Span]) -> List[dict]:
+    """Per span name, in the order the names first opened: calls, host and
+    device self ms (a span's own time less its children's; device None on
+    the CPU or where untimed) and the port's kernel launches."""
+    child_host = defaultdict(float)
+    child_dev = defaultdict(float)
+    for s in recorded:
+        if s.parent is not None:
+            child_host[s.parent] += s.host_ms
+            child_dev[s.parent] += s.device_ms or 0.0
+    rows: Dict[str, dict] = {}
+    for s in recorded:
+        r = rows.setdefault(s.name, {"span": s.name, "calls": 0,
+                                     "host_self_ms": 0.0,
+                                     "device_self_ms": 0.0, "launches": 0})
+        r["calls"] += 1
+        r["host_self_ms"] += s.host_ms - child_host[s.index]
+        r["launches"] += sum(s.launches.values())
+        if s.device_ms is None:
+            r["device_self_ms"] = None
+        elif r["device_self_ms"] is not None:
+            r["device_self_ms"] += s.device_ms - child_dev[s.index]
+    return list(rows.values())

@@ -13,7 +13,12 @@ device function, plain eager torch over the port's op graphs
 device functions make no host tensor and never synchronise, so a CUDA
 graph can capture them. They follow the engine's key-switch route
 (`api.USE_FUSED_HPIP`, the context's `ntt_mode`) and give the same bits
-on every route.
+on every route. On the accelerated route each records its span
+(stats.span: `matvec_bsgs`, `logreg_sigmoid3`) around the op graphs'
+own, and the matvec's plaintext products are `pt_products` spans. These
+spans and every span under them take no CUDA events: a workload's launches
+pace its device, so an event pair there would time the device's waits,
+and no reader takes a device time inside a workload.
 
 The JAX programs' Montgomery products by pre-lifted plaintexts and
 constants (`to_mont`, `mont_mul`) are products of standard residues here
@@ -40,7 +45,7 @@ import torch
 
 from .api import (
     CkksEngine, hmult_graph, hrotate_graph, hrotate_hoisted_graph,
-    hsquare_graph,
+    hsquare_graph, route_span,
 )
 from .context import KeySwitchLevelTables, RescaleTables
 from .linalg import bsgs_diagonals
@@ -129,15 +134,17 @@ def matvec_prep(eng, M: np.ndarray, level: int, scale: float,
 
 
 def _group_sum(pt_group: torch.Tensor, baby: torch.Tensor,
-               q: torch.Tensor) -> torch.Tensor:
+               q: torch.Tensor, kt: KeySwitchLevelTables) -> torch.Tensor:
     """sum_i pdiag_i * baby_i over both components: one product by the
-    stacked diagonals [g, level, ...] and a modular-add tree."""
-    t = mulmod(baby, pt_group[:, None], q)
-    while t.shape[0] > 1:
-        h = t.shape[0] // 2
-        head = modadd(t[:h], t[h:2 * h], q)
-        t = torch.cat([head, t[2 * h:]]) if t.shape[0] % 2 else head
-    return t[0].to(torch.int32)
+    stacked diagonals [g, level, ...] and a modular-add tree; a
+    `pt_products` span."""
+    with route_span("pt_products", kt):
+        t = mulmod(baby, pt_group[:, None], q)
+        while t.shape[0] > 1:
+            h = t.shape[0] // 2
+            head = modadd(t[:h], t[h:2 * h], q)
+            t = torch.cat([head, t[2 * h:]]) if t.shape[0] % 2 else head
+        return t[0].to(torch.int32)
 
 
 def matvec_bsgs(ct: torch.Tensor, prep: MatvecPrep) -> torch.Tensor:
@@ -145,18 +152,20 @@ def matvec_bsgs(ct: torch.Tensor, prep: MatvecPrep) -> torch.Tensor:
     rotations share one ModUp (hoisted), each giant group pays one key
     switch. ct: int32 [2, level, n2, n1]; returns the same shape, at
     prep.out_scale."""
-    q = prep.q
-    baby = ct[None]
-    if prep.baby_keys:
-        rots = hrotate_hoisted_graph(ct, prep.baby_perms, prep.baby_keys,
-                                     prep.kt)
-        baby = torch.cat([baby, rots])
-    acc = _group_sum(prep.pt_groups[0], baby, q)
-    for pt_group, perm, key in zip(prep.pt_groups[1:], prep.giant_perms,
-                                   prep.giant_keys):
-        rot = hrotate_graph(_group_sum(pt_group, baby, q), perm, key, prep.kt)
-        acc = modadd(acc, rot, q).to(torch.int32)
-    return acc
+    q, kt = prep.q, prep.kt
+    with route_span("matvec_bsgs", kt, timed=False):
+        baby = ct[None]
+        if prep.baby_keys:
+            rots = hrotate_hoisted_graph(ct, prep.baby_perms, prep.baby_keys,
+                                         kt)
+            baby = torch.cat([baby, rots])
+        acc = _group_sum(prep.pt_groups[0], baby, q, kt)
+        for pt_group, perm, key in zip(prep.pt_groups[1:], prep.giant_perms,
+                                       prep.giant_keys):
+            rot = hrotate_graph(_group_sum(pt_group, baby, q, kt), perm, key,
+                                kt)
+            acc = modadd(acc, rot, q).to(torch.int32)
+        return acc
 
 
 @dataclasses.dataclass
@@ -262,17 +271,18 @@ def logreg_sigmoid3(ct: torch.Tensor, prep: LogregPrep) -> torch.Tensor:
     ct: int32 [2, level, n2, n1]; returns int32 [2, level-3, n2, n1] at
     prep.s_out."""
     L3, L4 = prep.level - 2, prep.level - 3
-    acc = mulmod(ct, prep.pt_w, prep.q1).to(torch.int32)
-    for perm, key in zip(prep.perms, prep.keys):
-        rot = hrotate_graph(acc, perm, key, prep.kt1)
-        acc = modadd(acc, rot, prep.q1).to(torch.int32)
-    c0 = modadd(acc[0], prep.pt_b, prep.q1).to(torch.int32)
-    t = torch.stack([rescale_poly(c0, prep.rs1),
-                     rescale_poly(acc[1], prep.rs1)])
-    t2 = hsquare_graph(t, prep.relin_key, prep.kt2)
-    t3 = hmult_graph(t[:, :L3], t2, prep.relin_key, prep.kt3)
-    lin = mulmod(t[:, :L4], prep.c_lin, prep.q4)
-    cub = mulmod(t3, prep.c_cub, prep.q4)
-    y = modadd(lin, cub, prep.q4)
-    y0 = modadd(y[0], prep.pt_half, prep.q4)
-    return torch.stack([y0, y[1]]).to(torch.int32)
+    with route_span("logreg_sigmoid3", prep.kt1, timed=False):
+        acc = mulmod(ct, prep.pt_w, prep.q1).to(torch.int32)
+        for perm, key in zip(prep.perms, prep.keys):
+            rot = hrotate_graph(acc, perm, key, prep.kt1)
+            acc = modadd(acc, rot, prep.q1).to(torch.int32)
+        c0 = modadd(acc[0], prep.pt_b, prep.q1).to(torch.int32)
+        t = torch.stack([rescale_poly(c0, prep.rs1),
+                         rescale_poly(acc[1], prep.rs1)])
+        t2 = hsquare_graph(t, prep.relin_key, prep.kt2)
+        t3 = hmult_graph(t[:, :L3], t2, prep.relin_key, prep.kt3)
+        lin = mulmod(t[:, :L4], prep.c_lin, prep.q4)
+        cub = mulmod(t3, prep.c_cub, prep.q4)
+        y = modadd(lin, cub, prep.q4)
+        y0 = modadd(y[0], prep.pt_half, prep.q4)
+        return torch.stack([y0, y[1]]).to(torch.int32)

@@ -124,7 +124,10 @@ def main() -> int:
 
     us, count = defaultdict(float), defaultdict(int)
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # the op's spans (stats.span) are mirrored on the device's
+        # timeline as user annotations: not device work
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             g = group_of(e.name)
             us[g] += e.time_range.elapsed_us()
             count[g] += 1
