@@ -11,7 +11,8 @@ failure and the script then exits non-zero:
   2. the kernel build (nvcc, one process per source) and its time, with
      ptxas's registers and spills of each instantiation of B1's, B2's,
      B4's and B6-B13's register-radix phase kernels (one for each axis
-     length 2^1 .. 2^10, B4's 2^1 .. 2^8), of the anatomy's stage kernels
+     length 2^1 .. 2^10, B4's 2^1 .. 2^8), of B18 (one for each digit
+     count 1 .. 16), of the anatomy's stage kernels
      (`stages_radix`: the production form at 2^1 .. 2^10 for one run with
      either store and two runs transposed, natmul and approx at 2^1 ..
      2^8 for two runs transposed) and of B3's, B5's and
@@ -35,7 +36,10 @@ failure and the script then exits non-zero:
      below, and the fused HPIP kernel (B4) at level 35 (K =
      50, digits (0,15) (15,30) (30,35)), level 20 (two digits, the last
      partial) and level 31 (a last digit of one row), and at level 35 in
-     the worst case (every piece, own-row and key word q - 1); the phase
+     the worst case (every piece, own-row and key word q - 1), the
+     piecewise route's key inner product (B18) at level 35 on one key
+     switch, a batch of 8, the worst case and the hoisted route's
+     automorphed pieces; the phase
      kernels of the coefficient-sharded NTT (B6-B9) on
      rank 1's column slices at 4 shards (c = 64: the main rows M = 35, the
      partial digit's other rows M = 45, the specials M = 15 twice, and the
@@ -100,14 +104,15 @@ failure and the script then exits non-zero:
      hrotate(step 1) on the piecewise key-switch route, then both and
      hsquare with `api.USE_FUSED_HPIP` on; the launch counters are set to
      0 just before each of these five runs and read just after it, each
-     run must launch every kernel of its route (and the piecewise route
-     must not launch B4; the fused one launches it once an op), and the
-     fused results must equal the piecewise ones bit for bit. Then: hmult
+     run must launch every kernel of its route (the piecewise route B18
+     once an op and not B4; the fused one B4 once an op and not B18), and
+     the fused results must equal the piecewise ones bit for bit. Then: hmult
      and hrotate equal the plain path (the same engine on the CPU) bit for
      bit; all 32768 slots decrypt within 1e-2 of v1*v2
      (hmult), v1*v1 (hsquare) and np.roll(v1, -1) (hrotate);
-     hrotate_hoisted(ct, [1, 2]) equals two single hrotates; the host
-     seconds of each key. Then the graph route: a second engine with
+     hrotate_hoisted(ct, [1, 2]) launches B18 twice and equals two single
+     hrotates; the host seconds of each key. Then the graph route: a
+     second engine with
      ntt_mode="jnp", given the first one's keys, runs hmult, hsquare,
      hrotate(1), conjugate, hrotate_hoisted([1, 2]), keyswitch_poly and
      rescale, each equal to the accelerated route bit for bit, each run
@@ -218,11 +223,13 @@ failure and the script then exits non-zero:
      (the key switches through the exact CRT decrypt, the others through
      RefCkks' 3-prime decode); B3 on set A's tail (31 rows in: the widest
      table) and ModUp digit 0 (28 + 1), and B4 at set A's level 28 (dnum
-     1) and set C's level 24 (dnum 4), against their plain versions, also
+     1) and set C's level 24 (dnum 4), and B18 at set C's level 24 on a
+     batch of 8, against their plain versions, also
      in the worst case (every input q - 1); the one-program batched hmult
      (`batched_hmult_fn`) at set B, level 35, B = 1, 2, 4, 8 on the
      piecewise and the fused route, each batch equal to B single hmults
-     and launching B1-B4 as often as one element, eager and device ms at
+     and launching B1-B4 and B18 as often as one element, eager and
+     device ms at
      B = 1 and 8, and B1-B4 on a batch of 8 against their plain versions
      (B3 on a row slice of the batch); hmult at the 36-bit parity shape
      ((56, 43, 19), recomputed by scripts/bench_parity36_torch.py's
@@ -332,6 +339,9 @@ REPLACES = {  # kernel -> (source in this repo, TPU kernel it replaces)
                            "homulator_tpu/ops/ntt_pallas.py:587"),
     "intt_phase1_packed": ("homulator_tpu_torch/csrc/ntt.cu",
                            "homulator_tpu/ops/ntt_pallas.py:597"),
+    # no Pallas kernel: XLA fuses the JAX package's inner product
+    "ip": ("homulator_tpu_torch/csrc/ip.cu",
+           "none (XLA: homulator_tpu/ops/keyswitch.py:259)"),
     # on no op's path: the NTT anatomy and roofline tooling
     "ntt_anatomy": ("homulator_tpu_torch/csrc/anatomy.cu",
                     "scripts/microbench_ntt.py:34"),
@@ -353,14 +363,19 @@ REPLACES = {  # kernel -> (source in this repo, TPU kernel it replaces)
 }
 KERNELS = tuple(REPLACES)
 ANATOMY_KERNELS = KERNELS[KERNELS.index("ntt_anatomy"):]
-PIECES_KERNELS = ("ntt_fwd", "ntt_inv", "bconv")
-FUSED_KERNELS = PIECES_KERNELS + ("hpip",)
+# the limb dispatch's key switch: B1-B3 (its inner product is its own,
+# parallel/limb_sharded.py::_ip_slice)
+LIMB_KERNELS = ("ntt_fwd", "ntt_inv", "bconv")
+PIECES_KERNELS = LIMB_KERNELS + ("ip",)
+FUSED_KERNELS = LIMB_KERNELS + ("hpip",)
 GRAPH_KERNELS = ("ntt_fwd", "ntt_inv", "bconv_step2")
 RESCALE_KERNELS = ("ntt_fwd", "ntt_inv")
 PHASE_KERNELS = ("ntt_phase1", "ntt_phase2", "intt_phase2", "intt_phase1")
 PACKED_KERNELS = tuple(k + "_packed" for k in PHASE_KERNELS)
-COEFF_KERNELS = PHASE_KERNELS + ("bconv",)
-COEFF_PACKED_KERNELS = PACKED_KERNELS + ("bconv",)
+# the hybrid dispatch: the limb dispatch's inner product on column slices
+HYBRID_KERNELS = PHASE_KERNELS + ("bconv",)
+COEFF_KERNELS = HYBRID_KERNELS + ("ip",)
+COEFF_PACKED_KERNELS = PACKED_KERNELS + ("bconv", "ip")
 NS = 4  # coefficient shards of the per-limb sharded main path
 NS_PACKED = (8, 16, 32)  # shard counts that take the lane-packed kernels
 # bytes a shard receives at set B, level 35, on the default (packed) route:
@@ -546,6 +561,22 @@ def hpip_bound(kt, batch=1):
     return bound(nbytes, batch * hpip_ops(conv_rows, K, beta, n))
 
 
+def ip_bound(kt, batch=1):
+    """B18 at kt's level on a batch of `batch` key switches under one key:
+    each element's terms (its converted rows and own rows, beta x K rows)
+    read and both accumulators written, the key rows (beta x 2 x K) read
+    once, q and qinv; beta x 2 x K rows of lazy Montgomery
+    product-accumulates and one conditional subtract an output word, an
+    element."""
+    n = kt.ext_nt.n1 * kt.ext_nt.n2
+    K = kt.ext_nt.q.shape[0]
+    beta = len(kt.digits)
+    nbytes = 4 * (batch * (beta * K * n + 2 * K * n) + beta * 2 * K * n
+                  + 2 * K)
+    return bound(nbytes, batch * (beta * 2 * K * n * OPS["lazy_mont_mac"]
+                                  + 2 * K * n * OPS["csub"]))
+
+
 def anatomy_bound(M, n1, n2, passes, mid):
     """B14-B16 on M limbs [n1, n2]: x read and the output written, the mid
     pair (mid variants), the stage-1 pair (stage variants) and q; n1 * n2
@@ -595,7 +626,7 @@ def compare(torch, name, label, kernel, plain, bnd, results, library=None,
 # 1..10; B4's two phases: L = 1..8; the anatomy's stage kernels: L =
 # 1..10 in the production form at (runs, store) (1, transposed), (1,
 # row-major) and (2, transposed), L = 1..8 in natmul and approx at (2,
-# transposed); B3/B5/B17: k32 steps 1..4)
+# transposed); B3/B5/B17: k32 steps 1..4; B18: digits 1..16)
 CHECKED_INSTANTIATIONS = {"ntt_fwd_radix_a": 10, "ntt_fwd_radix_b": 10,
                           "ntt_inv_radix_a": 10, "ntt_inv_radix_b": 10,
                           "hpip_radix_a": 8, "hpip_radix_b": 8,
@@ -606,7 +637,8 @@ CHECKED_INSTANTIATIONS = {"ntt_fwd_radix_a": 10, "ntt_fwd_radix_b": 10,
                           "ntt_iphase1_radix": 10,
                           "packed_iphase1_radix": 10,
                           "stages_radix": 3 * 10 + 2 * 8, "bconv_kernel": 4,
-                          "bconv_step2_kernel": 4, "planes_mm": 4}
+                          "bconv_step2_kernel": 4, "planes_mm": 4,
+                          "ip_kernel": 16}
 # the Shoup forms in the stage kernels' mangled names
 SHOUP_FORMS = ("ShoupLazy", "ShoupNatmul", "ShoupApprox")
 
@@ -752,6 +784,12 @@ def check_kernels(np, torch, dc, rng, results, get_params):
     # B4 at each of HPIP_LEVELS; then the worst case at level 35
     for level, wc in [(lv, False) for lv in HPIP_LEVELS] + [(LEVEL_B, True)]:
         check_hpip(np, torch, dc, level, wc, rng, results)
+    # B18 at level 35: one key switch, a batch of 8, the worst case, the
+    # hoisted route's automorphed pieces
+    for batch, wc, hoisted in ((None, False, False), (8, False, False),
+                               (None, True, False), (None, False, True)):
+        check_ip(np, torch, dc, LEVEL_B, wc, rng, results, batch=batch,
+                 hoisted=hoisted)
 
 
 def hpip_inputs(np, torch, dc, level, worst, rng, batch=None):
@@ -803,6 +841,33 @@ def check_hpip(np, torch, dc, level, worst, rng, results, prefix="",
             lambda: hpip_kernel(convs, d_eval, key, kl),
             lambda: hpip_plain(convs, d_eval, key, kl),
             hpip_bound(kl, batch or 1), results, **timing)
+
+
+def check_ip(np, torch, dc, level, worst, rng, results, prefix="",
+             batch=None, hoisted=False, **timing):
+    """B18 against ip_plain at dc's `level`, bit for bit, timed, with its
+    bound: hpip_inputs' pieces taken as eval-domain rows (n1 = n2 at the
+    sets it runs on), or (hoisted) the pieces and own rows after the
+    automorphism of step 1, as the hoisted route passes them."""
+    from homulator_tpu_torch.ops.automorph import automorph_eval
+    from homulator_tpu_torch.ops.ip import ip_kernel, ip_plain
+
+    convs, d_eval, key, kl = hpip_inputs(np, torch, dc, level, worst, rng,
+                                         batch)
+    convs = [c.view(c.shape[:-2] + d_eval.shape[-2:]) for c in convs]
+    if hoisted:
+        perm = dc.automorph_perm(dc.params.galois_elt(1))
+        convs = [automorph_eval(c, perm) for c in convs]
+        d_eval = automorph_eval(d_eval, perm)
+    spans = " ".join(f"({dt.lo},{dt.hi})" for dt in kl.digits)
+    compare(torch, "ip",
+            f"{prefix}level {level} K={kl.ext_nt.q.shape[0]} digits {spans}"
+            + (f" batch {batch}" if batch else "")
+            + (" worst case (all q-1)" if worst else "")
+            + (" automorphed (hoisted)" if hoisted else ""),
+            lambda: ip_kernel(convs, d_eval, key, kl),
+            lambda: ip_plain(convs, d_eval, key, kl),
+            ip_bound(kl, batch or 1), results, **timing)
 
 
 def check_step2_kernel(np, torch, dc, rng, results):
@@ -1088,7 +1153,9 @@ def check_data_batches(torch, kernels, eng, cts, labels, launches):
     timings = {}
     for label, (mesh, axes, make, join) in bench.data_cases(
             eng, LEVEL_B, labels).items():
-        expect = PIECES_KERNELS if label.startswith("limb") else COEFF_KERNELS
+        expect = (LIMB_KERNELS if label.startswith("limb") else
+                  COEFF_KERNELS if label.startswith("coeff") else
+                  HYBRID_KERNELS)
         seen = {}
         for B in (2, 4):
             run = f"hmult {label} data B={B}"
@@ -1163,7 +1230,7 @@ def check_limb_dispatch(np, torch, kernels, eng, cts, wants, v12, launches,
             mesh, tag = ThreadMesh(nl, "cuda", names=("limb",)), f"limb x{nl}"
             fh = ls.make_limb_hmult(dc, LEVEL_B, mesh)
             fr, route = ls.make_limb_hrotate(dc, LEVEL_B, mesh), perm
-            nbytes, expect = LIMB_BYTES[nl], PIECES_KERNELS
+            nbytes, expect = LIMB_BYTES[nl], LIMB_KERNELS
             calc = (ls.ici_bytes_per_op_limb(params, LEVEL_B, nl, "hmult"),
                     ls.ici_bytes_per_op_limb(params, LEVEL_B, nl, "hrotate"))
         else:
@@ -1172,7 +1239,7 @@ def check_limb_dispatch(np, torch, kernels, eng, cts, wants, v12, launches,
             fh = ls.make_hybrid_hmult(dc, LEVEL_B, mesh)
             fr = ls.make_hybrid_hrotate(dc, LEVEL_B, mesh)
             route = dc.automorph_shard_route(g, nc)
-            nbytes, expect = HYBRID_BYTES[shape], COEFF_KERNELS
+            nbytes, expect = HYBRID_BYTES[shape], HYBRID_KERNELS
             calc = tuple(ls.ici_bytes_per_op_hybrid(
                 params, LEVEL_B, nl, nc, op, route_identity=ident)
                 for op, ident in (("hmult", False), ("hrotate", route[2]),
@@ -1233,7 +1300,7 @@ def check_limb_dispatch(np, torch, kernels, eng, cts, wants, v12, launches,
         torch, kernels, "hmult limb 2x4 data (45,35,15)",
         lambda: batched(ls.shard_rows(ab, LEVEL_B, 4, data=2),
                         ls.shard_rows(bb, LEVEL_B, 4, data=2), key),
-        PIECES_KERNELS)
+        LIMB_KERNELS)
     got = ls.gather_rows(got, 4, data=2)[:, :, :LEVEL_B - 1]
     want = torch.stack([out.data, eng.hmult(ct2, ct1).data])
     if not torch.equal(got, want):
@@ -1275,9 +1342,9 @@ def check_gspmd_surface(np, torch, kernels, eng, cts, pt, wants, launches,
     ab = torch.stack([ct1.data, ct2.data])
     bb = torch.stack([ct2.data, ct1.data])
     want = torch.stack([out.data, eng.hmult(ct2, ct1).data])
-    for shape, expect, per in (((2, 2, 2), COEFF_KERNELS,
+    for shape, expect, per in (((2, 2, 2), HYBRID_KERNELS,
                                 HYBRID_BYTES[(2, 2)][0]),
-                               ((2, 4), PIECES_KERNELS, LIMB_BYTES[4][0])):
+                               ((2, 4), LIMB_KERNELS, LIMB_BYTES[4][0])):
         mesh = make_mesh(shape, device="cuda")
         f = make_sharded_hmult(dc, LEVEL_B, mesh)
         label = f"make_sharded_hmult {shape}"
@@ -1710,13 +1777,15 @@ def check_workloads(np, torch, kernels, api, eng, get_params, launches):
           f"weights, bias and constants {prep_s[1]:.2f} s")
     errs, timings, outs = {}, {}, {}
     for name, (fn, want, level, scale) in cases.items():
+        # the matvec's hoisted baby rotations take B18 on either route
+        hoisted = ("ip",) if name == "matvec_bsgs" else ()
         for fused in (False, True):
             label = name + (" fused" if fused else "")
             api.USE_FUSED_HPIP = fused
             try:
                 outs[label], launches[label] = drive(
                     torch, kernels, f"{label} (45,35,15)", fn,
-                    FUSED_KERNELS if fused else PIECES_KERNELS)
+                    FUSED_KERNELS + hoisted if fused else PIECES_KERNELS)
                 timings[label] = (latency_ms(fn), device_ms(fn, calls=2))
             finally:
                 api.USE_FUSED_HPIP = False
@@ -1729,12 +1798,18 @@ def check_workloads(np, torch, kernels, api, eng, get_params, launches):
             raise AssertionError(f"{name} fused: B4 launched "
                                  f"{launches[name + ' fused']['hpip']} "
                                  f"times, not {fused_ks}")
+        ips = (launches[name]["ip"], launches[name + " fused"]["ip"])
+        if ips != (ks, ks - fused_ks):
+            raise AssertionError(f"{name}: B18 launched {ips} times "
+                                 f"(piecewise, fused), not {ks}, "
+                                 f"{ks - fused_ks}")
         if not torch.equal(outs[name], outs[name + " fused"]):
             raise AssertionError(f"{name}: fused route != piecewise route")
         got = eng.decrypt_complex(Ciphertext(outs[name], level, scale)).real
         errs[name] = float(np.max(np.abs(got - want)))
         print(f"# {name}(45,35,15): fused == piecewise, bit-exact; {ks} key "
-              f"switches, B4 launched {fused_ks} times fused; verify "
+              f"switches, B18 launched {ks} times piecewise and "
+              f"{ks - fused_ks} fused, B4 {fused_ks} times fused; verify "
               f"max-abs-err = {errs[name]:.3e}, all {slots} slots")
         if not errs[name] < GATE:
             raise AssertionError(f"{name} decrypt gate {GATE} failed")
@@ -1778,7 +1853,7 @@ STUDY_SETS = {"A": dict(n=1 << 15, max_level=28, alpha=28),
               "D": dict(n=1 << 16, max_level=26, alpha=9),
               "M": dict(n=1 << 16, max_level=28, alpha=28)}
 BATCHES = (1, 2, 4, 8)
-BATCH_KERNELS = ("ntt_fwd", "ntt_inv", "bconv", "hpip")  # B1-B4
+BATCH_KERNELS = ("ntt_fwd", "ntt_inv", "bconv", "hpip", "ip")  # B1-B4, B18
 STUDY = "phase 9 "  # the label prefix of phase 9's kernel shapes
 
 
@@ -1848,8 +1923,9 @@ def check_set_ops(np, torch, kernels, eng, name, level, launches, errs):
 def check_study_kernels(np, torch, dcs, rng, results):
     """Phase 9: B3 on set A's fused tail (nd = alpha + 3 = 31 rows in, the
     widest table, four k32 steps) and ModUp digit 0 (28 + 1 rows), B4 at
-    set A's level 28 (dnum 1) and set C's level 24 (dnum 4), each against
-    its plain version, at random inputs and every input q - 1."""
+    set A's level 28 (dnum 1) and set C's level 24 (dnum 4), B18 at set
+    C's level 24 on a batch of 8, each against its plain version, at
+    random inputs and every input q - 1."""
     da, dc_c = dcs["A"], dcs["C"]
     ka = da.keyswitch_tables(28)
     n1, n2 = da.params.ntt.n1, da.params.ntt.n2
@@ -1865,6 +1941,11 @@ def check_study_kernels(np, torch, dcs, rng, results):
         for worst in (False, True):
             check_hpip(np, torch, dc, level, worst, rng, results,
                        STUDY + label)
+    # B18 at set C's level 24 (four 6-prime digits) on a batch of 8, as
+    # the setC.hmult.b8 cell runs it, and in the worst case
+    for worst in (False, True):
+        check_ip(np, torch, dc_c, 24, worst, rng, results, STUDY + "set C ",
+                 batch=8)
 
 
 def check_batch(np, torch, kernels, api, eng, rng, results, launches,
@@ -1905,7 +1986,7 @@ def check_batch(np, torch, kernels, api, eng, rng, results, launches,
                 if not torch.equal(got, singles[:B]):
                     raise AssertionError(f"{label}: != {B} single hmults")
                 if any(launches[label][k] != one[k] for k in BATCH_KERNELS):
-                    raise AssertionError(f"{label}: launched B1-B4 "
+                    raise AssertionError(f"{label}: launched B1-B4, B18 "
                                          f"{launches[label]}, one element "
                                          f"{one}")
                 if B in (1, 8):
@@ -2080,9 +2161,9 @@ def check_stand_ins(torch, kernels, eng, cts, thread_runs, timings,
             expect = (COEFF_PACKED_KERNELS if ns in NS_PACKED
                       else COEFF_KERNELS)
         elif axis == "limb":
-            want_bytes, expect = LIMB_BYTES[ns], PIECES_KERNELS
+            want_bytes, expect = LIMB_BYTES[ns], LIMB_KERNELS
         else:
-            want_bytes, expect = HYBRID_BYTES[(ns, nc)][:2], COEFF_KERNELS
+            want_bytes, expect = HYBRID_BYTES[(ns, nc)][:2], HYBRID_KERNELS
         for op, nbytes in zip(("hmult", "hrotate"), want_bytes):
             label = f"stand-in {op} {tag}"
             tmesh, tfn = thread_runs[f"{op} {tag}"]
@@ -2318,6 +2399,7 @@ def main() -> int:
         arg = ("KS" if name in ("bconv_kernel", "bconv_step2_kernel",
                                 "planes_mm")
                else "L, form, runs, store" if name == "stages_radix"
+               else "digits" if name == "ip_kernel"
                else "L")
         print(f"# {name} ptxas, {arg}: registers / local bytes: "
               + ", ".join(f"{a}: {r} / {sp}" for a, (r, sp)
@@ -2433,12 +2515,16 @@ def main() -> int:
         if c["hpip"] != 1:
             raise AssertionError(f"fused {label}: B4 launched {c['hpip']} "
                                  "times, not once")
+    for label in ("hmult", "hrotate"):
+        if launches[label]["ip"] != 1:
+            raise AssertionError(f"{label}: B18 launched "
+                                 f"{launches[label]['ip']} times, not once")
     if not (torch.equal(out.data, out_f.data)
             and torch.equal(rot.data, rot_f.data)
             and torch.equal(eng.hsquare(ct1).data, sq_f.data)):
         raise AssertionError("fused HPIP route != piecewise route")
     print("# fused HPIP route == piecewise route (hmult, hrotate, hsquare), "
-          "bit-exact; B4 launched once an op")
+          "bit-exact; B4 launched once an op fused, B18 once piecewise")
 
     cpu = cpu_twin(eng)  # the plain path
     cts_cpu = [Ciphertext(c.data.cpu(), c.level, c.scale) for c in (ct1, ct2)]
@@ -2460,7 +2546,13 @@ def main() -> int:
           f"(hsquare), {err_rot:.3e} (hrotate), all {slots} slots")
     if not (err_mult < GATE and err_sq < GATE and err_rot < GATE):
         raise AssertionError(f"decrypt gate {GATE} failed")
-    hoisted = eng.hrotate_hoisted(ct1, [1, 2])
+    hoisted, launches["hrotate_hoisted [1, 2]"] = drive(
+        torch, kernels, "hrotate_hoisted(45,35,15) [1, 2]",
+        lambda: eng.hrotate_hoisted(ct1, [1, 2]), PIECES_KERNELS)
+    if launches["hrotate_hoisted [1, 2]"]["ip"] != 2:
+        raise AssertionError("hrotate_hoisted [1, 2]: B18 launched "
+                             f"{launches['hrotate_hoisted [1, 2]']['ip']} "
+                             "times, not once a rotation")
     if not (torch.equal(hoisted[0].data, rot.data) and torch.equal(
             hoisted[1].data, eng.hrotate(ct1, 2).data)):
         raise AssertionError("hrotate_hoisted(ct, [1, 2]) != two hrotates")

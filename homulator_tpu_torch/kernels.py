@@ -44,7 +44,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches its kernel, and nowhere else. The shard threads of a ThreadMesh
 # launch concurrently, so updates and the first load hold a lock.
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "bconv": 0, "hpip": 0,
-            "bconv_step2": 0,
+            "bconv_step2": 0, "ip": 0,
             "ntt_phase1": 0, "ntt_phase2": 0, "intt_phase2": 0,
             "intt_phase1": 0, "ntt_phase1_packed": 0, "ntt_phase2_packed": 0,
             "intt_phase2_packed": 0, "intt_phase1_packed": 0,
@@ -88,6 +88,9 @@ _SIGNATURES = {
     # qinv, 6 tables, beta, alpha, level, k_full, n1, n2, log2 of the tile
     # columns of phases A and B, batch, d_eval's batch stride, stream
     "hk_hpip": [_P] * 15 + [_I] * 9 + [ctypes.c_longlong, _P],
+    # convs, spans (host arrays), d_eval, key, out, q, qinv, beta, alpha,
+    # level, k_full, plane (words a row), batch, stream
+    "hk_ip": [_P] * 7 + [_I] * 4 + [ctypes.c_longlong, _I, _P],
     # x, out, q, mid, mid_sh, mid product, transposed, rows, M, n1, n2,
     # stream
     "hk_ntt_anatomy": [_P] * 5 + [_I] * 6 + [_P],

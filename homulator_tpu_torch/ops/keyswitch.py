@@ -6,6 +6,7 @@ The accelerated route (what the JAX package runs on its accelerator):
                       base conversion (B3) to the rows outside the digit
   modup_conv_all      ... and the NTT of each digit's converted rows
   inner_product_pieces  digit inner product against the Montgomery key
+                      (kernel B18, ops/ip.py)
   hpip_acc            modup_conv_all's NTTs and the inner product fused in
                       one kernel (B4, ops/hpip.py) on the coeff pieces
   moddown_pair(2)     ModDown (divide by P) of one / both key components
@@ -38,8 +39,9 @@ inner_product_pieces, hpip_acc and moddown_rescale2 also take a batch:
 with every kernel launch covering the batch (B1/B2 over B rep copies,
 B3/B4 with the batch as their grid's z axis) and the key and the tables
 read, never repeated B times. Elementwise steps are PyTorch ops on int64 carriers
-(ops/modmath.py); NTTs and base conversions go through the kernel wrappers
-(ops/ntt.py, ops/bconv_fused.py, ops/bconv.py, ops/hpip.py).
+(ops/modmath.py); NTTs, base conversions and the piecewise inner product go
+through the kernel wrappers (ops/ntt.py, ops/bconv_fused.py, ops/bconv.py,
+ops/hpip.py, ops/ip.py).
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from ..stats import NO_SPAN, span
 from .bconv import bconv_step1_centered, bconv_step2
 from .bconv_fused import bconv_fused
 from .hpip import hpip_kernel, hpip_plain, traffic as hpip_traffic
+from .ip import ip_kernel, ip_plain, traffic as ip_traffic
 from .modmath import (
     col, lazy_sum_reduce, lazy_tree_sum, modadd, modsub, mont_mul, shoup_mul,
 )
@@ -106,26 +109,22 @@ def inner_product_pieces(
 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Digit inner product: for key component k, acc_k = sum_d ext_d *
     key[d, k] over the ext basis (specials first), where ext_d is digit d
-    lifted to the ext basis (converted rows + own rows of d_eval). Returns
-    per k the pair (acc_sp [alpha, n2, n1], acc_main [level, n2, n1]),
-    int64 in [0, q); for a batch (d_eval [B, level, n2, n1]) each with
-    the batch axis first, the key broadcast over it."""
+    lifted to the ext basis (converted rows + own rows of d_eval), in one
+    launch of kernel B18 (ops/ip.py) for both components. Returns per k
+    the pair (acc_sp [alpha, n2, n1], acc_main [level, n2, n1]), int32
+    views in [0, q) of one [2, alpha+level, n2, n1] tensor; for a batch
+    (d_eval [B, level, n2, n1]) each with the batch axis first, the key
+    read once for it. A CPU tensor runs ip_plain; a CUDA tensor launches
+    B18."""
+    if d_eval.device.type == "cpu":
+        with kernels.as_kernel(*ip_traffic(convs, d_eval, key, kt)):
+            acc = ip_plain(convs, d_eval, key, kt)
+    else:
+        with kernels.unobserved():
+            acc = ip_kernel(convs, d_eval, key, kt)
     alpha = kt.special_nt.q.shape[0]
-    k_ext = alpha + kt.level
-    q, qinv = col(kt.ext_nt.q), col(kt.ext_qinv)
-    exts = []
-    for conv, dt in zip(convs, kt.digits):
-        cut = alpha + dt.lo  # converted rows before the digit's own rows
-        exts.append(torch.cat([conv[..., :cut, :, :],
-                               d_eval[..., dt.lo:dt.hi, :, :],
-                               conv[..., cut:, :, :]], dim=-3))
-    out = []
-    for k in (0, 1):
-        acc = lazy_sum_reduce(
-            [mont_mul(e, key[d, k, :k_ext], q, qinv)
-             for d, e in enumerate(exts)], q)
-        out.append((acc[..., :alpha, :, :], acc[..., alpha:, :, :]))
-    return out
+    return [(acc[..., k, :alpha, :, :], acc[..., k, alpha:, :, :])
+            for k in (0, 1)]
 
 
 def hpip_acc(convs, d_eval: torch.Tensor, key: torch.Tensor,

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Batched-hmult throughput of the port on one card (the serving shape).
 
-    python3 scripts/bench_batched_torch.py [--out BATCHED_H100.json]
+    python3 scripts/bench_batched_torch.py [--set B|C] [--out BATCHED_H100.json]
 
 The counterpart of scripts/bench_batched.py: hmult at parameter set B
-(N = 2^16, maxLevel 45, level 35, alpha 15) over batches of B = 1, 2, 4
+(N = 2^16, maxLevel 45, level 35, alpha 15; or --set C: maxLevel 24,
+level 24, alpha 6, four digits) over batches of B = 1, 2, 4
 and 8 ciphertexts as one program (parallel.sharded.batched_hmult_fn: one
-call of the op graph on [B, 2, 35, 256, 256], every kernel launch
+call of the op graph on [B, 2, level, 256, 256], every kernel launch
 covering the batch, the key and the tables read once), on the piecewise
 and the fused HPIP key-switch route. Before any timing each batch is
 checked bit for bit against B single engine.hmult calls, and its launches
-of B1-B4 against one element's. At each B: the device time of one batch
+of B1-B4 and B18 against one element's. At each B: the device time of one batch
 (CUDA-graph replay, benchlib.device_ms) and its eager latency (CUDA events
 around one call, median of 20 after 3 warm-ups, benchlib.latency_ms),
 each per op (over B) and as ops/s, and the speedup at B = 8 against B = 1.
@@ -30,16 +31,19 @@ sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
 
-N, MAX_LEVEL, LEVEL, ALPHA = 65536, 45, 35, 15
+N = 65536
+SETS = {"B": (45, 35, 15), "C": (24, 24, 6)}  # maxLevel, level, alpha
 BATCHES = (1, 2, 4, 8)
 SCALE = 2.0**29
-KERNELS = ("ntt_fwd", "ntt_inv", "bconv", "hpip")
+KERNELS = ("ntt_fwd", "ntt_inv", "bconv", "hpip", "ip")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--set", choices=sorted(SETS), default="B")
     ap.add_argument("--out", default=os.path.join(ROOT, "BATCHED_H100.json"))
     args = ap.parse_args()
+    max_level, level, alpha = SETS[args.set]
 
     import torch
 
@@ -52,18 +56,18 @@ def main() -> int:
         raise SystemExit("bench_batched_torch: needs a CUDA card")
     kernels.build()
     t0 = time.perf_counter()
-    eng = native_engine(get_params(n=N, max_level=MAX_LEVEL, alpha=ALPHA),
+    eng = native_engine(get_params(n=N, max_level=max_level, alpha=alpha),
                         seed=1)
     eng.keygen()
     rng = np.random.default_rng(0)
-    cts = [eng.encrypt_complex(rng.normal(size=eng.params.n // 2), LEVEL,
+    cts = [eng.encrypt_complex(rng.normal(size=eng.params.n // 2), level,
                                SCALE)
            for _ in range(2 * max(BATCHES))]
     setup_s = time.perf_counter() - t0
-    f = batched_hmult_fn(eng.dc, LEVEL)
+    f = batched_hmult_fn(eng.dc, level)
     key = eng.relin_key
     out = {"backend": "cuda", "op": "hmult",
-           "shape": f"L={MAX_LEVEL} l={LEVEL} alpha={ALPHA}",
+           "shape": f"L={max_level} l={level} alpha={alpha}",
            "card": benchlib.card_line(),
            "host_setup_s": setup_s}
     for route in ("piecewise", "fused"):
@@ -93,7 +97,7 @@ def main() -> int:
                           "setup_s": time.perf_counter() - t0}
                 print(f"# {route} B={B}: {json.dumps(res[B])}", flush=True)
             if any(res[B]["launches"] != res[1]["launches"] for B in res):
-                raise AssertionError(f"{route}: a batch launched B1-B4 "
+                raise AssertionError(f"{route}: a batch launched B1-B4, B18 "
                                      "otherwise than one element")
         finally:
             api.USE_FUSED_HPIP = False
