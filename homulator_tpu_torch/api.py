@@ -124,14 +124,18 @@ def hmult_graph(a: torch.Tensor, b: torch.Tensor, key: torch.Tensor,
 
 def hsquare_graph(a: torch.Tensor, key: torch.Tensor,
                   kt: KeySwitchLevelTables) -> torch.Tensor:
-    """d0 = c0^2, d1 = 2 c0 c1, d2 = c1^2, then the hmult tail."""
+    """d0 = c0^2, d1 = 2 c0 c1, d2 = c1^2, then the hmult tail. a: int32
+    [2, level, n2, n1] -> [2, level-1, n2, n1]; on the piecewise and fused
+    routes also a batch [B, 2, level, n2, n1] -> [B, 2, level-1, n2, n1],
+    one program for the batch, as hmult_graph."""
     with route_span("hsquare_graph", kt):
         q = col(kt.main_nt.q)
         with route_span("tensor", kt):
-            d0 = mulmod(a[0], a[0], q)
-            cross = mulmod(a[0], a[1], q)
+            a0, a1 = a.unbind(-4)
+            d0 = mulmod(a0, a0, q)
+            cross = mulmod(a0, a1, q)
             d1 = modadd(cross, cross, q)
-            d2 = mulmod(a[1], a[1], q)
+            d2 = mulmod(a1, a1, q)
         return _keyswitch_rescale_tail(d0, d1, d2, key, kt)
 
 
@@ -140,23 +144,31 @@ def hrotate_tail(r0: torch.Tensor, r1: torch.Tensor, key: torch.Tensor,
     """hrotate after the automorphism: KeySwitch(r1) -> add r0. The JAX
     package switches each component's ModDown on its own when sharded
     (keyswitch.py:193-197); keyswitch_pieces keeps them batched, with the
-    same bits. The graph route takes keyswitch() (JAX api.py:148-149)."""
+    same bits. The graph route takes keyswitch() (JAX api.py:148-149),
+    one ciphertext a call. On the piecewise and fused routes r0, r1 may
+    carry a leading batch axis: every step then runs once on the whole
+    batch."""
+    if kt.graph and r1.ndim != 3:
+        raise ValueError("the graph route takes one ciphertext a call")
     q = col(kt.main_nt.q)
     ks = (keyswitch if kt.graph else
           keyswitch_fused if _fused(kt) else keyswitch_pieces)
-    e = ks(r1, key, kt)
+    e0, e1 = ks(r1, key, kt).unbind(-4)
     with route_span("rotation_add", kt):
-        return torch.stack([modadd(r0, e[0], q).to(torch.int32), e[1]])
+        return torch.stack([modadd(r0, e0, q).to(torch.int32), e1], dim=-4)
 
 
 def hrotate_graph(a: torch.Tensor, perm: torch.Tensor, key: torch.Tensor,
                   kt: KeySwitchLevelTables) -> torch.Tensor:
     """AUTO(c0), AUTO(c1) -> KeySwitch(sigma(c1)) -> add. a: int32
-    [2, level, n2, n1]; returns the same shape."""
+    [2, level, n2, n1]; returns the same shape. On the piecewise and fused
+    routes also a batch [B, 2, level, n2, n1], one program for the batch
+    (every launch covers it; the key and the tables are read once)."""
     with route_span("hrotate_graph", kt):
         with route_span("automorph", kt):
-            r0 = automorph_eval(a[0], perm)
-            r1 = automorph_eval(a[1], perm)
+            a0, a1 = a.unbind(-4)
+            r0 = automorph_eval(a0, perm)
+            r1 = automorph_eval(a1, perm)
         return hrotate_tail(r0, r1, key, kt)
 
 

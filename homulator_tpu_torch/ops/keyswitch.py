@@ -34,7 +34,8 @@ JAX package runs on every other backend, and what its engine's
 Each function computes what its JAX namesake computes, on the same tables,
 so every array is the same canonical residue and both routes give the same
 bits. On the accelerated route modup_convs_coeff, modup_conv_all,
-inner_product_pieces, hpip_acc and moddown_rescale2 also take a batch:
+inner_product_pieces, hpip_acc, moddown_pair2, keyswitch_pieces,
+keyswitch_fused and moddown_rescale2 also take a batch:
 [B, ...] wherever they take [...] (the JAX package's vmap of its hmult),
 with every kernel launch covering the batch (B1/B2 over B rep copies,
 B3/B4 with the batch as their grid's z axis) and the key and the tables
@@ -146,21 +147,22 @@ def _moddown(accs, kt: KeySwitchLevelTables) -> torch.Tensor:
     """ModDown of rep = len(accs) accumulator pairs in one batched pass
     (rep-stacked NTTs share the basis tables): (acc_main -
     conv_P(acc_sp)) * P^{-1} over the main basis, with the centered
-    conversion. Returns int32 [rep, level, n2, n1]."""
+    conversion. Returns int32 [rep, level, n2, n1]; for a batch (every
+    piece [B, rows, n2, n1]) [B, rep, level, n2, n1], each transform one
+    launch over the B * rep copies and each B3 conversion one launch over
+    the B."""
     rep = len(accs)
-    alpha = kt.special_nt.q.shape[0]
-    b = intt_rep(torch.cat([a[0] for a in accs]).to(torch.int32),
-                 kt.special_nt, rep)  # [rep*alpha, n1, n2]
+    sp = torch.stack([a[0] for a in accs], dim=-4).to(torch.int32)
+    b = _over_rows(intt_rep, sp, kt.special_nt)  # [..., rep, alpha, n1, n2]
     convs = [
-        bconv_fused(b[k * alpha:(k + 1) * alpha], kt.md_s1, kt.md_s1_sh,
+        bconv_fused(b[..., k, :, :, :], kt.md_s1, kt.md_s1_sh,
                     kt.special_nt.q, kt.md_mat, kt.md_mma, kt.md_horner_sh,
                     kt.main_nt.q, center=True)
         for k in range(rep)
     ]
-    ce = ntt_rep(torch.cat(convs), kt.main_nt, rep)
-    ce = ce.view((rep, kt.level) + tuple(ce.shape[1:]))
+    ce = _over_rows(ntt_rep, torch.stack(convs, dim=-4), kt.main_nt)
     mq = _col2(kt.main_nt.q)
-    diff = modsub(torch.stack([a[1] for a in accs]), ce, mq)
+    diff = modsub(torch.stack([a[1] for a in accs], dim=-4), ce, mq)
     return shoup_mul(diff, _col2(kt.pinv), _col2(kt.pinv_sh),
                      mq).to(torch.int32)
 
@@ -175,7 +177,8 @@ def moddown_pair(acc, kt: KeySwitchLevelTables) -> torch.Tensor:
 def moddown_pair2(acc0, acc1, kt: KeySwitchLevelTables) -> torch.Tensor:
     """Both key components' ModDown in one batched pass. Bit-identical to
     (moddown_pair(acc0), moddown_pair(acc1)); returns int32
-    [2, level, n2, n1]."""
+    [2, level, n2, n1], or [B, 2, level, n2, n1] for a batch (each piece
+    with a leading axis B)."""
     return _moddown([acc0, acc1], kt)
 
 
@@ -191,7 +194,9 @@ def route_span(name: str, kt: KeySwitchLevelTables, timed: bool = True):
 def keyswitch_pieces(d_eval: torch.Tensor, key: torch.Tensor,
                      kt: KeySwitchLevelTables) -> torch.Tensor:
     """Key switch without rescale: piecewise ModUp, inner product, both
-    ModDowns batched. Returns int32 [2, level, n2, n1] (e0, e1). Each
+    ModDowns batched. Returns int32 [2, level, n2, n1] (e0, e1), or
+    [B, 2, level, n2, n1] for a batch d_eval [B, level, n2, n1] (one
+    program: every launch covers the batch, the key read once). Each
     step is a span (route_span): modup, inner_product, moddown."""
     with route_span("modup", kt):
         convs = modup_conv_all(d_eval, kt)
@@ -205,17 +210,19 @@ def keyswitch_fused(d_eval: torch.Tensor, key: torch.Tensor,
                     kt: KeySwitchLevelTables) -> torch.Tensor:
     """keyswitch_pieces through the fused HPIP kernel. The JAX function
     ends in two moddown_pair calls; this one ends in one moddown_pair2,
-    which is bit-identical. Returns int32 [2, level, n2, n1]. The same
-    spans as keyswitch_pieces; inner_product also runs ModUp's NTTs."""
+    which is bit-identical. Returns int32 [2, level, n2, n1] ([B, 2, ...]
+    for a batch, as keyswitch_pieces). The same spans as
+    keyswitch_pieces; inner_product also runs ModUp's NTTs."""
     with route_span("modup", kt):
         convs = modup_convs_coeff(d_eval, kt)
     with route_span("inner_product", kt):
-        acc = hpip_acc(convs, d_eval, key, kt)
+        acc0, acc1 = hpip_acc(convs, d_eval, key, kt).unbind(-4)
     del convs  # not held through ModDown
     alpha = kt.special_nt.q.shape[0]
     with route_span("moddown", kt):
-        return moddown_pair2((acc[0, :alpha], acc[0, alpha:]),
-                             (acc[1, :alpha], acc[1, alpha:]), kt)
+        return moddown_pair2(
+            (acc0[..., :alpha, :, :], acc0[..., alpha:, :, :]),
+            (acc1[..., :alpha, :, :], acc1[..., alpha:, :, :]), kt)
 
 
 def moddown_rescale2(acc0, acc1, d0, d1,
