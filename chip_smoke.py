@@ -39,7 +39,10 @@ failure and the script then exits non-zero:
      the worst case (every piece, own-row and key word q - 1), the
      piecewise route's key inner product (B18) at level 35 on one key
      switch, a batch of 8, the worst case and the hoisted route's
-     automorphed pieces; the phase
+     automorphed pieces; ModDown's elementwise kernels (B19-B21) at level
+     35 on a batch of 8, one ciphertext, the worst case and a 4-shard
+     column slice, and B21's ModDown pair at levels 34 (batch 8) and 30
+     and in the worst case; the phase
      kernels of the coefficient-sharded NTT (B6-B9) on
      rank 1's column slices at 4 shards (c = 64: the main rows M = 35, the
      partial digit's other rows M = 45, the specials M = 15 twice, and the
@@ -223,8 +226,8 @@ failure and the script then exits non-zero:
      (the key switches through the exact CRT decrypt, the others through
      RefCkks' 3-prime decode); B3 on set A's tail (31 rows in: the widest
      table) and ModUp digit 0 (28 + 1), and B4 at set A's level 28 (dnum
-     1) and set C's level 24 (dnum 4), and B18 at set C's level 24 on a
-     batch of 8, against their plain versions, also
+     1) and set C's level 24 (dnum 4), and B18 and B19-B21 at set C's
+     level 24 on a batch of 8, against their plain versions, also
      in the worst case (every input q - 1); the one-program batched hmult
      (`batched_hmult_fn`) at set B, level 35, B = 1, 2, 4, 8 on the
      piecewise and the fused route, each batch equal to B single hmults
@@ -287,6 +290,7 @@ chain is counted as `PEAK_LINK_OPS` says.
 """
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -342,6 +346,9 @@ REPLACES = {  # kernel -> (source in this repo, TPU kernel it replaces)
     # no Pallas kernel: XLA fuses the JAX package's inner product
     "ip": ("homulator_tpu_torch/csrc/ip.cu",
            "none (XLA: homulator_tpu/ops/keyswitch.py:259)"),
+    # nor ModDown's elementwise steps (B19-B21, one launch count)
+    "moddown": ("homulator_tpu_torch/csrc/moddown.cu",
+                "none (XLA: homulator_tpu/ops/keyswitch.py:131, :394)"),
     # on no op's path: the NTT anatomy and roofline tooling
     "ntt_anatomy": ("homulator_tpu_torch/csrc/anatomy.cu",
                     "scripts/microbench_ntt.py:34"),
@@ -366,16 +373,16 @@ ANATOMY_KERNELS = KERNELS[KERNELS.index("ntt_anatomy"):]
 # the limb dispatch's key switch: B1-B3 (its inner product is its own,
 # parallel/limb_sharded.py::_ip_slice)
 LIMB_KERNELS = ("ntt_fwd", "ntt_inv", "bconv")
-PIECES_KERNELS = LIMB_KERNELS + ("ip",)
-FUSED_KERNELS = LIMB_KERNELS + ("hpip",)
+PIECES_KERNELS = LIMB_KERNELS + ("ip", "moddown")
+FUSED_KERNELS = LIMB_KERNELS + ("hpip", "moddown")
 GRAPH_KERNELS = ("ntt_fwd", "ntt_inv", "bconv_step2")
 RESCALE_KERNELS = ("ntt_fwd", "ntt_inv")
 PHASE_KERNELS = ("ntt_phase1", "ntt_phase2", "intt_phase2", "intt_phase1")
 PACKED_KERNELS = tuple(k + "_packed" for k in PHASE_KERNELS)
 # the hybrid dispatch: the limb dispatch's inner product on column slices
 HYBRID_KERNELS = PHASE_KERNELS + ("bconv",)
-COEFF_KERNELS = HYBRID_KERNELS + ("ip",)
-COEFF_PACKED_KERNELS = PACKED_KERNELS + ("bconv", "ip")
+COEFF_KERNELS = HYBRID_KERNELS + ("ip", "moddown")
+COEFF_PACKED_KERNELS = PACKED_KERNELS + ("bconv", "ip", "moddown")
 NS = 4  # coefficient shards of the per-limb sharded main path
 NS_PACKED = (8, 16, 32)  # shard counts that take the lane-packed kernels
 # bytes a shard receives at set B, level 35, on the default (packed) route:
@@ -790,6 +797,18 @@ def check_kernels(np, torch, dc, rng, results, get_params):
                                (None, True, False), (None, False, True)):
         check_ip(np, torch, dc, LEVEL_B, wc, rng, results, batch=batch,
                  hoisted=hoisted)
+    # B19-B21: the ModDown + rescale at level 35 on a batch of 8 (the
+    # setB.hmult.b8 cell's), one ciphertext, the worst case and a 4-shard
+    # column slice; the ModDown pair at level 34 on a batch of 8 (HELR's
+    # batched rotations), at level 30 alone, and in the worst case
+    for batch, wc, level, pair, cols in (
+            (8, False, LEVEL_B, False, None), (None, False, LEVEL_B, False,
+                                               None),
+            (None, True, LEVEL_B, False, None), (2, False, LEVEL_B, False, 4),
+            (8, False, 34, True, None), (None, False, 30, True, None),
+            (2, True, LEVEL_B, True, None)):
+        check_moddown(np, torch, dc, level, wc, rng, results, batch=batch,
+                      pair=pair, cols=cols)
 
 
 def hpip_inputs(np, torch, dc, level, worst, rng, batch=None):
@@ -868,6 +887,78 @@ def check_ip(np, torch, dc, level, worst, rng, results, prefix="",
             lambda: ip_kernel(convs, d_eval, key, kl),
             lambda: ip_plain(convs, d_eval, key, kl),
             ip_bound(kl, batch or 1), results, **timing)
+
+
+def check_moddown(np, torch, dc, level, worst, rng, results, prefix="",
+                  batch=None, pair=False, cols=None, **timing):
+    """B19-B21 against their plain versions (run on the card) at dc's
+    `level`, bit for bit, timed, each with its bound: md_zl, md_head and
+    md_tail with the P d term, as the hmult's ModDown + rescale runs them
+    (pair: md_tail alone with P^-1, a rotation's ModDown pair), on
+    random residues or (worst) every input q - 1; the accumulators as
+    int32 views of one [B, 2, alpha+level, R, C] tensor (B18's), d int64.
+    cols = ns: on one shard's [R, C/ns] column slice."""
+    from homulator_tpu_torch.ops import moddown as md
+    from homulator_tpu_torch.stats import _nbytes
+
+    kt = dc.keyswitch_tables(level)
+    tt, lm1 = kt.tail, level - 1
+    alpha = kt.special_nt.q.shape[0]
+    R, C = dc.params.ntt.n2, dc.params.ntt.n1 // (cols or 1)
+    lead = () if batch is None else (batch,)
+
+    def make(q, shape):  # rows along axis -3 mod q, or q - 1
+        q = q.cpu().numpy().astype(np.int64)
+        if not worst:
+            x = residues(np.tile(q, math.prod(shape[:-3])),
+                         (math.prod(shape[:-2]),) + shape[-2:], rng)
+            return x.view(shape)
+        return torch.from_numpy((q - 1).astype(np.int32)).cuda().view(
+            -1, 1, 1).expand(shape).contiguous()
+
+    acc = make(kt.ext_nt.q, lead + (2, alpha + level, R, C))
+    mains = (acc[..., 0, alpha:, :, :], acc[..., 1, alpha:, :, :])
+    ds = tuple(make(kt.main_nt.q, lead + (level, R, C)).long()
+               for _ in (0, 1))
+    pl = R * C * 2 * (batch or 1)  # words of one row of every (b, k)
+
+    def bnd(traffic, ops):
+        reads, nbytes = traffic
+        return bound(sum(_nbytes(t) for t in reads) + nbytes, ops * pl)
+
+    what = (f"{prefix}level {level}" + (f" batch {batch}" if batch else "")
+            + (f" 1/{cols} columns" if cols else "")
+            + (" worst case (all q-1)" if worst else ""))
+    shoup, add = OPS["shoup"], OPS["modadd"]
+    if pair:
+        e = make(kt.main_nt.q, lead + (2, level, R, C))
+        args = (mains, e, kt.main_nt.q, kt.pinv, kt.pinv_sh)
+        compare(torch, "moddown", f"md_tail pair {what}",
+                lambda: md.tail_kernel(*args), lambda: md.tail_plain(*args),
+                bnd(md.tail_traffic(*args), level * (shoup + add)), results,
+                **timing)
+        return
+    compare(torch, "moddown", f"md_zl {what}",
+            lambda: md.zl_kernel(*mains, *ds, kt),
+            lambda: md.zl_plain(*mains, *ds, kt),
+            bnd(md.zl_traffic(*mains, *ds, kt), shoup + add), results,
+            **timing)
+    b = make(kt.special_nt.q, lead + (2, alpha, R, C))
+    zl = make(kt.main_nt.q[lm1:level], lead + (2, 1, R, C)).squeeze(-3)
+    compare(torch, "moddown", f"md_head {what}",
+            lambda: md.head_kernel(b, zl, kt),
+            lambda: md.head_plain(b, zl, kt),
+            bnd(md.head_traffic(b, zl, kt),
+                alpha * (shoup + OPS["lazy_shoup"] + OPS["csub"] + 1)
+                + OPS["lazy_shoup"] + 2 * OPS["csub"] + shoup + add + 1),
+            results, **timing)
+    e = make(tt.out_nt.q, lead + (2, lm1, R, C))
+    args = (mains, e, tt.out_nt.q, tt.pq_inv, tt.pq_inv_sh, ds, tt.p_modq,
+            tt.p_modq_sh)
+    compare(torch, "moddown", f"md_tail rescale {what}",
+            lambda: md.tail_kernel(*args), lambda: md.tail_plain(*args),
+            bnd(md.tail_traffic(*args), lm1 * (2 * shoup + 2 * add)),
+            results, **timing)
 
 
 def check_step2_kernel(np, torch, dc, rng, results):
@@ -1853,7 +1944,8 @@ STUDY_SETS = {"A": dict(n=1 << 15, max_level=28, alpha=28),
               "D": dict(n=1 << 16, max_level=26, alpha=9),
               "M": dict(n=1 << 16, max_level=28, alpha=28)}
 BATCHES = (1, 2, 4, 8)
-BATCH_KERNELS = ("ntt_fwd", "ntt_inv", "bconv", "hpip", "ip")  # B1-B4, B18
+# B1-B4, B18, B19-B21
+BATCH_KERNELS = ("ntt_fwd", "ntt_inv", "bconv", "hpip", "ip", "moddown")
 STUDY = "phase 9 "  # the label prefix of phase 9's kernel shapes
 
 
@@ -1946,6 +2038,11 @@ def check_study_kernels(np, torch, dcs, rng, results):
     for worst in (False, True):
         check_ip(np, torch, dc_c, 24, worst, rng, results, STUDY + "set C ",
                  batch=8)
+    # B19-B21 at set C's level 24 on a batch of 8 (the setC.hmult.b8
+    # cell's ModDown + rescale), and in the worst case
+    for worst in (False, True):
+        check_moddown(np, torch, dc_c, 24, worst, rng, results,
+                      STUDY + "set C ", batch=8)
 
 
 def check_batch(np, torch, kernels, api, eng, rng, results, launches,

@@ -44,7 +44,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches its kernel, and nowhere else. The shard threads of a ThreadMesh
 # launch concurrently, so updates and the first load hold a lock.
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "bconv": 0, "hpip": 0,
-            "bconv_step2": 0, "ip": 0,
+            "bconv_step2": 0, "ip": 0, "moddown": 0,
             "ntt_phase1": 0, "ntt_phase2": 0, "intt_phase2": 0,
             "intt_phase1": 0, "ntt_phase1_packed": 0, "ntt_phase2_packed": 0,
             "intt_phase2_packed": 0, "intt_phase1_packed": 0,
@@ -59,6 +59,7 @@ _LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # x, scratch, out, q, 6 tables, rows, M, n1, n2, log2 of the tile
     # columns of phases A and B, stream
@@ -91,6 +92,17 @@ _SIGNATURES = {
     # convs, spans (host arrays), d_eval, key, out, q, qinv, beta, alpha,
     # level, k_full, plane (words a row), batch, stream
     "hk_ip": [_P] * 7 + [_I] * 4 + [ctypes.c_longlong, _I, _P],
+    # ModDown's elementwise steps (B19-B21): acc0, acc1, their batch
+    # stride, d0, d1, theirs, zl, q, pm, pm_sh, plane, batch, stream
+    "hk_md_zl": [_P] * 2 + [_LL] + [_P] * 2 + [_LL] + [_P] * 4
+                + [_LL, _I, _P],
+    # b, zl, out, sp_q, s1, s1_sh, m2, m2_sh, q, pinv, pinv_sh, alpha,
+    # plane, batch, stream
+    "hk_md_head": [_P] * 11 + [_I, _LL, _I, _P],
+    # acc0, acc1, their batch stride, d0, d1, theirs, with d, e, out, q,
+    # pm, pm_sh, c, c_sh, rep, rows, plane, batch, stream
+    "hk_md_tail": [_P] * 2 + [_LL] + [_P] * 2 + [_LL, _I] + [_P] * 7
+                  + [_I] * 2 + [_LL, _I, _P],
     # x, out, q, mid, mid_sh, mid product, transposed, rows, M, n1, n2,
     # stream
     "hk_ntt_anatomy": [_P] * 5 + [_I] * 6 + [_P],

@@ -39,10 +39,11 @@ keyswitch_fused and moddown_rescale2 also take a batch:
 [B, ...] wherever they take [...] (the JAX package's vmap of its hmult),
 with every kernel launch covering the batch (B1/B2 over B rep copies,
 B3/B4 with the batch as their grid's z axis) and the key and the tables
-read, never repeated B times. Elementwise steps are PyTorch ops on int64 carriers
-(ops/modmath.py); NTTs, base conversions and the piecewise inner product go
-through the kernel wrappers (ops/ntt.py, ops/bconv_fused.py, ops/bconv.py,
-ops/hpip.py, ops/ip.py).
+read, never repeated B times. NTTs, base conversions, the piecewise inner
+product and ModDown's elementwise steps go through the kernel wrappers
+(ops/ntt.py, ops/bconv_fused.py, ops/bconv.py, ops/hpip.py, ops/ip.py,
+ops/moddown.py); the graph route's other elementwise steps are PyTorch
+ops on int64 carriers (ops/modmath.py).
 """
 
 from __future__ import annotations
@@ -59,16 +60,9 @@ from .bconv import bconv_step1_centered, bconv_step2
 from .bconv_fused import bconv_fused
 from .hpip import hpip_kernel, hpip_plain, traffic as hpip_traffic
 from .ip import ip_kernel, ip_plain, traffic as ip_traffic
-from .modmath import (
-    col, lazy_sum_reduce, lazy_tree_sum, modadd, modsub, mont_mul, shoup_mul,
-)
+from .moddown import md_head, md_tail, md_zl
+from .modmath import col, lazy_sum_reduce, modsub, mont_mul, shoup_mul
 from .ntt import intt, intt_rep, ntt, ntt_rep
-
-
-def _col2(v: torch.Tensor) -> torch.Tensor:
-    """[K] constants as int64 [1, K, 1, 1] against [2, K, R, C] tiles (the
-    two key components stacked)."""
-    return v.long().view(1, -1, 1, 1)
 
 
 def _over_rows(transform, x: torch.Tensor, nb) -> torch.Tensor:
@@ -148,23 +142,19 @@ def _moddown(accs, kt: KeySwitchLevelTables) -> torch.Tensor:
     (rep-stacked NTTs share the basis tables): (acc_main -
     conv_P(acc_sp)) * P^{-1} over the main basis, with the centered
     conversion. Returns int32 [rep, level, n2, n1]; for a batch (every
-    piece [B, rows, n2, n1]) [B, rep, level, n2, n1], each transform one
-    launch over the B * rep copies and each B3 conversion one launch over
-    the B."""
+    piece [B, rows, n2, n1]) [B, rep, level, n2, n1]: B2, B3 and B1 one
+    launch each over the B * rep copies, then md_tail (ops/moddown.py)."""
     rep = len(accs)
+    alpha = kt.special_nt.q.shape[0]
     sp = torch.stack([a[0] for a in accs], dim=-4).to(torch.int32)
     b = _over_rows(intt_rep, sp, kt.special_nt)  # [..., rep, alpha, n1, n2]
-    convs = [
-        bconv_fused(b[..., k, :, :, :], kt.md_s1, kt.md_s1_sh,
-                    kt.special_nt.q, kt.md_mat, kt.md_mma, kt.md_horner_sh,
-                    kt.main_nt.q, center=True)
-        for k in range(rep)
-    ]
-    ce = _over_rows(ntt_rep, torch.stack(convs, dim=-4), kt.main_nt)
-    mq = _col2(kt.main_nt.q)
-    diff = modsub(torch.stack([a[1] for a in accs], dim=-4), ce, mq)
-    return shoup_mul(diff, _col2(kt.pinv), _col2(kt.pinv_sh),
-                     mq).to(torch.int32)
+    conv = bconv_fused(b.view((-1, alpha) + b.shape[-2:]), kt.md_s1,
+                       kt.md_s1_sh, kt.special_nt.q, kt.md_mat, kt.md_mma,
+                       kt.md_horner_sh, kt.main_nt.q, center=True)
+    ce = _over_rows(ntt_rep, conv.view(b.shape[:-3] + conv.shape[-3:]),
+                    kt.main_nt)
+    return md_tail([a[1] for a in accs], ce, kt.main_nt.q, kt.pinv,
+                   kt.pinv_sh)
 
 
 def moddown_pair(acc, kt: KeySwitchLevelTables) -> torch.Tensor:
@@ -231,56 +221,23 @@ def moddown_rescale2(acc0, acc1, d0, d1,
     (acc_k + P * d_k) / (P * q_last) with centered remainders, in one
     batched pass (rep=2 NTTs share the basis tables). Returns int32
     [2, level-1, n2, n1]; for a batch (acc_k's pieces and d_k with a
-    leading axis B) [B, 2, level-1, n2, n1], each transform one launch
-    over the 2B copies and each B3 conversion one launch over the B."""
+    leading axis B) [B, 2, level-1, n2, n1]. Each port kernel is one
+    launch over the 2B copies: B2 on the specials, md_zl, B2 on the
+    dropped limb, md_head, B3 on the tail table, B1, md_tail (B19-B21:
+    ops/moddown.py)."""
     tt = kt.tail
-    level = kt.level
-    lm1 = level - 1
-    alpha = kt.special_nt.q.shape[0]
-    sp_q = _col2(kt.special_nt.q)
     b = _over_rows(intt_rep, torch.stack([acc0[0], acc1[0]], dim=-4)
                    .to(torch.int32), kt.special_nt)  # [..., 2, a, n1, n2]
-    bhat = shoup_mul(b, _col2(kt.md_s1), _col2(kt.md_s1_sh), sp_q)
-    # centered conversion: explicit count row v_b, read by the [-P] column
-    v_b = (bhat >= (sp_q >> 1) + 1).sum(dim=-3, keepdim=True)
-    bhat_ext = torch.cat([bhat, v_b], dim=-3)  # [..., 2, alpha+1, n1, n2]
-    q_last = kt.main_nt.q[lm1].long()
-    # conv row of q_last (coeff domain): sum_j bhat_ext_j * [P/p_j]_{q_last}
-    terms = shoup_mul(bhat_ext, _col2(tt.md2_last), _col2(tt.md2_last_sh),
-                      q_last)
-    conv_last = lazy_tree_sum(terms.movedim(-3, 0), q_last)  # [..., 2, n1, n2]
-    acc_main = torch.stack([acc0[1], acc1[1]], dim=-4)  # [..., 2, level, n2, n1]
-    dd = torch.stack([d0, d1], dim=-4)
-    # w = Z mod q_last, Z = floor(acc / P) + d, in the coeff domain
-    zl_eval = modadd(
-        acc_main[..., lm1, :, :],
-        shoup_mul(dd[..., lm1, :, :], tt.p_modq[lm1].long(),
-                  tt.p_modq_sh[lm1], q_last),
-        q_last)
-    zl_coeff = _over_rows(intt_rep, zl_eval.to(torch.int32).unsqueeze(-3),
+    zl = md_zl(acc0[1], acc1[1], d0, d1, kt)  # [..., 2, n2, n1]
+    zl_coeff = _over_rows(intt_rep, zl.unsqueeze(-3),
                           tt.last_nt).squeeze(-3)
-    w = shoup_mul(modsub(zl_coeff, conv_last, q_last), kt.pinv[lm1].long(),
-                  kt.pinv_sh[lm1], q_last)
-    # w centering indicator, read by the [-P*q_last] column
-    ind_w = (w >= (q_last >> 1) + 1).long()
-    convs = [
-        bconv_fused(
-            torch.cat([bhat_ext[..., k, :, :, :], w[..., k, None, :, :],
-                       ind_w[..., k, None, :, :]], dim=-3).to(torch.int32),
-            tt.one, tt.one_sh, tt.in_q, tt.mat, tt.mma, tt.horner_sh,
-            tt.out_nt.q)
-        for k in (0, 1)
-    ]
-    e = _over_rows(ntt_rep, torch.stack(convs, dim=-4), tt.out_nt)
-    oq = _col2(tt.out_nt.q)
-    z = modadd(
-        acc_main[..., :lm1, :, :],
-        shoup_mul(dd[..., :lm1, :, :], _col2(tt.p_modq[:lm1]),
-                  _col2(tt.p_modq_sh[:lm1]), oq),
-        oq)
-    out = shoup_mul(modsub(z, e, oq), _col2(tt.pq_inv), _col2(tt.pq_inv_sh),
-                    oq)
-    return out.to(torch.int32)
+    x = md_head(b, zl_coeff, kt)  # [..., 2, alpha+3, n1, n2]
+    conv = bconv_fused(x.view((-1,) + x.shape[-3:]), tt.one, tt.one_sh,
+                       tt.in_q, tt.mat, tt.mma, tt.horner_sh, tt.out_nt.q)
+    e = _over_rows(ntt_rep, conv.view(x.shape[:-3] + conv.shape[-3:]),
+                   tt.out_nt)
+    return md_tail((acc0[1], acc1[1]), e, tt.out_nt.q, tt.pq_inv,
+                   tt.pq_inv_sh, (d0, d1), tt.p_modq, tt.p_modq_sh)
 
 
 # ---- the graph route (and the accelerated branches of its functions) ---

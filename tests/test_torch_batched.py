@@ -126,7 +126,8 @@ def test_batch_is_one_program(engines, route):
         None if r is None else 3 * r for _, r in one_calls]
     names = [c[0] for c in one_calls]
     fused = route == "fused"
-    assert names.count("bconv_fused") == beta + 2
+    # one B3 a digit, one for ModDown's tail over both components
+    assert names.count("bconv_fused") == beta + 1
     assert names.count("hpip_plain") == int(fused)
     assert names.count("ntt_rep") == (1 if fused else beta + 1)
     assert names.count("intt_rep") == 3
